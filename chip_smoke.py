@@ -1,0 +1,549 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (strainer2_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N] [--keep DIR] [--profile DIR]
+
+Phases; any failure exits non-zero and no result line is printed:
+
+1. set-up: the card's name and power limit, whether the C++ host library
+   built (``native_host``), and the CUDA kernels' build time;
+2. kernels vs plain versions on the card, at main-path shapes: a 256 x 4096
+   batch with ~3% invalid bases against a 6.7 M-key strain table; every
+   output must be exactly equal (all values are integers); kernel and
+   plain times from CUDA events;
+3. mini goldens: the four port CLIs with --device cuda on
+   tests/golden/mini, byte-compared with the reference binaries' outputs;
+4. real size, the "strain vs metagenomes, joint scrub + detect" run of the
+   README: a 6.7 Mbp strain, background genomes, metagenome panels and two
+   target samples made from --seed, cut in depth (printed); the four CLIs
+   run on the GPU; the panel counts are checked against the C++
+   NativePanelCounter and the detection rows against the C++
+   NativeClassifier (both independent of the CUDA path);
+5. launch counts of the four kernels during phase 4 (each must be > 0),
+   one JSON line of per-kernel results, then the result line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import gzip
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+K = 31
+ROWS, ROW_LEN = 256, 4096
+STRAIN_BP = 6_700_000
+STRAIN_CONTIGS = 20
+READ_LEN = 150
+# real size cut in depth to fit the run (the README's configuration has
+# 50 metagenomes of tens of millions of reads each)
+N_GENOMES, GENOME_BP = 10, 5_000_000
+N_METAGENOMES, METAGENOME_READS = 8, 500_000
+TARGET_SE_READS, TARGET_PE_PAIRS = 1_000_000, 500_000
+STRAIN_READ_FRACTION = 0.01
+MIN_FRACTION = 0.01
+N_BATCHES = 8  # distinct inputs per kernel in phase 2
+SOURCE = "strainer2_tpu_torch/csrc/strainer2_kernels.cu"
+REPLACES = {
+    "canonical_windows": "strainer2_tpu/ops/pallas_kernels.py:127",
+    "bucket_lookup": "strainer2_tpu/ops/pallas_lookup.py:93",
+    "count_step": "strainer2_tpu/pipeline/engine.py:324",
+    "classify_step": "strainer2_tpu/pipeline/engine.py:353",
+}
+DEVICE = "cuda"
+_ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---- data made from the seed -------------------------------------------------
+
+def revcomp(codes: np.ndarray) -> np.ndarray:
+    return (3 - codes)[..., ::-1]
+
+
+def write_fasta(path: str, contigs: list[np.ndarray], prefix: str) -> None:
+    with open(path, "wb") as f:
+        for i, c in enumerate(contigs):
+            f.write(f">{prefix}_{i}\n".encode())
+            a = _ACGT[c]
+            for s in range(0, a.size, 80):
+                f.write(a[s : s + 80].tobytes() + b"\n")
+
+
+def write_reads(path: str, reads: np.ndarray, n_rate: float, rng) -> None:
+    """reads (n, L) base codes -> FASTA with fixed-width names r000000000."""
+    n, length = reads.shape
+    rec = np.empty((n, 12 + length + 1), dtype=np.uint8)
+    rec[:, 0:2] = np.frombuffer(b">r", np.uint8)
+    ids = np.arange(n, dtype=np.int64)
+    for p in range(9):
+        rec[:, 10 - p] = 48 + (ids // 10**p) % 10
+    rec[:, 11] = 10
+    a = _ACGT[reads]
+    a[rng.random(a.shape) < n_rate] = ord("N")
+    rec[:, 12 : 12 + length] = a
+    rec[:, -1] = 10
+    rec.tofile(path)
+
+
+def sample_reads(rng, genome: np.ndarray, n: int, strain_fraction: float) -> np.ndarray:
+    """n reads: a strain_fraction share sampled from ``genome`` (either
+    strand), the rest random sequence."""
+    n_strain = int(n * strain_fraction)
+    starts = rng.integers(0, genome.size - READ_LEN, size=n_strain)
+    reads = rng.integers(0, 4, size=(n, READ_LEN), dtype=np.uint8)
+    pos = rng.choice(n, size=n_strain, replace=False)
+    strain = genome[starts[:, None] + np.arange(READ_LEN)]
+    flip = rng.random(n_strain) < 0.5
+    strain[flip] = revcomp(strain[flip])
+    reads[pos] = strain
+    return reads
+
+
+def make_dataset(d: str, rng) -> dict:
+    t0 = time.perf_counter()
+    genome = rng.integers(0, 4, size=STRAIN_BP, dtype=np.uint8)
+    write_fasta(os.path.join(d, "strain.fna"), np.array_split(genome, STRAIN_CONTIGS), "strain")
+    windows = {"panel": 0, "targets": 0}
+    genomes = []
+    for g in range(N_GENOMES):
+        seq = rng.integers(0, 4, size=GENOME_BP, dtype=np.uint8)
+        # ~30% of each background genome shares 10 kbp blocks with the strain
+        for s in rng.choice(GENOME_BP // 10_000, size=GENOME_BP // 10_000 * 3 // 10, replace=False):
+            src = int(rng.integers(0, STRAIN_BP - 10_000))
+            seq[s * 10_000 : (s + 1) * 10_000] = genome[src : src + 10_000]
+        p = os.path.join(d, f"genome{g}.fna")
+        write_fasta(p, [seq], f"genome{g}")
+        genomes.append(p)
+        windows["panel"] += GENOME_BP - K + 1
+    metas = []
+    for m in range(N_METAGENOMES):
+        p = os.path.join(d, f"meta{m}.fasta")
+        write_reads(p, sample_reads(rng, genome, METAGENOME_READS, STRAIN_READ_FRACTION), 0.001, rng)
+        metas.append(p)
+        windows["panel"] += METAGENOME_READS * (READ_LEN - K + 1)
+    write_reads(os.path.join(d, "target_SE.fasta"),
+                sample_reads(rng, genome, TARGET_SE_READS, STRAIN_READ_FRACTION), 0.001, rng)
+    mate1 = sample_reads(rng, genome, TARGET_PE_PAIRS, STRAIN_READ_FRACTION)
+    # mate 2 is random sequence: a pair passes on its first mate's hits
+    write_reads(os.path.join(d, "target_PE1.fasta"), mate1, 0.001, rng)
+    write_reads(os.path.join(d, "target_PE2.fasta"),
+                rng.integers(0, 4, size=mate1.shape, dtype=np.uint8), 0.001, rng)
+    windows["targets"] = (TARGET_SE_READS + 2 * TARGET_PE_PAIRS) * (READ_LEN - K + 1)
+    for name, paths in (("genomes.txt", genomes), ("metagenomes.txt", metas)):
+        with open(os.path.join(d, name), "w") as f:
+            f.write("".join(p + "\n" for p in paths))
+    with open(os.path.join(d, "targets.txt"), "w") as f:
+        f.write(f"SE\t{d}/target_SE.fasta\n")
+        f.write(f"PE\t{d}/target_PE1.fasta\t{d}/target_PE2.fasta\n")
+    print(f"data: strain {STRAIN_BP} bp in {STRAIN_CONTIGS} contigs; -A {N_GENOMES} x "
+          f"{GENOME_BP} bp; -B {N_METAGENOMES} x {METAGENOME_READS} reads; targets SE "
+          f"{TARGET_SE_READS} reads + PE {TARGET_PE_PAIRS} pairs of {READ_LEN} bp, "
+          f"{STRAIN_READ_FRACTION:.0%} strain reads; made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"cuts (depth only): -B {N_METAGENOMES} metagenomes of {METAGENOME_READS} reads "
+          f"where the README configuration has 50 of tens of millions; targets "
+          f"{TARGET_SE_READS} SE reads and {TARGET_PE_PAIRS} PE pairs", flush=True)
+    return {"genome": genome, "genomes": genomes, "metas": metas, "windows": windows}
+
+
+# ---- phase 2: kernels vs plain versions --------------------------------------
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of fn(i), i cycling over the N_BATCHES inputs."""
+    import torch
+
+    fn(0)  # warm-up
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        fn(i % N_BATCHES)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_abs_err(a, b) -> int:
+    import torch
+
+    err = 0
+    for x, y in zip(a, b):
+        x64 = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF if x.dtype == torch.uint32 else x.to(torch.int64)
+        y64 = y.view(torch.int32).to(torch.int64) & 0xFFFFFFFF if y.dtype == torch.uint32 else y.to(torch.int64)
+        if x64.shape != y64.shape:
+            fail(f"shape {tuple(x64.shape)} != {tuple(y64.shape)}")
+        if x64.numel():
+            err = max(err, int((x64 - y64).abs().max()))
+    return err
+
+
+def check_kernels(d: str, data: dict, rng, dev) -> dict:
+    import torch
+
+    from strainer2_tpu_torch.index.build import StrainIndex
+    from strainer2_tpu_torch.io.batches import max_reads_capacity, pack_stream
+    from strainer2_tpu_torch.ops import lookup as L
+    from strainer2_tpu_torch.ops.packing import canonical_windows, canonical_windows_plain
+    from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
+
+    genome = data["genome"]
+    engine = TorchKmerEngine(K, device=dev)
+    index = StrainIndex.from_fasta(os.path.join(d, "strain.fna"), engine)
+    t = index.table
+    kinds = np.where(rng.random(index.num_kmers) < 0.05, 2, 1).astype(np.uint32)
+    rows = engine.to_device(t.with_meta(index.slot_values(kinds)))
+    print(f"table: {index.num_kmers} keys, h_bits {t.h_bits}, rows {tuple(rows.shape)} "
+          f"({rows.numel() * 4 / 2**20:.0f} MiB), counts {t.num_slots * 4 / 2**20:.0f} MiB",
+          flush=True)
+
+    # N_BATCHES distinct inputs, rotated through while timing, so the probes
+    # touch 8x more table rows than the 50 MB L2 holds, as a stream of new
+    # batches does; every kernel is checked on every input
+    max_reads = max_reads_capacity(K, ROWS, ROW_LEN)
+    count_in, detect_in = [], []
+    n_reads = []
+    for _ in range(N_BATCHES):
+        # counting batch: half the rows from the strain genome, ~3% invalid
+        bases = rng.integers(0, 4, size=(ROWS, ROW_LEN), dtype=np.uint8)
+        for r in range(0, ROWS, 2):
+            s = int(rng.integers(0, genome.size - ROW_LEN))
+            bases[r] = genome[s : s + ROW_LEN]
+        bases[rng.random(bases.shape) < 0.03] = 4
+        b_d = engine.to_device(bases)
+        hi, lo, _ = canonical_windows(b_d, K)
+        count_in.append((b_d, hi, lo))
+        # detection batch: 150 bp reads, half from the strain, with read ids
+        reads = sample_reads(rng, genome, 8000, 0.5)
+        reads[rng.random(reads.shape) < 0.03] = 4
+        batch = next(pack_stream(iter(reads), K, ROWS, ROW_LEN, with_read_ids=True))
+        bounds = np.full(max_reads + 1, ROWS * (ROW_LEN - K + 1), dtype=np.int32)
+        bounds[: batch.n_reads] = batch.window_starts
+        detect_in.append((engine.to_device(batch.bases), engine.to_device(bounds)))
+        n_reads.append(batch.n_reads)
+    counts = engine.init_counts(index)
+    counts_plain = engine.init_counts(index)
+    h, salt = t.h_bits, t.salt
+    cases = {
+        "canonical_windows": (
+            lambda i: canonical_windows(count_in[i][0], K),
+            lambda i: canonical_windows_plain(count_in[i][0], K)),
+        "bucket_lookup": (
+            lambda i: L.bucket_lookup(rows, h, salt, count_in[i][1], count_in[i][2]),
+            lambda i: L.bucket_lookup_plain(rows, h, salt, count_in[i][1], count_in[i][2])),
+        "count_step": (
+            lambda i: (L.count_step(counts, rows, count_in[i][0], h, salt, K),),
+            lambda i: (L.count_step_plain(counts_plain, rows, count_in[i][0], h, salt, K),)),
+        "classify_step": (
+            lambda i: L.classify_step(rows, *detect_in[i], h, salt, K),
+            lambda i: L.classify_step_plain(rows, *detect_in[i], h, salt, K)),
+    }
+    results = {}
+    for name, (kern, plain) in cases.items():
+        err, tally = 0, 0
+        for i in range(N_BATCHES):
+            if name == "count_step":
+                counts.zero_()
+                counts_plain.zero_()
+            out, ref = kern(i), plain(i)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(out, ref))
+            tally += int(out[0].to(torch.int64).sum()) if name != "canonical_windows" else 0
+        extra = {
+            "bucket_lookup": f", found {tally} of {N_BATCHES * count_in[0][1].numel()} queries",
+            "count_step": f", {tally} hit windows",
+            "classify_step": f", {sum(n_reads)} reads, {tally} hit windows",
+        }.get(name, "")
+        ms, plain_ms = cuda_ms(kern, 5 * N_BATCHES), cuda_ms(plain, N_BATCHES)
+        print(f"kernel {name}: max_abs_err {err} over {N_BATCHES} batches, kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms per {ROWS}x{ROW_LEN} batch{extra}", flush=True)
+        if err != 0:
+            fail(f"{name} disagrees with its plain version (max_abs_err {err})")
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return results
+
+
+# ---- phases 3 and 4: the CLIs -------------------------------------------------
+
+def run_cli(module: str, argv: list[str], stdout_path: str) -> float:
+    """Run one port CLI in this process (so its kernel launches are
+    counted), stdout to a file; returns its wall time in seconds."""
+    import importlib
+
+    import torch
+
+    main = importlib.import_module(f"strainer2_tpu_torch.cli.{module}").main
+    t0 = time.perf_counter()
+    with open(stdout_path, "w") as f, contextlib.redirect_stdout(f):
+        rc = main(argv + ["--device", DEVICE])
+    torch.cuda.synchronize()
+    if rc:
+        fail(f"{module} {' '.join(argv)} exited {rc}")
+    return time.perf_counter() - t0
+
+
+def same_bytes(path: str, expected: str, gz: bool = False) -> bool:
+    opener = gzip.open if gz else open
+    with opener(path, "rb") as f, open(expected, "rb") as g:
+        return f.read() == g.read()
+
+
+def mini_goldens(repo: str, out: str) -> None:
+    mini = os.path.join(repo, "tests", "golden", "mini")
+    exp = os.path.join(mini, "expected")
+    cwd = os.getcwd()
+    os.chdir(mini)  # list files hold paths relative to it
+    try:
+        o = lambda name: os.path.join(out, name)  # noqa: E731
+        run_cli("kmer_scrub_count", ["-r", "data/strainA.fna.gz", "-A", "data/genomes.txt",
+                                     "-B", "data/metagenomes.txt"], o("counts.tsv"))
+        run_cli("kmer_scrub_filter", ["-s", "expected/scrub_counts.gz", "-m", "0.05"],
+                o("scrubbed.txt"))
+        run_cli("strain_detect", ["-r", "data/strainA.fna.gz", "-a", "expected/scrubbed_m05.txt",
+                                  "-B", "data/targets.txt", "-o", o("hits.gz")],
+                o("detect_stdout.txt"))
+        run_cli("strain_detect", ["-r", "data/strainA.fna.gz", "-a", "expected/scrubbed_m05.txt",
+                                  "-B", "data/targets.txt", "-g", "data/background.txt",
+                                  "-o", o("hits_bg.gz")], o("detect_bg_stdout.txt"))
+        with gzip.open(o("strainA_x.kmer_hits.gz"), "wb") as f, open(os.path.join(exp, "kmer_hits.txt"), "rb") as g:
+            f.write(g.read())
+        run_cli("coverage_depth", ["-k", o("strainA_x.kmer_hits.gz")], o("coverage.tsv"))
+    finally:
+        os.chdir(cwd)
+    checks = [
+        ("scrub_counts.tsv", same_bytes(o("counts.tsv"), os.path.join(exp, "scrub_counts.tsv"))),
+        ("scrubbed_m05.txt", same_bytes(o("scrubbed.txt"), os.path.join(exp, "scrubbed_m05.txt"))),
+        ("kmer_hits.txt", same_bytes(o("hits.gz"), os.path.join(exp, "kmer_hits.txt"), gz=True)),
+        ("detect_stdout.txt", same_bytes(o("detect_stdout.txt"), os.path.join(exp, "detect_stdout.txt"))),
+        ("kmer_hits_bg.txt", same_bytes(o("hits_bg.gz"), os.path.join(exp, "kmer_hits_bg.txt"), gz=True)),
+        ("detect_bg_stdout.txt", same_bytes(o("detect_bg_stdout.txt"), os.path.join(exp, "detect_bg_stdout.txt"))),
+        ("coverage_depth.tsv", same_bytes(o("coverage.tsv"), os.path.join(exp, "coverage_depth.tsv"))),
+    ]
+    for name, ok in checks:
+        print(f"mini golden {name}: {'identical' if ok else 'DIFFERS'}", flush=True)
+    if not all(ok for _, ok in checks):
+        fail("mini goldens differ")
+
+
+def real_size(d: str, data: dict) -> dict:
+    p = lambda name: os.path.join(d, name)  # noqa: E731
+    walls = {}
+    walls["kmer_scrub_count"] = run_cli(
+        "kmer_scrub_count", ["-r", p("strain.fna"), "-A", p("genomes.txt"), "-B", p("metagenomes.txt")],
+        p("counts.tsv"))
+    walls["kmer_scrub_filter"] = run_cli(
+        "kmer_scrub_filter", ["-s", p("counts.tsv"), "-m", str(MIN_FRACTION)], p("informative.txt"))
+    walls["strain_detect"] = run_cli(
+        "strain_detect", ["-r", p("strain.fna"), "-a", p("informative.txt"), "-B", p("targets.txt"),
+                          "-o", p("hits.gz")], p("detect_stdout.txt"))
+    walls["coverage_depth"] = run_cli("coverage_depth", ["-k", p("hits.gz")], p("coverage.tsv"))
+    rates = {
+        "kmer_scrub_count": data["windows"]["panel"],
+        "strain_detect": data["windows"]["targets"],
+    }
+    for stage, wall in walls.items():
+        extra = f", {rates[stage] / wall:,.0f} windows/s ({rates[stage]} windows)" if stage in rates else ""
+        print(f"stage {stage}: wall {wall:.3f} s{extra}", flush=True)
+    return walls
+
+
+def check_real_outputs(d: str, data: dict) -> None:
+    """Panel counts vs the C++ NativePanelCounter and detection rows vs the
+    C++ NativeClassifier, on the index the CLIs built."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from strainer2_tpu_torch import native
+    from strainer2_tpu_torch.index.build import StrainIndex
+    from strainer2_tpu_torch.index.refhash_order import reference_row_order
+    from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
+
+    p = lambda name: os.path.join(d, name)  # noqa: E731
+    index = StrainIndex.from_fasta(p("strain.fna"), TorchKmerEngine(K, device=DEVICE))
+    order = reference_row_order(index.codes, K)
+    parsed = native.parse_scrub_table_native(p("counts.tsv"))
+    if parsed is None:
+        fail("native library unavailable: cannot parse the count table for the check")
+    _, _, c_ref, c_pan, c_meta, _, _ = parsed
+    if c_ref.shape[0] != index.num_kmers:
+        fail(f"count table has {c_ref.shape[0]} rows, index {index.num_kmers} k-mers")
+
+    counter = native.NativePanelCounter(index.codes, index.table.slot_of_key, K)
+
+    def count(path):
+        buf = np.zeros(index.table.num_slots, dtype=np.uint32)
+        counter.count_file(buf, path)
+        return buf
+
+    with ThreadPoolExecutor(8) as ex:
+        pan = sum(ex.map(count, data["genomes"]))
+        meta = sum(ex.map(count, data["metas"]))
+    ok = {
+        "reference_count": np.array_equal(c_ref, index.genome_counts[order].astype(np.int64)),
+        "pangenome_count": np.array_equal(c_pan, index.key_values(pan)[order].astype(np.int64)),
+        "metagenome_count": np.array_equal(c_meta, index.key_values(meta)[order].astype(np.int64)),
+    }
+    print(f"real-size panel counts vs NativePanelCounter: {ok}; "
+          f"pangenome total {int(c_pan.sum())}, metagenome total {int(c_meta.sum())}", flush=True)
+    if not all(ok.values()):
+        fail("panel counts differ from NativePanelCounter")
+
+    # detection: rows per sample = informative hits of the passing reads/pairs
+    kinds = np.ones(index.num_kmers, dtype=np.int32)
+    with open(p("informative.txt"), "rb") as f:
+        lines = [ln.rstrip(b"\n") for ln in f if not ln.startswith(b"#")]
+    mat = np.frombuffer(b"".join(lines), dtype=np.uint8).reshape(len(lines), K)
+    two = np.searchsorted(_ACGT, mat).astype(np.uint64)
+    weights = np.uint64(4) ** np.arange(K - 1, -1, -1, dtype=np.uint64)
+    fwd = (two * weights).sum(axis=1, dtype=np.uint64)
+    rc = ((np.uint64(3) - two)[:, ::-1] * weights).sum(axis=1, dtype=np.uint64)
+    order_codes = np.argsort(index.codes)
+    pos = order_codes[np.searchsorted(index.codes[order_codes], np.maximum(fwd, rc))]
+    kinds[pos] = 2
+    classifier = native.NativeClassifier(index.codes, kinds, K)
+    rows_by_sample: dict[str, int] = {}
+    with gzip.open(p("hits.gz"), "rt") as f:
+        for line in f:
+            if not line.startswith("#"):
+                s = line.split("\t", 1)[0]
+                rows_by_sample[s] = rows_by_sample.get(s, 0) + 1
+    for f1, f2, mode in ((p("target_SE.fasta"), None, 0),
+                         (p("target_PE1.fasta"), p("target_PE2.fasta"), 1)):
+        expect = 0
+        for lens, tot, inf in classifier.open_stream(f1, f2, mode):
+            tot, inf = tot.astype(np.int64), inf.astype(np.int64)
+            if mode:
+                t, i = tot[0::2] + tot[1::2], inf[0::2] + inf[1::2]
+            else:
+                t, i = tot, inf
+            expect += int(i[(t >= 1) & (i >= 1)].sum())
+        got = rows_by_sample.get(f1, 0)
+        print(f"real-size detection {os.path.basename(f1)}: {got} hit rows, "
+              f"NativeClassifier expects {expect}", flush=True)
+        if got != expect or got == 0:
+            fail(f"detection rows for {f1}: {got} != {expect}")
+
+
+def profiled(out_dir: str, fn) -> None:
+    """Run fn under torch.profiler: print device busy time against wall
+    time, and write key_averages() sorted by device time to out_dir."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0  # before the profiler's own teardown
+    # device busy = the device-side records (kernels and copies), one stream;
+    # the host ops that issued them carry the same time again
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            slot = by_name.setdefault(e.name, [0.0, 0])
+            slot[0] += e.time_range.elapsed_us()
+            slot[1] += 1
+    busy_us = sum(us for us, _ in by_name.values())
+    with open(os.path.join(out_dir, "phase4_key_averages.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    print(f"profile: device busy {busy_us / 1e6:.3f} s of {wall:.3f} s wall "
+          f"(idle share {1 - busy_us / 1e6 / wall:.4f})", flush=True)
+    for key, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"profile: {us / 1e3:10.3f} ms  {count:6d}x  {key[:90]}", flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--keep", default=None, help="directory to keep the generated data and outputs in")
+    ap.add_argument("--profile", default=None,
+                    help="trace phase 4 with torch.profiler; prints the device's busy share "
+                         "and writes the per-kernel table into this directory")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU",
+              flush=True)
+        return 1
+    repo = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, repo)
+    try:
+        from strainer2_tpu_torch import native
+        from strainer2_tpu_torch.ops import _build
+    except ImportError as e:
+        print(f"FAIL: cannot import the port next to this script ({e})", flush=True)
+        return 1
+
+    # ---- phase 1: set-up
+    print(f"card: {card_line()}", flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
+    print(f"native_host: {str(native.available()).lower()}", flush=True)
+    _build.kernels()
+    print(f"kernel build: {_build.build_seconds:.2f} s ({_build.built_how})", flush=True)
+
+    rng = np.random.default_rng(args.seed)
+    with contextlib.ExitStack() as stack:
+        d = args.keep or stack.enter_context(tempfile.TemporaryDirectory(prefix="chip_smoke_"))
+        os.makedirs(d, exist_ok=True)
+        data = make_dataset(d, rng)
+
+        # ---- phase 2: kernels vs plain versions
+        results = check_kernels(d, data, rng, torch.device(DEVICE))
+
+        # ---- phase 3: mini goldens through the CLIs on the GPU
+        mini_out = os.path.join(d, "mini")
+        os.makedirs(mini_out, exist_ok=True)
+        mini_goldens(repo, mini_out)
+
+        # ---- phase 4: real size through the CLIs; launches counted here
+        _build.reset_launches()
+        if args.profile:
+            profiled(args.profile, lambda: real_size(d, data))
+        else:
+            real_size(d, data)
+        launches = dict(_build.launches)
+        check_real_outputs(d, data)
+
+    # ---- phase 5
+    print(f"launches during the real-size run: {launches}", flush=True)
+    if not all(n > 0 for n in launches.values()):
+        fail("a kernel of the path was not launched by the main path")
+    kernels = [
+        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+         "launches": launches[name], **results[name]}
+        for name in REPLACES
+    ]
+    if "jax" in sys.modules:
+        fail("jax was imported")
+    print(card_line(), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

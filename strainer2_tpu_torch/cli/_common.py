@@ -1,0 +1,52 @@
+"""Shared flag handling of the port's CLIs.
+
+Each CLI reuses ``build_parser()`` of its twin in ``strainer2_tpu.cli``
+(those modules import no jax), adds ``--device`` and refuses the options
+this port does not carry yet, instead of ignoring them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+__all__ = ["torch_parser", "check_args"]
+
+_UNPORTED = {
+    "mesh": "--mesh (device-mesh sharding)",
+    "checkpoint_dir": "--checkpoint (restartable runs)",
+}
+
+
+def torch_parser(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The JAX CLI's parser with --device added."""
+    if parser.description:
+        parser.description = parser.description.replace("TPU engine", "torch engine")
+    parser.add_argument(
+        "--device", default="cuda",
+        help="torch device: cuda (default) runs the CUDA kernels, cpu their plain torch versions",
+    )
+    return parser
+
+
+def check_args(parser: argparse.ArgumentParser, args) -> int:
+    """0 when the run can go ahead; else prints why and returns the exit code."""
+    for dest, what in _UNPORTED.items():
+        if getattr(args, dest, None):
+            parser.error(f"{what} is not supported by the torch port yet")
+    if os.environ.get("JAX_COORDINATOR_ADDRESS"):
+        print(
+            "multi-process runs (JAX_COORDINATOR_ADDRESS) are not supported by the "
+            "torch port yet: run one process",
+            file=sys.stderr,
+        )
+        return 1
+    from strainer2_tpu_torch.pipeline.engine import resolve_device
+
+    try:
+        resolve_device(args.device)
+    except (RuntimeError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    return 0

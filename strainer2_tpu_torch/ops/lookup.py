@@ -1,0 +1,233 @@
+"""Bucket-row membership kernels K2-K4 and their plain torch versions.
+
+Row layout and lookup contract of the JAX package (strainer2_tpu/index/
+bucket.py, strainer2_tpu/ops/lookup.py): a (num_buckets, row_width) uint32
+table whose rows hold 16 key_hi | 16 key_lo | 16 meta | ...; a query's
+bucket is cuckoo_slots(hi ^ salt, lo, h_bits, 0); slot = bucket * 16 + the
+FIRST equal cell; meta = that cell's lane 32 + cell.  Where not found,
+slot = bucket * 16 and meta = 0, as the jnp ``bucket_lookup`` returns.
+
+- ``bucket_lookup``   (K2): found, slot, meta per query.
+- ``count_step``      (K3): extract -> probe -> counts[slot] += 1, in place.
+- ``classify_step``   (K4): extract -> probe -> per-read (total,
+  informative) hit counts over contiguous window spans.
+- ``passing_any``: the two-threshold pass rule per read or pair; plain
+  torch on either device (elementwise over a few thousand values).
+
+Each kernel wrapper launches its CUDA kernel on a CUDA tensor and runs the
+plain version on a CPU tensor; nothing else takes the plain path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from strainer2_tpu.constants import INFORMATIVE_KMER, MAX_K
+from strainer2_tpu_torch.index.hashing import cuckoo_slots_torch
+from strainer2_tpu_torch.ops import _build
+from strainer2_tpu_torch.ops.packing import canonical_windows_plain
+
+__all__ = [
+    "bucket_lookup",
+    "bucket_lookup_plain",
+    "count_step",
+    "count_step_plain",
+    "classify_step",
+    "classify_step_plain",
+    "passing_any",
+]
+
+KEYS_PER_BUCKET = 16
+META_LANE = 32
+_CHUNK = 1 << 18  # queries per gathered block in the plain lookup
+
+
+# ---- plain versions -------------------------------------------------------
+
+def bucket_lookup_plain(rows: torch.Tensor, h_bits: int, salt: int,
+                        qhi: torch.Tensor, qlo: torch.Tensor):
+    """(found bool, slot int32, meta uint32), shapes of qhi."""
+    shape = qhi.shape
+    qh = qhi.reshape(-1).to(torch.int64)
+    ql = qlo.reshape(-1).to(torch.int64)
+    n = qh.shape[0]
+    found = torch.zeros(n, dtype=torch.bool, device=qh.device)
+    slot = torch.zeros(n, dtype=torch.int64, device=qh.device)
+    meta = torch.zeros(n, dtype=torch.int64, device=qh.device)
+    rows32 = rows.view(torch.int32)  # torch gathers no uint32; same bits
+    for s in range(0, n, _CHUNK):
+        h, l = qh[s : s + _CHUNK], ql[s : s + _CHUNK]
+        bucket = cuckoo_slots_torch(h ^ salt, l, h_bits, 0)
+        row = rows32[bucket].to(torch.int64) & 0xFFFFFFFF  # the one random access
+        keys = row[:, 0 : 2 * KEYS_PER_BUCKET]
+        eq = (keys[:, :KEYS_PER_BUCKET] == h[:, None]) & (keys[:, KEYS_PER_BUCKET:] == l[:, None])
+        hit = eq.any(dim=1)
+        cell = torch.argmax(eq.to(torch.int32), dim=1)  # first maximal cell
+        row_meta = row[:, META_LANE : META_LANE + KEYS_PER_BUCKET]
+        found[s : s + _CHUNK] = hit
+        slot[s : s + _CHUNK] = bucket * KEYS_PER_BUCKET + cell
+        meta[s : s + _CHUNK] = torch.where(
+            hit, row_meta.gather(1, cell[:, None])[:, 0], 0
+        )
+    return (
+        found.reshape(shape),
+        slot.to(torch.int32).reshape(shape),
+        meta.to(torch.uint32).reshape(shape),
+    )
+
+
+def _valid_hits(rows, bases, h_bits, salt, k):
+    """Flat indices of valid windows, and their lookups (found, slot, meta):
+    only valid windows are probed, which keeps the plain path cheap on the
+    mostly-padding batches of small inputs."""
+    hi, lo, valid = canonical_windows_plain(bases, k)
+    idx = torch.nonzero(valid.reshape(-1))[:, 0]
+    qhi, qlo = (x.view(torch.int32).reshape(-1)[idx].to(torch.int64) & 0xFFFFFFFF for x in (hi, lo))
+    found, slot, meta = bucket_lookup_plain(rows, h_bits, salt, qhi, qlo)
+    return idx, found, slot, meta, valid.numel()
+
+
+def count_step_plain(counts, rows, bases, h_bits: int, salt: int, k: int):
+    """counts[slot] += 1 for every valid hit window, in place (uint32 wraps:
+    the add runs on an int32 view, whose two's-complement wrap is the same
+    bits)."""
+    _, found, slot, _, _ = _valid_hits(rows, bases, h_bits, salt, k)
+    hits = slot[found].to(torch.int64)
+    counts.view(torch.int32).index_add_(
+        0, hits, torch.ones_like(hits, dtype=torch.int32)
+    )
+    return counts
+
+
+def classify_step_plain(rows, bases, boundaries, h_bits: int, salt: int, k: int):
+    """Per-read (total, informative) int32 hits, shape (len(boundaries) - 1,):
+    differences of one prefix sum at ``boundaries``, as the JAX program
+    computes them (indices clamped to [0, n_windows] like its gather)."""
+    idx, found, _, meta, n_windows = _valid_hits(rows, bases, h_bits, salt, k)
+    hit = torch.zeros(n_windows, dtype=torch.int32, device=bases.device)
+    inf = torch.zeros_like(hit)
+    hit[idx] = found.to(torch.int32)
+    inf[idx] = (found & (meta.to(torch.int64) == INFORMATIVE_KMER)).to(torch.int32)
+    zero = torch.zeros(1, dtype=torch.int32, device=bases.device)
+    cum_hit = torch.cat([zero, torch.cumsum(hit, 0, dtype=torch.int32)])
+    cum_inf = torch.cat([zero, torch.cumsum(inf, 0, dtype=torch.int32)])
+    b = boundaries.to(torch.int64).clamp(0, n_windows)
+    b0, b1 = b[:-1], b[1:]
+    return cum_hit[b1] - cum_hit[b0], cum_inf[b1] - cum_inf[b0]
+
+
+def passing_any(tot, inf, *, paired: bool, min_t: int, min_i: int):
+    """Per-pair (paired) or per-read pass mask of the detection thresholds
+    (strainer2_tpu/pipeline/detect.py:148-157); padded reads are zero, so
+    they never pass with thresholds >= 1."""
+    if paired:
+        return ((tot[0::2] + tot[1::2]) >= min_t) & ((inf[0::2] + inf[1::2]) >= min_i)
+    return (tot >= min_t) & (inf >= min_i)
+
+
+# ---- kernel wrappers ------------------------------------------------------
+
+def _check_rows(rows: torch.Tensor, h_bits: int) -> None:
+    if rows.dtype != torch.uint32 or rows.dim() != 2 or not rows.is_contiguous():
+        raise ValueError("rows must be a contiguous (num_buckets, row_width) uint32 table")
+    width = rows.shape[1]
+    if width < 48 or width % KEYS_PER_BUCKET:
+        raise ValueError(f"row width {width} is not a multiple of 16 holding a meta block")
+    if rows.shape[0] != 1 << h_bits:
+        raise ValueError(f"{rows.shape[0]} rows != 2**h_bits ({1 << h_bits})")
+    if h_bits > 27:
+        raise ValueError(f"h_bits {h_bits} > 27: slot ids would overflow int32")
+    if rows.data_ptr() % 16:
+        raise ValueError("rows must be 16-byte aligned")
+
+
+def _check_bases(bases: torch.Tensor, k: int) -> None:
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
+    if bases.dtype != torch.uint8 or bases.dim() != 2 or not bases.is_contiguous():
+        raise ValueError("bases must be a contiguous (rows, L) uint8 tensor")
+    if bases.shape[1] < k:
+        raise ValueError(f"row length {bases.shape[1]} < k {k}")
+    if bases.shape[0] > 65535:
+        raise ValueError(f"{bases.shape[0]} rows > 65535")
+
+
+def _on_cuda(name: str, *tensors) -> bool:
+    """True when every tensor is on one CUDA device, False when all are on
+    the CPU; raises on anything else."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return True
+    raise ValueError(f"{name}: tensors must all be on the CPU or on one CUDA device, got {sorted(str(t.device) for t in tensors)}")
+
+
+def bucket_lookup(rows, h_bits: int, salt: int, qhi, qlo):
+    """Kernel K2 on CUDA tensors, the plain version on CPU tensors.
+
+    rows (num_buckets, row_width) uint32; qhi, qlo uint32 of any one shape.
+    Returns (found bool, slot int32, meta uint32) of that shape."""
+    if not _on_cuda("bucket_lookup", rows, qhi, qlo):
+        return bucket_lookup_plain(rows, h_bits, salt, qhi, qlo)
+    _check_rows(rows, h_bits)
+    if qhi.shape != qlo.shape or qhi.dtype != torch.uint32 or qlo.dtype != torch.uint32:
+        raise ValueError("qhi and qlo must be uint32 tensors of one shape")
+    qh, ql = qhi.contiguous(), qlo.contiguous()
+    found = torch.empty(qh.shape, dtype=torch.bool, device=qh.device)
+    slot = torch.empty(qh.shape, dtype=torch.int32, device=qh.device)
+    meta = torch.empty(qh.shape, dtype=torch.uint32, device=qh.device)
+    if qh.numel():
+        _build.call(
+            "bucket_lookup", qh.device, rows.data_ptr(), rows.shape[1], h_bits,
+            salt, qh.data_ptr(), ql.data_ptr(), qh.numel(), found.data_ptr(),
+            slot.data_ptr(), meta.data_ptr(),
+        )
+    return found, slot, meta
+
+
+def count_step(counts, rows, bases, h_bits: int, salt: int, k: int):
+    """Kernel K3 on CUDA tensors, the plain version on CPU tensors.
+
+    counts (num_buckets * 16,) uint32 is updated in place and returned."""
+    if not _on_cuda("count_step", counts, rows, bases):
+        return count_step_plain(counts, rows, bases, h_bits, salt, k)
+    _check_rows(rows, h_bits)
+    _check_bases(bases, k)
+    if counts.dtype != torch.uint32 or counts.dim() != 1 or not counts.is_contiguous():
+        raise ValueError("counts must be a contiguous 1-D uint32 tensor")
+    if counts.shape[0] != rows.shape[0] * KEYS_PER_BUCKET:
+        raise ValueError(f"counts has {counts.shape[0]} cells, table has {rows.shape[0] * KEYS_PER_BUCKET} slots")
+    if bases.shape[0]:
+        _build.call(
+            "count_step", bases.device, counts.data_ptr(), rows.data_ptr(),
+            rows.shape[1], h_bits, salt, bases.data_ptr(), bases.shape[0],
+            bases.shape[1], k,
+        )
+    return counts
+
+
+def classify_step(rows, bases, boundaries, h_bits: int, salt: int, k: int):
+    """Kernel K4 on CUDA tensors, the plain version on CPU tensors.
+
+    boundaries (max_reads + 1,) int32: each read's first flat window index
+    (row * width + col), padded with the batch's window count.
+    Returns (total, informative) int32, shape (max_reads,)."""
+    if not _on_cuda("classify_step", rows, bases, boundaries):
+        return classify_step_plain(rows, bases, boundaries, h_bits, salt, k)
+    _check_rows(rows, h_bits)
+    _check_bases(bases, k)
+    if boundaries.dtype != torch.int32 or boundaries.dim() != 1 or not boundaries.is_contiguous():
+        raise ValueError("boundaries must be a contiguous 1-D int32 tensor")
+    if boundaries.shape[0] < 1:
+        raise ValueError("boundaries must hold max_reads + 1 entries")
+    max_reads = boundaries.shape[0] - 1
+    tot = torch.empty(max_reads, dtype=torch.int32, device=bases.device)
+    inf = torch.empty_like(tot)
+    if max_reads:
+        _build.call(
+            "classify_step", bases.device, rows.data_ptr(), rows.shape[1], h_bits,
+            salt, bases.data_ptr(), bases.shape[0], bases.shape[1], k,
+            boundaries.data_ptr(), max_reads, tot.data_ptr(), inf.data_ptr(),
+        )
+    return tot, inf

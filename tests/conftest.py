@@ -26,3 +26,11 @@ if not os.environ.get("STRAINER2_TEST_TPU"):
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if _REPO_ROOT not in sys.path:
     sys.path.insert(0, _REPO_ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (strainer2_tpu_torch kernel tests); "
+        "skips itself where there is none",
+    )

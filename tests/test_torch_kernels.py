@@ -1,0 +1,94 @@
+"""CUDA kernels K1-K4 vs their plain torch versions, on the card.
+
+These need an NVIDIA GPU with nvcc (a CUDA kernel has no interpret mode)
+and skip elsewhere; ``python3 chip_smoke.py`` runs the same comparisons at
+main-path shapes.  Run them on a GPU machine with
+``python -m pytest tests/test_torch_kernels.py -m cuda``."""
+
+import numpy as np
+import pytest
+import torch
+
+from strainer2_tpu_torch.index.bucket import build_bucket_table
+from strainer2_tpu_torch.io.batches import max_reads_capacity, pack_stream
+from strainer2_tpu_torch.ops import lookup as L
+from strainer2_tpu_torch.ops.packing import canonical_windows, canonical_windows_plain
+from strainer2_tpu_torch.ops.packing_np import canonical_codes_np, split_code64_np
+
+pytestmark = pytest.mark.cuda
+K = 31
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU or interpret mode")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def strain(dev):
+    rng = np.random.default_rng(0)
+    genome = rng.integers(0, 4, size=50_000, dtype=np.uint8)
+    codes, valid = canonical_codes_np(genome, K)
+    table = build_bucket_table(np.unique(codes[valid]), K)
+    kinds = np.zeros(table.num_slots, dtype=np.uint32)
+    kinds[table.slot_of_key] = np.where(rng.random(table.slot_of_key.size) < 0.3, 2, 1)
+    rows = torch.from_numpy(table.with_meta(kinds)).to(dev)
+    return rng, genome, codes[valid], table, rows
+
+
+def _as_i64(t):
+    return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF if t.dtype == torch.uint32 else t.to(torch.int64)
+
+
+def _equal(a, b):
+    torch.cuda.synchronize()
+    return all(torch.equal(_as_i64(x), _as_i64(y)) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("k", [15, 20, 31, 32])
+def test_canonical_windows_kernel(dev, k):
+    rng = np.random.default_rng(k)
+    bases = rng.integers(0, 4, size=(64, 1000), dtype=np.uint8)
+    bases[rng.random(bases.shape) < 0.03] = 4
+    b = torch.from_numpy(bases).to(dev)
+    assert _equal(canonical_windows(b, k), canonical_windows_plain(b, k))
+
+
+def test_bucket_lookup_kernel(strain):
+    rng, _, codes, table, rows = strain
+    q = np.where(rng.random(50_000) < 0.5, codes[rng.integers(0, codes.size, 50_000)],
+                 rng.integers(0, 1 << 62, 50_000, dtype=np.uint64))
+    qhi, qlo = (torch.from_numpy(x).to(rows.device) for x in split_code64_np(q, K))
+    out = L.bucket_lookup(rows, table.h_bits, table.salt, qhi, qlo)
+    assert _equal(out, L.bucket_lookup_plain(rows, table.h_bits, table.salt, qhi, qlo))
+    assert 0 < int(out[0].sum()) < q.size
+
+
+def test_count_step_kernel(strain):
+    rng, genome, _, table, rows = strain
+    bases = rng.integers(0, 4, size=(32, 4096), dtype=np.uint8)
+    bases[::2, :3000] = genome[: 16 * 3000].reshape(16, 3000)
+    b = torch.from_numpy(bases).to(rows.device)
+    start = np.zeros(table.num_slots, dtype=np.uint32)
+    start[table.slot_of_key[::5]] = 0xFFFFFFFF  # wraps on a hit
+    c1 = torch.from_numpy(start).to(rows.device)
+    c2 = c1.clone()
+    L.count_step(c1, rows, b, table.h_bits, table.salt, K)
+    L.count_step_plain(c2, rows, b, table.h_bits, table.salt, K)
+    assert _equal((c1,), (c2,))
+
+
+def test_classify_step_kernel(strain):
+    rng, genome, _, table, rows = strain
+    reads = [genome[s : s + 150] if i % 2 else rng.integers(0, 4, 150, dtype=np.uint8)
+             for i, s in enumerate(rng.integers(0, genome.size - 150, 2000))]
+    batch = next(pack_stream(iter(reads), K, 64, 4096, with_read_ids=True))
+    bounds = np.full(max_reads_capacity(K, 64, 4096) + 1, 64 * (4096 - K + 1), dtype=np.int32)
+    bounds[: batch.n_reads] = batch.window_starts
+    b = torch.from_numpy(batch.bases).to(rows.device)
+    bd = torch.from_numpy(bounds).to(rows.device)
+    out = L.classify_step(rows, b, bd, table.h_bits, table.salt, K)
+    assert _equal(out, L.classify_step_plain(rows, b, bd, table.h_bits, table.salt, K))
+    assert int(out[1].sum()) > 0

@@ -1,0 +1,148 @@
+"""Plain torch lookup, count and classify steps (the CPU side of kernels
+K2-K4) vs the JAX package: jnp bucket_lookup and the Pallas gridmap kernel
+(interpret mode), engine._count_step_bucket and _classify_step_bucket, and
+the detection pass gate.  All values are integers: compared exactly."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from strainer2_tpu.index.bucket import build_bucket_table
+from strainer2_tpu.io.batches import pack_stream
+from strainer2_tpu.ops.lookup import bucket_lookup as jnp_bucket_lookup
+from strainer2_tpu.ops.packing_np import canonical_codes_np, split_code64_np
+from strainer2_tpu.ops.pallas_lookup import bucket_lookup_pallas_gridmap
+from strainer2_tpu.pipeline.detect import _passing_any_1d
+from strainer2_tpu.pipeline.engine import _classify_step_bucket, _count_step_bucket
+from strainer2_tpu_torch.ops.lookup import bucket_lookup, classify_step, count_step, passing_any
+from tests.oracle import random_dna, seq_to_base_codes
+
+K = 31
+
+
+@pytest.fixture(scope="module")
+def strain():
+    """A strain sequence, its bucket table (JAX builder) and meta rows with
+    a class of 1 or 2 per key."""
+    rng = np.random.default_rng(5)
+    genome = seq_to_base_codes(random_dna(rng, 6000))
+    codes, valid = canonical_codes_np(genome, K)
+    codes = np.unique(codes[valid])
+    table = build_bucket_table(codes, K)
+    kinds = np.zeros(table.num_slots, dtype=np.uint32)
+    kinds[table.slot_of_key] = np.where(rng.random(codes.size) < 0.3, 2, 1)
+    return genome, codes, table, table.with_meta(kinds)
+
+
+def _reads(rng, genome, n, n_prob=0.02):
+    """Reads of 20-300 bases, half cut from the strain, some with Ns."""
+    out = []
+    for _ in range(n):
+        length = int(rng.integers(20, 300))
+        if rng.random() < 0.5:
+            s = int(rng.integers(0, genome.size - length))
+            r = genome[s : s + length].copy()
+        else:
+            r = rng.integers(0, 4, size=length, dtype=np.uint8)
+        r[rng.random(length) < n_prob] = 4
+        out.append(r)
+    return out
+
+
+def test_plain_bucket_lookup_matches_jnp_and_pallas(strain):
+    _, codes, table, rows = strain
+    rng = np.random.default_rng(3)
+    n = 2048
+    q = np.where(
+        rng.random(n) < 0.5,
+        codes[rng.integers(0, codes.size, size=n)],
+        rng.integers(0, 1 << 62, size=n, dtype=np.uint64),
+    )
+    qhi, qlo = split_code64_np(q, K)
+    found, slot, meta = (
+        x.numpy()
+        for x in bucket_lookup(torch.from_numpy(rows), table.h_bits, table.salt,
+                               torch.from_numpy(qhi), torch.from_numpy(qlo))
+    )
+    r_found, r_slot, r_meta = (
+        np.asarray(x)
+        for x in jnp_bucket_lookup(jnp.asarray(rows), table.h_bits, table.salt,
+                                   jnp.asarray(qhi), jnp.asarray(qlo))
+    )
+    # the plain version equals jnp everywhere, misses included
+    np.testing.assert_array_equal(found, r_found)
+    np.testing.assert_array_equal(slot, r_slot)
+    np.testing.assert_array_equal(meta, r_meta)
+    assert 0 < found.sum() < n
+
+    p_found, p_slot, p_meta = (
+        np.asarray(x)
+        for x in bucket_lookup_pallas_gridmap(jnp.asarray(rows), table.h_bits, table.salt,
+                                              jnp.asarray(qhi), jnp.asarray(qlo), group=8)
+    )
+    np.testing.assert_array_equal(p_found.astype(bool), found)
+    np.testing.assert_array_equal(p_slot[found], slot[found])
+    np.testing.assert_array_equal(p_meta[found], meta[found])
+
+
+@pytest.mark.parametrize("rows,row_len", [(8, 256), (16, 512)])
+def test_plain_count_step_matches_engine(strain, rows, row_len):
+    genome, _, table, _ = strain
+    rng = np.random.default_rng(rows)
+    batch = next(pack_stream(iter(_reads(rng, genome, 60)), K, rows, row_len))
+    counts = np.zeros(table.num_slots, dtype=np.uint32)
+    counts[table.slot_of_key[::7]] = 0xFFFFFFFF  # these wrap to 0 on a hit
+    ref = np.asarray(
+        _count_step_bucket(jnp.asarray(counts), jnp.asarray(table.table), batch.bases,
+                           k=K, h_bits=table.h_bits, salt=table.salt)
+    )
+    got = count_step(torch.from_numpy(counts.copy()), torch.from_numpy(table.table),
+                     torch.from_numpy(batch.bases), table.h_bits, table.salt, K).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert (got != counts).any()
+
+
+@pytest.mark.parametrize("group_size", [1, 2])
+def test_plain_classify_step_matches_engine(strain, group_size):
+    from strainer2_tpu.io.batches import max_reads_capacity
+
+    genome, _, table, rows = strain
+    rng = np.random.default_rng(10 + group_size)
+    rows_n, row_len = 8, 256
+    batch = next(pack_stream(iter(_reads(rng, genome, 40)), K, rows_n, row_len,
+                             with_read_ids=True, group_size=group_size))
+    max_reads = max_reads_capacity(K, rows_n, row_len)
+    bounds = np.full(max_reads + 1, rows_n * (row_len - K + 1), dtype=np.int32)
+    bounds[: batch.n_reads] = batch.window_starts
+    r_tot, r_inf = (
+        np.asarray(x)
+        for x in _classify_step_bucket(jnp.asarray(rows), batch.bases, jnp.asarray(bounds),
+                                       k=K, h_bits=table.h_bits, salt=table.salt,
+                                       max_reads=max_reads)
+    )
+    tot, inf = classify_step(torch.from_numpy(rows), torch.from_numpy(batch.bases),
+                             torch.from_numpy(bounds), table.h_bits, table.salt, K)
+    np.testing.assert_array_equal(tot.numpy(), r_tot)
+    np.testing.assert_array_equal(inf.numpy(), r_inf)
+    assert tot.dtype == inf.dtype == torch.int32
+    assert r_tot.sum() > 0 and r_inf.sum() > 0
+
+
+@pytest.mark.parametrize("paired", [False, True])
+def test_passing_any_matches_jax(paired):
+    rng = np.random.default_rng(int(paired))
+    tot = rng.integers(0, 3, size=64).astype(np.int32)
+    inf = rng.integers(0, 2, size=64).astype(np.int32)
+    ref = np.asarray(_passing_any_1d(jnp.asarray(tot), jnp.asarray(inf), paired=paired,
+                                     min_t=2, min_i=1))
+    got = passing_any(torch.from_numpy(tot), torch.from_numpy(inf), paired=paired, min_t=2, min_i=1)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_kernel_wrappers_reject_mixed_devices(strain):
+    _, _, table, _ = strain
+    bases = torch.zeros((2, 64), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        count_step(torch.zeros(table.num_slots, dtype=torch.uint32),
+                   torch.from_numpy(table.table), bases.to("meta"), table.h_bits, table.salt, K)

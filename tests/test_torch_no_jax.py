@@ -1,0 +1,63 @@
+"""strainer2_tpu_torch imports no jax, directly or through the modules it
+uses: a fresh interpreter with every jax import blocked imports each module
+of the package, runs one CPU count step, and runs kmer_scrub_count on the
+mini data to its golden bytes."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SCRIPT = textwrap.dedent(
+    """
+    import contextlib, importlib, io, os, pkgutil, sys
+
+    class BlockJax:
+        def find_spec(self, name, path=None, target=None):
+            if name == "jax" or name.startswith(("jax.", "jaxlib")):
+                raise ImportError(f"blocked import of {name}")
+
+    sys.meta_path.insert(0, BlockJax())
+    import numpy as np
+    import strainer2_tpu_torch
+
+    names = [m.name for m in pkgutil.walk_packages(strainer2_tpu_torch.__path__, "strainer2_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+
+    from strainer2_tpu_torch.index.build import StrainIndex
+    from strainer2_tpu_torch.io.batches import pack_stream
+    from strainer2_tpu_torch.io.fastx import read_fastx
+    from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
+
+    mini = os.path.join(sys.argv[1], "tests", "golden", "mini")
+    os.chdir(mini)
+    eng = TorchKmerEngine(31, device="cpu")
+    idx = StrainIndex.from_fasta("data/strainA.fna.gz", eng)
+    t = idx.table
+    batch = next(pack_stream((r.seq for r in read_fastx("data/panel2.fna")), 31, 8, 512))
+    counts = eng.count_batch(eng.init_counts(idx), eng.table_for(idx), t.h_bits, t.salt, batch.bases)
+    assert eng.finalize_counts(counts).sum() > 0
+
+    from strainer2_tpu_torch.cli.kmer_scrub_count import main
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert main(["-r", "data/strainA.fna.gz", "-A", "data/genomes.txt",
+                     "-B", "data/metagenomes.txt", "--device", "cpu"]) == 0
+    with open("expected/scrub_counts.tsv") as f:
+        assert out.getvalue() == f.read()
+    assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
+    print("modules", len(names))
+    """
+)
+
+
+def test_package_imports_and_runs_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCRIPT, REPO], capture_output=True, text=True, env=env, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) >= 20

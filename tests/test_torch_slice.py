@@ -1,0 +1,166 @@
+"""The port's four stages on the CPU (plain torch versions of the kernels)
+reproduce the mini goldens byte for byte, and match the JAX package's own
+run; its CLIs refuse what this slice does not carry."""
+
+import contextlib
+import gzip
+import io
+import os
+
+import pytest
+import torch
+
+MINI = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "mini")
+
+
+def expected(name: str) -> bytes:
+    with open(os.path.join(MINI, "expected", name), "rb") as f:
+        return f.read()
+
+
+@pytest.fixture(autouse=True)
+def _chdir(monkeypatch):
+    monkeypatch.chdir(MINI)
+
+
+@pytest.mark.parametrize("c_list,golden", [(None, "scrub_counts.tsv"),
+                                           ("data/drugs.txt", "scrub_counts_drug.tsv")])
+def test_scrub_count_matches_golden(c_list, golden):
+    from strainer2_tpu_torch.pipeline.scrub_count import ScrubCountConfig, run_scrub_count
+
+    out = io.StringIO()
+    run_scrub_count("data/strainA.fna.gz", "data/genomes.txt", "data/metagenomes.txt",
+                    c_list=c_list, out=out, cfg=ScrubCountConfig(device="cpu"))
+    assert out.getvalue().encode() == expected(golden)
+
+
+def test_scrub_count_matches_jax_run_in_encounter_order():
+    """No golden for first-encounter row order: the JAX package's run is the
+    reference."""
+    from strainer2_tpu.pipeline.scrub_count import ScrubCountConfig as JaxCfg
+    from strainer2_tpu.pipeline.scrub_count import run_scrub_count as jax_run
+    from strainer2_tpu_torch.pipeline.scrub_count import ScrubCountConfig, run_scrub_count
+
+    args = ("data/strainA.fna.gz", "data/genomes.txt", "data/metagenomes.txt")
+    ours, theirs = io.StringIO(), io.StringIO()
+    run_scrub_count(*args, out=ours, cfg=ScrubCountConfig(device="cpu", reference_order=False))
+    jax_run(*args, out=theirs, cfg=JaxCfg(reference_order=False))
+    assert ours.getvalue() == theirs.getvalue()
+    assert ours.getvalue().encode() != expected("scrub_counts.tsv")
+
+
+@pytest.mark.parametrize(
+    "kwargs,golden_hits,golden_stdout",
+    [
+        (dict(batch_list="data/targets.txt"), "kmer_hits.txt", "detect_stdout.txt"),
+        (dict(batch_list="data/targets.txt", background_list="data/background.txt"),
+         "kmer_hits_bg.txt", "detect_bg_stdout.txt"),
+        (dict(b_file="data/target_PE1.fasta.gz", b_file2="data/target_PE2.fasta.gz", file_type=1),
+         "kmer_hits_single.txt", "detect_single_stdout.txt"),
+    ],
+    ids=["batch", "background", "single_pe"],
+)
+def test_detect_matches_golden_and_jax(tmp_path, kwargs, golden_hits, golden_stdout):
+    from strainer2_tpu.pipeline.detect import run_detect as jax_run_detect
+    from strainer2_tpu_torch.pipeline.detect import DetectConfig, run_detect
+
+    hits, out = str(tmp_path / "hits.gz"), io.StringIO()
+    run_detect("data/strainA.fna.gz", "expected/scrubbed_m05.txt", hits, stdout=out,
+               cfg=DetectConfig(device="cpu"), **kwargs)
+    with gzip.open(hits, "rb") as f:
+        payload = f.read()
+    assert payload == expected(golden_hits)
+    assert out.getvalue().encode() == expected(golden_stdout)
+
+    j_hits, j_out = str(tmp_path / "jax_hits.gz"), io.StringIO()
+    jax_run_detect("data/strainA.fna.gz", "expected/scrubbed_m05.txt", j_hits, stdout=j_out, **kwargs)
+    with gzip.open(j_hits, "rb") as f:
+        assert f.read() == payload
+    assert j_out.getvalue() == out.getvalue()
+
+
+def test_detect_no_gzip_and_index_cache(tmp_path):
+    """--no-gzip writes the same rows as plain text; an index cached by the
+    JAX package (bucket layout) is reused as it is."""
+    from strainer2_tpu.index.build import StrainIndex as JaxIndex
+    from strainer2_tpu.pipeline.engine import KmerEngine
+    from strainer2_tpu_torch.pipeline.detect import DetectConfig, run_detect
+
+    cache = str(tmp_path / "index.npz")
+    JaxIndex.from_fasta("data/strainA.fna.gz", KmerEngine(31, layout="bucket")).save(cache)
+    hits, out = str(tmp_path / "hits.txt"), io.StringIO()
+    det = run_detect("data/strainA.fna.gz", "expected/scrubbed_m05.txt", hits,
+                     batch_list="data/targets.txt", stdout=out, cfg=DetectConfig(device="cpu"),
+                     index_cache=cache, gzip_output=False)
+    with open(hits, "rb") as f:
+        assert f.read() == expected("kmer_hits.txt")
+    assert det.index.table.h_bits == JaxIndex.load(cache).table.h_bits
+
+
+def _cli(module: str, argv: list[str], path: str) -> int:
+    import importlib
+
+    main = importlib.import_module(f"strainer2_tpu_torch.cli.{module}").main
+    with open(path, "w") as f, contextlib.redirect_stdout(f):
+        return main(argv + ["--device", "cpu"])
+
+
+def _read(path: str, gz: bool = False) -> bytes:
+    with (gzip.open if gz else open)(path, "rb") as f:
+        return f.read()
+
+
+def test_cli_chain_reproduces_goldens(tmp_path):
+    """The four CLIs chained as the README runs them: count -> filter ->
+    detect -> coverage, each fed the previous stage's output."""
+    t = lambda name: str(tmp_path / name)  # noqa: E731
+    assert _cli("kmer_scrub_count", ["-r", "data/strainA.fna.gz", "-A", "data/genomes.txt",
+                                     "-B", "data/metagenomes.txt"], t("counts.tsv")) == 0
+    assert _read(t("counts.tsv")) == expected("scrub_counts.tsv")
+    assert _cli("kmer_scrub_filter", ["-s", t("counts.tsv"), "-m", "0.05"], t("scrubbed.txt")) == 0
+    assert _read(t("scrubbed.txt")) == expected("scrubbed_m05.txt")
+    assert _cli("strain_detect", ["-r", "data/strainA.fna.gz", "-a", t("scrubbed.txt"),
+                                  "-B", "data/targets.txt", "-o", t("strainA_x.kmer_hits.gz")],
+                t("detect_stdout.txt")) == 0
+    assert _read(t("strainA_x.kmer_hits.gz"), gz=True) == expected("kmer_hits.txt")
+    assert _read(t("detect_stdout.txt")) == expected("detect_stdout.txt")
+    assert _cli("coverage_depth", ["-k", t("strainA_x.kmer_hits.gz")], t("coverage.tsv")) == 0
+    assert _read(t("coverage.tsv")) == expected("coverage_depth.tsv")
+
+
+@pytest.mark.parametrize(
+    "module,argv",
+    [
+        ("kmer_scrub_count", ["-r", "x", "-A", "x", "-B", "x", "--mesh", "2x1"]),
+        ("kmer_scrub_count", ["-r", "x", "-A", "x", "-B", "x", "--checkpoint", "ck"]),
+        ("strain_detect", ["-r", "x", "-a", "x", "-b", "x", "-o", "o", "--mesh", "2x1"]),
+        ("strain_detect", ["-r", "x", "-a", "x", "-B", "x", "-o", "o", "--checkpoint", "ck"]),
+    ],
+)
+def test_cli_refuses_unported_flags(tmp_path, capsys, module, argv):
+    with pytest.raises(SystemExit) as e:
+        _cli(module, argv, str(tmp_path / "out"))
+    assert e.value.code == 2
+    assert "not supported by the torch port" in capsys.readouterr().err
+
+
+def test_cli_refuses_multi_process_runs(tmp_path, capsys, monkeypatch):
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1234")
+    rc = _cli("kmer_scrub_count", ["-r", "x", "-A", "x", "-B", "x"], str(tmp_path / "out"))
+    assert rc == 1
+    assert "multi-process" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("module", ["kmer_scrub_count", "strain_detect"])
+def test_cli_device_cuda_without_card_fails(tmp_path, capsys, module):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import importlib
+
+    main = importlib.import_module(f"strainer2_tpu_torch.cli.{module}").main
+    argv = {"kmer_scrub_count": ["-r", "data/strainA.fna.gz", "-A", "data/genomes.txt",
+                                 "-B", "data/metagenomes.txt"],
+            "strain_detect": ["-r", "data/strainA.fna.gz", "-a", "expected/scrubbed_m05.txt",
+                              "-B", "data/targets.txt", "-o", str(tmp_path / "h.gz")]}[module]
+    assert main(argv) == 1  # --device defaults to cuda
+    assert "torch.cuda.is_available() is false" in capsys.readouterr().err
