@@ -19,8 +19,21 @@ Phases; any failure exits non-zero and no result line is printed:
    run on the GPU; the panel counts are checked against the C++
    NativePanelCounter and the detection rows against the C++
    NativeClassifier (both independent of the CUDA path);
-5. launch counts of the four kernels during phase 4 (each must be > 0),
-   one JSON line of per-kernel results, then the result line.
+2b. the lookup A/B tool (``python -m strainer2_tpu_torch.tools.bench_lookup``)
+   on a 6.7 M-key table at 64-, 128- and 288-lane rows, 4 M lookups a
+   step: every ring variant of K5 exactly equal to K2 and to the plain
+   lookup, M lookups/s of each; then K6 and K7 at S = 16, 32, 96 and 256 strains on phase 2's key set
+   with seeded meta words and its detection batches, each exactly equal to
+   its plain version;
+5. launch counts of the seven kernels on their paths (phase 4 for K1-K4,
+   the A/B tool for K5, phase 6 for K6-K7; each must be > 0), one JSON line
+   of per-kernel results, then the result line;
+6. real size, multi-strain: 32 strains made from the phase-4 genome with
+   seeded SNPs (rate 0.002), each with a seeded 1% sample of its own
+   k-mers as its scrubbed set, run through ``strainer2_tools detect-multi``
+   on the GPU against the phase-4 targets; strains 0, 15 and 31 are
+   byte-compared with single-strain ``strain_detect`` runs, and every
+   strain's hit rows with what the C++ ``NativeClassifier`` predicts.
 """
 
 from __future__ import annotations
@@ -28,6 +41,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gzip
+import io
 import json
 import os
 import subprocess
@@ -50,12 +64,35 @@ TARGET_SE_READS, TARGET_PE_PAIRS = 1_000_000, 500_000
 STRAIN_READ_FRACTION = 0.01
 MIN_FRACTION = 0.01
 N_BATCHES = 8  # distinct inputs per kernel in phase 2
-SOURCE = "strainer2_tpu_torch/csrc/strainer2_kernels.cu"
+ROW_WIDTHS = (64, 128, 288)  # lookup A/B rows: detection, 96 strains, 256 strains
+S_SWEEP = (16, 32, 96, 256)  # strains per pass in the K6/K7 checks
+MULTI_STRAINS = 32
+SNP_RATE = 0.002  # tools/make_scale_data.py's default
+INFORMATIVE_FRACTION = 0.01
+MULTI_CHECKED = (0, 15, 31)  # strains byte-compared with single runs
+RING_DEFAULT = "ring8x4"  # bucket_lookup_pallas_manual's defaults w=8, d=4
+# lookups per A/B step: at the tool's default 262,144 a step is ~20 us of
+# device work, below the host's issue time per launch, so the chain would
+# time the host; 4 M keep the device the slower side
+AB_QUERIES = 4_194_304
+_CU = "strainer2_tpu_torch/csrc/"
+SOURCES = {
+    "canonical_windows": _CU + "strainer2_kernels.cu",
+    "bucket_lookup": _CU + "strainer2_kernels.cu",
+    "count_step": _CU + "strainer2_kernels.cu",
+    "classify_step": _CU + "strainer2_kernels.cu",
+    "bucket_lookup_ring": _CU + "strainer2_multi.cu",
+    "multi_hit_words": _CU + "strainer2_multi.cu",
+    "strain_sums": _CU + "strainer2_multi.cu",
+}
 REPLACES = {
     "canonical_windows": "strainer2_tpu/ops/pallas_kernels.py:127",
     "bucket_lookup": "strainer2_tpu/ops/pallas_lookup.py:93",
     "count_step": "strainer2_tpu/pipeline/engine.py:324",
     "classify_step": "strainer2_tpu/pipeline/engine.py:353",
+    "bucket_lookup_ring": "strainer2_tpu/ops/pallas_lookup.py:211",
+    "multi_hit_words": "strainer2_tpu/ops/lookup.py:181",
+    "strain_sums": "strainer2_tpu/ops/segsum.py:126",
 }
 DEVICE = "cuda"
 _ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -279,7 +316,88 @@ def check_kernels(d: str, data: dict, rng, dev) -> dict:
         if err != 0:
             fail(f"{name} disagrees with its plain version (max_abs_err {err})")
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-    return results
+    return results, {"engine": engine, "index": index, "detect_in": detect_in}
+
+
+def lookup_ab() -> dict:
+    """Phase 2b, path (a): the lookup A/B tool at each row width, with the
+    launch counts of this run; every variant must equal K2 and the plain
+    lookup exactly on every slice."""
+    from strainer2_tpu_torch.ops import _build
+    from strainer2_tpu_torch.tools.bench_lookup import bench
+
+    _build.reset_launches()
+    runs = {}
+    for width in ROW_WIDTHS:
+        log = io.StringIO()
+        runs[width] = bench(["--device", DEVICE, "--row-width", str(width),
+                             "--queries", str(AB_QUERIES)], out=log)
+        for line in log.getvalue().splitlines():
+            print(f"bench_lookup {width} lanes: {line}", flush=True)
+        if not runs[width]["ok"]:
+            fail(f"bench_lookup at {width} lanes: a variant disagrees or a checksum is not linear")
+    launches = dict(_build.launches)
+    rings = [v for v in runs[ROW_WIDTHS[0]] if str(v).startswith("ring")]
+    base = runs[ROW_WIDTHS[0]]
+    return {
+        "launches": launches,
+        "max_abs_err": max(r[v]["err_plain"] for r in runs.values() for v in rings),
+        "ms": base[RING_DEFAULT]["ms"],
+        "plain_ms": base["plain"]["ms"],
+    }
+
+
+def check_multi_kernels(ctx: dict, dev) -> dict:
+    """Phase 2b: K6 and K7 against their plain versions at S strains per
+    pass, on phase 2's key set (rows widened on the device to
+    32 + 16 max(2, ceil(S/16)) lanes, seeded meta words) and its 256 x 4096
+    detection batches."""
+    import torch
+
+    from strainer2_tpu_torch.ops import segsum as G
+
+    t = ctx["index"].table
+    keys = ctx["engine"].table_for(ctx["index"]).view(torch.int32)[:, :32]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    out = {"multi_hit_words": {}, "strain_sums": {}}
+    for n_strains in S_SWEEP:
+        n_words = G.words_for_strains(n_strains)
+        width = 32 + 16 * max(2, n_words)
+        rows32 = torch.empty((keys.shape[0], width), dtype=torch.int32, device=dev)
+        rows32[:, :32] = keys
+        rows32[:, 32:] = torch.randint(-2**31, 2**31, (keys.shape[0], width - 32), dtype=torch.int32,
+                                       device=dev, generator=gen)
+        rows = rows32.view(torch.uint32)
+        del rows32
+        batches = ctx["detect_in"]
+        words = [G.multi_hit_words(rows, b, t.h_bits, t.salt, K, n_words) for b, _ in batches]
+        cases = {
+            "multi_hit_words": (
+                lambda i: (G.multi_hit_words(rows, batches[i][0], t.h_bits, t.salt, K, n_words),),
+                lambda i: (G.multi_hit_words_plain(rows, batches[i][0], t.h_bits, t.salt, K, n_words),)),
+            "strain_sums": (
+                lambda i: G.boundary_strain_sums(words[i], batches[i][1], n_strains),
+                lambda i: G.boundary_strain_sums_plain(words[i], batches[i][1], n_strains)),
+        }
+        for name, (kern, plain) in cases.items():
+            err, tally = 0, 0
+            for i in range(N_BATCHES):
+                got, ref = kern(i), plain(i)
+                torch.cuda.synchronize()
+                err = max(err, max_abs_err(got, ref))
+                tally += int((got[0] != 0).sum())
+            ms, plain_ms = cuda_ms(kern, 5 * N_BATCHES), cuda_ms(plain, N_BATCHES)
+            what = "non-zero words" if name == "multi_hit_words" else "non-zero (read, strain) totals"
+            print(f"kernel {name} S={n_strains} ({width}-lane rows, {n_words} words/window): "
+                  f"max_abs_err {err} over {N_BATCHES} batches, kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms per {ROWS}x{ROW_LEN} batch, {tally} {what}", flush=True)
+            if err != 0 or tally == 0:
+                fail(f"{name} at S={n_strains}: max_abs_err {err}, {tally} {what}")
+            out[name][n_strains] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        del rows, words
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---- phases 3 and 4: the CLIs -------------------------------------------------
@@ -442,7 +560,132 @@ def check_real_outputs(d: str, data: dict) -> None:
             fail(f"detection rows for {f1}: {got} != {expect}")
 
 
-def profiled(out_dir: str, fn) -> None:
+# ---- phase 6: detect-multi at real size ----------------------------------------
+
+def canonical_codes_at(seq: np.ndarray, starts: np.ndarray) -> np.ndarray:
+    """Canonical uint64 codes of the k-mers of ``seq`` (base codes) at ``starts``."""
+    win = seq[starts[:, None] + np.arange(K)].astype(np.uint64)
+    weights = np.uint64(4) ** np.arange(K - 1, -1, -1, dtype=np.uint64)
+    fwd = (win * weights).sum(axis=1, dtype=np.uint64)
+    rc = ((np.uint64(3) - win)[:, ::-1] * weights).sum(axis=1, dtype=np.uint64)
+    return np.maximum(fwd, rc)
+
+
+def make_multi_dataset(d: str, data: dict, rng) -> dict:
+    """MULTI_STRAINS strains of the phase-4 genome with seeded SNPs, each
+    with a seeded INFORMATIVE_FRACTION sample of its own k-mers written as
+    kmer_scrub_filter writes them (two comment lines, one k-mer a line)."""
+    from strainer2_tpu_torch.ops.packing_np import decode_codes_np
+
+    t0 = time.perf_counter()
+    strains, informative = [], []
+    for i in range(MULTI_STRAINS):
+        g = data["genome"].copy()
+        hit = np.flatnonzero(rng.random(g.size) < SNP_RATE)
+        g[hit] = (g[hit] + rng.integers(1, 4, hit.size, dtype=np.uint8)) % 4
+        contigs = np.array_split(g, STRAIN_CONTIGS)
+        path = os.path.join(d, f"strain_{i:02d}.fna")
+        write_fasta(path, contigs, f"strain_{i:02d}")
+        codes = np.concatenate([
+            canonical_codes_at(c, np.flatnonzero(rng.random(c.size - K + 1) < INFORMATIVE_FRACTION))
+            for c in contigs
+        ])
+        inf_path = os.path.join(d, f"strain_{i:02d}.informative.txt")
+        with open(inf_path, "w") as f:
+            f.write(f"#seeded {INFORMATIVE_FRACTION} sample of strain_{i:02d}'s k-mers\n")
+            f.write(f"#post scrub kmers {codes.size}\n")
+            f.write("".join(s + "\n" for s in decode_codes_np(codes, K)))
+        strains.append(path)
+        informative.append(codes)
+    with open(os.path.join(d, "strains.tsv"), "w") as f:
+        f.write("".join(f"{p}\t{p[: -len('.fna')]}.informative.txt\n" for p in strains))
+    print(f"multi data: {MULTI_STRAINS} strains of the {STRAIN_BP} bp genome with SNPs at rate "
+          f"{SNP_RATE}, {INFORMATIVE_FRACTION:.0%} of each strain's k-mers informative "
+          f"({sum(c.size for c in informative)} lines); made in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"strains": strains, "informative": informative}
+
+
+def detect_multi_real(d: str, data: dict, multi: dict) -> tuple[float, dict]:
+    """Path (b): detect-multi over all strains on the GPU, in this process
+    with the launch counts reset just before and read just after."""
+    from strainer2_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    wall = run_cli("strainer2_tools", ["detect-multi", "-S", os.path.join(d, "strains.tsv"),
+                                       "-B", os.path.join(d, "targets.txt"),
+                                       "-o", os.path.join(d, "multi")],
+                   os.path.join(d, "multi_stdout.txt"))
+    launches = dict(_build.launches)
+    windows = data["windows"]["targets"]
+    print(f"stage detect-multi ({MULTI_STRAINS} strains): wall {wall:.3f} s, "
+          f"{windows / wall:,.0f} windows/s ({windows} windows), "
+          f"{windows * MULTI_STRAINS / wall:,.0f} strain-windows/s", flush=True)
+    return wall, launches
+
+
+def check_multi_outputs(d: str, multi: dict) -> None:
+    """Strains MULTI_CHECKED byte-identical to single-strain strain_detect
+    runs; every strain's hit rows per sample equal to what the C++
+    NativeClassifier predicts over the union table with the same 2-bit
+    strain meta (built here from the genomes and the informative sets)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from strainer2_tpu_torch import native
+    from strainer2_tpu_torch.index.build import StrainIndex
+    from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
+    from strainer2_tpu_torch.pipeline.multi_detect import union_sorted_many
+
+    p = lambda name: os.path.join(d, name)  # noqa: E731
+    stem = lambda i: f"strain_{i:02d}"  # noqa: E731
+    for i in MULTI_CHECKED:
+        run_cli("strain_detect", ["-r", multi["strains"][i], "-a", p(stem(i) + ".informative.txt"),
+                                  "-B", p("targets.txt"), "-o", p(f"single_{i}.gz")],
+                p(f"single_{i}_stdout.txt"))
+        with gzip.open(p(f"single_{i}.gz"), "rb") as f, gzip.open(p(f"multi/{stem(i)}.kmer_hits.gz"), "rb") as g:
+            single, both = f.read(), g.read()
+        n_lines = single.count(b"\n")
+        print(f"detect-multi strain {i}: {'identical to' if single == both else 'DIFFERS from'} "
+              f"its single run ({n_lines} lines)", flush=True)
+        if single != both:
+            fail(f"detect-multi strain {i} differs from its single-strain run")
+
+    engine = TorchKmerEngine(K, device=DEVICE)
+
+    def strain_codes(path):
+        return np.sort(StrainIndex.from_fasta(path, engine).codes)
+
+    with ThreadPoolExecutor(8) as ex:
+        codes = list(ex.map(strain_codes, multi["strains"]))
+    union = union_sorted_many(codes)
+    words = np.zeros((2, union.size), dtype=np.uint32)
+    for s, (c, inf) in enumerate(zip(codes, multi["informative"])):
+        w, sh = s // 16, np.uint32(2 * (s % 16))
+        words[w, np.searchsorted(union, c)] |= np.uint32(1) << sh
+        words[w, np.searchsorted(union, np.unique(inf))] |= np.uint32(2) << sh
+    classifier = native.NativeClassifier(union, words[0].view(np.int32), K,
+                                         values_hi=words[1].view(np.int32))
+    rows = np.zeros((MULTI_STRAINS, 2), dtype=np.int64)
+    samples = {p("target_SE.fasta"): 0, p("target_PE1.fasta"): 1}
+    for s in range(MULTI_STRAINS):
+        with gzip.open(p(f"multi/{stem(s)}.kmer_hits.gz"), "rt") as f:
+            for line in f:
+                if not line.startswith("#"):
+                    rows[s, samples[line.split("\t", 1)[0]]] += 1
+    expect = np.zeros_like(rows)
+    for (f1, col), f2, mode in zip(samples.items(), (None, p("target_PE2.fasta")), (0, 1)):
+        for _, tot, inf in classifier.open_multi_stream(f1, f2, mode, MULTI_STRAINS):
+            tot, inf = tot.astype(np.int64), inf.astype(np.int64)
+            if mode:
+                tot, inf = tot[0::2] + tot[1::2], inf[0::2] + inf[1::2]
+            expect[:, col] += np.where((tot >= 1) & (inf >= 1), inf, 0).sum(axis=0)
+    print(f"detect-multi hit rows per strain (SE, PE): {rows.tolist()}", flush=True)
+    print(f"NativeClassifier expects: {expect.tolist()}; union {union.size} keys", flush=True)
+    if not np.array_equal(rows, expect) or not (rows > 0).all():
+        fail("detect-multi hit rows differ from NativeClassifier's prediction")
+
+
+def profiled(out_dir: str, label: str, fn):
     """Run fn under torch.profiler: print device busy time against wall
     time, and write key_averages() sorted by device time to out_dir."""
     import torch
@@ -451,7 +694,7 @@ def profiled(out_dir: str, fn) -> None:
     os.makedirs(out_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        result = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0  # before the profiler's own teardown
     # device busy = the device-side records (kernels and copies), one stream;
@@ -463,12 +706,13 @@ def profiled(out_dir: str, fn) -> None:
             slot[0] += e.time_range.elapsed_us()
             slot[1] += 1
     busy_us = sum(us for us, _ in by_name.values())
-    with open(os.path.join(out_dir, "phase4_key_averages.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"{label}_key_averages.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
-    print(f"profile: device busy {busy_us / 1e6:.3f} s of {wall:.3f} s wall "
+    print(f"profile {label}: device busy {busy_us / 1e6:.3f} s of {wall:.3f} s wall "
           f"(idle share {1 - busy_us / 1e6 / wall:.4f})", flush=True)
     for key, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-        print(f"profile: {us / 1e3:10.3f} ms  {count:6d}x  {key[:90]}", flush=True)
+        print(f"profile {label}: {us / 1e3:10.3f} ms  {count:6d}x  {key[:90]}", flush=True)
+    return result
 
 
 def main() -> int:
@@ -476,8 +720,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--keep", default=None, help="directory to keep the generated data and outputs in")
     ap.add_argument("--profile", default=None,
-                    help="trace phase 4 with torch.profiler; prints the device's busy share "
-                         "and writes the per-kernel table into this directory")
+                    help="trace phases 4 and 6 with torch.profiler; prints the device's busy "
+                         "share and writes the per-kernel tables into this directory")
     args = ap.parse_args()
 
     import torch
@@ -504,34 +748,73 @@ def main() -> int:
     print(f"kernel build: {_build.build_seconds:.2f} s ({_build.built_how})", flush=True)
 
     rng = np.random.default_rng(args.seed)
+    t_start = time.perf_counter()
+
+    def phase(name: str) -> None:
+        print(f"== phase {name} at {time.perf_counter() - t_start:.1f} s", flush=True)
+
     with contextlib.ExitStack() as stack:
         d = args.keep or stack.enter_context(tempfile.TemporaryDirectory(prefix="chip_smoke_"))
         os.makedirs(d, exist_ok=True)
         data = make_dataset(d, rng)
 
         # ---- phase 2: kernels vs plain versions
-        results = check_kernels(d, data, rng, torch.device(DEVICE))
+        phase("2")
+        results, ctx = check_kernels(d, data, rng, torch.device(DEVICE))
+
+        # ---- phase 2b: the lookup A/B tool (path (a)), K6/K7 at S strains
+        phase("2b")
+        ab = lookup_ab()
+        multi_k = check_multi_kernels(ctx, torch.device(DEVICE))
+        del ctx
+        torch.cuda.empty_cache()
 
         # ---- phase 3: mini goldens through the CLIs on the GPU
+        phase("3")
         mini_out = os.path.join(d, "mini")
         os.makedirs(mini_out, exist_ok=True)
         mini_goldens(repo, mini_out)
 
         # ---- phase 4: real size through the CLIs; launches counted here
+        phase("4")
         _build.reset_launches()
         if args.profile:
-            profiled(args.profile, lambda: real_size(d, data))
+            profiled(args.profile, "phase4", lambda: real_size(d, data))
         else:
             real_size(d, data)
         launches = dict(_build.launches)
         check_real_outputs(d, data)
 
+        # ---- phase 6: detect-multi at real size (path (b)); launches counted
+        phase("6")
+        multi = make_multi_dataset(d, data, rng)
+        if args.profile:
+            _, multi_launches = profiled(args.profile, "phase6",
+                                         lambda: detect_multi_real(d, data, multi))
+        else:
+            _, multi_launches = detect_multi_real(d, data, multi)
+        check_multi_outputs(d, multi)
+
     # ---- phase 5
-    print(f"launches during the real-size run: {launches}", flush=True)
-    if not all(n > 0 for n in launches.values()):
-        fail("a kernel of the path was not launched by the main path")
+    phase("5")
+    paths = {
+        "strain scrub/filter/detect/coverage (phase 4)": launches,
+        "bench_lookup (phase 2b)": ab["launches"],
+        "detect-multi (phase 6)": multi_launches,
+    }
+    for path, counts in paths.items():
+        print(f"launches during {path}: {counts}", flush=True)
+    launches.update(bucket_lookup_ring=ab["launches"]["bucket_lookup_ring"],
+                    multi_hit_words=multi_launches["multi_hit_words"],
+                    strain_sums=multi_launches["strain_sums"])
+    if not all(launches[name] > 0 for name in REPLACES):
+        fail("a kernel of the path was not launched by its path")
+    results["bucket_lookup_ring"] = {k: ab[k] for k in ("max_abs_err", "ms", "plain_ms")}
+    for name in ("multi_hit_words", "strain_sums"):
+        results[name] = dict(multi_k[name][MULTI_STRAINS],
+                             max_abs_err=max(r["max_abs_err"] for r in multi_k[name].values()))
     kernels = [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+        {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], **results[name]}
         for name in REPLACES
     ]

@@ -8,6 +8,11 @@ FIRST equal cell; meta = that cell's lane 32 + cell.  Where not found,
 slot = bucket * 16 and meta = 0, as the jnp ``bucket_lookup`` returns.
 
 - ``bucket_lookup``   (K2): found, slot, meta per query.
+- ``bucket_lookup_ring`` (K5): the same contract through a cp.async ring
+  of row copies (the A/B twin of the Pallas DMA-ring lookup).
+- ``bucket_lookup_words_plain``: found, slot and the first n_words meta
+  words (the multi-strain probe; its kernel is fused into K6,
+  ops/segsum.py).
 - ``count_step``      (K3): extract -> probe -> counts[slot] += 1, in place.
 - ``classify_step``   (K4): extract -> probe -> per-read (total,
   informative) hit counts over contiguous window spans.
@@ -30,6 +35,8 @@ from strainer2_tpu_torch.ops.packing import canonical_windows_plain
 __all__ = [
     "bucket_lookup",
     "bucket_lookup_plain",
+    "bucket_lookup_ring",
+    "bucket_lookup_words_plain",
     "count_step",
     "count_step_plain",
     "classify_step",
@@ -39,59 +46,74 @@ __all__ = [
 
 KEYS_PER_BUCKET = 16
 META_LANE = 32
-_CHUNK = 1 << 18  # queries per gathered block in the plain lookup
+_GATHER_ELEMS = 1 << 24  # row lanes gathered per block of queries in the plain lookup
+_MASK32 = 0xFFFFFFFF
 
 
 # ---- plain versions -------------------------------------------------------
 
-def bucket_lookup_plain(rows: torch.Tensor, h_bits: int, salt: int,
-                        qhi: torch.Tensor, qlo: torch.Tensor):
-    """(found bool, slot int32, meta uint32), shapes of qhi."""
+def bucket_lookup_words_plain(rows: torch.Tensor, h_bits: int, salt: int,
+                              qhi: torch.Tensor, qlo: torch.Tensor, n_words: int):
+    """(found bool, slot int32, [meta word 0 .. n_words-1] uint32), shapes
+    of qhi: the JAX ``bucket_lookup_words`` (strainer2_tpu/ops/lookup.py:181).
+    Word j of a found key is lane 32 + 16 j of its cell; 0 where not found."""
+    blocks = (rows.shape[1] - META_LANE) // KEYS_PER_BUCKET
+    if n_words > blocks:
+        raise ValueError(f"{n_words} meta words > {blocks} blocks in a {rows.shape[1]}-lane row")
     shape = qhi.shape
-    qh = qhi.reshape(-1).to(torch.int64)
-    ql = qlo.reshape(-1).to(torch.int64)
+    qh = qhi.reshape(-1).to(torch.int64) & _MASK32
+    ql = qlo.reshape(-1).to(torch.int64) & _MASK32
     n = qh.shape[0]
-    found = torch.zeros(n, dtype=torch.bool, device=qh.device)
-    slot = torch.zeros(n, dtype=torch.int64, device=qh.device)
-    meta = torch.zeros(n, dtype=torch.int64, device=qh.device)
-    rows32 = rows.view(torch.int32)  # torch gathers no uint32; same bits
-    for s in range(0, n, _CHUNK):
-        h, l = qh[s : s + _CHUNK], ql[s : s + _CHUNK]
+    dev = qh.device
+    found = torch.zeros(n, dtype=torch.bool, device=dev)
+    slot = torch.zeros(n, dtype=torch.int64, device=dev)
+    words = torch.zeros((n_words, n), dtype=torch.int32, device=dev)
+    lanes = META_LANE + KEYS_PER_BUCKET * n_words
+    rows32 = rows.view(torch.int32)[:, :lanes]  # torch gathers no uint32; same bits
+    step = max(1, _GATHER_ELEMS // lanes)
+    for s in range(0, n, step):
+        h, l = qh[s : s + step], ql[s : s + step]
         bucket = cuckoo_slots_torch(h ^ salt, l, h_bits, 0)
-        row = rows32[bucket].to(torch.int64) & 0xFFFFFFFF  # the one random access
-        keys = row[:, 0 : 2 * KEYS_PER_BUCKET]
+        row = rows32[bucket]  # the one random access
+        keys = row[:, : 2 * KEYS_PER_BUCKET].to(torch.int64) & _MASK32
         eq = (keys[:, :KEYS_PER_BUCKET] == h[:, None]) & (keys[:, KEYS_PER_BUCKET:] == l[:, None])
         hit = eq.any(dim=1)
         cell = torch.argmax(eq.to(torch.int32), dim=1)  # first maximal cell
-        row_meta = row[:, META_LANE : META_LANE + KEYS_PER_BUCKET]
-        found[s : s + _CHUNK] = hit
-        slot[s : s + _CHUNK] = bucket * KEYS_PER_BUCKET + cell
-        meta[s : s + _CHUNK] = torch.where(
-            hit, row_meta.gather(1, cell[:, None])[:, 0], 0
-        )
+        found[s : s + step] = hit
+        slot[s : s + step] = bucket * KEYS_PER_BUCKET + cell
+        for j in range(n_words):
+            lane = META_LANE + KEYS_PER_BUCKET * j + cell
+            words[j, s : s + step] = torch.where(hit, row.gather(1, lane[:, None])[:, 0], 0)
     return (
         found.reshape(shape),
         slot.to(torch.int32).reshape(shape),
-        meta.to(torch.uint32).reshape(shape),
+        [w.view(torch.uint32).reshape(shape) for w in words],
     )
 
 
-def _valid_hits(rows, bases, h_bits, salt, k):
-    """Flat indices of valid windows, and their lookups (found, slot, meta):
-    only valid windows are probed, which keeps the plain path cheap on the
-    mostly-padding batches of small inputs."""
+def bucket_lookup_plain(rows: torch.Tensor, h_bits: int, salt: int,
+                        qhi: torch.Tensor, qlo: torch.Tensor):
+    """(found bool, slot int32, meta uint32), shapes of qhi."""
+    found, slot, words = bucket_lookup_words_plain(rows, h_bits, salt, qhi, qlo, 1)
+    return found, slot, words[0]
+
+
+def valid_hits_plain(rows, bases, h_bits, salt, k, n_words: int = 1):
+    """Flat indices of valid windows, and their lookups (found, slot, [meta
+    words]): only valid windows are probed, which keeps the plain path cheap
+    on the mostly-padding batches of small inputs."""
     hi, lo, valid = canonical_windows_plain(bases, k)
     idx = torch.nonzero(valid.reshape(-1))[:, 0]
-    qhi, qlo = (x.view(torch.int32).reshape(-1)[idx].to(torch.int64) & 0xFFFFFFFF for x in (hi, lo))
-    found, slot, meta = bucket_lookup_plain(rows, h_bits, salt, qhi, qlo)
-    return idx, found, slot, meta, valid.numel()
+    qhi, qlo = (x.view(torch.int32).reshape(-1)[idx].to(torch.int64) & _MASK32 for x in (hi, lo))
+    found, slot, words = bucket_lookup_words_plain(rows, h_bits, salt, qhi, qlo, n_words)
+    return idx, found, slot, words, valid.numel()
 
 
 def count_step_plain(counts, rows, bases, h_bits: int, salt: int, k: int):
     """counts[slot] += 1 for every valid hit window, in place (uint32 wraps:
     the add runs on an int32 view, whose two's-complement wrap is the same
     bits)."""
-    _, found, slot, _, _ = _valid_hits(rows, bases, h_bits, salt, k)
+    _, found, slot, _, _ = valid_hits_plain(rows, bases, h_bits, salt, k)
     hits = slot[found].to(torch.int64)
     counts.view(torch.int32).index_add_(
         0, hits, torch.ones_like(hits, dtype=torch.int32)
@@ -103,7 +125,7 @@ def classify_step_plain(rows, bases, boundaries, h_bits: int, salt: int, k: int)
     """Per-read (total, informative) int32 hits, shape (len(boundaries) - 1,):
     differences of one prefix sum at ``boundaries``, as the JAX program
     computes them (indices clamped to [0, n_windows] like its gather)."""
-    idx, found, _, meta, n_windows = _valid_hits(rows, bases, h_bits, salt, k)
+    idx, found, _, (meta,), n_windows = valid_hits_plain(rows, bases, h_bits, salt, k)
     hit = torch.zeros(n_windows, dtype=torch.int32, device=bases.device)
     inf = torch.zeros_like(hit)
     hit[idx] = found.to(torch.int32)
@@ -182,6 +204,45 @@ def bucket_lookup(rows, h_bits: int, salt: int, qhi, qlo):
             "bucket_lookup", qh.device, rows.data_ptr(), rows.shape[1], h_bits,
             salt, qh.data_ptr(), ql.data_ptr(), qh.numel(), found.data_ptr(),
             slot.data_ptr(), meta.data_ptr(),
+        )
+    return found, slot, meta
+
+
+def _check_ring_args(n: int, w: int, d: int, chunk: int) -> None:
+    """bucket_lookup_pallas_manual's checks (pallas_lookup.py:228-231), then
+    the ring kernel's own bounds: blockDim = 12 w threads and D x w x 192
+    bytes of shared memory, within the 48 KiB a block gets by default."""
+    if chunk % w:
+        raise ValueError("chunk must be a multiple of w")
+    if n % chunk:
+        raise ValueError(f"query count {n} must be a multiple of chunk={chunk}")
+    if not (1 <= w <= 64 and 1 <= d <= 8 and w * d <= 256):
+        raise ValueError(f"ring shape w={w}, d={d} outside 1 <= w <= 64, 1 <= d <= 8, w * d <= 256")
+
+
+def bucket_lookup_ring(rows, h_bits: int, salt: int, qhi, qlo, *,
+                       w: int = 8, d: int = 4, chunk: int = 1024):
+    """Kernel K5 on CUDA tensors, the plain version on CPU tensors.
+
+    The contract of ``bucket_lookup`` (K2), resolved by a block per
+    ``chunk`` queries that keeps ``d`` groups of ``w`` row copies in flight.
+    Where not found it returns K2's (jnp's) slot = bucket * 16 and meta = 0;
+    the Pallas kernel returns bucket * 16 + 16 there."""
+    _check_ring_args(qhi.numel(), w, d, chunk)
+    if not _on_cuda("bucket_lookup_ring", rows, qhi, qlo):
+        return bucket_lookup_plain(rows, h_bits, salt, qhi, qlo)
+    _check_rows(rows, h_bits)
+    if qhi.shape != qlo.shape or qhi.dtype != torch.uint32 or qlo.dtype != torch.uint32:
+        raise ValueError("qhi and qlo must be uint32 tensors of one shape")
+    qh, ql = qhi.contiguous(), qlo.contiguous()
+    found = torch.empty(qh.shape, dtype=torch.bool, device=qh.device)
+    slot = torch.empty(qh.shape, dtype=torch.int32, device=qh.device)
+    meta = torch.empty(qh.shape, dtype=torch.uint32, device=qh.device)
+    if qh.numel():
+        _build.call(
+            "bucket_lookup_ring", qh.device, rows.data_ptr(), rows.shape[1], h_bits,
+            salt, qh.data_ptr(), ql.data_ptr(), qh.numel(), w, d, chunk,
+            found.data_ptr(), slot.data_ptr(), meta.data_ptr(),
         )
     return found, slot, meta
 

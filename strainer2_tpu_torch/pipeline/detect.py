@@ -57,7 +57,14 @@ from strainer2_tpu_torch.ops.packing_np import (
 from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
 from strainer2_tpu_torch.pipeline.scrub_count import count_panel_file, read_list_file
 
-__all__ = ["DetectConfig", "StrainDetector", "run_detect", "get_file_type", "background_demote"]
+__all__ = [
+    "DetectConfig",
+    "StrainDetector",
+    "run_detect",
+    "get_file_type",
+    "background_demote",
+    "strain_threads",
+]
 
 
 @dataclass
@@ -80,6 +87,19 @@ def get_file_type(token: str) -> int:
     if token in ("PEI", "pei", "IPE", "ipe"):
         return IS_PAIRED_END_INTERLEAVE
     return -1
+
+
+def strain_threads(n_strains: int) -> int:
+    """Worker count for independent per-strain work (index builds):
+    min(cores, 8, n); STRAINER2_STRAIN_THREADS overrides (1 = sequential).
+    A copy of strainer2_tpu.pipeline.multi_scrub.strain_threads, whose
+    module imports jax."""
+    import os
+
+    env = os.environ.get("STRAINER2_STRAIN_THREADS")
+    if env:
+        return max(1, int(env))
+    return max(1, min(os.cpu_count() or 1, 8, n_strains))
 
 
 def _exit_unreadable_sample(exc: OSError, f1: str, f2: str | None) -> None:

@@ -7,7 +7,9 @@ contract that the scrub-count and detect stages use, bucket layout only:
 - ``extract_codes``: canonical codes of a packed buffer (kernel K1);
 - ``table_for`` / ``init_counts`` / ``counts_from_numpy`` /
   ``finalize_counts``: the device state's life cycle;
-- ``count_batch`` (K3) and ``classify_batch`` (K4).
+- ``count_batch`` (K3) and ``classify_batch`` (K4);
+- ``classify_multi_batch``: the multi-strain classify, K6
+  (``hit_words_batch``) then K7 (``strain_sums``).
 
 On a CUDA device every step runs a hand-written kernel; on the CPU the
 same calls run the kernels' plain torch versions.  A CUDA device that is
@@ -22,6 +24,7 @@ import torch
 from strainer2_tpu_torch.ops.lookup import classify_step, count_step
 from strainer2_tpu_torch.ops.packing import canonical_windows
 from strainer2_tpu_torch.ops.packing_np import merge_code64_np
+from strainer2_tpu_torch.ops.segsum import boundary_strain_sums, multi_hit_words, words_for_strains
 
 __all__ = ["TorchKmerEngine", "resolve_device"]
 
@@ -100,3 +103,25 @@ class TorchKmerEngine:
         return classify_step(
             table, self.to_device(bases), self.to_device(boundaries), h_bits, salt, self.k
         )
+
+    def classify_multi_batch(self, rows, h_bits: int, salt: int, bases, boundaries,
+                             n_strains: int):
+        """Per-read, per-strain (total, informative) hits, each an int32
+        (max_reads, n_strains) matrix on the device; the torch twin of
+        ``multi_detect._classify_multi`` (K6 then K7).
+
+        rows: the union table, strain s's two bits in meta word s // 16.
+        boundaries: as in ``classify_batch``."""
+        words = self.hit_words_batch(rows, h_bits, salt, bases, n_strains)
+        return self.strain_sums(words, boundaries, n_strains)
+
+    def hit_words_batch(self, rows, h_bits: int, salt: int, bases, n_strains: int):
+        """K6: every window's meta words, (Q, ceil(S/16)) uint32 on the
+        device, 0 on a miss or an invalid window."""
+        return multi_hit_words(
+            rows, self.to_device(bases), h_bits, salt, self.k, words_for_strains(n_strains)
+        )
+
+    def strain_sums(self, words, boundaries, n_strains: int):
+        """K7: per-read, per-strain (total, informative) of K6's words."""
+        return boundary_strain_sums(words, self.to_device(boundaries), n_strains)

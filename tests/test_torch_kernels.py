@@ -1,4 +1,4 @@
-"""CUDA kernels K1-K4 vs their plain torch versions, on the card.
+"""CUDA kernels K1-K7 vs their plain torch versions, on the card.
 
 These need an NVIDIA GPU with nvcc (a CUDA kernel has no interpret mode)
 and skip elsewhere; ``python3 chip_smoke.py`` runs the same comparisons at
@@ -14,6 +14,7 @@ from strainer2_tpu_torch.io.batches import max_reads_capacity, pack_stream
 from strainer2_tpu_torch.ops import lookup as L
 from strainer2_tpu_torch.ops.packing import canonical_windows, canonical_windows_plain
 from strainer2_tpu_torch.ops.packing_np import canonical_codes_np, split_code64_np
+from strainer2_tpu_torch.ops import segsum as G
 
 pytestmark = pytest.mark.cuda
 K = 31
@@ -92,3 +93,62 @@ def test_classify_step_kernel(strain):
     out = L.classify_step(rows, b, bd, table.h_bits, table.salt, K)
     assert _equal(out, L.classify_step_plain(rows, b, bd, table.h_bits, table.salt, K))
     assert int(out[1].sum()) > 0
+
+
+@pytest.mark.parametrize("w,d,chunk", [(8, 4, 1024), (8, 8, 64), (16, 4, 128), (16, 8, 256),
+                                       (1, 1, 8), (64, 4, 512)])
+@pytest.mark.parametrize("row_width", [64, 288])
+def test_bucket_lookup_ring_kernel(dev, w, d, chunk, row_width):
+    rng = np.random.default_rng(w * d)
+    codes = np.unique(rng.integers(0, 1 << 62, 40_000, dtype=np.uint64))
+    table = build_bucket_table(codes, K, row_width=row_width)
+    meta = (np.arange(table.num_slots, dtype=np.uint64) * 2654435761 & 0xFFFFFFFF).astype(np.uint32)
+    rows = torch.from_numpy(table.with_meta(meta)).to(dev)
+    n = 32_768
+    q = np.where(rng.random(n) < 0.5, codes[rng.integers(0, codes.size, n)],
+                 rng.integers(0, 1 << 62, n, dtype=np.uint64))
+    qhi, qlo = (torch.from_numpy(x).to(dev) for x in split_code64_np(q, K))
+    out = L.bucket_lookup_ring(rows, table.h_bits, table.salt, qhi, qlo, w=w, d=d, chunk=chunk)
+    assert _equal(out, L.bucket_lookup_plain(rows, table.h_bits, table.salt, qhi, qlo))
+    assert _equal(out, L.bucket_lookup(rows, table.h_bits, table.salt, qhi, qlo))
+    assert 0 < int(out[0].sum()) < n
+
+
+def _multi_rows(strain, n_words, dev):
+    rng, genome, codes, _, _ = strain
+    table = build_bucket_table(np.unique(codes), K, row_width=32 + 16 * max(2, n_words))
+    words = [rng.integers(0, 1 << 32, table.num_slots, dtype=np.uint64).astype(np.uint32)
+             for _ in range(max(2, n_words))]
+    return table, torch.from_numpy(table.with_meta_words(words)).to(dev)
+
+
+@pytest.mark.parametrize("n_strains", [1, 16, 32, 96, 256])
+def test_multi_hit_words_and_strain_sums_kernels(strain, n_strains):
+    rng, genome, codes, _, rows64 = strain
+    dev = rows64.device
+    n_words = G.words_for_strains(n_strains)
+    table, rows = _multi_rows(strain, n_words, dev)
+    reads = [genome[s : s + 150] if i % 2 else rng.integers(0, 4, 150, dtype=np.uint8)
+             for i, s in enumerate(rng.integers(0, genome.size - 150, 2000))]
+    batch = next(pack_stream(iter(reads), K, 64, 4096, with_read_ids=True))
+    b = torch.from_numpy(batch.bases).to(dev)
+    words = G.multi_hit_words(rows, b, table.h_bits, table.salt, K, n_words)
+    assert _equal((words,), (G.multi_hit_words_plain(rows, b, table.h_bits, table.salt, K, n_words),))
+    assert int((words != 0).sum()) > 0
+    bounds = np.full(max_reads_capacity(K, 64, 4096) + 1, 64 * (4096 - K + 1), dtype=np.int32)
+    bounds[: batch.n_reads] = batch.window_starts
+    bd = torch.from_numpy(bounds).to(dev)
+    out = G.boundary_strain_sums(words, bd, n_strains)
+    assert _equal(out, G.boundary_strain_sums_plain(words, bd, n_strains))
+    assert int(out[0].sum()) > 0
+
+
+def test_strain_sums_kernel_edge_boundaries(dev):
+    """Empty reads, a last boundary of Q, out-of-range and reversed spans
+    (clamped, negated as a prefix difference is)."""
+    rng = np.random.default_rng(1)
+    q = 1000
+    words = torch.from_numpy(rng.integers(0, 1 << 32, (q, 2), dtype=np.uint64).astype(np.uint32)).to(dev)
+    bounds = torch.tensor([0, 7, 7, 300, 299, 1000, -5, 1200, 1000, 1000], dtype=torch.int32, device=dev)
+    out = G.boundary_strain_sums(words, bounds, 20)
+    assert _equal(out, G.boundary_strain_sums_plain(words, bounds, 20))

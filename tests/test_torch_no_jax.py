@@ -1,7 +1,8 @@
 """strainer2_tpu_torch imports no jax, directly or through the modules it
 uses: a fresh interpreter with every jax import blocked imports each module
 of the package, runs one CPU count step, and runs kmer_scrub_count on the
-mini data to its golden bytes."""
+mini data to its golden bytes; another imports the multi-strain modules and
+runs detect-multi and the lookup A/B tool on the CPU."""
 
 import os
 import subprocess
@@ -10,7 +11,7 @@ import textwrap
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_SCRIPT = textwrap.dedent(
+_BLOCK = textwrap.dedent(
     """
     import contextlib, importlib, io, os, pkgutil, sys
 
@@ -20,6 +21,11 @@ _SCRIPT = textwrap.dedent(
                 raise ImportError(f"blocked import of {name}")
 
     sys.meta_path.insert(0, BlockJax())
+    """
+)
+
+_SCRIPT = _BLOCK + textwrap.dedent(
+    """
     import numpy as np
     import strainer2_tpu_torch
 
@@ -54,10 +60,48 @@ _SCRIPT = textwrap.dedent(
 )
 
 
-def test_package_imports_and_runs_without_jax():
+_MULTI_SCRIPT = _BLOCK + textwrap.dedent(
+    """
+    import gzip
+    for name in ("ops.segsum", "pipeline.multi_detect", "tools.bench_lookup", "cli.strainer2_tools"):
+        importlib.import_module("strainer2_tpu_torch." + name)
+
+    from strainer2_tpu_torch.cli.strainer2_tools import main
+    from strainer2_tpu_torch.tools.bench_lookup import bench
+
+    mini = os.path.join(sys.argv[1], "tests", "golden", "mini")
+    out_dir = sys.argv[2]
+    os.chdir(mini)
+    with open(os.path.join(out_dir, "strains.tsv"), "w") as f:
+        f.write("data/strainA.fna.gz\\texpected/scrubbed_m05.txt\\n")
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert main(["detect-multi", "-S", os.path.join(out_dir, "strains.tsv"),
+                     "-B", "data/targets.txt", "-o", out_dir, "--device", "cpu"]) == 0
+        assert bench(["--device", "cpu", "--kmers", "2000", "--queries", "512",
+                      "--variants", "k2,ring8x4"])["ok"]
+    with gzip.open(os.path.join(out_dir, "strainA.kmer_hits.gz"), "rb") as f:
+        hits = f.read()
+    with open("expected/kmer_hits.txt", "rb") as g:
+        assert hits == g.read()
+    assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
+    print("ok")
+    """
+)
+
+
+def _run(script: str, *args: str):
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
-        [sys.executable, "-c", _SCRIPT, REPO], capture_output=True, text=True, env=env, timeout=300
+        [sys.executable, "-c", script, REPO, *args], capture_output=True, text=True, env=env,
+        timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 20
+    return proc.stdout
+
+
+def test_package_imports_and_runs_without_jax():
+    assert int(_run(_SCRIPT).split()[-1]) >= 20
+
+
+def test_detect_multi_and_bench_lookup_run_without_jax(tmp_path):
+    assert _run(_MULTI_SCRIPT, str(tmp_path)).split()[-1] == "ok"
