@@ -8,9 +8,13 @@ Phases; any failure exits non-zero and no result line is printed:
 1. set-up: the card's name and power limit, whether the C++ host library
    built (``native_host``), and the CUDA kernels' build time;
 2. kernels vs plain versions on the card, at main-path shapes: a 256 x 4096
-   batch with ~3% invalid bases against a 6.7 M-key strain table; every
-   output must be exactly equal (all values are integers); kernel and
-   plain times from CUDA events;
+   batch with ~3% invalid bases against a 6.7 M-key strain table, and for
+   K4 also detection batches made like the phase-4 targets (0.1% N); every
+   output must be exactly equal (all values are integers); kernel times
+   device-only (CUDA events around a CUDA-graph replay,
+   strainer2_tpu_torch/tools/bench_kernels.py) and from a loop of
+   launches, plain times from the loop; each kernel's bound from the bytes
+   its inputs make it move;
 3. mini goldens: the four port CLIs with --device cuda on
    tests/golden/mini, byte-compared with the reference binaries' outputs;
 4. real size, the "strain vs metagenomes, joint scrub + detect" run of the
@@ -26,8 +30,9 @@ Phases; any failure exits non-zero and no result line is printed:
    with seeded meta words and its detection batches, each exactly equal to
    its plain version;
 5. launch counts of the seven kernels on their paths (phase 4 for K1-K4,
-   the A/B tool for K5, phase 6 for K6-K7; each must be > 0), one JSON line
-   of per-kernel results, then the result line;
+   the A/B tool for K5, phase 6 for K6-K7; each must be > 0), a check that
+   neither jax nor the JAX package (strainer2_tpu) was imported, one JSON
+   line of per-kernel results, then the result line;
 6. real size, multi-strain: 32 strains made from the phase-4 genome with
    seeded SNPs (rate 0.002), each with a seeded 1% sample of its own
    k-mers as its scrubbed set, run through ``strainer2_tools detect-multi``
@@ -71,6 +76,7 @@ SNP_RATE = 0.002  # tools/make_scale_data.py's default
 INFORMATIVE_FRACTION = 0.01
 MULTI_CHECKED = (0, 15, 31)  # strains byte-compared with single runs
 RING_DEFAULT = "ring8x4"  # bucket_lookup_pallas_manual's defaults w=8, d=4
+RING_CHUNK = 1024  # queries per K5 block in phase 2 (the wrapper's default)
 # lookups per A/B step: at the tool's default 262,144 a step is ~20 us of
 # device work, below the host's issue time per launch, so the chain would
 # time the host; 4 M keep the device the slower side
@@ -113,10 +119,6 @@ def card_line() -> str:
 
 # ---- data made from the seed -------------------------------------------------
 
-def revcomp(codes: np.ndarray) -> np.ndarray:
-    return (3 - codes)[..., ::-1]
-
-
 def write_fasta(path: str, contigs: list[np.ndarray], prefix: str) -> None:
     with open(path, "wb") as f:
         for i, c in enumerate(contigs):
@@ -142,21 +144,9 @@ def write_reads(path: str, reads: np.ndarray, n_rate: float, rng) -> None:
     rec.tofile(path)
 
 
-def sample_reads(rng, genome: np.ndarray, n: int, strain_fraction: float) -> np.ndarray:
-    """n reads: a strain_fraction share sampled from ``genome`` (either
-    strand), the rest random sequence."""
-    n_strain = int(n * strain_fraction)
-    starts = rng.integers(0, genome.size - READ_LEN, size=n_strain)
-    reads = rng.integers(0, 4, size=(n, READ_LEN), dtype=np.uint8)
-    pos = rng.choice(n, size=n_strain, replace=False)
-    strain = genome[starts[:, None] + np.arange(READ_LEN)]
-    flip = rng.random(n_strain) < 0.5
-    strain[flip] = revcomp(strain[flip])
-    reads[pos] = strain
-    return reads
-
-
 def make_dataset(d: str, rng) -> dict:
+    from strainer2_tpu_torch.tools.bench_kernels import sample_reads
+
     t0 = time.perf_counter()
     genome = rng.integers(0, 4, size=STRAIN_BP, dtype=np.uint8)
     write_fasta(os.path.join(d, "strain.fna"), np.array_split(genome, STRAIN_CONTIGS), "strain")
@@ -234,14 +224,56 @@ def max_abs_err(a, b) -> int:
     return err
 
 
+def timed(name: str, kern, plain, bound: float, note: str = "") -> dict:
+    """Device-only (graph replay) and loop times of kern, loop time of plain,
+    printed beside the bound; the kernel's results entry."""
+    from strainer2_tpu_torch.tools.bench_kernels import graph_ms
+
+    ms = graph_ms(kern, N_BATCHES)
+    loop_ms, plain_ms = cuda_ms(kern, 5 * N_BATCHES), cuda_ms(plain, N_BATCHES)
+    print(f"time {name}: device {ms:.4f} ms (graph replay), loop {loop_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({bound / ms:.3f} of it){note}", flush=True)
+    return {"ms": ms, "loop_ms": loop_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None}
+
+
+def checked(name: str, kern, plain) -> int:
+    """max_abs_err of kern against plain over the N_BATCHES inputs; fails
+    on any."""
+    import torch
+
+    err = 0
+    for i in range(N_BATCHES):
+        out, ref = kern(i), plain(i)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(out, ref))
+    print(f"check {name}: max_abs_err {err} over {N_BATCHES} batches", flush=True)
+    if err != 0:
+        fail(f"{name} disagrees with its plain version (max_abs_err {err})")
+    return err
+
+
+def batch_stats(rows, h, salt, bases) -> tuple[int, int, int]:
+    """(valid windows, found queries over all windows, hits = found and
+    valid) of one batch, from the plain versions."""
+    from strainer2_tpu_torch.ops import lookup as L
+    from strainer2_tpu_torch.ops.packing import canonical_windows_plain
+
+    hi, lo, valid = canonical_windows_plain(bases, K)
+    found = L.bucket_lookup_plain(rows, h, salt, hi, lo)[0]
+    return int(valid.sum()), int(found.sum()), int((found & valid.bool()).sum())
+
+
 def check_kernels(d: str, data: dict, rng, dev) -> dict:
     import torch
 
     from strainer2_tpu_torch.index.build import StrainIndex
-    from strainer2_tpu_torch.io.batches import max_reads_capacity, pack_stream
     from strainer2_tpu_torch.ops import lookup as L
     from strainer2_tpu_torch.ops.packing import canonical_windows, canonical_windows_plain
     from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
+    from strainer2_tpu_torch.tools.bench_kernels import (
+        BATCH_KINDS, bound_ms, detection_batches, k4_bytes, probe_bytes,
+    )
 
     genome = data["genome"]
     engine = TorchKmerEngine(K, device=dev)
@@ -256,9 +288,7 @@ def check_kernels(d: str, data: dict, rng, dev) -> dict:
     # N_BATCHES distinct inputs, rotated through while timing, so the probes
     # touch 8x more table rows than the 50 MB L2 holds, as a stream of new
     # batches does; every kernel is checked on every input
-    max_reads = max_reads_capacity(K, ROWS, ROW_LEN)
-    count_in, detect_in = [], []
-    n_reads = []
+    count_in = []
     for _ in range(N_BATCHES):
         # counting batch: half the rows from the strain genome, ~3% invalid
         bases = rng.integers(0, 4, size=(ROWS, ROW_LEN), dtype=np.uint8)
@@ -269,54 +299,65 @@ def check_kernels(d: str, data: dict, rng, dev) -> dict:
         b_d = engine.to_device(bases)
         hi, lo, _ = canonical_windows(b_d, K)
         count_in.append((b_d, hi, lo))
-        # detection batch: 150 bp reads, half from the strain, with read ids
-        reads = sample_reads(rng, genome, 8000, 0.5)
-        reads[rng.random(reads.shape) < 0.03] = 4
-        batch = next(pack_stream(iter(reads), K, ROWS, ROW_LEN, with_read_ids=True))
-        bounds = np.full(max_reads + 1, ROWS * (ROW_LEN - K + 1), dtype=np.int32)
-        bounds[: batch.n_reads] = batch.window_starts
-        detect_in.append((engine.to_device(batch.bases), engine.to_device(bounds)))
-        n_reads.append(batch.n_reads)
+    # detection batches: "phase2" as this check has made them (3% N), "targets" made
+    # like the phase-4 targets (0.1% N)
+    detect = {kind: detection_batches(rng, genome, kind, dev) for kind in BATCH_KINDS}
     counts = engine.init_counts(index)
     counts_plain = engine.init_counts(index)
     h, salt = t.h_bits, t.salt
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    c_stats = [batch_stats(rows, h, salt, b) for b, _, _ in count_in]
+    c_valid, c_found, c_hits = (mean(x) for x in zip(*c_stats))
+    n_win = count_in[0][1].numel()
+    bases_bytes = ROWS * ROW_LEN
+    n_ring = n_win // RING_CHUNK * RING_CHUNK
+    ring_q = [(x[1].reshape(-1)[:n_ring], x[2].reshape(-1)[:n_ring]) for x in count_in]
+    print(f"count batches: {c_valid:.0f} valid windows, {c_hits:.0f} hits of {n_win} windows a "
+          f"batch (means over {N_BATCHES})", flush=True)
+
     cases = {
         "canonical_windows": (
             lambda i: canonical_windows(count_in[i][0], K),
-            lambda i: canonical_windows_plain(count_in[i][0], K)),
+            lambda i: canonical_windows_plain(count_in[i][0], K),
+            bases_bytes + 9 * n_win),
         "bucket_lookup": (
             lambda i: L.bucket_lookup(rows, h, salt, count_in[i][1], count_in[i][2]),
-            lambda i: L.bucket_lookup_plain(rows, h, salt, count_in[i][1], count_in[i][2])),
+            lambda i: L.bucket_lookup_plain(rows, h, salt, count_in[i][1], count_in[i][2]),
+            n_win * (8 + 9) + probe_bytes(n_win, c_found) + 4 * c_found),
+        # both count buffers start at zero and take the same batches in turn
         "count_step": (
             lambda i: (L.count_step(counts, rows, count_in[i][0], h, salt, K),),
-            lambda i: (L.count_step_plain(counts_plain, rows, count_in[i][0], h, salt, K),)),
-        "classify_step": (
-            lambda i: L.classify_step(rows, *detect_in[i], h, salt, K),
-            lambda i: L.classify_step_plain(rows, *detect_in[i], h, salt, K)),
+            lambda i: (L.count_step_plain(counts_plain, rows, count_in[i][0], h, salt, K),),
+            bases_bytes + probe_bytes(c_valid, c_hits) + 8 * c_hits),
+        "bucket_lookup_ring": (
+            lambda i: L.bucket_lookup_ring(rows, h, salt, *ring_q[i], chunk=RING_CHUNK),
+            lambda i: L.bucket_lookup_plain(rows, h, salt, *ring_q[i]),
+            n_ring * (8 + 9) + probe_bytes(n_ring, c_found * n_ring / n_win)
+            + 4 * c_found * n_ring / n_win),
     }
     results = {}
-    for name, (kern, plain) in cases.items():
-        err, tally = 0, 0
-        for i in range(N_BATCHES):
-            if name == "count_step":
-                counts.zero_()
-                counts_plain.zero_()
-            out, ref = kern(i), plain(i)
-            torch.cuda.synchronize()
-            err = max(err, max_abs_err(out, ref))
-            tally += int(out[0].to(torch.int64).sum()) if name != "canonical_windows" else 0
-        extra = {
-            "bucket_lookup": f", found {tally} of {N_BATCHES * count_in[0][1].numel()} queries",
-            "count_step": f", {tally} hit windows",
-            "classify_step": f", {sum(n_reads)} reads, {tally} hit windows",
-        }.get(name, "")
-        ms, plain_ms = cuda_ms(kern, 5 * N_BATCHES), cuda_ms(plain, N_BATCHES)
-        print(f"kernel {name}: max_abs_err {err} over {N_BATCHES} batches, kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms per {ROWS}x{ROW_LEN} batch{extra}", flush=True)
-        if err != 0:
-            fail(f"{name} disagrees with its plain version (max_abs_err {err})")
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-    return results, {"engine": engine, "index": index, "detect_in": detect_in}
+    for name, (kern, plain, n_bytes) in cases.items():
+        err = checked(name, kern, plain)
+        results[name] = dict(timed(name, kern, plain, bound_ms(n_bytes)), max_abs_err=err)
+
+    detect_stats = {kind: [mean(x) for x in zip(*(batch_stats(rows, h, salt, b) for b, _, _ in batches))]
+                    for kind, batches in detect.items()}
+    for kind, batches in detect.items():
+        kern = lambda i: L.classify_step(rows, batches[i][0], batches[i][1], h, salt, K)  # noqa: E731
+        plain = lambda i: L.classify_step_plain(rows, batches[i][0], batches[i][1], h, salt, K)  # noqa: E731
+        err = checked(f"classify_step {kind}", kern, plain)
+        d_valid, _, d_hits = detect_stats[kind]
+        n_reads = mean([n for _, _, n in batches])
+        note = (f"; {n_reads:.0f} reads, {d_valid:.0f} valid windows ({d_valid / n_win:.3f}), "
+                f"{d_hits:.0f} hits a batch")
+        res = dict(timed(f"classify_step {kind}", kern, plain,
+                         bound_ms(k4_bytes(batches[0][0], batches[0][1], d_valid, d_hits)), note),
+                   max_abs_err=err, valid_share=d_valid / n_win)
+        if kind == "phase2":
+            results["classify_step"] = res
+        else:
+            results["classify_step"][kind] = res
+    return results, {"index": index, "detect": detect, "detect_stats": detect_stats, "rows": rows}
 
 
 def lookup_ab() -> dict:
@@ -347,55 +388,45 @@ def lookup_ab() -> dict:
     }
 
 
-def check_multi_kernels(ctx: dict, dev) -> dict:
+def check_multi_kernels(ctx: dict) -> dict:
     """Phase 2b: K6 and K7 against their plain versions at S strains per
     pass, on phase 2's key set (rows widened on the device to
-    32 + 16 max(2, ceil(S/16)) lanes, seeded meta words) and its 256 x 4096
-    detection batches."""
+    32 + 16 max(2, ceil(S/16)) lanes of seeded meta words) and both kinds
+    of its 256 x 4096 detection batches."""
     import torch
 
     from strainer2_tpu_torch.ops import segsum as G
+    from strainer2_tpu_torch.tools.bench_kernels import bound_ms, k7_bytes, multi_rows, probe_bytes
 
     t = ctx["index"].table
-    keys = ctx["engine"].table_for(ctx["index"]).view(torch.int32)[:, :32]
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(5)
+    h, salt = t.h_bits, t.salt
     out = {"multi_hit_words": {}, "strain_sums": {}}
     for n_strains in S_SWEEP:
         n_words = G.words_for_strains(n_strains)
-        width = 32 + 16 * max(2, n_words)
-        rows32 = torch.empty((keys.shape[0], width), dtype=torch.int32, device=dev)
-        rows32[:, :32] = keys
-        rows32[:, 32:] = torch.randint(-2**31, 2**31, (keys.shape[0], width - 32), dtype=torch.int32,
-                                       device=dev, generator=gen)
-        rows = rows32.view(torch.uint32)
-        del rows32
-        batches = ctx["detect_in"]
-        words = [G.multi_hit_words(rows, b, t.h_bits, t.salt, K, n_words) for b, _ in batches]
-        cases = {
-            "multi_hit_words": (
-                lambda i: (G.multi_hit_words(rows, batches[i][0], t.h_bits, t.salt, K, n_words),),
-                lambda i: (G.multi_hit_words_plain(rows, batches[i][0], t.h_bits, t.salt, K, n_words),)),
-            "strain_sums": (
-                lambda i: G.boundary_strain_sums(words[i], batches[i][1], n_strains),
-                lambda i: G.boundary_strain_sums_plain(words[i], batches[i][1], n_strains)),
-        }
-        for name, (kern, plain) in cases.items():
-            err, tally = 0, 0
-            for i in range(N_BATCHES):
-                got, ref = kern(i), plain(i)
-                torch.cuda.synchronize()
-                err = max(err, max_abs_err(got, ref))
-                tally += int((got[0] != 0).sum())
-            ms, plain_ms = cuda_ms(kern, 5 * N_BATCHES), cuda_ms(plain, N_BATCHES)
-            what = "non-zero words" if name == "multi_hit_words" else "non-zero (read, strain) totals"
-            print(f"kernel {name} S={n_strains} ({width}-lane rows, {n_words} words/window): "
-                  f"max_abs_err {err} over {N_BATCHES} batches, kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms per {ROWS}x{ROW_LEN} batch, {tally} {what}", flush=True)
-            if err != 0 or tally == 0:
-                fail(f"{name} at S={n_strains}: max_abs_err {err}, {tally} {what}")
-            out[name][n_strains] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        del rows, words
+        rows = multi_rows(ctx["rows"], n_words, seed=n_strains)
+        for kind, batches in ctx["detect"].items():
+            valid, _, hits = ctx["detect_stats"][kind]
+            words = [G.multi_hit_words(rows, b, h, salt, K, n_words) for b, _, _ in batches]
+            n_win = words[0].shape[0]
+            cases = {
+                "multi_hit_words": (
+                    lambda i: (G.multi_hit_words(rows, batches[i][0], h, salt, K, n_words),),
+                    lambda i: (G.multi_hit_words_plain(rows, batches[i][0], h, salt, K, n_words),),
+                    ROWS * ROW_LEN + probe_bytes(valid, hits) + 4 * n_words * (hits + n_win)),
+                "strain_sums": (
+                    lambda i: G.boundary_strain_sums(words[i], batches[i][1], n_strains),
+                    lambda i: G.boundary_strain_sums_plain(words[i], batches[i][1], n_strains),
+                    k7_bytes(words[0], batches[0][1], n_strains)),
+            }
+            for name, (kern, plain, n_bytes) in cases.items():
+                label = f"{name} {kind} S={n_strains}"
+                err = checked(label, kern, plain)
+                if not int((kern(0)[0] != 0).sum()):
+                    fail(f"{label}: all zero")
+                res = dict(timed(label, kern, plain, bound_ms(n_bytes)), max_abs_err=err)
+                out[name].setdefault(n_strains, {})[kind] = res
+            del words
+        del rows
         torch.cuda.empty_cache()
     return out
 
@@ -702,16 +733,17 @@ def profiled(out_dir: str, label: str, fn):
     by_name: dict[str, list] = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            slot = by_name.setdefault(e.name, [0.0, 0])
-            slot[0] += e.time_range.elapsed_us()
-            slot[1] += 1
-    busy_us = sum(us for us, _ in by_name.values())
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    busy_us = sum(sum(v) for v in by_name.values())
     with open(os.path.join(out_dir, f"{label}_key_averages.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
     print(f"profile {label}: device busy {busy_us / 1e6:.3f} s of {wall:.3f} s wall "
           f"(idle share {1 - busy_us / 1e6 / wall:.4f})", flush=True)
-    for key, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-        print(f"profile {label}: {us / 1e3:10.3f} ms  {count:6d}x  {key[:90]}", flush=True)
+    for key, times in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]:
+        times = sorted(times)
+        print(f"profile {label}: {sum(times) / 1e3:10.3f} ms  {len(times):6d}x  median "
+              f"{times[len(times) // 2]:.1f} us, longest {', '.join(f'{t:.1f}' for t in times[-3:][::-1])} us  "
+              f"{key[:90]}", flush=True)
     return result
 
 
@@ -765,7 +797,7 @@ def main() -> int:
         # ---- phase 2b: the lookup A/B tool (path (a)), K6/K7 at S strains
         phase("2b")
         ab = lookup_ab()
-        multi_k = check_multi_kernels(ctx, torch.device(DEVICE))
+        multi_k = check_multi_kernels(ctx)
         del ctx
         torch.cuda.empty_cache()
 
@@ -809,17 +841,21 @@ def main() -> int:
                     strain_sums=multi_launches["strain_sums"])
     if not all(launches[name] > 0 for name in REPLACES):
         fail("a kernel of the path was not launched by its path")
-    results["bucket_lookup_ring"] = {k: ab[k] for k in ("max_abs_err", "ms", "plain_ms")}
+    ring = results["bucket_lookup_ring"]
+    ring.update(max_abs_err=max(ring["max_abs_err"], ab["max_abs_err"]),
+                ab_ms_per_4m=ab["ms"], ab_plain_ms_per_4m=ab["plain_ms"])
     for name in ("multi_hit_words", "strain_sums"):
-        results[name] = dict(multi_k[name][MULTI_STRAINS],
-                             max_abs_err=max(r["max_abs_err"] for r in multi_k[name].values()))
+        by_kind = multi_k[name][MULTI_STRAINS]
+        results[name] = dict(by_kind["phase2"], targets=by_kind["targets"], max_abs_err=max(
+            r["max_abs_err"] for per_s in multi_k[name].values() for r in per_s.values()))
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], **results[name]}
         for name in REPLACES
     ]
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    jax_side = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "strainer2_tpu"))
+    if jax_side:
+        fail(f"jax or the JAX package was imported: {jax_side[:5]}")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

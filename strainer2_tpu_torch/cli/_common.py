@@ -1,8 +1,9 @@
 """Shared flag handling of the port's CLIs.
 
-Each CLI reuses ``build_parser()`` of its twin in ``strainer2_tpu.cli``
-(those modules import no jax), adds ``--device`` and refuses the options
-this port does not carry yet, instead of ignoring them.
+Each CLI carries a copy of ``build_parser()`` of its twin in
+``strainer2_tpu.cli`` (pinned by tests/test_torch_cli.py), adds
+``--device`` and refuses the options this port does not carry yet, instead
+of ignoring them.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ import argparse
 import os
 import sys
 
-__all__ = ["torch_parser", "check_args"]
+__all__ = ["add_device", "check_args"]
 
 _UNPORTED = {
     "mesh": "--mesh (device-mesh sharding)",
@@ -19,10 +20,8 @@ _UNPORTED = {
 }
 
 
-def torch_parser(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
-    """The JAX CLI's parser with --device added."""
-    if parser.description:
-        parser.description = parser.description.replace("TPU engine", "torch engine")
+def add_device(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """``parser`` with --device added."""
     parser.add_argument(
         "--device", default="cuda",
         help="torch device: cuda (default) runs the CUDA kernels, cpu their plain torch versions",

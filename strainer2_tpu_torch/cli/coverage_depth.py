@@ -4,14 +4,24 @@ CLI's, so a missing card is reported rather than passed over."""
 
 from __future__ import annotations
 
+import argparse
 import sys
 
-from strainer2_tpu.cli.coverage_depth import build_parser as _jax_parser
-from strainer2_tpu_torch.cli._common import check_args, torch_parser
+from strainer2_tpu_torch.cli._common import add_device, check_args
 
 
-def build_parser():
-    return torch_parser(_jax_parser())
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="coverage_depth",
+        description="Per-metagenome informative-k-mer coverage and depth metrics",
+    )
+    p.add_argument("--kmer_hits_file", "-k", required=True,
+                   help="strain_detect output with per-metagenome k-mer hits")
+    p.add_argument("--min_kmer_hits", "-m", required=False, default=1, type=int,
+                   help="minimum k-mer matches for a read's hits to count; default 1")
+    p.add_argument("--background_metagenomes_file", "-b", required=False,
+                   help="file with background metagenome names (optional)")
+    return add_device(p)
 
 
 def main(argv: list[str] | None = None) -> int:

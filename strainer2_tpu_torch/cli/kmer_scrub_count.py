@@ -4,14 +4,32 @@ the reference."""
 
 from __future__ import annotations
 
+import argparse
 import sys
 
-from strainer2_tpu.cli.kmer_scrub_count import build_parser as _jax_parser
-from strainer2_tpu_torch.cli._common import check_args, torch_parser
+from strainer2_tpu_torch.cli._common import add_device, check_args
 
 
-def build_parser():
-    return torch_parser(_jax_parser())
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="kmer_scrub_count",
+        description="Count strain k-mer occurrences across background panels (torch engine)",
+    )
+    p.add_argument("-r", dest="r_file", required=True, help="reference (strain) genome FASTA[.gz]")
+    p.add_argument("-A", dest="a_list", required=True, help="file listing genome panel FASTAs")
+    p.add_argument("-B", dest="b_list", required=True, help="file listing metagenome panel files")
+    p.add_argument("-C", dest="c_list", default=None, help="file listing co-occurring (drug) strain FASTAs")
+    p.add_argument("-p", dest="p_file", default=None, help="progress output file")
+    p.add_argument("-d", dest="write_dist", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--rows", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--row-len", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--mesh", default=None,
+                   help="DATAxINDEX device mesh for sharded counting (e.g. 4x2)")
+    p.add_argument("--checkpoint", dest="checkpoint_dir", default=None,
+                   help="directory for restartable counting state (resume skips finished panel files)")
+    p.add_argument("--no-reference-order", action="store_true",
+                   help="emit rows in first-encounter order instead of replaying the reference hash order")
+    return add_device(p)
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -4,14 +4,26 @@ CLI's, so a missing card is reported rather than passed over."""
 
 from __future__ import annotations
 
+import argparse
 import sys
 
-from strainer2_tpu.cli.kmer_scrub_filter import build_parser as _jax_parser
-from strainer2_tpu_torch.cli._common import check_args, torch_parser
+from strainer2_tpu_torch.cli._common import add_device, check_args
 
 
-def build_parser():
-    return torch_parser(_jax_parser())
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="kmer_scrub_filter",
+        description="Select informative (rare) strain k-mers from kmer_scrub_count output",
+    )
+    p.add_argument("--scrub_count_file", "-s", required=False,
+                   help="input file with k-mer counts vs pangenome and metagenomes")
+    p.add_argument("--scrub_count_list", "-l", required=False,
+                   help="text file listing multiple k-mer count files")
+    p.add_argument("--min_fraction", "-m", required=False, default=0.04, type=float,
+                   help="minimum fraction of k-mers to keep; default 0.04; range (0.0-1.0)")
+    p.add_argument("--independent", "-i", action="store_true",
+                   help="scrub metagenome and pangenome panels independently")
+    return add_device(p)
 
 
 def main(argv: list[str] | None = None) -> int:

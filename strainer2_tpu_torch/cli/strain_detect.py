@@ -4,15 +4,42 @@ bytes) and the reference's stdout diagnostics."""
 
 from __future__ import annotations
 
+import argparse
 import sys
 
-from strainer2_tpu.cli.strain_detect import build_parser as _jax_parser
-from strainer2_tpu.constants import IS_PAIRED_END, NOT_PAIRED_END
-from strainer2_tpu_torch.cli._common import check_args, torch_parser
+from strainer2_tpu_torch.cli._common import add_device, check_args
+from strainer2_tpu_torch.constants import IS_PAIRED_END, NOT_PAIRED_END
 
 
-def build_parser():
-    return torch_parser(_jax_parser())
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="strain_detect",
+        description="Detect informative strain k-mers in target metagenomes (torch engine)",
+    )
+    p.add_argument("-r", dest="r_file", required=True, help="reference (strain) genome FASTA[.gz]")
+    p.add_argument("-a", dest="a_file", required=True, help="informative k-mer file (post scrubbing)")
+    p.add_argument("-b", dest="b_file", default=None, help="metagenome file (read 1)")
+    p.add_argument("-c", dest="b_file2", default=None, help="metagenome file (read 2, PE)")
+    p.add_argument("-B", dest="batch_list", default=None, help="batch file of metagenomes (PE/SE/PEI rows)")
+    p.add_argument("-t", dest="file_type", default=None, help="SE, PE, or PEI")
+    p.add_argument("-g", dest="background_list", default=None, help="file listing background metagenomes")
+    p.add_argument("-o", dest="out_file", required=True, help="k-mer hits output (gzip)")
+    p.add_argument("--no-gzip", dest="no_gzip", action="store_true",
+                   help="write plain TSV instead of gzip (the reference's "
+                        "NO_GZIP_OUTPUT build toggle as a runtime flag; "
+                        "row bytes identical)")
+    p.add_argument("-n", dest="not_pe", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--mesh", default=None,
+                   help="DATAxINDEX device mesh for sharded classification (e.g. 4x2)")
+    p.add_argument("--index-cache", default=None,
+                   help="npz path to cache/reuse the strain k-mer index")
+    p.add_argument("--checkpoint", dest="checkpoint_dir", default=None,
+                   help="directory for sample-granular resume of -B batch "
+                        "runs (restart skips completed samples; output "
+                        "byte-identical)")
+    p.add_argument("--rows", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--row-len", type=int, default=None, help=argparse.SUPPRESS)
+    return add_device(p)
 
 
 def main(argv: list[str] | None = None) -> int:

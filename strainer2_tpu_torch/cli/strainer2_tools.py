@@ -1,4 +1,4 @@
-"""CLI: strainer2_tools on the torch engine (the parser of
+"""CLI: strainer2_tools on the torch engine (a copy of the parser of
 strainer2_tpu.cli.strainer2_tools, plus --device on every subcommand).
 
 ``detect-multi`` scores many strains against shared target samples in one
@@ -16,21 +16,130 @@ import os
 import re
 import sys
 
-from strainer2_tpu.cli.strainer2_tools import build_parser as _jax_parser
-from strainer2_tpu_torch.cli._common import check_args, torch_parser
+from strainer2_tpu_torch.cli._common import add_device, check_args
 
 PORTED = ("detect-multi",)
 
 
 def build_parser() -> argparse.ArgumentParser:
-    parser = _jax_parser()
-    for action in parser._actions:
-        if isinstance(action, argparse._SubParsersAction):
-            for sub in action.choices.values():
-                torch_parser(sub)
-    if parser.description:
-        parser.description = parser.description.replace("TPU engine", "torch engine")
-    return parser
+    p = argparse.ArgumentParser(
+        prog="strainer2_tools",
+        description="Auxiliary multi-genome k-mer analyses (torch engine)",
+    )
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    pg = sub.add_parser("pangenome", help="per-genome k-mer occurrence tracks over a genome panel")
+    pg.add_argument("-A", dest="a_list", required=True, help="file listing genome FASTAs")
+    pg.add_argument("-r", dest="ref_file", default=None,
+                    help="write a track only for this genome (default: all)")
+    pg.add_argument("-d", dest="write_dist", action="store_true",
+                    help="also write the pangenome count histogram")
+    pg.add_argument("-s", dest="seed", type=int, default=31, help="k-mer length")
+
+    km = sub.add_parser("kmer-matrix", help="k-mer x file count matrix")
+    km.add_argument("-A", dest="a_list", required=True, help="file listing genome FASTAs")
+    km.add_argument("-s", dest="seed", type=int, default=31, help="k-mer length")
+
+    st = sub.add_parser("strain-track", help="unique-k-mer strain abundances in one metagenome")
+    st.add_argument("-A", dest="a_list", required=True, help="file listing strain FASTAs")
+    st.add_argument("-b", dest="b_file", required=True, help="metagenome file")
+    st.add_argument("-n", dest="no_track", action="store_true",
+                    help="skip per-strain track files")
+    st.add_argument("-m", dest="max_reads", type=int, default=0,
+                    help="stop after ~this many metagenome reads (0 = all)")
+    st.add_argument("-s", dest="seed", type=int, default=31, help="k-mer length")
+
+    md = sub.add_parser(
+        "detect-multi",
+        help="score up to 16 strains against shared target metagenomes in ONE "
+        "stream pass (outputs identical to per-strain strain_detect runs)",
+    )
+    md.add_argument("-S", dest="strain_list", required=True,
+                    help="file with one `genome<TAB>informative_kmers` pair per line")
+    md.add_argument("-B", dest="batch_list", required=True,
+                    help="batch file of target metagenomes (PE/SE/PEI rows)")
+    md.add_argument("-g", dest="background_list", default=None,
+                    help="background metagenome list (shared counting, per-strain thresholds)")
+    md.add_argument("-o", dest="out_dir", required=True,
+                    help="output directory; one <genome-stem>.kmer_hits.gz per strain")
+    md.add_argument("--mesh", default=None,
+                    help="DATAxINDEX device mesh for sharded multi-strain "
+                    "classification (e.g. 4x2)")
+
+    ms = sub.add_parser(
+        "scrub-multi",
+        help="kmer_scrub_count for many strains with ONE shared scan of the "
+        "-A/-B/-C panels (tables identical to per-strain runs)",
+    )
+    ms.add_argument("-R", dest="r_list", required=True,
+                    help="file listing strain genome FASTAs (one per line)")
+    ms.add_argument("-A", dest="a_list", required=True)
+    ms.add_argument("-B", dest="b_list", required=True)
+    ms.add_argument("-C", dest="c_list", default=None)
+    ms.add_argument("-p", dest="p_file", default=None, help="progress output file")
+    ms.add_argument("-o", dest="out_dir", required=True,
+                    help="output directory; one <genome-stem>.scrub_kmer_counts.tsv per strain")
+    ms.add_argument("--checkpoint", dest="checkpoint_dir", default=None,
+                    help="checkpoint directory: the shared union panel scan "
+                    "resumes at file granularity (bit-identical; keyed to "
+                    "the strain set, so a stale checkpoint restarts fresh)")
+
+    fp = sub.add_parser(
+        "pipeline",
+        help="fused scrub -> filter -> detect -> coverage in one process "
+        "(one index build, no TSV round trips; intermediate artifacts "
+        "byte-identical to the staged CLIs)",
+    )
+    fp.add_argument("-r", dest="r_file", required=True, help="strain genome FASTA")
+    fp.add_argument("-A", dest="a_list", required=True, help="genome panel list")
+    fp.add_argument("-B", dest="b_list", required=True, help="metagenome panel list")
+    fp.add_argument("-C", dest="c_list", default=None, help="co-occurring strain list")
+    fp.add_argument("-T", dest="target_list", required=True,
+                    help="target metagenome batch file (PE/SE/PEI rows)")
+    fp.add_argument("-g", dest="background_list", default=None,
+                    help="background metagenome list for the detect filter")
+    fp.add_argument("-m", dest="min_fraction", type=float, default=0.04,
+                    help="filter min_fraction (default 0.04)")
+    fp.add_argument("-i", dest="independent", action="store_true",
+                    help="independent per-panel scrub")
+    fp.add_argument("--min_kmer_hits", type=int, default=1,
+                    help="coverage_depth row threshold (default 1)")
+    fp.add_argument("--no-intermediates", action="store_true",
+                    help="skip writing scrub_kmer_counts.gz / scrubbed_kmers.gz")
+    fp.add_argument("-o", dest="out_dir", required=True, help="output directory")
+    fp.add_argument("--checkpoint", dest="checkpoint_dir", default=None,
+                    help="checkpoint directory: panel counting resumes at "
+                    "file granularity, detection at sample granularity "
+                    "(bit-identical to an uninterrupted run)")
+
+    fpm = sub.add_parser(
+        "pipeline-multi",
+        help="fused pipeline for MANY strains: one shared panel scan, "
+        "per-strain filters, multi-strain detection (16 strains/pass); "
+        "per-strain outputs identical to independent runs",
+    )
+    fpm.add_argument("-R", dest="r_list", required=True,
+                     help="file listing strain genome FASTAs (one per line)")
+    fpm.add_argument("-A", dest="a_list", required=True, help="genome panel list")
+    fpm.add_argument("-B", dest="b_list", required=True, help="metagenome panel list")
+    fpm.add_argument("-C", dest="c_list", default=None, help="co-occurring strain list")
+    fpm.add_argument("-T", dest="target_list", required=True,
+                     help="target metagenome batch file (PE/SE/PEI rows)")
+    fpm.add_argument("-g", dest="background_list", default=None,
+                     help="background metagenome list for the detect filter")
+    fpm.add_argument("-m", dest="min_fraction", type=float, default=0.04)
+    fpm.add_argument("-i", dest="independent", action="store_true")
+    fpm.add_argument("--min_kmer_hits", type=int, default=1)
+    fpm.add_argument("--no-intermediates", action="store_true")
+    fpm.add_argument("-o", dest="out_dir", required=True, help="output directory")
+    fpm.add_argument("--checkpoint", dest="checkpoint_dir", default=None,
+                     help="checkpoint directory: the shared union panel scan "
+                     "resumes at file granularity, each detection pass at "
+                     "sample granularity (bit-identical; keyed to the strain "
+                     "set and filter config, so stale state restarts fresh)")
+    for sub_parser in sub.choices.values():
+        add_device(sub_parser)
+    return p
 
 
 def _stem(path: str) -> str:
@@ -60,7 +169,7 @@ def detect_multi(args) -> None:
 
     import numpy as np
 
-    from strainer2_tpu.utils.observability import stage
+    from strainer2_tpu_torch.utils.observability import stage
     from strainer2_tpu_torch.index.build import StrainIndex, scan_file_codes
     from strainer2_tpu_torch.pipeline.detect import DetectConfig, strain_threads
     from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine

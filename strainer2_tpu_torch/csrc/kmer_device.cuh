@@ -62,22 +62,22 @@ __device__ __forceinline__ bool canonical_window(const uint8_t* p, int k,
   return ok;
 }
 
-// 16-bit mask of the row's cells whose key equals (hi, lo); four 16-byte
-// loads per key block.
+// 16-bit mask of the 16 lanes at p that equal v: four 16-byte loads.
+__device__ __forceinline__ unsigned lanes_equal(const uint32_t* p, uint32_t v) {
+  const uint4* p4 = reinterpret_cast<const uint4*>(p);
+  unsigned m = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint4 a = __ldg(p4 + i);
+    m |= static_cast<unsigned>((a.x == v) | (a.y == v) << 1 | (a.z == v) << 2 | (a.w == v) << 3) << (4 * i);
+  }
+  return m;
+}
+
+// 16-bit mask of the row's cells whose key equals (hi, lo).
 __device__ __forceinline__ unsigned match_mask(const uint32_t* row,
                                                uint32_t hi, uint32_t lo) {
-  const uint4* r4 = reinterpret_cast<const uint4*>(row);
-  unsigned mask = 0;
-#pragma unroll
-  for (int v = 0; v < 4; ++v) {
-    const uint4 a = __ldg(r4 + v);
-    const uint4 b = __ldg(r4 + 4 + v);
-    mask |= static_cast<unsigned>((a.x == hi) & (b.x == lo)) << (4 * v + 0);
-    mask |= static_cast<unsigned>((a.y == hi) & (b.y == lo)) << (4 * v + 1);
-    mask |= static_cast<unsigned>((a.z == hi) & (b.z == lo)) << (4 * v + 2);
-    mask |= static_cast<unsigned>((a.w == hi) & (b.w == lo)) << (4 * v + 3);
-  }
-  return mask;
+  return lanes_equal(row, hi) & lanes_equal(row + kKeysPerBucket, lo);
 }
 
 // Stage one row's bases [w0, w0 + kTile + k - 1) in shared memory, so the
@@ -87,6 +87,14 @@ __device__ __forceinline__ void load_tile(uint8_t* tile, const uint8_t* src,
   const int span = min(kTile + k - 1, L - w0);
   for (int i = threadIdx.x; i < span; i += blockDim.x) tile[i] = src[w0 + i];
   __syncthreads();
+}
+
+// Index b of a read boundary into a prefix of q + 1 entries, as a JAX gather
+// reads it: a negative b counts from the end (b + q + 1), then the index is
+// clamped to [0, q].
+__device__ __forceinline__ int gather_index(int b, int q) {
+  if (b < 0) b += q + 1;
+  return min(max(b, 0), q);
 }
 
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }

@@ -126,60 +126,179 @@ __global__ void count_step_kernel(uint32_t* __restrict__ counts,
 //   (strainer2_tpu/pipeline/engine.py:353-364): extract, probe, then each
 //   read's (total, informative) hits as differences of a global prefix sum
 //   at the read boundaries.
-// Bound on this card: the probe's random DRAM access, as in K2.
-// Design: reads are contiguous spans [b[r], b[r+1]) of the flat
-//   (rows x width) window axis, so one warp owns one read: its lanes stride
-//   over the span, probe, and a shuffle reduction gives both sums. No
-//   prefix-sum array and no second pass. Boundaries are clamped to
-//   [0, n_windows] like the JAX gather; a span with b[r+1] < b[r] gives the
-//   negated sum, as the prefix difference does.
+// Bound on this card: the probe's random DRAM access. A probe must read
+//   the 16 key_hi lanes of its row (64 bytes); only where one of them
+//   equals the query does it need the 16 key_lo lanes (64 more) and, on a
+//   hit, one meta lane. Real reads are ~1% strain, so nearly every probe
+//   stops at 64 bytes.
+// Design: the JAX formulation, in three launches.
+//   1. classify_masks: K3's shape, a block per 256-window tile of one row,
+//      the bases in shared memory, one thread per window making one
+//      independent probe, hi lanes first; hit and informative become bits
+//      by __ballot_sync, 8 words a tile (tiles padded to whole words), and
+//      each tile's two counts come from __syncthreads_count.
+//   2. classify_scan: one block turns the tile counts (4,096 per 256 x 4096
+//      batch) into exclusive prefixes, plus the totals.
+//   3. classify_sums: a thread per read; the prefix at window x (row r,
+//      column c) is the tile prefix of tile (r, c / 256) plus the popcounts
+//      of its mask words below c (one 32-byte sector), and a read's sums
+//      are P(b[r+1]) - P(b[r]). Boundaries are read as the JAX gather reads
+//      them (gather_index), so clamped and reversed spans come out as
+//      there, by construction.
 // ---------------------------------------------------------------------------
-__global__ void classify_step_kernel(const uint32_t* __restrict__ rows,
-                                     int row_width, int h_bits, uint32_t salt,
-                                     const uint8_t* __restrict__ bases,
-                                     int n_rows, int L, int k,
+constexpr int kTileWords = kTile / 32;  // mask words a tile
+
+__global__ void classify_masks_kernel(const uint32_t* __restrict__ rows,
+                                      int row_width, int h_bits, uint32_t salt,
+                                      const uint8_t* __restrict__ bases, int L,
+                                      int k, uint32_t* __restrict__ hit_mask,
+                                      uint32_t* __restrict__ inf_mask,
+                                      int32_t* __restrict__ tile_hits,
+                                      int32_t* __restrict__ tile_infs) {
+  __shared__ uint8_t tile[kTile + kMaxK];
+  const int W = L - k + 1;
+  const int row = blockIdx.y;
+  const int w0 = blockIdx.x * kTile;
+  load_tile(tile, bases + static_cast<size_t>(row) * L, w0, L, k);
+  const int w = w0 + threadIdx.x;
+  bool hit = false, informative = false;
+  uint32_t h, l;
+  if (w < W && canonical_window(tile + threadIdx.x, k, min(k, 16), &h, &l)) {
+    const uint32_t* r = rows + static_cast<size_t>(bucket_of(h, l, h_bits, salt)) * row_width;
+    unsigned m = lanes_equal(r, h);                // key_hi lanes
+    if (m) m &= lanes_equal(r + kKeysPerBucket, l);  // key_lo lanes, only then
+    if (m) {
+      hit = true;
+      informative = __ldg(r + kMetaLane + __ffs(m) - 1) == kInformative;
+    }
+  }
+  const unsigned hm = __ballot_sync(0xffffffffu, hit);
+  const unsigned im = __ballot_sync(0xffffffffu, informative);
+  const size_t t = static_cast<size_t>(row) * gridDim.x + blockIdx.x;
+  if ((threadIdx.x & 31) == 0) {
+    hit_mask[t * kTileWords + (threadIdx.x >> 5)] = hm;
+    inf_mask[t * kTileWords + (threadIdx.x >> 5)] = im;
+  }
+  const int n_hit = __syncthreads_count(hit);
+  const int n_inf = __syncthreads_count(informative);
+  if (threadIdx.x == 0) {
+    tile_hits[t] = n_hit;
+    tile_infs[t] = n_inf;
+  }
+}
+
+constexpr int kScanThreads = 1024;
+constexpr int kScanItems = 4;  // tiles per thread and pass: one pass per 256 x 4096 batch
+
+// Exclusive prefixes of the n tile counts, and the totals at [n]; one
+// block, a pass per kScanThreads * kScanItems tiles.
+__global__ void __launch_bounds__(kScanThreads)
+classify_scan_kernel(const int32_t* __restrict__ c_hit, const int32_t* __restrict__ c_inf,
+                     int n, int32_t* __restrict__ p_hit, int32_t* __restrict__ p_inf) {
+  __shared__ int2 warp_sums[kScanThreads / 32];
+  __shared__ int2 carry;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) carry = make_int2(0, 0);
+  __syncthreads();
+  for (int base = 0; base < n; base += kScanThreads * kScanItems) {
+    const int i0 = base + threadIdx.x * kScanItems;
+    int ch[kScanItems], ci[kScanItems];
+    int sh = 0, si = 0;
+#pragma unroll
+    for (int t = 0; t < kScanItems; ++t) {
+      const int i = i0 + t;
+      ch[t] = i < n ? c_hit[i] : 0;
+      ci[t] = i < n ? c_inf[i] : 0;
+      sh += ch[t];
+      si += ci[t];
+    }
+    int xh = sh, xi = si;  // inclusive scan over the warp
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int yh = __shfl_up_sync(0xffffffffu, xh, off);
+      const int yi = __shfl_up_sync(0xffffffffu, xi, off);
+      if (lane >= off) {
+        xh += yh;
+        xi += yi;
+      }
+    }
+    if (lane == 31) warp_sums[warp] = make_int2(xh, xi);
+    __syncthreads();
+    if (warp == 0) {  // exclusive scan of the warp totals
+      const int2 v = warp_sums[lane];
+      int zh = v.x, zi = v.y;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int yh = __shfl_up_sync(0xffffffffu, zh, off);
+        const int yi = __shfl_up_sync(0xffffffffu, zi, off);
+        if (lane >= off) {
+          zh += yh;
+          zi += yi;
+        }
+      }
+      warp_sums[lane] = make_int2(zh - v.x, zi - v.y);
+    }
+    __syncthreads();
+    int eh = carry.x + warp_sums[warp].x + xh - sh;
+    int ei = carry.y + warp_sums[warp].y + xi - si;
+#pragma unroll
+    for (int t = 0; t < kScanItems; ++t) {
+      const int i = i0 + t;
+      if (i < n) {
+        p_hit[i] = eh;
+        p_inf[i] = ei;
+      }
+      eh += ch[t];
+      ei += ci[t];
+    }
+    __syncthreads();  // every thread has read carry and warp_sums
+    if (threadIdx.x == kScanThreads - 1) carry = make_int2(eh, ei);
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    p_hit[n] = carry.x;
+    p_inf[n] = carry.y;
+  }
+}
+
+// Hits before flat window x (row-major, W windows a row, tpr tiles a row).
+__device__ __forceinline__ int prefix_at(const int32_t* __restrict__ p,
+                                         const uint32_t* __restrict__ mask,
+                                         int x, int W, int tpr) {
+  const int r = x / W;
+  const int c = x - r * W;
+  const int t = r * tpr + (c >> 8);
+  const int within = c & (kTile - 1);
+  int v = __ldg(p + t);
+  if (within) {
+    const uint4* m4 = reinterpret_cast<const uint4*>(mask + static_cast<size_t>(t) * kTileWords);
+    const uint4 a = __ldg(m4), b = __ldg(m4 + 1);
+    const uint32_t m[kTileWords] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    const int word = within >> 5;
+    const uint32_t below = (1u << (within & 31)) - 1u;
+#pragma unroll
+    for (int j = 0; j < kTileWords; ++j)
+      v += j < word ? __popc(m[j]) : j == word ? __popc(m[j] & below) : 0;
+  }
+  return v;
+}
+
+__global__ void classify_sums_kernel(const int32_t* __restrict__ p_hit,
+                                     const int32_t* __restrict__ p_inf,
+                                     const uint32_t* __restrict__ hit_mask,
+                                     const uint32_t* __restrict__ inf_mask,
+                                     int n_rows, int W, int tpr,
                                      const int32_t* __restrict__ bounds,
                                      int max_reads, int32_t* __restrict__ tot,
                                      int32_t* __restrict__ inf) {
-  const int read = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (read >= max_reads) return;  // uniform across the warp
-  const int W = L - k + 1;
-  const int n_windows = n_rows * W;
-  int s = min(max(bounds[read], 0), n_windows);
-  int e = min(max(bounds[read + 1], 0), n_windows);
-  int sign = 1;
-  if (e < s) {
-    const int t = s;
-    s = e;
-    e = t;
-    sign = -1;
-  }
-  const int n_lo = min(k, 16);
-  int n_tot = 0, n_inf = 0;
-  for (int f = s + lane; f < e; f += 32) {
-    const int r = f / W;
-    const int c = f - r * W;
-    uint32_t h, l;
-    if (!canonical_window(bases + static_cast<size_t>(r) * L + c, k, n_lo, &h, &l))
-      continue;
-    const uint32_t b = bucket_of(h, l, h_bits, salt);
-    const uint32_t* row = rows + static_cast<size_t>(b) * row_width;
-    const unsigned m = match_mask(row, h, l);
-    if (m) {
-      ++n_tot;
-      n_inf += __ldg(row + kMetaLane + __ffs(m) - 1) == kInformative;
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    n_tot += __shfl_down_sync(0xffffffffu, n_tot, off);
-    n_inf += __shfl_down_sync(0xffffffffu, n_inf, off);
-  }
-  if (lane == 0) {
-    tot[read] = sign * n_tot;
-    inf[read] = sign * n_inf;
-  }
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= max_reads) return;
+  const int q = n_rows * W;
+  const int a = gather_index(bounds[r], q);
+  const int e = gather_index(bounds[r + 1], q);
+  tot[r] = prefix_at(p_hit, hit_mask, e, W, tpr) - prefix_at(p_hit, hit_mask, a, W, tpr);
+  inf[r] = prefix_at(p_inf, inf_mask, e, W, tpr) - prefix_at(p_inf, inf_mask, a, W, tpr);
 }
 
 }  // namespace
@@ -222,18 +341,34 @@ int s2t_count_step(void* counts, const void* rows, int row_width, int h_bits,
   return launch_status();
 }
 
+// masks: 2 x n_tiles x 8 uint32 scratch (hit, then informative), 32-byte
+// aligned; counts: 2 x n_tiles + 2 x (n_tiles + 1) int32 scratch (tile
+// counts, then their prefixes); n_tiles = n_rows x ceil(W / 256).
 int s2t_classify_step(const void* rows, int row_width, int h_bits,
                       uint32_t salt, const void* bases, int n_rows, int L,
-                      int k, const void* bounds, int max_reads, void* tot,
-                      void* inf, void* stream) {
-  const int threads = 256;  // 8 reads per block
-  const int reads_per_block = threads / 32;
-  const int blocks = (max_reads + reads_per_block - 1) / reads_per_block;
-  classify_step_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(rows), row_width, h_bits, salt,
-      static_cast<const uint8_t*>(bases), n_rows, L, k,
-      static_cast<const int32_t*>(bounds), max_reads,
-      static_cast<int32_t*>(tot), static_cast<int32_t*>(inf));
+                      int k, const void* bounds, int max_reads, void* masks,
+                      void* counts, void* tot, void* inf, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int W = L - k + 1;
+  const int tpr = (W + kTile - 1) / kTile;
+  const int n = n_rows * tpr;
+  uint32_t* hit_mask = static_cast<uint32_t*>(masks);
+  uint32_t* inf_mask = hit_mask + static_cast<size_t>(n) * kTileWords;
+  int32_t* c_hit = static_cast<int32_t*>(counts);
+  int32_t* c_inf = c_hit + n;
+  int32_t* p_hit = c_inf + n;
+  int32_t* p_inf = p_hit + n + 1;
+  if (n_rows) {
+    classify_masks_kernel<<<dim3(tpr, n_rows), kTile, 0, st>>>(
+        static_cast<const uint32_t*>(rows), row_width, h_bits, salt,
+        static_cast<const uint8_t*>(bases), L, k, hit_mask, inf_mask, c_hit, c_inf);
+  }
+  classify_scan_kernel<<<1, kScanThreads, 0, st>>>(c_hit, c_inf, n, p_hit, p_inf);
+  const int threads = 256;
+  classify_sums_kernel<<<(max_reads + threads - 1) / threads, threads, 0, st>>>(
+      p_hit, p_inf, hit_mask, inf_mask, n_rows, W, tpr,
+      static_cast<const int32_t*>(bounds), max_reads, static_cast<int32_t*>(tot),
+      static_cast<int32_t*>(inf));
   return launch_status();
 }
 

@@ -174,43 +174,160 @@ __global__ void multi_hit_words_kernel(const uint32_t* __restrict__ rows,
 //   (strainer2_tpu/ops/segsum.py:126, :62): per read r and strain s, tot =
 //   windows of [b[r], b[r+1]) with bit 2s of word s/16 set, inf = with bit
 //   2s+1 set.
-// Bound on this card: integer issue over the words a read spans (each word
-//   is read by the 32 (strain, bit) threads of a warp at once: one
-//   broadcast load, served from L1 after the first).
-// Design: one thread per (read, strain, bit) looping over the read's span;
-//   exact int32 counts, so no SWAR counters and no two-level prefix (those
-//   vectorise a TPU's lanes). Boundaries are clamped to [0, Q]; a span with
-//   b[r+1] < b[r] gives the negated count, as a prefix difference does.
+// Bound on this card: device-memory bytes: the (Q, N) words read once
+//   (8.3 MB per 256 x 4096 batch at S = 32, 66.6 MB at S = 256) and the two
+//   (R, S) count matrices written (8.4 MB at S = 32, 67 MB at S = 256).
+// Design: a warp per read (more reads a warp leave the ~7k real reads of a
+//   batch to too few warps), a block per kSumWarps consecutive reads. A
+//   read's windows
+//   are a contiguous run of the window-major words, so its N words a window
+//   are one contiguous run of N x (b[r+1] - b[r]) words, and the block's
+//   reads one run of all theirs. The block stages that run in shared
+//   memory with cp.async 16-byte copies. A warp then walks its read's run
+//   (32 / N) windows at a time, lane i holding word i % N of window i / N
+//   (lanes past (32 / N) N idle), and adds each lane's word into 8
+//   bit-sliced vertical counters (a carry-save add, 3 instructions a
+//   plane): the warp spends O(1) instructions per (window, word), and no
+//   shuffle. At the end of the read (or every 255 steps) a 32 x 32 bit
+//   transpose of each counter plane in registers (five __shfl_xor_sync
+//   rounds) gives lane b bit b of every lane's plane, and the popcount of
+//   that under the mask of the lanes holding word j is the plane's share
+//   of the count of bit b of word j: strain 16 j + b / 2, tot for even b,
+//   inf for odd b. So the stores of lane b are coalesced. Empty spans (the
+//   padding reads) store zeros. Spans the stage cannot hold (long, or a
+//   block's reads far apart, as reversed or clamped boundaries make them)
+//   run the same warp code on loads from global memory. Boundaries are
+//   read as the JAX gather reads them (gather_index); a span with
+//   b[r+1] < b[r] gives the negated counts, as a prefix difference does.
 // ---------------------------------------------------------------------------
-__global__ void strain_sums_kernel(const uint32_t* __restrict__ words,
-                                   int n_windows, int n_words,
-                                   const int32_t* __restrict__ bounds,
-                                   int n_reads, int n_strains,
-                                   int32_t* __restrict__ tot,
-                                   int32_t* __restrict__ inf) {
-  const int lanes = 2 * n_strains;
-  const int64_t g = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (g >= static_cast<int64_t>(n_reads) * lanes) return;
-  const int r = static_cast<int>(g / lanes);
-  const int u = static_cast<int>(g - static_cast<int64_t>(r) * lanes);
-  const int s = u >> 1;
-  const int bit = u & 1;
-  const int j = s >> 4;
-  const int shift = 2 * (s & 15) + bit;
-  int a = min(max(bounds[r], 0), n_windows);
-  int e = min(max(bounds[r + 1], 0), n_windows);
-  int sign = 1;
-  if (e < a) {
-    const int t = a;
-    a = e;
-    e = t;
-    sign = -1;
+constexpr int kSumWarps = 4;        // warps per block
+constexpr int kStageWindows = 184;  // staged windows per read (150 bp reads span 151)
+constexpr int kPlanes = 8;          // vertical counter bits: 255 steps between folds
+
+// Lanes that hold word j of a window (lane i holds word i % N).
+template <int N>
+__device__ __forceinline__ uint32_t lanes_of_word(int j) {
+  uint32_t m = 0;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) m |= static_cast<uint32_t>(i % N == j) << i;
+  return m;
+}
+
+// Lane b gets the word whose bit i is bit b of lane i's x.
+__device__ __forceinline__ uint32_t transpose32(uint32_t x, int lane) {
+  uint32_t m = 0x0000FFFFu;
+#pragma unroll
+  for (int j = 16; j; j >>= 1, m ^= m << j) {
+    const uint32_t y = __shfl_xor_sync(0xffffffffu, x, j);
+    x = (lane & j) ? ((x & ~m) | ((y & ~m) >> j)) : ((x & m) | ((y & m) << j));
   }
-  const uint32_t* src = words + j;
-  int n = 0;
-  for (int q = a; q < e; ++q)
-    n += (__ldg(src + static_cast<size_t>(q) * n_words) >> shift) & 1u;
-  (bit ? inf : tot)[static_cast<size_t>(r) * n_strains + s] = sign * n;
+  return x;
+}
+
+// Per-bit counts of the words of one read's run src[0, len): lane b adds the
+// count of bit b of word j into cnt[j].
+template <int N>
+__device__ __forceinline__ void count_bits(const uint32_t* src, int len, int lane, int* cnt) {
+  constexpr int kStep = (32 / N) * N;  // words a step
+  const int steps = (len + kStep - 1) / kStep;
+  for (int g0 = 0; g0 < steps; g0 += (1 << kPlanes) - 1) {
+    const int g1 = min(steps, g0 + (1 << kPlanes) - 1);
+    uint32_t v[kPlanes];
+#pragma unroll
+    for (int p = 0; p < kPlanes; ++p) v[p] = 0;
+#pragma unroll 4
+    for (int g = g0; g < g1; ++g) {
+      const int i = g * kStep + lane;
+      uint32_t x = lane < kStep && i < len ? src[i] : 0u;
+#pragma unroll
+      for (int p = 0; p < kPlanes; ++p) {  // v += x, bit-sliced
+        const uint32_t c = v[p] & x;
+        v[p] ^= x;
+        x = c;
+      }
+    }
+    const int planes = 32 - __clz(g1 - g0);  // bits of the largest count
+#pragma unroll
+    for (int p = 0; p < kPlanes; ++p) {
+      if (p < planes) {
+        const uint32_t t = transpose32(v[p], lane);
+#pragma unroll
+        for (int j = 0; j < N; ++j) cnt[j] += __popc(t & lanes_of_word<N>(j)) << p;
+      }
+    }
+  }
+}
+
+template <int N>
+__global__ void __launch_bounds__(kSumWarps * 32)
+strain_sums_kernel(const uint32_t* __restrict__ words, int q,
+                   const int32_t* __restrict__ bounds, int n_reads,
+                   int n_strains, int32_t* __restrict__ tot,
+                   int32_t* __restrict__ inf) {
+  constexpr long long kCap = static_cast<long long>(kSumWarps) * kStageWindows * N;
+  extern __shared__ uint4 stage4[];  // kCap words
+  uint32_t* stage = reinterpret_cast<uint32_t*>(stage4);
+  __shared__ int lo, hi;
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kSumWarps + (threadIdx.x >> 5);
+  int a = 0, e = 0, sign = 1;
+  if (r < n_reads) {
+    a = gather_index(bounds[r], q);
+    e = gather_index(bounds[r + 1], q);
+    if (e < a) {
+      const int t = a;
+      a = e;
+      e = t;
+      sign = -1;
+    }
+  }
+  if (threadIdx.x == 0) {
+    lo = q;
+    hi = 0;
+  }
+  __syncthreads();
+  if (lane == 0 && a < e) {
+    atomicMin(&lo, a);
+    atomicMax(&hi, e);
+  }
+  __syncthreads();
+  // the block's run [base, end) of words, base rounded down to 16 bytes
+  const long long base = (static_cast<long long>(lo) * N) & ~3LL;
+  const long long end = static_cast<long long>(hi) * N;
+  const bool staged = lo < hi && end - base <= kCap;
+  if (staged) {
+    const int n16 = static_cast<int>((end - base) >> 2);
+    for (int i = threadIdx.x; i < n16; i += blockDim.x)
+      cp_async16(stage4 + i, words + base + 4 * static_cast<long long>(i));
+    cp_async_commit();
+    for (long long i = base + 4LL * n16 + threadIdx.x; i < end; i += blockDim.x)
+      stage[i - base] = words[i];  // the last < 4 words
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  if (r >= n_reads) return;  // uniform across the warp
+  const long long first = static_cast<long long>(a) * N;
+  int cnt[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) cnt[j] = 0;
+  count_bits<N>(staged ? stage + (first - base) : words + first, (e - a) * N, lane, cnt);
+  int32_t* out = ((lane & 1) ? inf : tot) + static_cast<size_t>(r) * n_strains;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int s = 16 * j + (lane >> 1);
+    if (s < n_strains) out[s] = sign * cnt[j];
+  }
+}
+
+template <int N>
+int launch_strain_sums(const void* words, int q, const void* bounds, int n_reads,
+                       int n_strains, void* tot, void* inf, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(kSumWarps) * kStageWindows * N * sizeof(uint32_t);
+  const int blocks = (n_reads + kSumWarps - 1) / kSumWarps;
+  strain_sums_kernel<N><<<blocks, kSumWarps * 32, smem, stream>>>(
+      static_cast<const uint32_t*>(words), q, static_cast<const int32_t*>(bounds),
+      n_reads, n_strains, static_cast<int32_t*>(tot), static_cast<int32_t*>(inf));
+  return launch_status();
 }
 
 }  // namespace
@@ -255,15 +372,31 @@ int s2t_multi_hit_words(const void* rows, int row_width, int h_bits,
 int s2t_strain_sums(const void* words, int n_windows, int n_words,
                     const void* bounds, int n_reads, int n_strains, void* tot,
                     void* inf, void* stream) {
-  const int threads = 256;
-  const long long total = static_cast<long long>(n_reads) * 2 * n_strains;
-  const long long blocks = (total + threads - 1) / threads;
-  strain_sums_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), n_windows, n_words,
-      static_cast<const int32_t*>(bounds), n_reads, n_strains,
-      static_cast<int32_t*>(tot), static_cast<int32_t*>(inf));
-  return launch_status();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (n_words) {
+#define S2T_SUMS_CASE(N) \
+  case N:                \
+    return launch_strain_sums<N>(words, n_windows, bounds, n_reads, n_strains, tot, inf, st);
+    S2T_SUMS_CASE(1)
+    S2T_SUMS_CASE(2)
+    S2T_SUMS_CASE(3)
+    S2T_SUMS_CASE(4)
+    S2T_SUMS_CASE(5)
+    S2T_SUMS_CASE(6)
+    S2T_SUMS_CASE(7)
+    S2T_SUMS_CASE(8)
+    S2T_SUMS_CASE(9)
+    S2T_SUMS_CASE(10)
+    S2T_SUMS_CASE(11)
+    S2T_SUMS_CASE(12)
+    S2T_SUMS_CASE(13)
+    S2T_SUMS_CASE(14)
+    S2T_SUMS_CASE(15)
+    S2T_SUMS_CASE(16)
+#undef S2T_SUMS_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

@@ -21,7 +21,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from strainer2_tpu.constants import DEFAULT_K
+from strainer2_tpu_torch.constants import DEFAULT_K
 from strainer2_tpu_torch.index.bucket import BucketTable, build_bucket_table
 from strainer2_tpu_torch.io.batches import DEFAULT_ROW_LEN, DEFAULT_ROWS
 

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from strainer2_tpu.constants import REFERENCE_HASH_INITIAL_CAPACITY
+from strainer2_tpu_torch.constants import REFERENCE_HASH_INITIAL_CAPACITY
 
 __all__ = ["djb2_codes", "reference_row_order", "reference_initial_capacity"]
 

@@ -33,7 +33,7 @@ from typing import Iterable, Iterator
 
 import numpy as np
 
-from strainer2_tpu.constants import INVALID_BASE
+from strainer2_tpu_torch.constants import INVALID_BASE
 from strainer2_tpu_torch.ops.packing_np import encode_ascii_np
 
 __all__ = ["PackedBatch", "pack_stream", "read_codes_from_batch", "batch_read_grouping", "DEFAULT_ROWS", "DEFAULT_ROW_LEN"]

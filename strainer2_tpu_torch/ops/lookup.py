@@ -15,7 +15,10 @@ slot = bucket * 16 and meta = 0, as the jnp ``bucket_lookup`` returns.
   ops/segsum.py).
 - ``count_step``      (K3): extract -> probe -> counts[slot] += 1, in place.
 - ``classify_step``   (K4): extract -> probe -> per-read (total,
-  informative) hit counts over contiguous window spans.
+  informative) hit counts over contiguous window spans, as differences of
+  hit prefixes at the read boundaries.
+- ``gather_index``: a read boundary as an index into a prefix of
+  n_windows + 1 entries, as the JAX gather reads it.
 - ``passing_any``: the two-threshold pass rule per read or pair; plain
   torch on either device (elementwise over a few thousand values).
 
@@ -27,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from strainer2_tpu.constants import INFORMATIVE_KMER, MAX_K
+from strainer2_tpu_torch.constants import INFORMATIVE_KMER, MAX_K
 from strainer2_tpu_torch.index.hashing import cuckoo_slots_torch
 from strainer2_tpu_torch.ops import _build
 from strainer2_tpu_torch.ops.packing import canonical_windows_plain
@@ -41,6 +44,7 @@ __all__ = [
     "count_step_plain",
     "classify_step",
     "classify_step_plain",
+    "gather_index",
     "passing_any",
 ]
 
@@ -121,10 +125,18 @@ def count_step_plain(counts, rows, bases, h_bits: int, salt: int, k: int):
     return counts
 
 
+def gather_index(boundaries: torch.Tensor, n_windows: int) -> torch.Tensor:
+    """int64 indices into a prefix of n_windows + 1 entries, read as a JAX
+    gather reads them: a negative boundary counts from the end, then the
+    index is clamped to [0, n_windows]."""
+    b = boundaries.to(torch.int64)
+    return torch.where(b < 0, b + n_windows + 1, b).clamp(0, n_windows)
+
+
 def classify_step_plain(rows, bases, boundaries, h_bits: int, salt: int, k: int):
     """Per-read (total, informative) int32 hits, shape (len(boundaries) - 1,):
     differences of one prefix sum at ``boundaries``, as the JAX program
-    computes them (indices clamped to [0, n_windows] like its gather)."""
+    computes them (indices read as its gather reads them)."""
     idx, found, _, (meta,), n_windows = valid_hits_plain(rows, bases, h_bits, salt, k)
     hit = torch.zeros(n_windows, dtype=torch.int32, device=bases.device)
     inf = torch.zeros_like(hit)
@@ -133,7 +145,7 @@ def classify_step_plain(rows, bases, boundaries, h_bits: int, salt: int, k: int)
     zero = torch.zeros(1, dtype=torch.int32, device=bases.device)
     cum_hit = torch.cat([zero, torch.cumsum(hit, 0, dtype=torch.int32)])
     cum_inf = torch.cat([zero, torch.cumsum(inf, 0, dtype=torch.int32)])
-    b = boundaries.to(torch.int64).clamp(0, n_windows)
+    b = gather_index(boundaries, n_windows)
     b0, b1 = b[:-1], b[1:]
     return cum_hit[b1] - cum_hit[b0], cum_inf[b1] - cum_inf[b0]
 
@@ -273,7 +285,10 @@ def classify_step(rows, bases, boundaries, h_bits: int, salt: int, k: int):
 
     boundaries (max_reads + 1,) int32: each read's first flat window index
     (row * width + col), padded with the batch's window count.
-    Returns (total, informative) int32, shape (max_reads,)."""
+    Returns (total, informative) int32, shape (max_reads,).  The kernel
+    runs in three launches (probe to hit masks and tile counts, prefix
+    scan, per-read differences) over scratch of 16 mask words and 4 counts
+    a 256-window tile."""
     if not _on_cuda("classify_step", rows, bases, boundaries):
         return classify_step_plain(rows, bases, boundaries, h_bits, salt, k)
     _check_rows(rows, h_bits)
@@ -283,12 +298,18 @@ def classify_step(rows, bases, boundaries, h_bits: int, salt: int, k: int):
     if boundaries.shape[0] < 1:
         raise ValueError("boundaries must hold max_reads + 1 entries")
     max_reads = boundaries.shape[0] - 1
+    n_rows, length = bases.shape
+    if n_rows * (length - k + 1) >= 2**31:
+        raise ValueError(f"{n_rows} x {length - k + 1} windows do not fit int32 offsets")
+    n_tiles = n_rows * (-(-(length - k + 1) // 256))
     tot = torch.empty(max_reads, dtype=torch.int32, device=bases.device)
     inf = torch.empty_like(tot)
     if max_reads:
+        masks = torch.empty(2 * 8 * n_tiles, dtype=torch.int32, device=bases.device)
+        counts = torch.empty(4 * n_tiles + 2, dtype=torch.int32, device=bases.device)
         _build.call(
             "classify_step", bases.device, rows.data_ptr(), rows.shape[1], h_bits,
-            salt, bases.data_ptr(), bases.shape[0], bases.shape[1], k,
-            boundaries.data_ptr(), max_reads, tot.data_ptr(), inf.data_ptr(),
+            salt, bases.data_ptr(), n_rows, length, k, boundaries.data_ptr(), max_reads,
+            masks.data_ptr(), counts.data_ptr(), tot.data_ptr(), inf.data_ptr(),
         )
     return tot, inf

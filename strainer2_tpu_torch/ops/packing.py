@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from strainer2_tpu.constants import INVALID_BASE, MAX_K
+from strainer2_tpu_torch.constants import INVALID_BASE, MAX_K
 from strainer2_tpu_torch.ops import _build
 
 __all__ = ["canonical_windows", "canonical_windows_plain"]

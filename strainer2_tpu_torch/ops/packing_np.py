@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from strainer2_tpu.constants import INVALID_BASE
+from strainer2_tpu_torch.constants import INVALID_BASE
 
 __all__ = [
     "encode_ascii_np",

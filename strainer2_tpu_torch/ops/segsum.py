@@ -32,6 +32,7 @@ from strainer2_tpu_torch.ops.lookup import (
     _check_bases,
     _check_rows,
     _on_cuda,
+    gather_index,
     valid_hits_plain,
 )
 
@@ -64,13 +65,13 @@ def multi_hit_words_plain(rows, bases, h_bits: int, salt: int, k: int, n_words: 
 
 def boundary_strain_sums_plain(words, boundaries, n_strains: int):
     """(tot, inf), each (R, S) int32: differences of per-strain prefix sums
-    at the boundaries (clamped to [0, Q], as K7 clamps them).  The bit
+    at the boundaries (read as a JAX gather reads them, as K7 does).  The bit
     planes are (strains, Q), so each prefix sum runs along the contiguous
     last axis (a cumsum down the first axis of a (Q, 16) plane is a serial
     scan per column on CUDA)."""
     q, n_words = words.shape
     w64 = words.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    b = boundaries.to(torch.int64).clamp(0, q)
+    b = gather_index(boundaries, q)
     b0, b1 = b[:-1], b[1:]
     n_reads = b0.shape[0]
     tot = torch.zeros((n_reads, n_strains), dtype=torch.int32, device=words.device)
@@ -117,7 +118,8 @@ def boundary_strain_sums(words, boundaries, n_strains: int):
 
     words (Q, W) uint32 from ``multi_hit_words``; boundaries (R + 1,) int32
     ascending window offsets in [0, Q] (duplicates = empty reads, padding =
-    Q).  Returns (tot, inf), each (R, n_strains) int32."""
+    Q).  Returns (tot, inf), each (R, n_strains) int32.  The kernel takes
+    W <= 16 words a window (256 strains, MAX_STRAINS_PER_PASS)."""
     if words.dtype != torch.uint32 or words.dim() != 2 or not words.is_contiguous():
         raise ValueError("words must be a contiguous (Q, n_words) uint32 tensor")
     if not 1 <= n_strains <= KEYS_PER_BUCKET * words.shape[1]:
@@ -126,8 +128,12 @@ def boundary_strain_sums(words, boundaries, n_strains: int):
         raise ValueError("boundaries must be a 1-D int32 tensor of R + 1 offsets")
     if not _on_cuda("boundary_strain_sums", words, boundaries):
         return boundary_strain_sums_plain(words, boundaries, n_strains)
-    if words.shape[0] >= 2**31:
-        raise ValueError(f"{words.shape[0]} windows do not fit int32 offsets")
+    if words.shape[1] > KEYS_PER_BUCKET:
+        raise ValueError(f"{words.shape[1]} words a window > {KEYS_PER_BUCKET}: the kernel sums at most 256 strains")
+    if words.numel() >= 2**31:
+        raise ValueError(f"{words.numel()} words do not fit int32 offsets")
+    if words.data_ptr() % 16:
+        raise ValueError("words must be 16-byte aligned")
     b = boundaries.contiguous()
     n_reads = b.shape[0] - 1
     tot = torch.empty((n_reads, n_strains), dtype=torch.int32, device=words.device)

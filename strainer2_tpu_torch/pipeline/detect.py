@@ -27,7 +27,8 @@ from typing import IO, Iterator
 import numpy as np
 import torch
 
-from strainer2_tpu.constants import (
+from strainer2_tpu_torch import native
+from strainer2_tpu_torch.constants import (
     BACKGROUND_FRACTION_TO_REMOVE,
     DEFAULT_K,
     INFORMATIVE_KMER,
@@ -36,9 +37,6 @@ from strainer2_tpu.constants import (
     NON_INFORMATIVE_KMER,
     NOT_PAIRED_END,
 )
-from strainer2_tpu.utils.observability import stage
-from strainer2_tpu.utils.prefetch import prefetch
-from strainer2_tpu_torch import native
 from strainer2_tpu_torch.index.build import StrainIndex
 from strainer2_tpu_torch.io.batches import (
     batch_read_grouping,
@@ -56,6 +54,8 @@ from strainer2_tpu_torch.ops.packing_np import (
 )
 from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
 from strainer2_tpu_torch.pipeline.scrub_count import count_panel_file, read_list_file
+from strainer2_tpu_torch.utils.observability import stage
+from strainer2_tpu_torch.utils.prefetch import prefetch
 
 __all__ = [
     "DetectConfig",

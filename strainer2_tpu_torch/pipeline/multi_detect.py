@@ -29,10 +29,8 @@ from typing import IO
 import numpy as np
 import torch
 
-from strainer2_tpu.constants import INFORMATIVE_KMER, IS_PAIRED_END_INTERLEAVE, NOT_PAIRED_END
-from strainer2_tpu.utils.observability import stage
-from strainer2_tpu.utils.prefetch import prefetch
 from strainer2_tpu_torch import native
+from strainer2_tpu_torch.constants import INFORMATIVE_KMER, IS_PAIRED_END_INTERLEAVE, NOT_PAIRED_END
 from strainer2_tpu_torch.index.bucket import build_bucket_table
 from strainer2_tpu_torch.io.batches import (
     batch_read_grouping,
@@ -53,6 +51,8 @@ from strainer2_tpu_torch.pipeline.detect import (
 )
 from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine, resolve_device
 from strainer2_tpu_torch.pipeline.scrub_count import count_panel_file, read_list_file
+from strainer2_tpu_torch.utils.observability import stage
+from strainer2_tpu_torch.utils.prefetch import prefetch
 
 __all__ = [
     "MultiStrainDetector",
@@ -492,7 +492,6 @@ class MultiStrainDetector:
         k = cfg.k
         paired = ftype != NOT_PAIRED_END
         t = self.table
-        n_windows = cfg.rows * (cfg.row_len - k + 1)
         n_strains = len(self.states)
         total_kmers_evaluated = 0
         total_reads_evaluated = 0
@@ -517,8 +516,13 @@ class MultiStrainDetector:
             except OSError as e:
                 _exit_unreadable_sample(e, f1, f2)
             n = batch.n_reads
-            boundaries = np.full(self.max_reads + 1, n_windows, dtype=np.int32)
+            # the padding reads are empty spans at the last read's end (its
+            # windows are the flat run [start, start + len - k + 1)), not at
+            # the window count: the sums are the same, since the windows
+            # after it are padding with zero words, and K7 walks none of them
+            boundaries = np.empty(self.max_reads + 1, dtype=np.int32)
             boundaries[:n] = batch.window_starts
+            boundaries[n:] = batch.window_starts[n - 1] + max(0, int(batch.read_lengths[n - 1]) - k + 1)
             words_d = self.engine.hit_words_batch(self._rows_dev, t.h_bits, t.salt, batch.bases,
                                                   n_strains)
             tot_d, inf_d = self.engine.strain_sums(words_d, boundaries, n_strains)

@@ -22,14 +22,14 @@ from typing import IO
 
 import numpy as np
 
-from strainer2_tpu.constants import DEFAULT_K
-from strainer2_tpu.utils.observability import _items, stage
-from strainer2_tpu.utils.prefetch import prefetch
 from strainer2_tpu_torch import native
+from strainer2_tpu_torch.constants import DEFAULT_K
 from strainer2_tpu_torch.index.build import StrainIndex
 from strainer2_tpu_torch.index.refhash_order import reference_row_order
 from strainer2_tpu_torch.io.batches import DEFAULT_ROW_LEN, DEFAULT_ROWS
 from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
+from strainer2_tpu_torch.utils.observability import _items, stage
+from strainer2_tpu_torch.utils.prefetch import prefetch
 
 __all__ = [
     "ScrubCountConfig",

@@ -1,0 +1,261 @@
+"""Device-only times of the detection kernels K4 (classify_step) and K7
+(boundary_strain_sums, fed by K6) at main-path shapes, and the timer and
+bounds that chip_smoke.py uses for every kernel.
+
+    python strainer2_tpu_torch/tools/bench_kernels.py [--repo DIR] [--seed N] [--label L]
+
+--repo names the checkout whose ``strainer2_tpu_torch`` is timed (default:
+the one holding this file), so that two commits are compared in one call on
+one card: unpack the other commit with ``git archive`` into a directory that
+git ignores and run parent, change, change, parent.  Both use this file's
+timer, data and bounds.
+
+A 6.7 Mbp random genome gives the table (6.7 M keys, 64-lane rows, 5% of the
+keys informative), and two kinds of 256 x 4096 detection batch, 8 of each:
+``phase2``, 150 bp reads half from the genome with 3% N bases (~31% of the
+batch's windows valid), as chip_smoke.py phase 2 makes them; and
+``targets``, made like chip_smoke.py's phase-4 targets: 1% of the reads
+from the genome, 0.1% N bases (~77% valid: 120 of the 151 windows a read
+spans, less the few with an N).  K7 runs at
+S = 16, 32, 96 and 256 strains on K6's words over rows with seeded meta.
+
+The timer is CUDA events around replays of one CUDA graph holding 5 rounds
+of the 8 batches' launches, so it sees device time and no host launch cost;
+the time is per wrapper call.  The bound is the least time the card could
+take: the bytes the function must move (inputs read once, outputs written
+once, per probed window the row's 64 bytes of key_hi lanes and, where the
+key is found, its 64 bytes of key_lo lanes) over the H100's 3.35 TB/s.
+Prints one line per kernel, batch kind and S, then one JSON line of the
+same numbers; needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+K = 31
+ROWS, ROW_LEN = 256, 4096
+GENOME_BP = 6_700_000
+READ_LEN = 150
+N_BATCHES = 8
+ROUNDS = 5  # rounds of the N_BATCHES launches in one graph
+REPLAYS = 3
+S_SWEEP = (16, 32, 96, 256)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+KEY_HALF_BYTES = 64  # the 16 key_hi (or the 16 key_lo) lanes of one bucket row
+BATCH_KINDS = {"phase2": (0.5, 0.03), "targets": (0.01, 0.001)}  # strain-read share, N rate
+_ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+__all__ = [
+    "BATCH_KINDS", "bound_ms", "graph_ms", "detection_batches", "sample_reads",
+    "multi_rows", "probe_bytes", "k4_bytes", "k7_bytes",
+]
+
+
+# ---- timer and bounds ----------------------------------------------------------
+
+def graph_ms(fn, n_inputs: int = N_BATCHES, rounds: int = ROUNDS) -> float:
+    """Device time per call of fn(i), from CUDA events around REPLAYS
+    replays of one graph holding ``rounds`` rounds of fn(0..n_inputs-1)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch asks
+        for i in range(n_inputs):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(rounds):
+            for i in range(n_inputs):
+                fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPLAYS):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (REPLAYS * rounds * n_inputs)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def bound_ms(n_bytes: float) -> float:
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def probe_bytes(probes: float, hits: float) -> float:
+    """Key bytes a lookup must read: the 16 key_hi lanes of every probed row
+    (a miss is settled there unless a key_hi matches), the 16 key_lo lanes
+    where one does (counted as the hits)."""
+    return KEY_HALF_BYTES * (probes + hits)
+
+
+def k4_bytes(bases, bounds, valid: float, hits: float) -> float:
+    """Bases and boundaries read, a probe per valid window, a meta word per
+    hit, (total, informative) int32 written per read."""
+    reads = bounds.numel() - 1
+    return bases.numel() + 4 * bounds.numel() + probe_bytes(valid, hits) + 4 * hits + 8 * reads
+
+
+def k7_bytes(words, bounds, n_strains: int) -> int:
+    """The (Q, W) words and the boundaries read, two (R, S) int32 written."""
+    reads = bounds.numel() - 1
+    return 4 * words.numel() + 4 * bounds.numel() + 8 * reads * n_strains
+
+
+# ---- data made from the seed ---------------------------------------------------
+
+def revcomp(codes: np.ndarray) -> np.ndarray:
+    return (3 - codes)[..., ::-1]
+
+
+def sample_reads(rng, genome: np.ndarray, n: int, strain_fraction: float) -> np.ndarray:
+    """n reads of READ_LEN: a strain_fraction share sampled from ``genome``
+    (either strand), the rest random sequence."""
+    n_strain = int(n * strain_fraction)
+    starts = rng.integers(0, genome.size - READ_LEN, size=n_strain)
+    reads = rng.integers(0, 4, size=(n, READ_LEN), dtype=np.uint8)
+    pos = rng.choice(n, size=n_strain, replace=False)
+    strain = genome[starts[:, None] + np.arange(READ_LEN)]
+    flip = rng.random(n_strain) < 0.5
+    strain[flip] = revcomp(strain[flip])
+    reads[pos] = strain
+    return reads
+
+
+def detection_batches(rng, genome: np.ndarray, kind: str, dev) -> list:
+    """N_BATCHES (bases, bounds) device pairs of one kind, and their read
+    counts: the first 256 x 4096 batch of 8000 reads each, bounds padded
+    with the window count to max_reads_capacity + 1 entries."""
+    import torch
+
+    from strainer2_tpu_torch.io.batches import max_reads_capacity, pack_stream
+
+    share, n_rate = BATCH_KINDS[kind]
+    max_reads = max_reads_capacity(K, ROWS, ROW_LEN)
+    out = []
+    for _ in range(N_BATCHES):
+        reads = sample_reads(rng, genome, 8000, share)
+        reads[rng.random(reads.shape) < n_rate] = 4
+        batch = next(pack_stream(iter(reads), K, ROWS, ROW_LEN, with_read_ids=True))
+        bounds = np.full(max_reads + 1, ROWS * (ROW_LEN - K + 1), dtype=np.int32)
+        bounds[: batch.n_reads] = batch.window_starts
+        out.append((torch.from_numpy(batch.bases).to(dev), torch.from_numpy(bounds).to(dev),
+                    batch.n_reads))
+    return out
+
+
+def _table(rng, dev):
+    """Genome, its bucket table with 5% of the keys informative (64 lanes,
+    on the device), h_bits and salt."""
+    import torch
+
+    from strainer2_tpu_torch.index.bucket import build_bucket_table
+    from strainer2_tpu_torch.ops.packing_np import canonical_codes_np
+
+    genome = rng.integers(0, 4, size=GENOME_BP, dtype=np.uint8)
+    codes, valid = canonical_codes_np(genome, K)
+    table = build_bucket_table(np.unique(codes[valid]), K)
+    kinds = np.zeros(table.num_slots, dtype=np.uint32)
+    kinds[table.slot_of_key] = np.where(rng.random(table.slot_of_key.size) < 0.05, 2, 1)
+    rows = torch.from_numpy(table.with_meta(kinds)).to(dev)
+    return genome, rows, table.h_bits, table.salt, table.slot_of_key.size
+
+
+def multi_rows(rows, n_words: int, seed: int):
+    """The keys of ``rows`` widened to 32 + 16 max(2, n_words) lanes of
+    seeded random meta words, on the device."""
+    import torch
+
+    keys = rows.view(torch.int32)[:, :32]
+    width = 32 + 16 * max(2, n_words)
+    gen = torch.Generator(device=rows.device)
+    gen.manual_seed(seed)
+    out = torch.empty((keys.shape[0], width), dtype=torch.int32, device=rows.device)
+    out[:, :32] = keys
+    out[:, 32:] = torch.randint(-2**31, 2**31, (keys.shape[0], width - 32), dtype=torch.int32,
+                                device=rows.device, generator=gen)
+    return out.view(torch.uint32)
+
+
+def _card() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def bench(seed: int, label: str) -> dict:
+    import torch
+
+    from strainer2_tpu_torch.ops import lookup as L
+    from strainer2_tpu_torch.ops import segsum as G
+    from strainer2_tpu_torch.ops.packing import canonical_windows_plain
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    genome, rows, h_bits, salt, n_keys = _table(rng, dev)
+    print(f"[{label}] card: {_card()}; table {n_keys} keys, rows {tuple(rows.shape)}", flush=True)
+    batches = {kind: detection_batches(rng, genome, kind, dev) for kind in BATCH_KINDS}
+    result = {"label": label, "card": _card(), "k4": {}, "k7": {}}
+    for kind, bs in batches.items():
+        out = [L.classify_step(rows, b, bd, h_bits, salt, K) for b, bd, _ in bs]
+        valid = sum(int(canonical_windows_plain(b, K)[2].sum()) for b, _, _ in bs) // N_BATCHES
+        hits = sum(int(t[: n].sum()) for (t, _), (_, _, n) in zip(out, bs)) // N_BATCHES
+        ms = graph_ms(lambda i: L.classify_step(rows, bs[i][0], bs[i][1], h_bits, salt, K))
+        bound = bound_ms(k4_bytes(bs[0][0], bs[0][1], valid, hits))
+        result["k4"][kind] = {"ms": ms, "bound_ms": bound, "valid": valid, "hits": hits}
+        print(f"[{label}] K4 classify_step {kind}: {ms:.4f} ms, bound {bound:.4f} ms "
+              f"(share {bound / ms:.3f}), {valid} valid windows, {hits} hits per batch", flush=True)
+    for n_strains in S_SWEEP:
+        n_words = G.words_for_strains(n_strains)
+        mrows = multi_rows(rows, n_words, seed=n_strains)
+        for kind, bs in batches.items():
+            words = [G.multi_hit_words(mrows, b, h_bits, salt, K, n_words) for b, _, _ in bs]
+            ms = graph_ms(lambda i: G.boundary_strain_sums(words[i], bs[i][1], n_strains))
+            bound = bound_ms(k7_bytes(words[0], bs[0][1], n_strains))
+            result["k7"][f"{kind} S={n_strains}"] = {"ms": ms, "bound_ms": bound}
+            print(f"[{label}] K7 strain_sums {kind} S={n_strains}: {ms:.4f} ms, bound "
+                  f"{bound:.4f} ms (share {bound / ms:.3f})", flush=True)
+            del words
+        del mrows
+        torch.cuda.empty_cache()
+    return result
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--repo", default=None, help="checkout whose strainer2_tpu_torch is timed")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--label", default=None)
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL: needs a CUDA card", flush=True)
+        return 1
+    repo = os.path.abspath(args.repo or os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))))
+    sys.path.insert(0, repo)
+    import strainer2_tpu_torch
+
+    if not strainer2_tpu_torch.__file__.startswith(repo + os.sep):
+        print(f"FAIL: imported {strainer2_tpu_torch.__file__}, not the package under {repo}")
+        return 1
+    print(json.dumps(bench(args.seed, args.label or repo)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,8 +1,9 @@
-"""The port's numpy-only host twins vs their JAX-package originals, on the
-same inputs: readers, packer, table builder, row-order replay, index and
-its npz, filter and coverage.  Also the port's NativePackStream, which
-yields the port's batches and recovers the native packer's fault on a
-sequence longer than one buffer."""
+"""The port's host copies vs their JAX-package originals, on the same
+inputs: constants, stage timers, prefetch, readers, packer, bucket tables,
+row-order replay, index and its npz, filter and coverage.  Also the port's
+own C++ host library: built under build/strainer2_tpu_torch/, equal to the
+JAX package's library batch for batch, and (unlike it) splitting a
+sequence longer than one buffer as the Python packer does."""
 
 import gzip
 import io
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import strainer2_tpu.constants as j_constants
 import strainer2_tpu.index.bucket as j_bucket
 import strainer2_tpu.index.refhash_order as j_refhash
 import strainer2_tpu.io.batches as j_batches
@@ -19,6 +21,9 @@ import strainer2_tpu.io.fastx as j_fastx
 import strainer2_tpu.ops.packing_np as j_packing_np
 import strainer2_tpu.pipeline.coverage as j_coverage
 import strainer2_tpu.pipeline.filter as j_filter
+import strainer2_tpu.utils.observability as j_observability
+import strainer2_tpu.utils.prefetch as j_prefetch
+import strainer2_tpu_torch.constants as t_constants
 import strainer2_tpu_torch.index.bucket as t_bucket
 import strainer2_tpu_torch.index.refhash_order as t_refhash
 import strainer2_tpu_torch.io.batches as t_batches
@@ -26,6 +31,8 @@ import strainer2_tpu_torch.io.fastx as t_fastx
 import strainer2_tpu_torch.ops.packing_np as t_packing_np
 import strainer2_tpu_torch.pipeline.coverage as t_coverage
 import strainer2_tpu_torch.pipeline.filter as t_filter
+import strainer2_tpu_torch.utils.observability as t_observability
+import strainer2_tpu_torch.utils.prefetch as t_prefetch
 
 MINI = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "mini")
 DATA = os.path.join(MINI, "data")
@@ -101,24 +108,93 @@ def test_native_pack_stream_twin_matches(mode, files):
 
 
 def test_native_pack_stream_splits_long_sequences(tmp_path):
-    """Contigs longer than one buffer: the port's stream equals the Python
-    packer batch for batch (the library alone stops with an error)."""
+    """Sequences longer than one buffer: the port's native stream equals
+    the Python packer batch for batch (bases, read count and lengths; a
+    continuation counts as a read of length 0), with no error, on small
+    contigs at 4 x 512 and on a 1.5 Mbp contig at 256 x 4096."""
     from strainer2_tpu_torch import native as t_native
 
     if not t_native.available():
         pytest.skip("C++ host library unavailable")
     rng = np.random.default_rng(1)
-    fa = tmp_path / "contigs.fna"
-    with open(fa, "wb") as f:
-        for i, n in enumerate((9000, 50, 4000, 20, 3000)):
-            f.write(b">c%d\n" % i + np.frombuffer(b"ACGT", np.uint8)[
-                rng.integers(0, 4, size=n)].tobytes() + b"\n")
-    native_batches = list(t_native.NativePackStream([str(fa)], K, 4, 512))
-    seqs = (r.seq for r in t_fastx.read_fastx(str(fa)))
-    python_batches = list(t_batches.pack_stream(seqs, K, 4, 512))
-    assert len(native_batches) == len(python_batches) > 4
-    for x, y in zip(native_batches, python_batches):
-        np.testing.assert_array_equal(x.bases, y.bases)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    for name, lengths, rows, row_len in (("contigs.fna", (9000, 50, 4000, 20, 3000), 4, 512),
+                                         ("long.fna", (1_500_000, 300), 256, 4096)):
+        fa = tmp_path / name
+        with open(fa, "wb") as f:
+            for i, n in enumerate(lengths):
+                f.write(b">c%d\n" % i + acgt[rng.integers(0, 4, size=n)].tobytes() + b"\n")
+        native_batches = list(t_native.NativePackStream([str(fa)], K, rows, row_len))
+        seqs = (r.seq for r in t_fastx.read_fastx(str(fa)))
+        python_batches = list(t_batches.pack_stream(seqs, K, rows, row_len))
+        assert len(native_batches) >= 2
+        _same_batches(native_batches, python_batches)
+
+
+@pytest.mark.parametrize("name", [f for f in FASTX_FILES if "fna" in f or "fasta" in f])
+def test_native_counting_stream_matches_jax_library(name):
+    """Counting streams (no read ids) of the port's library and the JAX
+    package's library give the same batches on the mini data."""
+    from strainer2_tpu import native as j_native
+    from strainer2_tpu_torch import native as t_native
+
+    if not (t_native.available() and j_native.available()):
+        pytest.skip("C++ host library unavailable")
+    path = os.path.join(DATA, name)
+    _same_batches(t_native.NativePackStream([path], K, 4, 256),
+                  j_native.NativePackStream([path], K, 4, 256))
+
+
+def test_native_library_builds_under_build_dir():
+    """The port builds its own library into build/strainer2_tpu_torch/,
+    named by the source's hash, and writes nothing under strainer2_tpu/."""
+    from strainer2_tpu_torch import native as t_native
+
+    if not t_native.available():
+        pytest.skip(f"C++ host library unavailable: {t_native.build_error}")
+    path = t_native.library_path()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert os.path.dirname(path) == os.path.join(repo, "build", "strainer2_tpu_torch")
+    assert os.path.exists(path)
+    assert "strainer2_tpu" + os.sep not in os.path.relpath(path, repo)
+
+
+def test_constants_copy_matches():
+    names = [n for n in dir(t_constants) if n.isupper()]
+    assert len(names) == 10
+    for n in names:
+        assert getattr(t_constants, n) == getattr(j_constants, n), n
+
+
+def test_stage_copy_matches(monkeypatch):
+    """stage() adds wall time and items under a name, as the original does."""
+    for mod in (t_observability, j_observability):
+        monkeypatch.setattr(mod, "_totals", type(mod._totals)(float))
+        monkeypatch.setattr(mod, "_items", type(mod._items)(int))
+        for items in (3, 4):
+            with mod.stage("x.step", items=items):
+                pass
+        with pytest.raises(KeyError):
+            with mod.stage("x.fail"):
+                raise KeyError("inside")
+        assert mod._items["x.step"] == 7 and mod._items["x.fail"] == 0
+        assert sorted(mod._totals) == ["x.fail", "x.step"]
+        assert mod.timings_enabled() == bool(os.environ.get("STRAINER2_TIMINGS"))
+
+
+def test_prefetch_copy_matches():
+    def stream(fail):
+        yield from range(5)
+        if fail:
+            raise ValueError("producer")
+
+    for mod in (t_prefetch, j_prefetch):
+        assert list(mod.prefetch(stream(False), depth=2)) == list(range(5))
+        got = []
+        with pytest.raises(ValueError, match="producer"):
+            for x in mod.prefetch(stream(True)):
+                got.append(x)
+        assert got == list(range(5))
 
 
 def test_bucket_twin_matches():

@@ -1,4 +1,6 @@
-"""CUDA kernels K1-K7 vs their plain torch versions, on the card.
+"""CUDA kernels K1-K7 vs their plain torch versions, on the card, with the
+edge spans of the per-read sums (``edge_bounds``, also used by the CPU
+tests that hold the plain versions to the JAX functions).
 
 These need an NVIDIA GPU with nvcc (a CUDA kernel has no interpret mode)
 and skip elsewhere; ``python3 chip_smoke.py`` runs the same comparisons at
@@ -37,6 +39,15 @@ def strain(dev):
     kinds[table.slot_of_key] = np.where(rng.random(table.slot_of_key.size) < 0.3, 2, 1)
     rows = torch.from_numpy(table.with_meta(kinds)).to(dev)
     return rng, genome, codes[valid], table, rows
+
+
+def edge_bounds(q: int, row: int) -> np.ndarray:
+    """Boundaries whose consecutive pairs are the edge spans: short, empty,
+    a whole row, spans crossing rows and 256-window tiles, the whole batch,
+    reversed spans, bounds below 0 (counted from the end, as a JAX gather
+    reads them) and above Q (clamped)."""
+    return np.array([0, 3, 3, 3 + row, 2 * row + 17, 2 * row + 717, 0, q, q, 100, 40, -7, 60,
+                     q + 50, -(q + 10), 5, q, q], dtype=np.int32)
 
 
 def _as_i64(t):
@@ -152,3 +163,43 @@ def test_strain_sums_kernel_edge_boundaries(dev):
     bounds = torch.tensor([0, 7, 7, 300, 299, 1000, -5, 1200, 1000, 1000], dtype=torch.int32, device=dev)
     out = G.boundary_strain_sums(words, bounds, 20)
     assert _equal(out, G.boundary_strain_sums_plain(words, bounds, 20))
+
+
+def _edge_batch(strain, n_rows, row_len):
+    """Reads of 100-1000 bases crossing rows and tiles, then the edge spans."""
+    rng, genome, _, table, rows = strain
+    reads = [genome[s : s + n].copy() for s, n in zip(rng.integers(0, genome.size - 1000, 400),
+                                                       rng.integers(100, 1000, 400))]
+    batch = next(pack_stream(iter(reads), K, n_rows, row_len, with_read_ids=True))
+    width = row_len - K + 1
+    bounds = np.concatenate([batch.window_starts, edge_bounds(n_rows * width, width)]).astype(np.int32)
+    return batch, torch.from_numpy(bounds).to(rows.device)
+
+
+@pytest.mark.parametrize("n_rows,row_len", [(8, 512), (64, 4096)])
+def test_classify_step_kernel_edge_spans(strain, n_rows, row_len):
+    _, _, _, table, rows = strain
+    batch, bd = _edge_batch(strain, n_rows, row_len)
+    b = torch.from_numpy(batch.bases).to(rows.device)
+    out = L.classify_step(rows, b, bd, table.h_bits, table.salt, K)
+    assert _equal(out, L.classify_step_plain(rows, b, bd, table.h_bits, table.salt, K))
+    assert int((out[0] < 0).sum()) > 0 and int(out[1].sum()) > 0
+
+
+@pytest.mark.parametrize("ones", [False, True], ids=["random", "all_ones"])
+@pytest.mark.parametrize("n_strains", [1, 17, 33, 255, 256])
+def test_strain_sums_kernel_edge_spans(strain, n_strains, ones):
+    """Staged blocks (reads of the batch), blocks read from global memory
+    (the whole batch, reversed and clamped spans), S not a multiple of 16."""
+    rng, _, _, _, rows = strain
+    batch, bd = _edge_batch(strain, 64, 4096)
+    q = 64 * (4096 - K + 1)
+    n_words = G.words_for_strains(n_strains)
+    if ones:
+        words = torch.full((q, n_words), -1, dtype=torch.int32, device=rows.device).view(torch.uint32)
+    else:
+        words = torch.from_numpy(rng.integers(0, 1 << 32, (q, n_words), dtype=np.uint64)
+                                 .astype(np.uint32)).to(rows.device)
+    out = G.boundary_strain_sums(words, bd, n_strains)
+    assert _equal(out, G.boundary_strain_sums_plain(words, bd, n_strains))
+    assert int((out[0] < 0).sum()) > 0 and int(out[1].max()) > 0

@@ -17,6 +17,7 @@ from strainer2_tpu.pipeline.detect import _passing_any_1d
 from strainer2_tpu.pipeline.engine import _classify_step_bucket, _count_step_bucket
 from strainer2_tpu_torch.ops.lookup import bucket_lookup, classify_step, count_step, passing_any
 from tests.oracle import random_dna, seq_to_base_codes
+from tests.test_torch_kernels import edge_bounds
 
 K = 31
 
@@ -146,3 +147,34 @@ def test_kernel_wrappers_reject_mixed_devices(strain):
     with pytest.raises(ValueError):
         count_step(torch.zeros(table.num_slots, dtype=torch.uint32),
                    torch.from_numpy(table.table), bases.to("meta"), table.h_bits, table.salt, K)
+
+
+def test_plain_classify_step_edge_spans_match_engine(strain):
+    """The plain K4 against _classify_step_bucket on reads crossing rows and
+    256-window tiles of an (8, 512) batch, then the edge spans of
+    ``edge_bounds``: a whole row, the whole batch, empty and
+    reversed spans, bounds below 0 and above the window count."""
+    genome, _, table, rows = strain
+    rng = np.random.default_rng(21)
+    n_rows, row_len = 8, 512
+    width = row_len - K + 1
+    q = n_rows * width
+    reads = [genome[s : s + n].copy() for s, n in zip(rng.integers(0, genome.size - 400, 12),
+                                                       rng.integers(200, 400, 12))]
+    batch = next(pack_stream(iter(reads), K, n_rows, row_len, with_read_ids=True))
+    starts = np.asarray(batch.window_starts)
+    ends = starts[1:] - 1  # last window of each read but the last
+    assert (starts[:-1] // width != ends // width).any()  # a read crosses rows
+    assert ((starts[:-1] % width) // 256 != (ends % width) // 256).any()  # and tiles
+    bounds = np.concatenate([batch.window_starts, edge_bounds(q, width)]).astype(np.int32)
+    r_tot, r_inf = (
+        np.asarray(x)
+        for x in _classify_step_bucket(jnp.asarray(rows), batch.bases, jnp.asarray(bounds),
+                                       k=K, h_bits=table.h_bits, salt=table.salt,
+                                       max_reads=bounds.size - 1)
+    )
+    tot, inf = classify_step(torch.from_numpy(rows), torch.from_numpy(batch.bases),
+                             torch.from_numpy(bounds), table.h_bits, table.salt, K)
+    np.testing.assert_array_equal(tot.numpy(), r_tot)
+    np.testing.assert_array_equal(inf.numpy(), r_inf)
+    assert (r_tot < 0).any() and r_tot.max() > 100 and r_inf.sum() > 0

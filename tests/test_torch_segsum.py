@@ -21,6 +21,7 @@ from strainer2_tpu_torch.ops.lookup import bucket_lookup_words_plain
 from strainer2_tpu_torch.ops.segsum import boundary_strain_sums, multi_hit_words, words_for_strains
 from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
 from tests.oracle import random_dna, seq_to_base_codes
+from tests.test_torch_kernels import edge_bounds
 
 K = 31
 
@@ -179,3 +180,50 @@ def test_classify_multi_batch_matches_jax(strain, n_strains):
     np.testing.assert_array_equal(tot.numpy(), np.asarray(r_tot))
     np.testing.assert_array_equal(inf.numpy(), np.asarray(r_inf))
     assert np.asarray(r_inf).sum() > 0
+
+
+# ---- edge cases of the per-read sums --------------------------------------
+
+def jnp_gather_strain_sums(words, bounds, n_strains):
+    """Per-strain prefix sums read at the boundaries by a jnp gather (the
+    formulation of engine._classify_step_bucket, one strain at a time)."""
+    s = np.arange(n_strains)
+    w = jnp.asarray(words)[:, s // 16]
+    out = []
+    for bit in (0, 1):
+        plane = ((w >> jnp.asarray(2 * (s % 16) + bit, dtype=jnp.uint32)) & 1).astype(jnp.int32)
+        cum = jnp.concatenate([jnp.zeros((1, n_strains), jnp.int32), jnp.cumsum(plane, axis=0)])
+        b = jnp.asarray(bounds)
+        out.append(np.asarray(cum[b[1:]] - cum[b[:-1]]))
+    return out
+
+
+@pytest.mark.parametrize("ones", [False, True], ids=["random", "all_ones"])
+@pytest.mark.parametrize("n_strains", [1, 17, 33, 255, 256])
+def test_boundary_strain_sums_edge_spans_match_jax(n_strains, ones):
+    """The plain K7 on the edge spans: in-range boundaries against
+    ops.segsum.boundary_strain_sums; all of them, out-of-range ones
+    included, against the jnp gather of per-strain prefix sums (the JAX
+    segsum's own result there depends on its chunk)."""
+    q, row = 4 * 1000, 1000
+    rng = np.random.default_rng(n_strains + 1000 * ones)
+    n_words = words_for_strains(n_strains)
+    if ones:
+        words = np.full((q, n_words), 0xFFFFFFFF, dtype=np.uint32)
+    else:
+        words = rng.integers(0, 1 << 32, size=(q, n_words), dtype=np.uint64).astype(np.uint32)
+    bounds = edge_bounds(q, row)
+    tot, inf = boundary_strain_sums(torch.from_numpy(words), torch.from_numpy(bounds), n_strains)
+    r_tot, r_inf = jnp_gather_strain_sums(words, bounds, n_strains)
+    np.testing.assert_array_equal(tot.numpy(), r_tot)
+    np.testing.assert_array_equal(inf.numpy(), r_inf)
+    inside = bounds[(bounds >= 0) & (bounds <= q)]
+    i_tot, i_inf = boundary_strain_sums(torch.from_numpy(words), torch.from_numpy(inside), n_strains)
+    j_tot, j_inf = jax_strain_sums([jnp.asarray(words[:, j]) for j in range(n_words)],
+                                   jnp.asarray(inside), n_strains)
+    np.testing.assert_array_equal(i_tot.numpy(), np.asarray(j_tot))
+    np.testing.assert_array_equal(i_inf.numpy(), np.asarray(j_inf))
+    assert (tot.numpy() < 0).any() and (tot.numpy() > 0).any()
+    if ones:
+        spans = np.diff(np.clip(np.where(bounds < 0, bounds + q + 1, bounds), 0, q))
+        np.testing.assert_array_equal(tot.numpy(), np.repeat(spans[:, None], n_strains, axis=1))
