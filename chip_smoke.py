@@ -9,7 +9,7 @@ Phases; any failure exits non-zero and no result line is printed:
    built (``native_host``), and the CUDA kernels' build time;
 2. kernels vs plain versions on the card, at main-path shapes: a 256 x 4096
    batch with ~3% invalid bases against a 6.7 M-key strain table, and for
-   K4 also detection batches made like the phase-4 targets (0.1% N); every
+   K3 and K4 also batches made like the phase-4 targets (0.1% N); every
    output must be exactly equal (all values are integers); kernel times
    device-only (CUDA events around a CUDA-graph replay,
    strainer2_tpu_torch/tools/bench_kernels.py) and from a loop of
@@ -253,26 +253,14 @@ def checked(name: str, kern, plain) -> int:
     return err
 
 
-def batch_stats(rows, h, salt, bases) -> tuple[int, int, int]:
-    """(valid windows, found queries over all windows, hits = found and
-    valid) of one batch, from the plain versions."""
-    from strainer2_tpu_torch.ops import lookup as L
-    from strainer2_tpu_torch.ops.packing import canonical_windows_plain
-
-    hi, lo, valid = canonical_windows_plain(bases, K)
-    found = L.bucket_lookup_plain(rows, h, salt, hi, lo)[0]
-    return int(valid.sum()), int(found.sum()), int((found & valid.bool()).sum())
-
-
 def check_kernels(d: str, data: dict, rng, dev) -> dict:
-    import torch
-
     from strainer2_tpu_torch.index.build import StrainIndex
     from strainer2_tpu_torch.ops import lookup as L
     from strainer2_tpu_torch.ops.packing import canonical_windows, canonical_windows_plain
     from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
     from strainer2_tpu_torch.tools.bench_kernels import (
-        BATCH_KINDS, bound_ms, detection_batches, k4_bytes, probe_bytes,
+        BATCH_KINDS, batch_stats, bound_ms, count_batches, detection_batches, k3_bytes, k4_bytes,
+        probe_bytes,
     )
 
     genome = data["genome"]
@@ -288,17 +276,8 @@ def check_kernels(d: str, data: dict, rng, dev) -> dict:
     # N_BATCHES distinct inputs, rotated through while timing, so the probes
     # touch 8x more table rows than the 50 MB L2 holds, as a stream of new
     # batches does; every kernel is checked on every input
-    count_in = []
-    for _ in range(N_BATCHES):
-        # counting batch: half the rows from the strain genome, ~3% invalid
-        bases = rng.integers(0, 4, size=(ROWS, ROW_LEN), dtype=np.uint8)
-        for r in range(0, ROWS, 2):
-            s = int(rng.integers(0, genome.size - ROW_LEN))
-            bases[r] = genome[s : s + ROW_LEN]
-        bases[rng.random(bases.shape) < 0.03] = 4
-        b_d = engine.to_device(bases)
-        hi, lo, _ = canonical_windows(b_d, K)
-        count_in.append((b_d, hi, lo))
+    # counting batches: every other row from the strain genome, ~3% invalid
+    count_in = [(b, *canonical_windows(b, K)[:2]) for b in count_batches(rng, genome, dev)]
     # detection batches: "phase2" as this check has made them (3% N), "targets" made
     # like the phase-4 targets (0.1% N)
     detect = {kind: detection_batches(rng, genome, kind, dev) for kind in BATCH_KINDS}
@@ -328,7 +307,7 @@ def check_kernels(d: str, data: dict, rng, dev) -> dict:
         "count_step": (
             lambda i: (L.count_step(counts, rows, count_in[i][0], h, salt, K),),
             lambda i: (L.count_step_plain(counts_plain, rows, count_in[i][0], h, salt, K),),
-            bases_bytes + probe_bytes(c_valid, c_hits) + 8 * c_hits),
+            k3_bytes(count_in[0][0], c_valid, c_hits)),
         "bucket_lookup_ring": (
             lambda i: L.bucket_lookup_ring(rows, h, salt, *ring_q[i], chunk=RING_CHUNK),
             lambda i: L.bucket_lookup_plain(rows, h, salt, *ring_q[i]),
@@ -342,6 +321,20 @@ def check_kernels(d: str, data: dict, rng, dev) -> dict:
 
     detect_stats = {kind: [mean(x) for x in zip(*(batch_stats(rows, h, salt, b) for b, _, _ in batches))]
                     for kind, batches in detect.items()}
+    # K3 on target-like bases too (as the panel metagenomes are: 1% strain
+    # reads, 0.1% N); both count buffers start at zero
+    t_counts, t_counts_plain = engine.init_counts(index), engine.init_counts(index)
+    targets = [b for b, _, _ in detect["targets"]]
+    kern = lambda i: (L.count_step(t_counts, rows, targets[i], h, salt, K),)  # noqa: E731
+    plain = lambda i: (L.count_step_plain(t_counts_plain, rows, targets[i], h, salt, K),)  # noqa: E731
+    err = checked("count_step targets", kern, plain)
+    d_valid, _, d_hits = detect_stats["targets"]
+    results["count_step"]["targets"] = dict(
+        timed("count_step targets", kern, plain, bound_ms(k3_bytes(targets[0], d_valid, d_hits)),
+              f"; {d_valid:.0f} valid windows, {d_hits:.0f} hits a batch"),
+        max_abs_err=err)
+    results["count_step"]["max_abs_err"] = max(results["count_step"]["max_abs_err"], err)
+    del t_counts, t_counts_plain
     for kind, batches in detect.items():
         kern = lambda i: L.classify_step(rows, batches[i][0], batches[i][1], h, salt, K)  # noqa: E731
         plain = lambda i: L.classify_step_plain(rows, batches[i][0], batches[i][1], h, salt, K)  # noqa: E731
@@ -396,7 +389,7 @@ def check_multi_kernels(ctx: dict) -> dict:
     import torch
 
     from strainer2_tpu_torch.ops import segsum as G
-    from strainer2_tpu_torch.tools.bench_kernels import bound_ms, k7_bytes, multi_rows, probe_bytes
+    from strainer2_tpu_torch.tools.bench_kernels import bound_ms, k6_bytes, k7_bytes, multi_rows
 
     t = ctx["index"].table
     h, salt = t.h_bits, t.salt
@@ -407,12 +400,11 @@ def check_multi_kernels(ctx: dict) -> dict:
         for kind, batches in ctx["detect"].items():
             valid, _, hits = ctx["detect_stats"][kind]
             words = [G.multi_hit_words(rows, b, h, salt, K, n_words) for b, _, _ in batches]
-            n_win = words[0].shape[0]
             cases = {
                 "multi_hit_words": (
                     lambda i: (G.multi_hit_words(rows, batches[i][0], h, salt, K, n_words),),
                     lambda i: (G.multi_hit_words_plain(rows, batches[i][0], h, salt, K, n_words),),
-                    ROWS * ROW_LEN + probe_bytes(valid, hits) + 4 * n_words * (hits + n_win)),
+                    k6_bytes(batches[0][0], valid, hits, n_words)),
                 "strain_sums": (
                     lambda i: G.boundary_strain_sums(words[i], batches[i][1], n_strains),
                     lambda i: G.boundary_strain_sums_plain(words[i], batches[i][1], n_strains),

@@ -22,6 +22,8 @@ constexpr uint32_t kInvalidBase = 4;
 constexpr int kKeysPerBucket = 16;
 constexpr int kMetaLane = 32;
 constexpr int kTile = 256;  // windows per block of the window-parallel kernels
+constexpr int kPackedBases = kTile + 64;  // a packed tile: its windows' bases and the 64
+                                          // that packed_window's reads run past them
 constexpr int kMaxK = 32;
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
@@ -62,6 +64,69 @@ __device__ __forceinline__ bool canonical_window(const uint8_t* p, int k,
   return ok;
 }
 
+// The bases of one row's tile packed for constant-time window codes (K3,
+// K6): kPackedBases bases from the tile's first, as 2-bit codes b & 3,
+// LSB-first, 16 a word (base i at bits 2 (i % 16) of code[i / 16]), and
+// one bit a base that is invalid (>= 4), 32 a word (bit i % 32 of
+// bad[i / 32]).  Bases past the row's end pack as invalid; no window of
+// the row reads them.
+struct PackedTile {
+  uint32_t code[kPackedBases / 16];
+  uint32_t bad[kPackedBases / 32];
+};
+
+// Pack bases [w0, w0 + kPackedBases) of the row at src (L bases) into t;
+// every thread of the block calls it (blockDim a multiple of 32).  A warp
+// packs 32 consecutive bases a step: its invalid bits are one
+// __ballot_sync, and each half warp ORs its 16 shifted 2-bit codes
+// together in four shuffles.
+__device__ __forceinline__ void pack_tile(PackedTile& t, const uint8_t* src, int w0, int L) {
+  const int span = min(kPackedBases, L - w0);
+  const int lane = threadIdx.x & 31;
+  for (int i0 = threadIdx.x - lane; i0 < kPackedBases; i0 += blockDim.x) {  // warp-uniform
+    const int i = i0 + lane;
+    const uint32_t b = i < span ? src[w0 + i] : kInvalidBase;
+    const unsigned bad = __ballot_sync(0xffffffffu, b >= kInvalidBase);
+    uint32_t v = (b & 3u) << (2 * (lane & 15));
+#pragma unroll
+    for (int m = 8; m; m >>= 1) v |= __shfl_xor_sync(0xffffffffu, v, m);
+    if ((lane & 15) == 0) t.code[i >> 4] = v;
+    if (lane == 0) t.bad[i >> 5] = bad;
+  }
+  __syncthreads();
+}
+
+// The 32 2-bit pairs of x in reverse order.
+__device__ __forceinline__ uint64_t reverse_pairs(uint64_t x) {
+  x = __brevll(x);
+  return ((x >> 1) & 0x5555555555555555ull) | ((x & 0x5555555555555555ull) << 1);
+}
+
+// canonical_window of the k bases at tile position p < kTile (it reads
+// three code words and two bad words from p's on) in a constant
+// number of steps: the 64-bit run x of the 32 bases from p (base p + i at
+// pair i) comes from three code words by two funnel shifts; the reverse
+// complement is ~x cut to k pairs, the forward code x with its pairs
+// reversed, shifted down to k pairs; the window is valid when its k bits
+// of the invalid-base mask are 0.  Same values as canonical_window for
+// every window, valid or not, k in [1, 32].
+__device__ __forceinline__ bool packed_window(const PackedTile& t, int p, int k, int n_lo,
+                                              uint32_t* hi, uint32_t* lo) {
+  const int j = p >> 4;
+  const int s = 2 * (p & 15);
+  const uint32_t a = t.code[j], b = t.code[j + 1], c = t.code[j + 2];
+  const uint64_t x = static_cast<uint64_t>(__funnelshift_r(b, c, s)) << 32 | __funnelshift_r(a, b, s);
+  const int drop = 64 - 2 * k;  // 0 at k = 32: no shift by 64
+  const uint64_t rc = ~x & (~0ull >> drop);
+  const uint64_t fwd = reverse_pairs(x) >> drop;
+  const uint64_t code = fwd >= rc ? fwd : rc;
+  *lo = static_cast<uint32_t>(code & ((1ull << (2 * n_lo)) - 1ull));
+  *hi = static_cast<uint32_t>(code >> (2 * n_lo));
+  const int q = p >> 5;
+  const uint32_t bad = __funnelshift_r(t.bad[q], t.bad[q + 1], p & 31);
+  return (bad & (0xffffffffu >> (32 - k))) == 0;
+}
+
 // 16-bit mask of the 16 lanes at p that equal v: four 16-byte loads.
 __device__ __forceinline__ unsigned lanes_equal(const uint32_t* p, uint32_t v) {
   const uint4* p4 = reinterpret_cast<const uint4*>(p);
@@ -78,6 +143,23 @@ __device__ __forceinline__ unsigned lanes_equal(const uint32_t* p, uint32_t v) {
 __device__ __forceinline__ unsigned match_mask(const uint32_t* row,
                                                uint32_t hi, uint32_t lo) {
   return lanes_equal(row, hi) & lanes_equal(row + kKeysPerBucket, lo);
+}
+
+// The probe of window w0 + p of a packed tile (K3, K6): the 16-bit mask of
+// the cells of its bucket whose key equals the window's, 0 for a window at
+// or past W, an invalid window or a miss; the bucket in *bucket where the
+// mask is not 0.  The 16 key_lo lanes are read only where a key_hi lane
+// matches, so a miss usually costs 64 bytes, not 128.
+__device__ __forceinline__ unsigned probe_window(const PackedTile& t, int p,
+                                                 const uint32_t* rows, int row_width,
+                                                 int h_bits, uint32_t salt, int w0,
+                                                 int W, int k, uint32_t* bucket) {
+  uint32_t h, l;
+  if (w0 + p >= W || !packed_window(t, p, k, min(k, 16), &h, &l)) return 0u;
+  *bucket = bucket_of(h, l, h_bits, salt);
+  const uint32_t* r = rows + static_cast<size_t>(*bucket) * row_width;
+  const unsigned m = lanes_equal(r, h);
+  return m ? m & lanes_equal(r + kKeysPerBucket, l) : 0u;
 }
 
 // Stage one row's bases [w0, w0 + kTile + k - 1) in shared memory, so the

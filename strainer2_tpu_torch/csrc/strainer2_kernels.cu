@@ -26,8 +26,11 @@ constexpr uint32_t kInformative = 2;
 // Replaces: canonical_windows_pallas, strainer2_tpu/ops/pallas_kernels.py:127
 //   (the O(log k) doubling pack of _pack_block / _rc_pack_block).
 // Bound on this card: device-memory bytes. Per window it reads ~1 base and
-//   writes 9 bytes (hi, lo, valid); the 2k shift-or steps per window are
-//   far below the integer issue rate.
+//   writes 9 bytes (hi, lo, valid): 0.0031 ms per 256 x 4096 batch. It
+//   takes 0.0243 ms, 0.13 of that bound (H100 80GB HBM3, 700 W; PERF.md):
+//   the k-step loop of canonical_window, a byte load and 64-bit shifts a
+//   step, sets its time. K3 and K6 now take window codes in constant time
+//   (packed_window, kmer_device.cuh); this kernel does not yet.
 // Design: one thread per window; a block stages the bases of 256 windows of
 //   one row (plus the k-1 halo) in shared memory, builds forward and
 //   reverse-complement codes in one 64-bit register each, and writes
@@ -93,29 +96,38 @@ __global__ void bucket_lookup_kernel(const uint32_t* __restrict__ rows,
 // Replaces: the XLA program engine._count_step_bucket +
 //   ops/lookup.accumulate_counts (strainer2_tpu/pipeline/engine.py:324-327,
 //   strainer2_tpu/ops/lookup.py:104-116): extract, probe, counts[slot] += 1.
-// Bound on this card: the probe's random DRAM access, as in K2; the
-//   atomics land on a 128 MiB count buffer and are mostly uncontended.
-// Design: K1's shared-memory tile and K2's probe fused per thread, so no
-//   window code touches device memory; a hit is one atomicAdd on uint32,
-//   which wraps like the JAX scatter-add. Integer adds commute, so the
-//   count bytes do not depend on the order the atomics land in.
+// Bound on this card: random DRAM accesses. A valid window reads its row's
+//   64 bytes of key_hi lanes (and 64 of key_lo lanes where one matches)
+//   at a hashed address of a 512 MiB table; a hit adds into a 128 MiB
+//   count buffer. On an H100 80GB HBM3 at 700 W, random reads of 32 or 64
+//   bytes there run at ~30 G/s whatever their size, 0.58 of the byte rate
+//   at 64 bytes, and random atomicAdds into 128 MiB at ~15.6 G/s (a sector
+//   read, then written back) (PERF.md). So a batch of misses can reach
+//   ~0.55 of the byte bound, and one where half the valid windows hit
+//   ~0.35: its hits cost three more random accesses each.
+// Design: a block per 256 windows of one row. The block packs its bases
+//   once into 2-bit words and an invalid-base mask in shared memory
+//   (pack_tile), so a window's canonical code and validity take a
+//   constant number of instructions (packed_window): the k-step byte loop
+//   took 0.024 ms a batch on its own, as long as the probes of a `targets`
+//   batch; packed, 0.0076. Then one probe a thread, key_hi lanes first
+//   (probe_window), so a miss reads 64 bytes, not 128. Two or four
+//   windows a thread, more probes in flight, were slower: the rate of
+//   random accesses is the limit, not their latency. A hit is one
+//   atomicAdd on uint32, which wraps like the JAX scatter-add; integer
+//   adds commute, so the count bytes do not depend on the order the
+//   atomics land in.
 // ---------------------------------------------------------------------------
-__global__ void count_step_kernel(uint32_t* __restrict__ counts,
-                                  const uint32_t* __restrict__ rows,
-                                  int row_width, int h_bits, uint32_t salt,
-                                  const uint8_t* __restrict__ bases, int L,
-                                  int k) {
-  __shared__ uint8_t tile[kTile + kMaxK];
-  const int W = L - k + 1;
-  const int row = blockIdx.y;
+__global__ void __launch_bounds__(kTile)
+count_step_kernel(uint32_t* __restrict__ counts, const uint32_t* __restrict__ rows,
+                  int row_width, int h_bits, uint32_t salt,
+                  const uint8_t* __restrict__ bases, int L, int k) {
+  __shared__ PackedTile tile;
   const int w0 = blockIdx.x * kTile;
-  load_tile(tile, bases + static_cast<size_t>(row) * L, w0, L, k);
-  const int w = w0 + threadIdx.x;
-  if (w >= W) return;
-  uint32_t h, l;
-  if (!canonical_window(tile + threadIdx.x, k, min(k, 16), &h, &l)) return;
-  const uint32_t b = bucket_of(h, l, h_bits, salt);
-  const unsigned m = match_mask(rows + static_cast<size_t>(b) * row_width, h, l);
+  pack_tile(tile, bases + static_cast<size_t>(blockIdx.y) * L, w0, L);
+  uint32_t b;
+  const unsigned m = probe_window(tile, threadIdx.x, rows, row_width, h_bits, salt, w0,
+                                  L - k + 1, k, &b);
   if (m) atomicAdd(counts + static_cast<size_t>(b) * kKeysPerBucket + (__ffs(m) - 1), 1u);
 }
 

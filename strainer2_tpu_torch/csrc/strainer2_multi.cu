@@ -129,41 +129,59 @@ int launch_ring(const void* rows, int row_width, int h_bits, uint32_t salt,
 //   segment sum (strainer2_tpu/pipeline/multi_detect.py:1038-1051):
 //   canonical_windows, bucket_lookup_words / bucket_lookup
 //   (strainer2_tpu/ops/lookup.py:181, :139) and the hit mask.
-// Bound on this card: the probe's random DRAM access, as K2, plus the
-//   output: n_words x 4 bytes per window (66.6 MB per 256 x 4096 batch at
-//   256 strains), written once.
-// Design: K3's shared-memory tile and probe, one thread per window; a hit
-//   reads lane 32 + 16 j + cell of the matched row for j < n_words and
-//   writes them window-major, (Q, n_words), so K7 reads one read's words
-//   contiguously. A miss or an invalid window writes zeros. Lane 32 is the
-//   first word for every S, as the jnp bucket_lookup branch at S <= 16
-//   reads it.
+// Bound on this card: K3's random DRAM accesses (a valid window's 64
+//   bytes of key_hi lanes, 64 more of key_lo lanes where one matches, and
+//   a hit's n_words meta words, each in its own 64-byte block of the row),
+//   plus the output: n_words x 4 bytes a window (66.6 MB per 256 x 4096
+//   batch at 256 strains), written once. On target-like batches (1% hits)
+//   the probes and the stores set the time; where half the valid windows
+//   hit, a hit's n_words random meta reads do (PERF.md).
+// Design: K3's packed tile and probe (pack_tile, probe_window: window codes
+//   in constant time, key_hi lanes first); a hit reads lane 32 + 16 j +
+//   cell of the matched row for j < n_words. The output is window-major,
+//   (Q, n_words), so K7 reads one read's words contiguously, and a block's
+//   windows own one contiguous run of it. The block stages that run in
+//   shared memory, zeroed (a miss or an invalid window writes zeros), lets
+//   its hits fill their words, then writes the run with consecutive
+//   threads on consecutive 16-byte chunks; the head and tail chunks, which
+//   the run shares with its neighbours, by 4-byte stores. The old kernel's
+//   n_words scalar stores a thread, at a stride of 4 n_words bytes, took
+//   0.212 ms a batch at 16 words on their own; these take 0.022, 0.89 of
+//   the write bound. Lane 32 is the first word for every S, as the jnp
+//   bucket_lookup branch at S <= 16 reads it.
 // ---------------------------------------------------------------------------
-__global__ void multi_hit_words_kernel(const uint32_t* __restrict__ rows,
-                                       int row_width, int h_bits, uint32_t salt,
-                                       const uint8_t* __restrict__ bases, int L,
-                                       int k, int n_words,
-                                       uint32_t* __restrict__ words) {
-  __shared__ uint8_t tile[kTile + kMaxK];
+__global__ void __launch_bounds__(kTile)
+multi_hit_words_kernel(const uint32_t* __restrict__ rows, int row_width, int h_bits,
+                       uint32_t salt, const uint8_t* __restrict__ bases, int L, int k,
+                       int n_words, uint32_t* __restrict__ words) {
+  __shared__ PackedTile tile;
+  extern __shared__ uint4 stage4[];  // the run, from the 16-byte chunk it starts in
+  uint32_t* stage = reinterpret_cast<uint32_t*>(stage4);
   const int W = L - k + 1;
-  const int row = blockIdx.y;
   const int w0 = blockIdx.x * kTile;
-  load_tile(tile, bases + static_cast<size_t>(row) * L, w0, L, k);
-  const int w = w0 + threadIdx.x;
-  if (w >= W) return;
-  uint32_t* out = words + (static_cast<size_t>(row) * W + w) * n_words;
-  uint32_t h, l;
-  unsigned m = 0;
-  const uint32_t* r = rows;
-  if (canonical_window(tile + threadIdx.x, k, min(k, 16), &h, &l)) {
-    r = rows + static_cast<size_t>(bucket_of(h, l, h_bits, salt)) * row_width;
-    m = match_mask(r, h, l);
-  }
+  const long long first = (static_cast<long long>(blockIdx.y) * W + w0) * n_words;
+  const int off = static_cast<int>(first & 3);            // stage words [off, end)
+  const int end = off + min(kTile, W - w0) * n_words;     // hold the run
+  const int chunks = (end + 3) >> 2;
+  for (int c = threadIdx.x; c < chunks; c += kTile) stage4[c] = make_uint4(0u, 0u, 0u, 0u);
+  pack_tile(tile, bases + static_cast<size_t>(blockIdx.y) * L, w0, L);  // syncs the zeros too
+  uint32_t b;
+  const unsigned m = probe_window(tile, threadIdx.x, rows, row_width, h_bits, salt, w0, W, k, &b);
   if (m) {
-    const uint32_t* cell = r + kMetaLane + (__ffs(m) - 1);
-    for (int j = 0; j < n_words; ++j) out[j] = __ldg(cell + kKeysPerBucket * j);
-  } else {
-    for (int j = 0; j < n_words; ++j) out[j] = 0u;
+    const uint32_t* cell = rows + static_cast<size_t>(b) * row_width + kMetaLane + (__ffs(m) - 1);
+    uint32_t* dst = stage + off + threadIdx.x * n_words;
+    for (int j = 0; j < n_words; ++j) dst[j] = __ldg(cell + kKeysPerBucket * j);
+  }
+  __syncthreads();
+  uint32_t* out = words + (first - off);  // 16-byte aligned: the wrapper allocates words
+  uint4* out4 = reinterpret_cast<uint4*>(out);
+  for (int c = threadIdx.x; c < chunks; c += kTile) {
+    const int i0 = 4 * c;
+    if (i0 >= off && i0 + 4 <= end) {
+      out4[c] = stage4[c];
+    } else {
+      for (int i = max(i0, off); i < min(i0 + 4, end); ++i) out[i] = stage[i];
+    }
   }
 }
 
@@ -362,7 +380,8 @@ int s2t_multi_hit_words(const void* rows, int row_width, int h_bits,
                         int k, int n_words, void* words, void* stream) {
   const int W = L - k + 1;
   const dim3 grid((W + kTile - 1) / kTile, n_rows);
-  multi_hit_words_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+  const size_t stage = (static_cast<size_t>(kTile) * n_words + 4) * sizeof(uint32_t);  // 16 KiB at 16 words
+  multi_hit_words_kernel<<<grid, kTile, stage, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(rows), row_width, h_bits, salt,
       static_cast<const uint8_t*>(bases), L, k, n_words,
       static_cast<uint32_t*>(words));

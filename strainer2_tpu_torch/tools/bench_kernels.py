@@ -1,6 +1,6 @@
-"""Device-only times of the detection kernels K4 (classify_step) and K7
-(boundary_strain_sums, fed by K6) at main-path shapes, and the timer and
-bounds that chip_smoke.py uses for every kernel.
+"""Device-only times of the kernels K3 (count_step), K4 (classify_step),
+K6 (multi_hit_words) and K7 (boundary_strain_sums) at main-path shapes,
+and the timer, data and bounds that chip_smoke.py uses for every kernel.
 
     python strainer2_tpu_torch/tools/bench_kernels.py [--repo DIR] [--seed N] [--label L]
 
@@ -11,13 +11,18 @@ git ignores and run parent, change, change, parent.  Both use this file's
 timer, data and bounds.
 
 A 6.7 Mbp random genome gives the table (6.7 M keys, 64-lane rows, 5% of the
-keys informative), and two kinds of 256 x 4096 detection batch, 8 of each:
-``phase2``, 150 bp reads half from the genome with 3% N bases (~31% of the
-batch's windows valid), as chip_smoke.py phase 2 makes them; and
-``targets``, made like chip_smoke.py's phase-4 targets: 1% of the reads
-from the genome, 0.1% N bases (~77% valid: 120 of the 151 windows a read
-spans, less the few with an N).  K7 runs at
-S = 16, 32, 96 and 256 strains on K6's words over rows with seeded meta.
+keys informative).  Three kinds of 256 x 4096 batch, 8 of each:
+``count``, rows of random sequence, every other one a stretch of the
+genome, 3% N bases (~39% of the windows valid, half of those hits), as
+chip_smoke.py phase 2 makes its counting batches; ``phase2``, 150 bp reads
+half from the genome with 3% N bases (~31% valid), as chip_smoke.py phase 2
+makes its detection batches; and ``targets``, made like chip_smoke.py's
+phase-4 targets and panel metagenomes: 1% of the reads from the genome,
+0.1% N bases (~77% valid: 120 of the 151 windows a read spans, less the
+few with an N; 1% of those hits).  K3 runs on ``count`` and ``targets``,
+K4 on ``phase2`` and ``targets``, K6 and K7 on ``phase2`` and ``targets``
+at S = 16, 32, 96 and 256 strains (K7 on K6's words), over rows widened
+with seeded meta words.
 
 The timer is CUDA events around replays of one CUDA graph holding 5 rounds
 of the 8 batches' launches, so it sees device time and no host launch cost;
@@ -53,8 +58,8 @@ BATCH_KINDS = {"phase2": (0.5, 0.03), "targets": (0.01, 0.001)}  # strain-read s
 _ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 
 __all__ = [
-    "BATCH_KINDS", "bound_ms", "graph_ms", "detection_batches", "sample_reads",
-    "multi_rows", "probe_bytes", "k4_bytes", "k7_bytes",
+    "BATCH_KINDS", "bound_ms", "graph_ms", "batch_stats", "count_batches", "detection_batches",
+    "sample_reads", "multi_rows", "probe_bytes", "k3_bytes", "k4_bytes", "k6_bytes", "k7_bytes",
 ]
 
 
@@ -102,6 +107,18 @@ def probe_bytes(probes: float, hits: float) -> float:
     return KEY_HALF_BYTES * (probes + hits)
 
 
+def k3_bytes(bases, valid: float, hits: float) -> float:
+    """Bases read, a probe per valid window, a count read and written per hit."""
+    return bases.numel() + probe_bytes(valid, hits) + 8 * hits
+
+
+def k6_bytes(bases, valid: float, hits: float, n_words: int) -> float:
+    """Bases read, a probe per valid window, n_words meta words read per hit,
+    n_words words written per window."""
+    n_win = bases.shape[0] * (bases.shape[1] - K + 1)
+    return bases.numel() + probe_bytes(valid, hits) + 4 * n_words * (hits + n_win)
+
+
 def k4_bytes(bases, bounds, valid: float, hits: float) -> float:
     """Bases and boundaries read, a probe per valid window, a meta word per
     hit, (total, informative) int32 written per read."""
@@ -133,6 +150,33 @@ def sample_reads(rng, genome: np.ndarray, n: int, strain_fraction: float) -> np.
     strain[flip] = revcomp(strain[flip])
     reads[pos] = strain
     return reads
+
+
+def count_batches(rng, genome: np.ndarray, dev) -> list:
+    """N_BATCHES (ROWS, ROW_LEN) counting batches on the device: random
+    sequence, every other row a stretch of the genome, ~3% N bases."""
+    import torch
+
+    out = []
+    for _ in range(N_BATCHES):
+        bases = rng.integers(0, 4, size=(ROWS, ROW_LEN), dtype=np.uint8)
+        for r in range(0, ROWS, 2):
+            s = int(rng.integers(0, genome.size - ROW_LEN))
+            bases[r] = genome[s : s + ROW_LEN]
+        bases[rng.random(bases.shape) < 0.03] = 4
+        out.append(torch.from_numpy(bases).to(dev))
+    return out
+
+
+def batch_stats(rows, h_bits: int, salt: int, bases) -> tuple[int, int, int]:
+    """(valid windows, found queries over all windows, hits = found and
+    valid) of one batch, from the plain versions."""
+    from strainer2_tpu_torch.ops import lookup as L
+    from strainer2_tpu_torch.ops.packing import canonical_windows_plain
+
+    hi, lo, valid = canonical_windows_plain(bases, K)
+    found = L.bucket_lookup_plain(rows, h_bits, salt, hi, lo)[0]
+    return int(valid.sum()), int(found.sum()), int((found & valid.bool()).sum())
 
 
 def detection_batches(rng, genome: np.ndarray, kind: str, dev) -> list:
@@ -201,33 +245,47 @@ def bench(seed: int, label: str) -> dict:
 
     from strainer2_tpu_torch.ops import lookup as L
     from strainer2_tpu_torch.ops import segsum as G
-    from strainer2_tpu_torch.ops.packing import canonical_windows_plain
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
     genome, rows, h_bits, salt, n_keys = _table(rng, dev)
-    print(f"[{label}] card: {_card()}; table {n_keys} keys, rows {tuple(rows.shape)}", flush=True)
+    card = _card()
+    print(f"[{label}] card: {card}; table {n_keys} keys, rows {tuple(rows.shape)}", flush=True)
     batches = {kind: detection_batches(rng, genome, kind, dev) for kind in BATCH_KINDS}
-    result = {"label": label, "card": _card(), "k4": {}, "k7": {}}
+    bases = {"count": count_batches(rng, genome, dev), "targets": [b for b, _, _ in batches["targets"]]}
+    bases.update(phase2=[b for b, _, _ in batches["phase2"]])
+    stats = {kind: [sum(x) / N_BATCHES for x in zip(*(batch_stats(rows, h_bits, salt, b) for b in bs))]
+             for kind, bs in bases.items()}
+    result = {"label": label, "card": card, "k3": {}, "k4": {}, "k6": {}, "k7": {}}
+
+    def report(kernel: str, key: str, ms: float, bound: float, **extra) -> None:
+        result[kernel][key] = {"ms": ms, "bound_ms": bound, **extra}
+        print(f"[{label}] {kernel.upper()} {key}: {ms:.4f} ms, bound {bound:.4f} ms "
+              f"(share {bound / ms:.3f})", flush=True)
+
+    counts = torch.zeros(rows.shape[0] * 16, dtype=torch.uint32, device=dev)
+    for kind in ("count", "targets"):
+        bs = bases[kind]
+        valid, _, hits = stats[kind]
+        ms = graph_ms(lambda i: L.count_step(counts, rows, bs[i], h_bits, salt, K))
+        report("k3", kind, ms, bound_ms(k3_bytes(bs[0], valid, hits)), valid=valid, hits=hits)
+    del counts
     for kind, bs in batches.items():
-        out = [L.classify_step(rows, b, bd, h_bits, salt, K) for b, bd, _ in bs]
-        valid = sum(int(canonical_windows_plain(b, K)[2].sum()) for b, _, _ in bs) // N_BATCHES
-        hits = sum(int(t[: n].sum()) for (t, _), (_, _, n) in zip(out, bs)) // N_BATCHES
+        valid, _, hits = stats[kind]
         ms = graph_ms(lambda i: L.classify_step(rows, bs[i][0], bs[i][1], h_bits, salt, K))
-        bound = bound_ms(k4_bytes(bs[0][0], bs[0][1], valid, hits))
-        result["k4"][kind] = {"ms": ms, "bound_ms": bound, "valid": valid, "hits": hits}
-        print(f"[{label}] K4 classify_step {kind}: {ms:.4f} ms, bound {bound:.4f} ms "
-              f"(share {bound / ms:.3f}), {valid} valid windows, {hits} hits per batch", flush=True)
+        report("k4", kind, ms, bound_ms(k4_bytes(bs[0][0], bs[0][1], valid, hits)),
+               valid=valid, hits=hits)
     for n_strains in S_SWEEP:
         n_words = G.words_for_strains(n_strains)
         mrows = multi_rows(rows, n_words, seed=n_strains)
         for kind, bs in batches.items():
+            valid, _, hits = stats[kind]
+            key = f"{kind} S={n_strains}"
+            ms = graph_ms(lambda i: G.multi_hit_words(mrows, bs[i][0], h_bits, salt, K, n_words))
+            report("k6", key, ms, bound_ms(k6_bytes(bs[0][0], valid, hits, n_words)))
             words = [G.multi_hit_words(mrows, b, h_bits, salt, K, n_words) for b, _, _ in bs]
             ms = graph_ms(lambda i: G.boundary_strain_sums(words[i], bs[i][1], n_strains))
-            bound = bound_ms(k7_bytes(words[0], bs[0][1], n_strains))
-            result["k7"][f"{kind} S={n_strains}"] = {"ms": ms, "bound_ms": bound}
-            print(f"[{label}] K7 strain_sums {kind} S={n_strains}: {ms:.4f} ms, bound "
-                  f"{bound:.4f} ms (share {bound / ms:.3f})", flush=True)
+            report("k7", key, ms, bound_ms(k7_bytes(words[0], bs[0][1], n_strains)))
             del words
         del mrows
         torch.cuda.empty_cache()

@@ -203,3 +203,66 @@ def test_strain_sums_kernel_edge_spans(strain, n_strains, ones):
     out = G.boundary_strain_sums(words, bd, n_strains)
     assert _equal(out, G.boundary_strain_sums_plain(words, bd, n_strains))
     assert int((out[0] < 0).sum()) > 0 and int(out[1].max()) > 0
+
+
+# ---- K3 and K6 edges: the packed tile (window codes in constant time) ----------
+
+EDGE_K = [1, 15, 16, 17, 20, 31, 32]
+EDGE_ROW_LENS = [40, 300, 1000, 4096]
+
+
+def _table_k(genome, k, row_width=64):
+    codes, valid = canonical_codes_np(genome, k)
+    return build_bucket_table(np.unique(codes[valid]), k, row_width=row_width)
+
+
+def edge_rows(rng, genome, row_len, n_rows=6):
+    """Rows of random sequence, every other one from the genome, 1% N; N on
+    each row's first and last base and on both sides of every 256-window
+    tile edge the row has; the last row all N."""
+    bases = rng.integers(0, 4, size=(n_rows, row_len), dtype=np.uint8)
+    for r in range(0, n_rows, 2):
+        s = int(rng.integers(0, genome.size - row_len))
+        bases[r] = genome[s : s + row_len]
+    bases[rng.random(bases.shape) < 0.01] = 4
+    edges = [p for t in range(256, row_len, 256) for p in (t - 1, t)]
+    bases[:, [0, row_len - 1, *edges]] = 4
+    bases[-1] = 4
+    return bases
+
+
+@pytest.mark.parametrize("row_len", EDGE_ROW_LENS)
+@pytest.mark.parametrize("k", EDGE_K)
+def test_count_step_kernel_edges(strain, k, row_len):
+    """K3 against its plain version for every k the port takes, rows shorter
+    than a tile and with partial tiles, N at row and tile edges, and counts
+    that wrap past 0xFFFFFFFF."""
+    rng, genome, _, _, rows64 = strain
+    table = _table_k(genome, k)
+    rows = torch.from_numpy(table.with_meta(np.ones(table.num_slots, dtype=np.uint32))).to(rows64.device)
+    b = torch.from_numpy(edge_rows(rng, genome, row_len)).to(rows.device)
+    start = np.zeros(table.num_slots, dtype=np.uint32)
+    start[table.slot_of_key[::3]] = 0xFFFFFFFF  # wraps on a hit
+    c0 = torch.from_numpy(start).to(rows.device)
+    c1, c2 = c0.clone(), c0.clone()
+    L.count_step(c1, rows, b, table.h_bits, table.salt, k)
+    L.count_step_plain(c2, rows, b, table.h_bits, table.salt, k)
+    assert _equal((c1,), (c2,))
+    assert not _equal((c2,), (c0,))
+
+
+@pytest.mark.parametrize("row_len", EDGE_ROW_LENS)
+@pytest.mark.parametrize("k,n_words", [(1, 1), (15, 2), (16, 3), (17, 16), (20, 1), (31, 3), (32, 16)])
+def test_multi_hit_words_kernel_edges(strain, k, n_words, row_len):
+    """K6 against its plain version: the same edges as K3's, and n_words
+    that put most blocks' output runs off 16-byte alignment."""
+    rng, genome, _, _, rows64 = strain
+    table = _table_k(genome, k, row_width=32 + 16 * max(2, n_words))
+    words = [rng.integers(0, 1 << 32, table.num_slots, dtype=np.uint64).astype(np.uint32)
+             for _ in range(max(2, n_words))]
+    rows = torch.from_numpy(table.with_meta_words(words)).to(rows64.device)
+    b = torch.from_numpy(edge_rows(rng, genome, row_len)).to(rows.device)
+    out = G.multi_hit_words(rows, b, table.h_bits, table.salt, k, n_words)
+    assert _equal((out,), (G.multi_hit_words_plain(rows, b, table.h_bits, table.salt, k, n_words),))
+    assert int((out != 0).sum()) > 0
+

@@ -17,7 +17,7 @@ from strainer2_tpu.pipeline.detect import _passing_any_1d
 from strainer2_tpu.pipeline.engine import _classify_step_bucket, _count_step_bucket
 from strainer2_tpu_torch.ops.lookup import bucket_lookup, classify_step, count_step, passing_any
 from tests.oracle import random_dna, seq_to_base_codes
-from tests.test_torch_kernels import edge_bounds
+from tests.test_torch_kernels import EDGE_K, edge_rows, edge_bounds
 
 K = 31
 
@@ -100,6 +100,29 @@ def test_plain_count_step_matches_engine(strain, rows, row_len):
     )
     got = count_step(torch.from_numpy(counts.copy()), torch.from_numpy(table.table),
                      torch.from_numpy(batch.bases), table.h_bits, table.salt, K).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert (got != counts).any()
+
+
+@pytest.mark.parametrize("row_len", [40, 1000])
+@pytest.mark.parametrize("k", EDGE_K)
+def test_plain_count_step_edges_match_engine(strain, k, row_len):
+    """The edge batches of K3's card test (every k the port takes, rows
+    shorter than a tile, N at row and tile edges, an all-N row, counts
+    that wrap) through the plain version and the JAX engine."""
+    genome = strain[0]
+    rng = np.random.default_rng(k * row_len)
+    codes, valid = canonical_codes_np(genome, k)
+    table = build_bucket_table(np.unique(codes[valid]), k)
+    bases = edge_rows(rng, genome, row_len)
+    counts = np.zeros(table.num_slots, dtype=np.uint32)
+    counts[table.slot_of_key[::3]] = 0xFFFFFFFF
+    ref = np.asarray(
+        _count_step_bucket(jnp.asarray(counts), jnp.asarray(table.table), bases,
+                           k=k, h_bits=table.h_bits, salt=table.salt)
+    )
+    got = count_step(torch.from_numpy(counts.copy()), torch.from_numpy(table.table),
+                     torch.from_numpy(bases), table.h_bits, table.salt, k).numpy()
     np.testing.assert_array_equal(got, ref)
     assert (got != counts).any()
 

@@ -21,7 +21,7 @@ from strainer2_tpu_torch.ops.lookup import bucket_lookup_words_plain
 from strainer2_tpu_torch.ops.segsum import boundary_strain_sums, multi_hit_words, words_for_strains
 from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
 from tests.oracle import random_dna, seq_to_base_codes
-from tests.test_torch_kernels import edge_bounds
+from tests.test_torch_kernels import edge_rows, edge_bounds
 
 K = 31
 
@@ -148,6 +148,27 @@ def test_multi_hit_words_plain_matches_jax_pieces(strain, n_strains):
     got = multi_hit_words(torch.from_numpy(rows), torch.from_numpy(batch.bases), t.h_bits, t.salt, K,
                           n_words)
     assert got.dtype == torch.uint32 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert hit.any()
+
+
+@pytest.mark.parametrize("k,n_words", [(1, 1), (15, 2), (16, 3), (17, 16), (20, 1), (31, 3), (32, 16)])
+def test_multi_hit_words_plain_edges_match_jax(strain, k, n_words):
+    """The edge batches of K6's card test (k and n_words as there, N at row
+    and tile edges, an all-N row) through the plain version and the JAX
+    pieces."""
+    genome = strain[0]
+    rng = np.random.default_rng(k)
+    codes, valid = canonical_codes_np(genome, k)
+    t = build_bucket_table(np.unique(codes[valid]), k, row_width=32 + 16 * max(2, n_words))
+    rows = t.with_meta_words([rng.integers(0, 1 << 32, size=t.num_slots, dtype=np.uint64).astype(np.uint32)
+                              for _ in range(max(2, n_words))])
+    bases = edge_rows(rng, genome, 300)
+    win = canonical_windows(jnp.asarray(bases), k)
+    found, _, words = bucket_lookup_words(jnp.asarray(rows), t.h_bits, t.salt, win.hi, win.lo, n_words)
+    hit = np.asarray(found & win.valid).reshape(-1)
+    want = np.stack([np.where(hit, np.asarray(w).reshape(-1), 0) for w in words], axis=1)
+    got = multi_hit_words(torch.from_numpy(rows), torch.from_numpy(bases), t.h_bits, t.salt, k, n_words)
     np.testing.assert_array_equal(got.numpy(), want)
     assert hit.any()
 
