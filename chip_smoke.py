@@ -8,8 +8,9 @@ Phases; any failure exits non-zero and no result line is printed:
 1. set-up: the card's name and power limit, whether the C++ host library
    built (``native_host``), and the CUDA kernels' build time;
 2. kernels vs plain versions on the card, at main-path shapes: a 256 x 4096
-   batch with ~3% invalid bases against a 6.7 M-key strain table, and for
-   K3 and K4 also batches made like the phase-4 targets (0.1% N); every
+   batch with ~3% invalid bases against a 6.7 M-key strain table, for K1,
+   K3 and K4 also batches made like the phase-4 targets (0.1% N), and for
+   K2 also sets of present keys as strain_detect probes them; every
    output must be exactly equal (all values are integers); kernel times
    device-only (CUDA events around a CUDA-graph replay,
    strainer2_tpu_torch/tools/bench_kernels.py) and from a loop of
@@ -253,14 +254,14 @@ def checked(name: str, kern, plain) -> int:
     return err
 
 
-def check_kernels(d: str, data: dict, rng, dev) -> dict:
+def check_kernels(d: str, data: dict, rng, dev, seed: int) -> dict:
     from strainer2_tpu_torch.index.build import StrainIndex
     from strainer2_tpu_torch.ops import lookup as L
     from strainer2_tpu_torch.ops.packing import canonical_windows, canonical_windows_plain
     from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
     from strainer2_tpu_torch.tools.bench_kernels import (
-        BATCH_KINDS, batch_stats, bound_ms, count_batches, detection_batches, k3_bytes, k4_bytes,
-        probe_bytes,
+        BATCH_KINDS, MAIN_QUERIES, batch_stats, bound_ms, count_batches, detection_batches,
+        k1_bytes, k2_bytes, k3_bytes, k4_bytes, main_path_queries,
     )
 
     genome = data["genome"]
@@ -288,7 +289,6 @@ def check_kernels(d: str, data: dict, rng, dev) -> dict:
     c_stats = [batch_stats(rows, h, salt, b) for b, _, _ in count_in]
     c_valid, c_found, c_hits = (mean(x) for x in zip(*c_stats))
     n_win = count_in[0][1].numel()
-    bases_bytes = ROWS * ROW_LEN
     n_ring = n_win // RING_CHUNK * RING_CHUNK
     ring_q = [(x[1].reshape(-1)[:n_ring], x[2].reshape(-1)[:n_ring]) for x in count_in]
     print(f"count batches: {c_valid:.0f} valid windows, {c_hits:.0f} hits of {n_win} windows a "
@@ -298,11 +298,11 @@ def check_kernels(d: str, data: dict, rng, dev) -> dict:
         "canonical_windows": (
             lambda i: canonical_windows(count_in[i][0], K),
             lambda i: canonical_windows_plain(count_in[i][0], K),
-            bases_bytes + 9 * n_win),
+            k1_bytes(count_in[0][0])),
         "bucket_lookup": (
             lambda i: L.bucket_lookup(rows, h, salt, count_in[i][1], count_in[i][2]),
             lambda i: L.bucket_lookup_plain(rows, h, salt, count_in[i][1], count_in[i][2]),
-            n_win * (8 + 9) + probe_bytes(n_win, c_found) + 4 * c_found),
+            k2_bytes(n_win, c_found)),
         # both count buffers start at zero and take the same batches in turn
         "count_step": (
             lambda i: (L.count_step(counts, rows, count_in[i][0], h, salt, K),),
@@ -311,8 +311,7 @@ def check_kernels(d: str, data: dict, rng, dev) -> dict:
         "bucket_lookup_ring": (
             lambda i: L.bucket_lookup_ring(rows, h, salt, *ring_q[i], chunk=RING_CHUNK),
             lambda i: L.bucket_lookup_plain(rows, h, salt, *ring_q[i]),
-            n_ring * (8 + 9) + probe_bytes(n_ring, c_found * n_ring / n_win)
-            + 4 * c_found * n_ring / n_win),
+            k2_bytes(n_ring, c_found * n_ring / n_win)),
     }
     results = {}
     for name, (kern, plain, n_bytes) in cases.items():
@@ -335,6 +334,26 @@ def check_kernels(d: str, data: dict, rng, dev) -> dict:
         max_abs_err=err)
     results["count_step"]["max_abs_err"] = max(results["count_step"]["max_abs_err"], err)
     del t_counts, t_counts_plain
+    # K1 on target-like bases; K2 on sets of present keys, as strain_detect
+    # probes its -a file's k-mers (one launch a strain)
+    kern = lambda i: canonical_windows(targets[i], K)  # noqa: E731
+    plain = lambda i: canonical_windows_plain(targets[i], K)  # noqa: E731
+    k1_err = checked("canonical_windows targets", kern, plain)
+    results["canonical_windows"]["targets"] = dict(
+        timed("canonical_windows targets", kern, plain, bound_ms(k1_bytes(targets[0]))),
+        max_abs_err=k1_err)
+    main_q = main_path_queries(np.random.default_rng([seed, 2]), index.codes, dev)
+    kern = lambda i: L.bucket_lookup(rows, h, salt, *main_q[i])  # noqa: E731
+    plain = lambda i: L.bucket_lookup_plain(rows, h, salt, *main_q[i])  # noqa: E731
+    k2_err = checked("bucket_lookup main", kern, plain)
+    if not all(bool(kern(i)[0].all()) for i in range(N_BATCHES)):
+        fail("bucket_lookup main: a key of the table was not found")
+    results["bucket_lookup"]["main"] = dict(
+        timed("bucket_lookup main", kern, plain, bound_ms(k2_bytes(MAIN_QUERIES, MAIN_QUERIES)),
+              f"; {MAIN_QUERIES} present keys a set"),
+        max_abs_err=k2_err)
+    for name, e in (("canonical_windows", k1_err), ("bucket_lookup", k2_err)):
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
     for kind, batches in detect.items():
         kern = lambda i: L.classify_step(rows, batches[i][0], batches[i][1], h, salt, K)  # noqa: E731
         plain = lambda i: L.classify_step_plain(rows, batches[i][0], batches[i][1], h, salt, K)  # noqa: E731
@@ -784,7 +803,7 @@ def main() -> int:
 
         # ---- phase 2: kernels vs plain versions
         phase("2")
-        results, ctx = check_kernels(d, data, rng, torch.device(DEVICE))
+        results, ctx = check_kernels(d, data, rng, torch.device(DEVICE), args.seed)
 
         # ---- phase 2b: the lookup A/B tool (path (a)), K6/K7 at S strains
         phase("2b")

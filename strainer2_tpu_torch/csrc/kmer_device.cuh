@@ -21,7 +21,7 @@ namespace s2t {
 constexpr uint32_t kInvalidBase = 4;
 constexpr int kKeysPerBucket = 16;
 constexpr int kMetaLane = 32;
-constexpr int kTile = 256;  // windows per block of the window-parallel kernels
+constexpr int kTile = 256;  // windows per block of K3, K4 and K6
 constexpr int kPackedBases = kTile + 64;  // a packed tile: its windows' bases and the 64
                                           // that packed_window's reads run past them
 constexpr int kMaxK = 32;
@@ -64,26 +64,30 @@ __device__ __forceinline__ bool canonical_window(const uint8_t* p, int k,
   return ok;
 }
 
-// The bases of one row's tile packed for constant-time window codes (K3,
-// K6): kPackedBases bases from the tile's first, as 2-bit codes b & 3,
-// LSB-first, 16 a word (base i at bits 2 (i % 16) of code[i / 16]), and
-// one bit a base that is invalid (>= 4), 32 a word (bit i % 32 of
-// bad[i / 32]).  Bases past the row's end pack as invalid; no window of
-// the row reads them.
-struct PackedTile {
-  uint32_t code[kPackedBases / 16];
-  uint32_t bad[kPackedBases / 32];
+// The bases of one row's tile packed for constant-time window codes:
+// kBases bases from the tile's first (its windows' bases and the 64 that
+// packed_window's reads run past them), as 2-bit codes b & 3, LSB-first,
+// 16 a word (base i at bits 2 (i % 16) of code[i / 16]), and one bit a
+// base that is invalid (>= 4), 32 a word (bit i % 32 of bad[i / 32]).
+// Bases past the row's end pack as invalid; no window of the row reads
+// them.  K3 and K6 use PackedTile (kTile windows), K1 a larger tile.
+template <int kBases>
+struct PackedBases {
+  static_assert(kBases % 32 == 0, "a packed tile holds whole bad words");
+  uint32_t code[kBases / 16];
+  uint32_t bad[kBases / 32];
 };
+using PackedTile = PackedBases<kPackedBases>;
 
-// Pack bases [w0, w0 + kPackedBases) of the row at src (L bases) into t;
-// every thread of the block calls it (blockDim a multiple of 32).  A warp
-// packs 32 consecutive bases a step: its invalid bits are one
-// __ballot_sync, and each half warp ORs its 16 shifted 2-bit codes
-// together in four shuffles.
-__device__ __forceinline__ void pack_tile(PackedTile& t, const uint8_t* src, int w0, int L) {
-  const int span = min(kPackedBases, L - w0);
+// Pack bases [w0, w0 + kBases) of the row at src (L bases) into t; every
+// thread of the block calls it (blockDim a multiple of 32).  A warp packs
+// 32 consecutive bases a step: its invalid bits are one __ballot_sync, and
+// each half warp ORs its 16 shifted 2-bit codes together in four shuffles.
+template <int kBases>
+__device__ __forceinline__ void pack_tile(PackedBases<kBases>& t, const uint8_t* src, int w0, int L) {
+  const int span = min(kBases, L - w0);
   const int lane = threadIdx.x & 31;
-  for (int i0 = threadIdx.x - lane; i0 < kPackedBases; i0 += blockDim.x) {  // warp-uniform
+  for (int i0 = threadIdx.x - lane; i0 < kBases; i0 += blockDim.x) {  // warp-uniform
     const int i = i0 + lane;
     const uint32_t b = i < span ? src[w0 + i] : kInvalidBase;
     const unsigned bad = __ballot_sync(0xffffffffu, b >= kInvalidBase);
@@ -102,15 +106,78 @@ __device__ __forceinline__ uint64_t reverse_pairs(uint64_t x) {
   return ((x >> 1) & 0x5555555555555555ull) | ((x & 0x5555555555555555ull) << 1);
 }
 
-// canonical_window of the k bases at tile position p < kTile (it reads
-// three code words and two bad words from p's on) in a constant
+// The 2-bit codes b & 3 (byte j's at bits 2j) and the invalid bits (bit j
+// where byte j >= 4) of the four bases in the bytes of x, without a loop:
+// a multiply gathers byte j's low pair at bits 2j of the top byte (every
+// partial sum stays below 256, so nothing carries), and the top byte of a
+// second multiply gathers each byte's "not below 4" bit.
+__device__ __forceinline__ void pack4(uint32_t x, uint32_t* code, uint32_t* bad) {
+  *code = ((x & 0x03030303u) * 0x01041040u) >> 24;
+  const uint32_t high = x & 0xFCFCFCFCu;                                   // byte != 0 iff >= 4
+  const uint32_t nz = (((high & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | high) & 0x80808080u;
+  *bad = ((nz >> 7) * 0x01020408u) >> 24;
+}
+
+// pack_tile by 16-base groups (K1): a thread packs group g, bases
+// [16 g, 16 g + 16), into code[g] and half of bad[g / 2] (the other half
+// from its neighbour lane by one shuffle).  Where the tile's first base
+// is 16-byte aligned (rows of L = 4096 are), a whole group is one 16-byte
+// load; a group past the row's end, or every group of an unaligned tile,
+// is read a byte at a time.  Same words as pack_tile; on K1's 1,088-base
+// tile 1.25-1.29x faster than it (H100 80GB HBM3, 700 W; PERF.md).
+template <int kBases>
+__device__ __forceinline__ void pack_tile_wide(PackedBases<kBases>& t, const uint8_t* src, int w0,
+                                               int L) {
+  constexpr int kGroups = kBases / 16;
+  const uint8_t* p = src + w0;
+  const int span = min(kBases, L - w0);
+  const bool aligned = (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  const int lane = threadIdx.x & 31;
+  for (int g0 = threadIdx.x - lane; g0 < kGroups; g0 += blockDim.x) {  // warp-uniform
+    const int g = g0 + lane;
+    const int i = 16 * g;
+    uint32_t x[4];
+    if (aligned && i + 16 <= span) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p + i));
+      x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        x[j] = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int n = i + 4 * j + b;
+          x[j] |= static_cast<uint32_t>(n < span ? p[n] : kInvalidBase) << (8 * b);
+        }
+      }
+    }
+    uint32_t code = 0, bad = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t c, b;
+      pack4(x[j], &c, &b);
+      code |= c << (8 * j);
+      bad |= b << (4 * j);
+    }
+    const uint32_t next = __shfl_down_sync(0xffffffffu, bad, 1);  // group g + 1's bits
+    if (g < kGroups) {
+      t.code[g] = code;
+      if (!(g & 1)) t.bad[g >> 1] = bad | next << 16;
+    }
+  }
+  __syncthreads();
+}
+
+// canonical_window of the k bases at tile position p < kBases - 64 (it
+// reads three code words and two bad words from p's on) in a constant
 // number of steps: the 64-bit run x of the 32 bases from p (base p + i at
 // pair i) comes from three code words by two funnel shifts; the reverse
 // complement is ~x cut to k pairs, the forward code x with its pairs
 // reversed, shifted down to k pairs; the window is valid when its k bits
 // of the invalid-base mask are 0.  Same values as canonical_window for
 // every window, valid or not, k in [1, 32].
-__device__ __forceinline__ bool packed_window(const PackedTile& t, int p, int k, int n_lo,
+template <int kBases>
+__device__ __forceinline__ bool packed_window(const PackedBases<kBases>& t, int p, int k, int n_lo,
                                               uint32_t* hi, uint32_t* lo) {
   const int j = p >> 4;
   const int s = 2 * (p & 15);
@@ -139,10 +206,14 @@ __device__ __forceinline__ unsigned lanes_equal(const uint32_t* p, uint32_t v) {
   return m;
 }
 
-// 16-bit mask of the row's cells whose key equals (hi, lo).
+// 16-bit mask of the row's cells whose key equals (hi, lo).  The 16 key_lo
+// lanes are read only where a key_hi lane matches, so a miss usually costs
+// 64 bytes, not 128; a cell whose key_hi matches and key_lo does not is
+// not in the mask.
 __device__ __forceinline__ unsigned match_mask(const uint32_t* row,
                                                uint32_t hi, uint32_t lo) {
-  return lanes_equal(row, hi) & lanes_equal(row + kKeysPerBucket, lo);
+  const unsigned m = lanes_equal(row, hi);
+  return m ? m & lanes_equal(row + kKeysPerBucket, lo) : 0u;
 }
 
 // The probe of window w0 + p of a packed tile (K3, K6): the 16-bit mask of

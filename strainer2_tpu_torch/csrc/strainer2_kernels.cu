@@ -27,34 +27,45 @@ constexpr uint32_t kInformative = 2;
 //   (the O(log k) doubling pack of _pack_block / _rc_pack_block).
 // Bound on this card: device-memory bytes. Per window it reads ~1 base and
 //   writes 9 bytes (hi, lo, valid): 0.0031 ms per 256 x 4096 batch. It
-//   takes 0.0243 ms, 0.13 of that bound (H100 80GB HBM3, 700 W; PERF.md):
-//   the k-step loop of canonical_window, a byte load and 64-bit shifts a
-//   step, sets its time. K3 and K6 now take window codes in constant time
-//   (packed_window, kmer_device.cuh); this kernel does not yet.
-// Design: one thread per window; a block stages the bases of 256 windows of
-//   one row (plus the k-1 halo) in shared memory, builds forward and
-//   reverse-complement codes in one 64-bit register each, and writes
-//   coalesced outputs. The doubling trick exists to vectorise across the
-//   TPU's lanes; a thread needs no such trick.
+//   takes 0.0055 ms, 0.56-0.57 of that bound, where the k-step loop
+//   of canonical_window, a byte load and 64-bit shifts a step, took 0.0241
+//   (H100 80GB HBM3, 700 W; PERF.md). The batch is one wave of blocks, so
+//   the rest is likely the wait for each block's bases before its stores
+//   start (not measured apart).
+// Design: a block per kK1Windows windows of one row, kK1Windows / 256
+//   windows a thread, strided by the block's width so that each warp's
+//   stores stay 32 consecutive windows. The block packs its bases once
+//   (pack_tile_wide: a 16-byte load and two multiplies a 16-base group;
+//   pack_tile's byte loads took 0.0069-0.0071 ms on this tile) and
+//   every window's code and validity come from the packed tile in a
+//   constant number of steps (packed_window), as in K3 and K6. A 1024-window
+//   tile packs 6% halo, where a 256-window tile packs 25%, and a 256 x 4096
+//   batch is 1,024 blocks, one wave of the card's 132 SMs at 8 blocks each.
 // ---------------------------------------------------------------------------
-__global__ void canonical_windows_kernel(const uint8_t* __restrict__ bases,
-                                         int L, int k,
-                                         uint32_t* __restrict__ hi,
-                                         uint32_t* __restrict__ lo,
-                                         uint8_t* __restrict__ valid) {
-  __shared__ uint8_t tile[kTile + kMaxK];
+constexpr int kK1Threads = 256;
+constexpr int kK1Windows = 1024;  // windows a block
+
+__global__ void __launch_bounds__(kK1Threads)
+canonical_windows_kernel(const uint8_t* __restrict__ bases, int L, int k,
+                         uint32_t* __restrict__ hi, uint32_t* __restrict__ lo,
+                         uint8_t* __restrict__ valid) {
+  __shared__ PackedBases<kK1Windows + 64> tile;
   const int W = L - k + 1;
-  const int row = blockIdx.y;
-  const int w0 = blockIdx.x * kTile;
-  load_tile(tile, bases + static_cast<size_t>(row) * L, w0, L, k);
-  const int w = w0 + threadIdx.x;
-  if (w >= W) return;
-  uint32_t h, l;
-  const bool ok = canonical_window(tile + threadIdx.x, k, min(k, 16), &h, &l);
-  const size_t o = static_cast<size_t>(row) * W + w;
-  hi[o] = h;
-  lo[o] = l;
-  valid[o] = ok;
+  const int w0 = blockIdx.x * kK1Windows;
+  pack_tile_wide(tile, bases + static_cast<size_t>(blockIdx.y) * L, w0, L);
+  const int n_lo = min(k, 16);
+  const size_t o = static_cast<size_t>(blockIdx.y) * W + w0;
+#pragma unroll
+  for (int j = 0; j < kK1Windows / kK1Threads; ++j) {
+    const int p = threadIdx.x + j * kK1Threads;
+    if (w0 + p < W) {
+      uint32_t h, l;
+      const bool ok = packed_window(tile, p, k, n_lo, &h, &l);
+      hi[o + p] = h;
+      lo[o + p] = l;
+      valid[o + p] = ok;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -62,14 +73,23 @@ __global__ void canonical_windows_kernel(const uint8_t* __restrict__ bases,
 //
 // Replaces: bucket_lookup_pallas_gridmap, strainer2_tpu/ops/pallas_lookup.py:93
 //   (one row DMA per query, vector compare of the 16 cells).
-// Bound on this card: random device-memory access latency. Each query reads
-//   one 128-byte key span at a hashed address; a 512 MiB table does not fit
-//   the 50 MB L2, so nearly every probe is a DRAM round trip.
-// Design: one thread per query, 8 independent 16-byte loads in flight per
-//   thread and thousands of threads per SM to cover the latency; the first
-//   equal cell is the lowest set bit of a 16-bit match mask (__ffs).
-//   Where not found: slot = bucket * 16 and meta = 0, exactly what the jnp
-//   bucket_lookup returns there.
+// Bound on this card: random DRAM accesses. A query reads the 16 key_hi
+//   lanes of its row (64 bytes at a hashed address; a 512 MiB table does
+//   not fit the 50 MB L2), then, only where one matches, the 16 key_lo
+//   lanes and, on a hit, one meta lane: two more random accesses. The
+//   card serves ~30 G random reads of up to 64 bytes a second there
+//   (PERF.md), so a query set of mostly misses costs about one access a
+//   query, one of hits three. On an H100 80GB HBM3 at 700 W (PERF.md):
+//   the 1.04 M window codes of a counting batch (~25% found) 0.0570 ms,
+//   0.53 of the byte bound, where reading key_lo lanes on every query took
+//   0.0806; strain_detect's 67,000 present keys 0.0104 ms either way.
+// Design: one thread per query, the probe of K3, K4 and K6 (match_mask:
+//   key_hi lanes first, four 16-byte loads each half); the first equal
+//   cell is the lowest set bit of the 16-bit match mask (__ffs). Where not
+//   found: slot = bucket * 16 and meta = 0, exactly what the jnp
+//   bucket_lookup returns there. More queries a thread do not pay: the
+//   limit is the rate of random accesses, not their latency (K3's
+//   variants, PERF.md).
 // ---------------------------------------------------------------------------
 __global__ void bucket_lookup_kernel(const uint32_t* __restrict__ rows,
                                      int row_width, int h_bits, uint32_t salt,
@@ -320,8 +340,8 @@ extern "C" {
 int s2t_canonical_windows(const void* bases, int rows, int L, int k, void* hi,
                           void* lo, void* valid, void* stream) {
   const int W = L - k + 1;
-  const dim3 grid((W + kTile - 1) / kTile, rows);
-  canonical_windows_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((W + kK1Windows - 1) / kK1Windows, rows);
+  canonical_windows_kernel<<<grid, kK1Threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(bases), L, k, static_cast<uint32_t*>(hi),
       static_cast<uint32_t*>(lo), static_cast<uint8_t*>(valid));
   return launch_status();

@@ -1,6 +1,7 @@
-"""Device-only times of the kernels K3 (count_step), K4 (classify_step),
-K6 (multi_hit_words) and K7 (boundary_strain_sums) at main-path shapes,
-and the timer, data and bounds that chip_smoke.py uses for every kernel.
+"""Device-only times of the kernels K1 (canonical_windows), K2
+(bucket_lookup), K3 (count_step), K4 (classify_step), K6
+(multi_hit_words) and K7 (boundary_strain_sums) at main-path shapes, and
+the timer, data and bounds that chip_smoke.py uses for every kernel.
 
     python strainer2_tpu_torch/tools/bench_kernels.py [--repo DIR] [--seed N] [--label L]
 
@@ -19,10 +20,15 @@ half from the genome with 3% N bases (~31% valid), as chip_smoke.py phase 2
 makes its detection batches; and ``targets``, made like chip_smoke.py's
 phase-4 targets and panel metagenomes: 1% of the reads from the genome,
 0.1% N bases (~77% valid: 120 of the 151 windows a read spans, less the
-few with an N; 1% of those hits).  K3 runs on ``count`` and ``targets``,
-K4 on ``phase2`` and ``targets``, K6 and K7 on ``phase2`` and ``targets``
-at S = 16, 32, 96 and 256 strains (K7 on K6's words), over rows widened
-with seeded meta words.
+few with an N; 1% of those hits).  K1 runs on ``count`` and ``targets``
+bases; K2 on the window codes of the ``count`` batches (every window,
+valid or not, ~25% found: the query set of chip_smoke.py phase 2) and on
+``main`` sets, MAIN_QUERIES keys of the table each, all present, as
+strain_detect probes its ``-a`` file's k-mers (pipeline/detect.py
+``_device_key_pos``, one launch a strain); K3 on ``count`` and
+``targets``, K4 on ``phase2`` and ``targets``, K6 and K7 on ``phase2`` and
+``targets`` at S = 16, 32, 96 and 256 strains (K7 on K6's words), over
+rows widened with seeded meta words.
 
 The timer is CUDA events around replays of one CUDA graph holding 5 rounds
 of the 8 batches' launches, so it sees device time and no host launch cost;
@@ -52,6 +58,7 @@ N_BATCHES = 8
 ROUNDS = 5  # rounds of the N_BATCHES launches in one graph
 REPLAYS = 3
 S_SWEEP = (16, 32, 96, 256)
+MAIN_QUERIES = 67_000  # the -a file's k-mers of chip_smoke.py's phase-4 strain, about
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 KEY_HALF_BYTES = 64  # the 16 key_hi (or the 16 key_lo) lanes of one bucket row
 BATCH_KINDS = {"phase2": (0.5, 0.03), "targets": (0.01, 0.001)}  # strain-read share, N rate
@@ -59,7 +66,8 @@ _ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 
 __all__ = [
     "BATCH_KINDS", "bound_ms", "graph_ms", "batch_stats", "count_batches", "detection_batches",
-    "sample_reads", "multi_rows", "probe_bytes", "k3_bytes", "k4_bytes", "k6_bytes", "k7_bytes",
+    "sample_reads", "multi_rows", "probe_bytes", "k1_bytes", "k2_bytes", "k3_bytes", "k4_bytes",
+    "k6_bytes", "k7_bytes",
 ]
 
 
@@ -105,6 +113,17 @@ def probe_bytes(probes: float, hits: float) -> float:
     (a miss is settled there unless a key_hi matches), the 16 key_lo lanes
     where one does (counted as the hits)."""
     return KEY_HALF_BYTES * (probes + hits)
+
+
+def k1_bytes(bases, k: int = K) -> int:
+    """Bases read once, (hi, lo, valid) written: 9 bytes a window."""
+    return bases.numel() + 9 * bases.shape[0] * (bases.shape[1] - k + 1)
+
+
+def k2_bytes(queries: float, found: float) -> float:
+    """(qhi, qlo) read, (found, slot, meta) written: 17 bytes a query; a
+    probe a query, and a meta word a found one."""
+    return 17 * queries + probe_bytes(queries, found) + 4 * found
 
 
 def k3_bytes(bases, valid: float, hits: float) -> float:
@@ -203,7 +222,7 @@ def detection_batches(rng, genome: np.ndarray, kind: str, dev) -> list:
 
 def _table(rng, dev):
     """Genome, its bucket table with 5% of the keys informative (64 lanes,
-    on the device), h_bits and salt."""
+    on the device), h_bits, salt and the keys (sorted uint64 codes)."""
     import torch
 
     from strainer2_tpu_torch.index.bucket import build_bucket_table
@@ -211,11 +230,26 @@ def _table(rng, dev):
 
     genome = rng.integers(0, 4, size=GENOME_BP, dtype=np.uint8)
     codes, valid = canonical_codes_np(genome, K)
-    table = build_bucket_table(np.unique(codes[valid]), K)
+    keys = np.unique(codes[valid])
+    table = build_bucket_table(keys, K)
     kinds = np.zeros(table.num_slots, dtype=np.uint32)
     kinds[table.slot_of_key] = np.where(rng.random(table.slot_of_key.size) < 0.05, 2, 1)
     rows = torch.from_numpy(table.with_meta(kinds)).to(dev)
-    return genome, rows, table.h_bits, table.salt, table.slot_of_key.size
+    return genome, rows, table.h_bits, table.salt, keys
+
+
+def main_path_queries(rng, keys: np.ndarray, dev) -> list:
+    """N_BATCHES (qhi, qlo) device sets of MAIN_QUERIES distinct keys drawn
+    from ``keys``: all present, as the -a file's k-mers are."""
+    import torch
+
+    from strainer2_tpu_torch.ops.packing_np import split_code64_np
+
+    out = []
+    for _ in range(N_BATCHES):
+        pick = keys[rng.choice(keys.size, size=MAIN_QUERIES, replace=False)]
+        out.append(tuple(torch.from_numpy(x).to(dev) for x in split_code64_np(pick, K)))
+    return out
 
 
 def multi_rows(rows, n_words: int, seed: int):
@@ -245,24 +279,38 @@ def bench(seed: int, label: str) -> dict:
 
     from strainer2_tpu_torch.ops import lookup as L
     from strainer2_tpu_torch.ops import segsum as G
+    from strainer2_tpu_torch.ops.packing import canonical_windows, canonical_windows_plain
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
-    genome, rows, h_bits, salt, n_keys = _table(rng, dev)
+    genome, rows, h_bits, salt, keys = _table(rng, dev)
     card = _card()
-    print(f"[{label}] card: {card}; table {n_keys} keys, rows {tuple(rows.shape)}", flush=True)
+    print(f"[{label}] card: {card}; table {keys.size} keys, rows {tuple(rows.shape)}", flush=True)
     batches = {kind: detection_batches(rng, genome, kind, dev) for kind in BATCH_KINDS}
     bases = {"count": count_batches(rng, genome, dev), "targets": [b for b, _, _ in batches["targets"]]}
     bases.update(phase2=[b for b, _, _ in batches["phase2"]])
     stats = {kind: [sum(x) / N_BATCHES for x in zip(*(batch_stats(rows, h_bits, salt, b) for b in bs))]
              for kind, bs in bases.items()}
-    result = {"label": label, "card": card, "k3": {}, "k4": {}, "k6": {}, "k7": {}}
+    main_q = main_path_queries(rng, keys, dev)
+    result = {"label": label, "card": card, "k1": {}, "k2": {}, "k3": {}, "k4": {}, "k6": {},
+              "k7": {}}
 
     def report(kernel: str, key: str, ms: float, bound: float, **extra) -> None:
         result[kernel][key] = {"ms": ms, "bound_ms": bound, **extra}
         print(f"[{label}] {kernel.upper()} {key}: {ms:.4f} ms, bound {bound:.4f} ms "
               f"(share {bound / ms:.3f})", flush=True)
 
+    for kind in ("count", "targets"):
+        bs = bases[kind]
+        ms = graph_ms(lambda i: canonical_windows(bs[i], K))
+        report("k1", kind, ms, bound_ms(k1_bytes(bs[0])))
+    codes = [canonical_windows_plain(b, K)[:2] for b in bases["count"]]
+    for kind, qs in (("count", codes), ("main", main_q)):
+        n = qs[0][0].numel()
+        found = stats["count"][1] if kind == "count" else n
+        ms = graph_ms(lambda i: L.bucket_lookup(rows, h_bits, salt, *qs[i]))
+        report("k2", kind, ms, bound_ms(k2_bytes(n, found)), queries=n, found=found)
+    del codes
     counts = torch.zeros(rows.shape[0] * 16, dtype=torch.uint32, device=dev)
     for kind in ("count", "targets"):
         bs = bases[kind]

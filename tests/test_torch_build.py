@@ -89,3 +89,34 @@ def test_launch_counts_are_exact_under_threads(monkeypatch):
     assert _build.launches["strain_sums"] == 5000 * len(workers)
     _build.reset_launches()
     assert not any(_build.launches.values())
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN53_GLOBAL__N__71946244_20_strainer2_kernels_cu_eda1342120bucket_lookup_kernelEPKjiijS1_S1_lPhPiPj",
+     "bucket_lookup_kernel"),
+    ("_ZN51_GLOBAL__N__d072f604_18_strainer2_multi_cu_c92f60e918strain_sums_kernelILi16EEEvPKjiPKiiiPiS5_",
+     "strain_sums_kernel<16>"),
+    ("_ZN51_GLOBAL__N__d072f604_18_strainer2_multi_cu_c92f60e925bucket_lookup_ring_kernelILi8EEEvPKjiijS2_S2_xPhPiPj",
+     "bucket_lookup_ring_kernel<8>"),
+])
+def test_compare_sass_kernel_names(mangled, name):
+    """The SASS comparison keys kernels by name and template argument, not
+    by the per-file hash of the anonymous namespace (nvcc's names, above,
+    differ in it between two checkouts); a name starting with hex letters
+    ("bucket") is not eaten by the hash."""
+    from strainer2_tpu_torch.tools.compare_sass import kernel_name
+
+    assert kernel_name(mangled) == name
+
+
+def test_compare_sass_compiles_with_the_build_flags():
+    """The SASS comparison compiles a cubin with the build's architecture
+    and optimisation flags, not a copy of them, and without the shared
+    library's."""
+    from strainer2_tpu_torch.tools.compare_sass import _CUBIN_FLAGS
+
+    assert _CUBIN_FLAGS[-1] == "-cubin"
+    assert "-shared" not in _CUBIN_FLAGS
+    gencode = _build._NVCC_FLAGS.index("-gencode")
+    assert _build._NVCC_FLAGS[gencode : gencode + 2] == _CUBIN_FLAGS[:2]
+    assert {"-std=c++17", "-O3"} <= set(_CUBIN_FLAGS)

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from strainer2_tpu_torch.index.bucket import build_bucket_table
+from strainer2_tpu_torch.index.hashing import cuckoo_slots_torch
 from strainer2_tpu_torch.io.batches import max_reads_capacity, pack_stream
 from strainer2_tpu_torch.ops import lookup as L
 from strainer2_tpu_torch.ops.packing import canonical_windows, canonical_windows_plain
@@ -266,3 +267,122 @@ def test_multi_hit_words_kernel_edges(strain, k, n_words, row_len):
     assert _equal((out,), (G.multi_hit_words_plain(rows, b, table.h_bits, table.salt, k, n_words),))
     assert int((out != 0).sum()) > 0
 
+
+
+# ---- K1 edges: 1024-window tiles packed by 16-base groups ---------------------
+
+K1_TILE = 1024  # windows a block of canonical_windows_kernel
+
+
+def _k1_row_len(k, row_len):
+    """A row length of EDGE_ROW_LENS, or one window, one whole K1 tile, or
+    one window past it."""
+    return {"one": k, "tile": k + K1_TILE - 1, "tile+1": k + K1_TILE}.get(row_len, row_len)
+
+
+@pytest.mark.parametrize("row_len", [*EDGE_ROW_LENS, "one", "tile", "tile+1"])
+@pytest.mark.parametrize("k", EDGE_K)
+def test_canonical_windows_kernel_edges(strain, k, row_len):
+    """K1 against its plain version on every window, valid or not: every k
+    the port takes, rows of one window, partial and whole 1024-window
+    tiles, N at row edges and on both sides of every 256-window edge (so
+    of every 1024-window edge too), an all-N last row, 7 rows, and rows
+    that start off 16-byte alignment (L = 40, 300, 1000)."""
+    rng, genome, _, _, rows = strain
+    b = torch.from_numpy(edge_rows(rng, genome, _k1_row_len(k, row_len), n_rows=7)).to(rows.device)
+    assert _equal(canonical_windows(b, k), canonical_windows_plain(b, k))
+
+
+@pytest.mark.parametrize("offset", [1, 8])
+def test_canonical_windows_kernel_unaligned(strain, offset):
+    """K1 on a batch whose first base is off 16-byte alignment, so that no
+    tile takes the 16-byte loads."""
+    rng, genome, _, _, rows = strain
+    bases = edge_rows(rng, genome, 4096, n_rows=5)
+    buf = torch.zeros(bases.size + offset, dtype=torch.uint8, device=rows.device)
+    b = buf[offset:].view(bases.shape)
+    b.copy_(torch.from_numpy(bases))
+    assert b.data_ptr() % 16
+    assert _equal(canonical_windows(b, K), canonical_windows_plain(b, K))
+
+
+# ---- K2: hand-built rows for the key_hi-first probe ---------------------------
+
+HAND_ROW_WIDTHS = [48, 64, 288]
+HAND_SALT = 0x5BD1E995
+# what a query's row holds: a key_hi-only cell before the matching one; the
+# key twice; key_hi-only cells and no match; key_lo-only cells and no
+# match; one matching cell; neither half of the key
+HAND_CASES = ("decoy_then_hit", "twice", "hi_only", "lo_only", "hit", "absent")
+
+
+def hand_built_rows(rng, row_width: int, n_queries: int = 600, h_bits: int = 10):
+    """A (2**h_bits, row_width) uint32 table written cell by cell, and
+    n_queries (hi, lo) queries of distinct buckets (cuckoo_slots_torch with
+    HAND_SALT), the rows of query i built as HAND_CASES[i % 6] says in
+    random cells. Returns rows, qhi, qlo, the lookup each query must get
+    (found, slot, meta: the first equal cell's, bucket * 16 and 0 on a
+    miss) and, for the queries whose key is in their row twice, the meta
+    of the second cell (0 elsewhere)."""
+    n_rows = 1 << h_bits
+    rows = rng.integers(0, 1 << 32, (n_rows, row_width), dtype=np.uint64).astype(np.uint32)
+    cand = rng.integers(0, 1 << 32, (2, 4 * n_rows), dtype=np.uint64)
+    bucket = cuckoo_slots_torch(torch.from_numpy(cand[0].astype(np.int64)) ^ HAND_SALT,
+                                torch.from_numpy(cand[1].astype(np.int64)), h_bits, 0).numpy()
+    first = np.sort(np.unique(bucket, return_index=True)[1])[:n_queries]
+    assert first.size == n_queries
+    qhi, qlo = (cand[i, first].astype(np.uint32) for i in (0, 1))
+    bucket = bucket[first]
+    found = np.zeros(n_queries, dtype=bool)
+    slot = (bucket * 16).astype(np.int32)
+    meta = np.zeros(n_queries, dtype=np.uint32)
+    second = np.zeros(n_queries, dtype=np.uint32)
+    for i, (h, l, b) in enumerate(zip(qhi, qlo, bucket)):
+        row = rows[b]
+        row[:16][row[:16] == h] ^= np.uint32(0x80000000)  # no stray key_hi match
+        cells = rng.permutation(16)
+        case = HAND_CASES[i % len(HAND_CASES)]
+        if case == "decoy_then_hit":
+            decoy, cell = sorted(cells[:2])
+            row[decoy], row[16 + decoy] = h, l ^ np.uint32(rng.integers(1, 1 << 32))
+            row[cell], row[16 + cell] = h, l
+        elif case == "twice":
+            cell, other = sorted(cells[:2])
+            row[[cell, other]], row[[16 + cell, 16 + other]] = h, l
+            second[i] = row[32 + other]
+        elif case == "hi_only":
+            for c in cells[: 1 + i // 6 % 3]:
+                row[c], row[16 + c] = h, l ^ np.uint32(rng.integers(1, 1 << 32))
+        elif case == "lo_only":
+            for c in cells[: 1 + i // 6 % 3]:
+                row[c], row[16 + c] = h ^ np.uint32(rng.integers(1, 1 << 32)), l
+        elif case == "hit":
+            cell = (0, 15, cells[0])[i // 6 % 3]
+            row[cell], row[16 + cell] = h, l
+        if case in ("decoy_then_hit", "twice", "hit"):
+            found[i], slot[i], meta[i] = True, b * 16 + cell, row[32 + cell]
+    return rows, qhi, qlo, (found, slot, meta), second
+
+
+@pytest.mark.parametrize("row_width", HAND_ROW_WIDTHS)
+def test_bucket_lookup_kernel_hand_built_rows(dev, row_width):
+    """K2 against its plain version and the built answers: a key_hi match
+    without its key_lo is no hit, even before the matching cell; the first
+    of two equal cells wins; a key_lo match alone is a miss."""
+    rows, qhi, qlo, expect, _ = hand_built_rows(np.random.default_rng(row_width), row_width)
+    r, qh, ql = (torch.from_numpy(x).to(dev) for x in (rows, qhi, qlo))
+    h_bits = int(np.log2(rows.shape[0]))
+    out = L.bucket_lookup(r, h_bits, HAND_SALT, qh, ql)
+    assert _equal(out, L.bucket_lookup_plain(r, h_bits, HAND_SALT, qh, ql))
+    assert _equal(out, [torch.from_numpy(x).to(dev) for x in expect])
+
+
+@pytest.mark.parametrize("row_width", HAND_ROW_WIDTHS)
+def test_bucket_lookup_ring_kernel_hand_built_rows(dev, row_width):
+    """K5 on the same rows: its ring copies whole key spans, and picks the
+    first equal cell as K2 does."""
+    rows, qhi, qlo, expect, _ = hand_built_rows(np.random.default_rng(row_width), row_width)
+    r, qh, ql = (torch.from_numpy(x).to(dev) for x in (rows, qhi, qlo))
+    h_bits = int(np.log2(rows.shape[0]))
+    out = L.bucket_lookup_ring(r, h_bits, HAND_SALT, qh, ql, w=8, d=4, chunk=200)
+    assert _equal(out, [torch.from_numpy(x).to(dev) for x in expect])

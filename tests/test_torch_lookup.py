@@ -17,7 +17,9 @@ from strainer2_tpu.pipeline.detect import _passing_any_1d
 from strainer2_tpu.pipeline.engine import _classify_step_bucket, _count_step_bucket
 from strainer2_tpu_torch.ops.lookup import bucket_lookup, classify_step, count_step, passing_any
 from tests.oracle import random_dna, seq_to_base_codes
-from tests.test_torch_kernels import EDGE_K, edge_rows, edge_bounds
+from tests.test_torch_kernels import (
+    EDGE_K, HAND_ROW_WIDTHS, HAND_SALT, edge_bounds, edge_rows, hand_built_rows,
+)
 
 K = 31
 
@@ -85,6 +87,64 @@ def test_plain_bucket_lookup_matches_jnp_and_pallas(strain):
     np.testing.assert_array_equal(p_found.astype(bool), found)
     np.testing.assert_array_equal(p_slot[found], slot[found])
     np.testing.assert_array_equal(p_meta[found], meta[found])
+
+
+def _hand_lookups(row_width):
+    """The hand-built rows and queries, the plain lookup of them, and the
+    rest of hand_built_rows' answer."""
+    rows, qhi, qlo, expect, second = hand_built_rows(np.random.default_rng(row_width), row_width)
+    h_bits = int(np.log2(rows.shape[0]))
+    got = [x.numpy() for x in bucket_lookup(torch.from_numpy(rows), h_bits, HAND_SALT,
+                                             torch.from_numpy(qhi), torch.from_numpy(qlo))]
+    return rows, h_bits, qhi, qlo, got, expect, second
+
+
+def _meta_sum_of_equal_cells(meta, second):
+    """The JAX lookups' meta: the sum of every equal cell's meta word
+    (_meta_block, _resolve), so a key held twice in a row (no built table
+    does that) gives both cells' words added, where the port's lookups
+    give the first cell's."""
+    return (meta.astype(np.uint64) + second) & np.uint64(0xFFFFFFFF)
+
+
+@pytest.mark.parametrize("row_width", HAND_ROW_WIDTHS)
+def test_plain_bucket_lookup_hand_built_rows_match_jnp(row_width):
+    """The key_hi-first contract on hand-built rows (a key_hi-only cell
+    before the matching one, a key twice, key_hi-only and key_lo-only
+    misses) at 48-, 64- and 288-lane rows: the plain lookup gives the built
+    answers, and the jnp bucket_lookup the same found and slot everywhere
+    and the same meta but where a key is in its row twice."""
+    rows, h_bits, qhi, qlo, got, expect, second = _hand_lookups(row_width)
+    for g, e in zip(got, expect):
+        np.testing.assert_array_equal(g, e)
+    r_found, r_slot, r_meta = (
+        np.asarray(x) for x in jnp_bucket_lookup(jnp.asarray(rows), h_bits, HAND_SALT,
+                                                 jnp.asarray(qhi), jnp.asarray(qlo))
+    )
+    found, slot, meta = got
+    np.testing.assert_array_equal(r_found, found)
+    np.testing.assert_array_equal(r_slot, slot)
+    np.testing.assert_array_equal(r_meta, _meta_sum_of_equal_cells(meta, second))
+    twice = second != 0
+    assert twice.any() and 0 < found.sum() < found.size
+    np.testing.assert_array_equal(r_meta[~twice], meta[~twice])
+
+
+def test_plain_bucket_lookup_hand_built_rows_match_pallas():
+    """The same 64-lane rows through the Pallas gridmap kernel (interpret
+    mode): found and meta as jnp gives them, slot where found (the kernel
+    answers bucket * 16 + 16 on a miss)."""
+    rows, h_bits, qhi, qlo, got, _, second = _hand_lookups(64)
+    p_found, p_slot, p_meta = (
+        np.asarray(x)
+        for x in bucket_lookup_pallas_gridmap(jnp.asarray(rows), h_bits, HAND_SALT,
+                                              jnp.asarray(qhi), jnp.asarray(qlo), group=8)
+    )
+    found, slot, meta = got
+    np.testing.assert_array_equal(p_found.astype(bool), found)
+    np.testing.assert_array_equal(p_meta, _meta_sum_of_equal_cells(meta, second))
+    np.testing.assert_array_equal(p_slot[found], slot[found])
+    np.testing.assert_array_equal(p_slot[~found], slot[~found] + 16)
 
 
 @pytest.mark.parametrize("rows,row_len", [(8, 256), (16, 512)])
