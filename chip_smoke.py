@@ -30,16 +30,19 @@ Phases; any failure exits non-zero and no result line is printed:
    lookup, M lookups/s of each; then K6 and K7 at S = 16, 32, 96 and 256 strains on phase 2's key set
    with seeded meta words and its detection batches, each exactly equal to
    its plain version;
-5. launch counts of the seven kernels on their paths (phase 4 for K1-K4,
-   the A/B tool for K5, phase 6 for K6-K7; each must be > 0), a check that
-   neither jax nor the JAX package (strainer2_tpu) was imported, one JSON
-   line of per-kernel results, then the result line;
+5. launch counts of the seven kernels on their paths (phase 4 for K1, K3
+   and K4, the A/B tool for K2 and K5, phase 6 for K6 and K7; each must be
+   > 0; no CLI path probes a key set with K2 since the -a file's k-mers are
+   marked by a host search), a check that neither jax nor the JAX package
+   (strainer2_tpu) was imported, one JSON line of per-kernel results (each
+   naming the path its launches were counted on), then the result line;
 6. real size, multi-strain: 32 strains made from the phase-4 genome with
    seeded SNPs (rate 0.002), each with a seeded 1% sample of its own
    k-mers as its scrubbed set, run through ``strainer2_tools detect-multi``
-   on the GPU against the phase-4 targets; strains 0, 15 and 31 are
-   byte-compared with single-strain ``strain_detect`` runs, and every
-   strain's hit rows with what the C++ ``NativeClassifier`` predicts.
+   on the GPU against the phase-4 targets, with its per-strain set-up
+   (``multi.strain_states``) timed on a line of its own; strains 0, 15 and
+   31 are byte-compared with single-strain ``strain_detect`` runs, and
+   every strain's hit rows with what the C++ ``NativeClassifier`` predicts.
 """
 
 from __future__ import annotations
@@ -652,17 +655,21 @@ def detect_multi_real(d: str, data: dict, multi: dict) -> tuple[float, dict]:
     """Path (b): detect-multi over all strains on the GPU, in this process
     with the launch counts reset just before and read just after."""
     from strainer2_tpu_torch.ops import _build
+    from strainer2_tpu_torch.utils import observability
 
+    set_up = observability._totals["multi.strain_states"]
     _build.reset_launches()
     wall = run_cli("strainer2_tools", ["detect-multi", "-S", os.path.join(d, "strains.tsv"),
                                        "-B", os.path.join(d, "targets.txt"),
                                        "-o", os.path.join(d, "multi")],
                    os.path.join(d, "multi_stdout.txt"))
     launches = dict(_build.launches)
+    set_up = observability._totals["multi.strain_states"] - set_up
     windows = data["windows"]["targets"]
     print(f"stage detect-multi ({MULTI_STRAINS} strains): wall {wall:.3f} s, "
           f"{windows / wall:,.0f} windows/s ({windows} windows), "
           f"{windows * MULTI_STRAINS / wall:,.0f} strain-windows/s", flush=True)
+    print(f"stage detect-multi multi.strain_states: {set_up:.3f} s", flush=True)
     return wall, launches
 
 
@@ -847,9 +854,13 @@ def main() -> int:
     }
     for path, counts in paths.items():
         print(f"launches during {path}: {counts}", flush=True)
-    launches.update(bucket_lookup_ring=ab["launches"]["bucket_lookup_ring"],
-                    multi_hit_words=multi_launches["multi_hit_words"],
-                    strain_sums=multi_launches["strain_sums"])
+    launched_by = dict.fromkeys(REPLACES, "strain scrub/filter/detect/coverage (phase 4)")
+    for name, path, counts in (("bucket_lookup", "bench_lookup (phase 2b)", ab["launches"]),
+                               ("bucket_lookup_ring", "bench_lookup (phase 2b)", ab["launches"]),
+                               ("multi_hit_words", "detect-multi (phase 6)", multi_launches),
+                               ("strain_sums", "detect-multi (phase 6)", multi_launches)):
+        launches[name] = counts[name]
+        launched_by[name] = path
     if not all(launches[name] > 0 for name in REPLACES):
         fail("a kernel of the path was not launched by its path")
     ring = results["bucket_lookup_ring"]
@@ -861,7 +872,7 @@ def main() -> int:
             r["max_abs_err"] for per_s in multi_k[name].values() for r in per_s.values()))
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-         "launches": launches[name], **results[name]}
+         "launches": launches[name], "launched_by": launched_by[name], **results[name]}
         for name in REPLACES
     ]
     jax_side = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "strainer2_tpu"))

@@ -10,7 +10,9 @@
 //   | ... (strainer2_tpu/index/bucket.py); bucket = cuckoo_slots(hi ^ salt,
 //   lo, h_bits, 0) (strainer2_tpu/index/hashing.py); slot = bucket * 16 +
 //   cell of the FIRST equal cell, as jnp.argmax picks it
-//   (strainer2_tpu/ops/lookup.py:128).
+//   (strainer2_tpu/ops/lookup.py:128); a meta word is the uint32-wrapping
+//   SUM of that lane over every equal cell, as _meta_block sums it
+//   (strainer2_tpu/ops/lookup.py:133-136; meta_sum).
 #pragma once
 
 #include <cstdint>
@@ -194,15 +196,17 @@ __device__ __forceinline__ bool packed_window(const PackedBases<kBases>& t, int 
   return (bad & (0xffffffffu >> (32 - k))) == 0;
 }
 
+// 4-bit mask of the four lanes of a that equal v.
+__device__ __forceinline__ unsigned eq4(uint4 a, uint32_t v) {
+  return static_cast<unsigned>((a.x == v) | (a.y == v) << 1 | (a.z == v) << 2 | (a.w == v) << 3);
+}
+
 // 16-bit mask of the 16 lanes at p that equal v: four 16-byte loads.
 __device__ __forceinline__ unsigned lanes_equal(const uint32_t* p, uint32_t v) {
   const uint4* p4 = reinterpret_cast<const uint4*>(p);
   unsigned m = 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint4 a = __ldg(p4 + i);
-    m |= static_cast<unsigned>((a.x == v) | (a.y == v) << 1 | (a.z == v) << 2 | (a.w == v) << 3) << (4 * i);
-  }
+  for (int i = 0; i < 4; ++i) m |= eq4(__ldg(p4 + i), v) << (4 * i);
   return m;
 }
 
@@ -214,6 +218,16 @@ __device__ __forceinline__ unsigned match_mask(const uint32_t* row,
                                                uint32_t hi, uint32_t lo) {
   const unsigned m = lanes_equal(row, hi);
   return m ? m & lanes_equal(row + kKeysPerBucket, lo) : 0u;
+}
+
+// The meta word of a key from the 16-lane block at p, m (not 0) the mask of
+// its equal cells: the uint32-wrapping sum of p[cell] over the set bits of
+// m, as the JAX lookups sum it.  A built table holds each key once, so this
+// is one load and one more test; it loops only where a row holds a key twice.
+__device__ __forceinline__ uint32_t meta_sum(const uint32_t* p, unsigned m) {
+  uint32_t v = __ldg(p + __ffs(m) - 1);
+  for (m &= m - 1; m; m &= m - 1) v += __ldg(p + __ffs(m) - 1);
+  return v;
 }
 
 // The probe of window w0 + p of a packed tile (K3, K6): the 16-bit mask of

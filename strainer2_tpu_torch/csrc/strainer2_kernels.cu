@@ -85,9 +85,9 @@ canonical_windows_kernel(const uint8_t* __restrict__ bases, int L, int k,
 //   0.0806; strain_detect's 67,000 present keys 0.0104 ms either way.
 // Design: one thread per query, the probe of K3, K4 and K6 (match_mask:
 //   key_hi lanes first, four 16-byte loads each half); the first equal
-//   cell is the lowest set bit of the 16-bit match mask (__ffs). Where not
-//   found: slot = bucket * 16 and meta = 0, exactly what the jnp
-//   bucket_lookup returns there. More queries a thread do not pay: the
+//   cell is the lowest set bit of the 16-bit match mask (__ffs), and meta
+//   the sum over its set bits (meta_sum). Where not found: slot = bucket *
+//   16 and meta = 0, exactly what the jnp bucket_lookup returns there. More queries a thread do not pay: the
 //   limit is the rate of random accesses, not their latency (K3's
 //   variants, PERF.md).
 // ---------------------------------------------------------------------------
@@ -107,7 +107,7 @@ __global__ void bucket_lookup_kernel(const uint32_t* __restrict__ rows,
   const int cell = m ? __ffs(m) - 1 : 0;
   found[q] = m != 0;
   slot[q] = static_cast<int32_t>(b) * kKeysPerBucket + cell;
-  meta[q] = m ? __ldg(row + kMetaLane + cell) : 0u;
+  meta[q] = m ? meta_sum(row + kMetaLane, m) : 0u;
 }
 
 // ---------------------------------------------------------------------------
@@ -166,7 +166,8 @@ count_step_kernel(uint32_t* __restrict__ counts, const uint32_t* __restrict__ ro
 // Design: the JAX formulation, in three launches.
 //   1. classify_masks: K3's shape, a block per 256-window tile of one row,
 //      the bases in shared memory, one thread per window making one
-//      independent probe, hi lanes first; hit and informative become bits
+//      independent probe, hi lanes first; informative where the meta sum
+//      (meta_sum) equals kInformative; hit and informative become bits
 //      by __ballot_sync, 8 words a tile (tiles padded to whole words), and
 //      each tile's two counts come from __syncthreads_count.
 //   2. classify_scan: one block turns the tile counts (4,096 per 256 x 4096
@@ -201,7 +202,7 @@ __global__ void classify_masks_kernel(const uint32_t* __restrict__ rows,
     if (m) m &= lanes_equal(r + kKeysPerBucket, l);  // key_lo lanes, only then
     if (m) {
       hit = true;
-      informative = __ldg(r + kMetaLane + __ffs(m) - 1) == kInformative;
+      informative = meta_sum(r + kMetaLane, m) == kInformative;
     }
   }
   const unsigned hm = __ballot_sync(0xffffffffu, hit);

@@ -6,6 +6,7 @@
 // with ctypes); every entry point launches on the stream it is given,
 // allocates nothing, and returns cudaGetLastError().
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -19,107 +20,148 @@ namespace {
 // K5 bucket_lookup_ring
 //
 // Replaces: bucket_lookup_pallas_manual, strainer2_tpu/ops/pallas_lookup.py:211
-//   (a hand-rolled ring of W row DMAs per group, D groups outstanding).
-// Bound on this card: random device-memory latency, as K2: each query reads
-//   one row at a hashed address of a table far larger than the 50 MB L2.
-// Design: a block owns `chunk` queries and walks them in groups of w. For a
-//   group it issues cp.async 16-byte copies of each query's row into one of
-//   D shared-memory stages: the 128-byte key span and the 64-byte first
-//   meta block, 12 copies a row, one per thread (blockDim = 12 w). D groups
-//   stay in flight (commit_group / wait_group<D-1>); the first w threads
-//   compare the landed group from shared memory while the next ones load.
-//   The Pallas kernel copies a 512-byte padded row per query; this copies
-//   the 192 bytes the contract reads. Results are K2's: the first equal
-//   cell by __ffs, and slot = bucket * 16, meta = 0 where not found (the
-//   jnp values; the Pallas kernel returns bucket * 16 + 16 there).
+//   (a hand-rolled ring of W row DMAs per group, D groups outstanding, one
+//   DMA semaphore a slot).
+// Bound on this card: random DRAM accesses, as K2: a query reads the 16
+//   key_hi lanes of its row (64 bytes at a hashed address of a table far
+//   larger than the 50 MB L2), and only where one matches the 16 key_lo
+//   lanes and, on a hit, a meta lane. The card serves ~30 G such reads a
+//   second (PERF.md), but this kernel meets another limit first: its
+//   64-byte bulk copies run at ~14 G a second on an H100 80GB HBM3 at
+//   700 W, whatever the query mix or block shape (0.0741-0.0746 ms on the
+//   1.04 M window codes of a counting batch, where K2's plain loads take
+//   0.0570 and four 16-byte cp.async pieces a query 0.090; PERF.md).
+// Design: a ring is a team of min(w, 32) lanes of one warp (32 / that many
+//   teams a warp) that walks its own run of a block's chunk in groups of w
+//   queries, up to D groups in flight. Lane j of a team issues one 64-byte
+//   bulk async copy (cp.async.bulk, the TMA's one-dimensional form) of the
+//   key_hi lanes of query j's row (and of j + 32's where w > 32) into the
+//   group's stage, and one mbarrier a stage counts the group's bytes
+//   (arrive.expect_tx), as the Pallas ring's semaphores count its row DMAs.
+//   When a stage's phase completes, each lane compares its query's key_hi
+//   lanes in shared memory; only where one matches does it read the key_lo
+//   lanes, and on a hit the meta lanes, from global memory (__ldg, K2's
+//   match_mask and meta_sum). So a miss moves 64 bytes where the parent's
+//   12 cp.async pieces moved 192, hit or miss. Then the lane refills the
+//   stage. A block splits its chunk over as many rings as 8 warps and
+//   48 KiB of stages hold, so a block keeps about as many queries in
+//   flight as K2's 256 threads do. The warp waits on its teams' stages
+//   together (__all_sync), so its teams stay converged. Results are K2's:
+//   the first equal cell by __ffs, the meta sum over equal cells, and slot
+//   = bucket * 16, meta = 0 where not found (the jnp values; the Pallas
+//   kernel returns bucket * 16 + 16 there).
 // ---------------------------------------------------------------------------
-constexpr int kRingPieces = 12;  // 16-byte copies per staged row: 8 key + 4 meta
+constexpr int kRowSpan = kKeysPerBucket * sizeof(uint32_t);  // a row's key_hi lanes, bytes
+constexpr int kRingWarps = 8;                                // warps a block, at most
+constexpr int kRingSmem = 48 * 1024;                         // stage bytes a block, at most
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+// Wait-free test of the phase of parity `parity` of the barrier.
+__device__ __forceinline__ bool mbar_done(uint64_t* bar, unsigned parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return ok != 0;
 }
 
-// This thread's copy of the row of query q0 + g * w + threadIdx.x / 12 into stage s.
-__device__ __forceinline__ void ring_issue(uint4* stages, const uint32_t* rows,
-                                           int row_width, int h_bits,
-                                           uint32_t salt, const uint32_t* qhi,
-                                           const uint32_t* qlo, int64_t q0,
-                                           int w, int g, int s) {
-  const int j = threadIdx.x / kRingPieces;
-  const int p = threadIdx.x - j * kRingPieces;
-  const int64_t q = q0 + static_cast<int64_t>(g) * w + j;
-  const uint32_t b = bucket_of(__ldg(qhi + q), __ldg(qlo + q), h_bits, salt);
-  const int lane = p < 8 ? 4 * p : kMetaLane + 4 * (p - 8);
-  cp_async16(stages + (s * w + j) * kRingPieces + p,
-             rows + static_cast<size_t>(b) * row_width + lane);
+// This lane's part of a group: its arrival on the stage's barrier, owing
+// the bytes of its copies, then one 64-byte bulk copy a query it holds.
+__device__ __forceinline__ void ring_issue(uint4* stage, uint64_t* bar, const uint32_t* rows,
+                                           int row_width, int h_bits, uint32_t salt,
+                                           const uint32_t* qhi, const uint32_t* qlo,
+                                           int64_t q, int w, int t) {
+  const unsigned bytes = kRowSpan * ((w - 1 - t) / 32 + 1);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  for (int j = t; j < w; j += 32) {
+    const uint32_t b = bucket_of(__ldg(qhi + q + j), __ldg(qlo + q + j), h_bits, salt);
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+            smem_u32(stage + j * (kRowSpan / 16))),
+        "l"(rows + static_cast<size_t>(b) * row_width), "r"(kRowSpan), "r"(smem_u32(bar))
+        : "memory");
+  }
 }
 
-template <int D>
-__global__ void bucket_lookup_ring_kernel(const uint32_t* __restrict__ rows,
-                                          int row_width, int h_bits,
-                                          uint32_t salt,
-                                          const uint32_t* __restrict__ qhi,
-                                          const uint32_t* __restrict__ qlo,
-                                          int w, int chunk,
-                                          uint8_t* __restrict__ found,
-                                          int32_t* __restrict__ slot,
-                                          uint32_t* __restrict__ meta) {
-  extern __shared__ uint4 stages[];  // D x w rows x 12 pieces
-  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * chunk;
+// Bytes of one ring's part of shared memory: its barriers, padded to 16
+// bytes, then `stages` stages of w key_hi spans.
+__host__ __device__ __forceinline__ int ring_bytes(int stages, int w) {
+  return 16 * ((stages + 1) / 2) + stages * w * kRowSpan;
+}
+
+__global__ void __launch_bounds__(kRingWarps * 32)
+bucket_lookup_ring_kernel(const uint32_t* __restrict__ rows, int row_width, int h_bits,
+                          uint32_t salt, const uint32_t* __restrict__ qhi,
+                          const uint32_t* __restrict__ qlo, int w, int chunk, int rings,
+                          int stages, uint8_t* __restrict__ found, int32_t* __restrict__ slot,
+                          uint32_t* __restrict__ meta) {
+  extern __shared__ uint4 smem[];
+  const int lane = threadIdx.x & 31;
+  const int tw = min(w, 32);  // lanes a team
+  const int team = lane / tw, t = lane - team * tw;
+  const int r = (threadIdx.x >> 5) * (32 / tw) + team;  // this lane's ring in the block
+  const bool in_ring = team < 32 / tw && r < rings;
   const int ng = chunk / w;
-  // prologue: D groups in flight; one commit per step (empty ones too) keeps
-  // "group g has landed" equal to "at most D-1 newer groups pending"
-  for (int s = 0; s < D; ++s) {
-    if (s < ng) ring_issue(stages, rows, row_width, h_bits, salt, qhi, qlo, q0, w, s, s);
-    cp_async_commit();
-  }
-  for (int g = 0; g < ng; ++g) {
-    const int s = g % D;
-    cp_async_wait<D - 1>();
-    __syncthreads();  // every thread's copies of group g are visible
-    if (threadIdx.x < w) {
-      const int64_t q = q0 + static_cast<int64_t>(g) * w + threadIdx.x;
-      const uint32_t h = qhi[q], l = qlo[q];
-      const uint32_t* row =
-          reinterpret_cast<const uint32_t*>(stages + (s * w + threadIdx.x) * kRingPieces);
-      unsigned m = 0;
+  const int g0 = in_ring ? static_cast<int>(static_cast<int64_t>(r) * ng / rings) : 0;
+  const int g1 = in_ring ? static_cast<int>(static_cast<int64_t>(r + 1) * ng / rings) : 0;
+  uint4* base = smem + (in_ring ? r : 0) * (ring_bytes(stages, w) / 16);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base);
+  uint4* stage0 = base + (stages + 1) / 2;
+  const int span4 = w * (kRowSpan / 16);  // uint4s a stage
+  if (in_ring)
+    for (int i = t; i < stages; i += tw) mbar_init(bars + i, tw);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncwarp();
+  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * chunk;
+  if (in_ring)
+    for (int i = 0; i < stages && g0 + i < g1; ++i)
+      ring_issue(stage0 + i * span4, bars + i, rows, row_width, h_bits, salt, qhi, qlo,
+                 q0 + static_cast<int64_t>(g0 + i) * w, w, t);
+  const int steps = (ng + rings - 1) / rings;  // the most groups a ring has: block-uniform
+  int s = 0;
+  unsigned parity = 0;
+  for (int i = 0; i < steps; ++i) {
+    const bool live = in_ring && g0 + i < g1;
+    bool ready = !live || mbar_done(bars + s, parity);
+    while (!__all_sync(0xffffffffu, ready)) ready = ready || mbar_done(bars + s, parity);
+    if (live) {
+      const int64_t q = q0 + static_cast<int64_t>(g0 + i) * w;
+      for (int j = t; j < w; j += 32) {
+        const uint32_t h = __ldg(qhi + q + j), l = __ldg(qlo + q + j);
+        const uint32_t b = bucket_of(h, l, h_bits, salt);
+        const uint32_t* row = rows + static_cast<size_t>(b) * row_width;
+        const uint4* hi4 = stage0 + s * span4 + j * (kRowSpan / 16);
+        unsigned m = 0;
 #pragma unroll
-      for (int c = 0; c < kKeysPerBucket; ++c)
-        m |= static_cast<unsigned>((row[c] == h) & (row[kKeysPerBucket + c] == l)) << c;
-      const int cell = m ? __ffs(m) - 1 : 0;
-      found[q] = m != 0;
-      slot[q] = static_cast<int32_t>(bucket_of(h, l, h_bits, salt)) * kKeysPerBucket + cell;
-      meta[q] = m ? row[kMetaLane + cell] : 0u;
+        for (int c = 0; c < 4; ++c) m |= eq4(hi4[c], h) << (4 * c);
+        if (m) m &= lanes_equal(row + kKeysPerBucket, l);
+        found[q + j] = m != 0;
+        slot[q + j] = static_cast<int32_t>(b) * kKeysPerBucket + (m ? __ffs(m) - 1 : 0);
+        meta[q + j] = m ? meta_sum(row + kMetaLane, m) : 0u;
+      }
     }
-    __syncthreads();  // stage s is read before it is refilled
-    if (g + D < ng)
-      ring_issue(stages, rows, row_width, h_bits, salt, qhi, qlo, q0, w, g + D, s);
-    cp_async_commit();
+    __syncwarp();  // every lane has read stage s before it is refilled
+    if (live && g0 + i + stages < g1)
+      ring_issue(stage0 + s * span4, bars + s, rows, row_width, h_bits, salt, qhi, qlo,
+                 q0 + static_cast<int64_t>(g0 + i + stages) * w, w, t);
+    if (++s == stages) {
+      s = 0;
+      parity ^= 1u;
+    }
   }
-}
-
-template <int D>
-int launch_ring(const void* rows, int row_width, int h_bits, uint32_t salt,
-                const void* qhi, const void* qlo, long long n, int w, int chunk,
-                void* found, void* slot, void* meta, cudaStream_t stream) {
-  const long long blocks = n / chunk;
-  const size_t smem = static_cast<size_t>(D) * w * kRingPieces * sizeof(uint4);
-  bucket_lookup_ring_kernel<D><<<static_cast<unsigned>(blocks), w * kRingPieces, smem, stream>>>(
-      static_cast<const uint32_t*>(rows), row_width, h_bits, salt,
-      static_cast<const uint32_t*>(qhi), static_cast<const uint32_t*>(qlo), w,
-      chunk, static_cast<uint8_t*>(found), static_cast<int32_t*>(slot),
-      static_cast<uint32_t*>(meta));
-  return launch_status();
 }
 
 // ---------------------------------------------------------------------------
@@ -137,8 +179,11 @@ int launch_ring(const void* rows, int row_width, int h_bits, uint32_t salt,
 //   the probes and the stores set the time; where half the valid windows
 //   hit, a hit's n_words random meta reads do (PERF.md).
 // Design: K3's packed tile and probe (pack_tile, probe_window: window codes
-//   in constant time, key_hi lanes first); a hit reads lane 32 + 16 j +
-//   cell of the matched row for j < n_words. The output is window-major,
+//   in constant time, key_hi lanes first); word j of a hit, j < n_words,
+//   is lane 32 + 16 j + cell of its one equal cell, or where a row holds
+//   the key twice the sum over its equal cells (meta_sum) on a path of its
+//   own: a sum inside the one-cell loop cost up to 40% at 256 strains
+//   (PERF.md). The output is window-major,
 //   (Q, n_words), so K7 reads one read's words contiguously, and a block's
 //   windows own one contiguous run of it. The block stages that run in
 //   shared memory, zeroed (a miss or an invalid window writes zeros), lets
@@ -168,9 +213,14 @@ multi_hit_words_kernel(const uint32_t* __restrict__ rows, int row_width, int h_b
   uint32_t b;
   const unsigned m = probe_window(tile, threadIdx.x, rows, row_width, h_bits, salt, w0, W, k, &b);
   if (m) {
-    const uint32_t* cell = rows + static_cast<size_t>(b) * row_width + kMetaLane + (__ffs(m) - 1);
+    const uint32_t* block = rows + static_cast<size_t>(b) * row_width + kMetaLane;
     uint32_t* dst = stage + off + threadIdx.x * n_words;
-    for (int j = 0; j < n_words; ++j) dst[j] = __ldg(cell + kKeysPerBucket * j);
+    if (m & (m - 1)) {  // a key held twice in its row: no built table holds one
+      for (int j = 0; j < n_words; ++j) dst[j] = meta_sum(block + kKeysPerBucket * j, m);
+    } else {
+      const uint32_t* cell = block + (__ffs(m) - 1);
+      for (int j = 0; j < n_words; ++j) dst[j] = __ldg(cell + kKeysPerBucket * j);
+    }
   }
   __syncthreads();
   uint32_t* out = words + (first - off);  // 16-byte aligned: the wrapper allocates words
@@ -218,6 +268,20 @@ multi_hit_words_kernel(const uint32_t* __restrict__ rows, int row_width, int h_b
 //   read as the JAX gather reads them (gather_index); a span with
 //   b[r+1] < b[r] gives the negated counts, as a prefix difference does.
 // ---------------------------------------------------------------------------
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 constexpr int kSumWarps = 4;        // warps per block
 constexpr int kStageWindows = 184;  // staged windows per read (150 bp reads span 151)
 constexpr int kPlanes = 8;          // vertical counter bits: 255 steps between folds
@@ -352,27 +416,29 @@ int launch_strain_sums(const void* words, int q, const void* bounds, int n_reads
 
 extern "C" {
 
+// A block per chunk; its chunk / w groups split over as many rings (teams
+// of min(w, 32) lanes) as kRingWarps warps and kRingSmem bytes of stages
+// hold, each ring with min(d, its groups) stages.
 int s2t_bucket_lookup_ring(const void* rows, int row_width, int h_bits,
                            uint32_t salt, const void* qhi, const void* qlo,
                            long long n, int w, int d, int chunk, void* found,
                            void* slot, void* meta, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d) {
-#define S2T_RING_CASE(D) \
-  case D:                \
-    return launch_ring<D>(rows, row_width, h_bits, salt, qhi, qlo, n, w, chunk, found, slot, meta, st);
-    S2T_RING_CASE(1)
-    S2T_RING_CASE(2)
-    S2T_RING_CASE(3)
-    S2T_RING_CASE(4)
-    S2T_RING_CASE(5)
-    S2T_RING_CASE(6)
-    S2T_RING_CASE(7)
-    S2T_RING_CASE(8)
-#undef S2T_RING_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (w < 1 || w > 64 || d < 1 || d > 8 || chunk < w || chunk % w || n % chunk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ng = chunk / w;
+  const int per_warp = 32 / std::min(w, 32);
+  const auto stages_for = [&](int rings) { return std::min(d, (ng + rings - 1) / rings); };
+  int rings = std::min(ng, kRingWarps * per_warp);
+  while (rings > 1 && rings * ring_bytes(stages_for(rings), w) > kRingSmem) --rings;
+  const int stages = stages_for(rings);
+  const int threads = 32 * ((rings + per_warp - 1) / per_warp);
+  bucket_lookup_ring_kernel<<<static_cast<unsigned>(n / chunk), threads,
+                              rings * ring_bytes(stages, w), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(rows), row_width, h_bits, salt,
+      static_cast<const uint32_t*>(qhi), static_cast<const uint32_t*>(qlo), w, chunk, rings,
+      stages, static_cast<uint8_t*>(found), static_cast<int32_t*>(slot),
+      static_cast<uint32_t*>(meta));
+  return launch_status();
 }
 
 int s2t_multi_hit_words(const void* rows, int row_width, int h_bits,

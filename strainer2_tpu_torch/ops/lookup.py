@@ -4,12 +4,15 @@ Row layout and lookup contract of the JAX package (strainer2_tpu/index/
 bucket.py, strainer2_tpu/ops/lookup.py): a (num_buckets, row_width) uint32
 table whose rows hold 16 key_hi | 16 key_lo | 16 meta | ...; a query's
 bucket is cuckoo_slots(hi ^ salt, lo, h_bits, 0); slot = bucket * 16 + the
-FIRST equal cell; meta = that cell's lane 32 + cell.  Where not found,
-slot = bucket * 16 and meta = 0, as the jnp ``bucket_lookup`` returns.
+FIRST equal cell; meta = the uint32-wrapping sum of lane 32 + cell over
+every equal cell (one cell in any table ``build_bucket_table`` builds), as
+the jnp ``_meta_block`` sums it.  Where not found, slot = bucket * 16 and
+meta = 0, as the jnp ``bucket_lookup`` returns.
 
 - ``bucket_lookup``   (K2): found, slot, meta per query.
-- ``bucket_lookup_ring`` (K5): the same contract through a cp.async ring
-  of row copies (the A/B twin of the Pallas DMA-ring lookup).
+- ``bucket_lookup_ring`` (K5): the same contract through a ring of bulk
+  async copies of each row's key_hi lanes (the A/B twin of the Pallas
+  DMA-ring lookup).
 - ``bucket_lookup_words_plain``: found, slot and the first n_words meta
   words (the multi-strain probe; its kernel is fused into K6,
   ops/segsum.py).
@@ -60,7 +63,8 @@ def bucket_lookup_words_plain(rows: torch.Tensor, h_bits: int, salt: int,
                               qhi: torch.Tensor, qlo: torch.Tensor, n_words: int):
     """(found bool, slot int32, [meta word 0 .. n_words-1] uint32), shapes
     of qhi: the JAX ``bucket_lookup_words`` (strainer2_tpu/ops/lookup.py:181).
-    Word j of a found key is lane 32 + 16 j of its cell; 0 where not found."""
+    Word j of a found key is the uint32-wrapping sum of lane 32 + 16 j + cell
+    over its equal cells; 0 where not found."""
     blocks = (rows.shape[1] - META_LANE) // KEYS_PER_BUCKET
     if n_words > blocks:
         raise ValueError(f"{n_words} meta words > {blocks} blocks in a {rows.shape[1]}-lane row")
@@ -86,8 +90,9 @@ def bucket_lookup_words_plain(rows: torch.Tensor, h_bits: int, salt: int,
         found[s : s + step] = hit
         slot[s : s + step] = bucket * KEYS_PER_BUCKET + cell
         for j in range(n_words):
-            lane = META_LANE + KEYS_PER_BUCKET * j + cell
-            words[j, s : s + step] = torch.where(hit, row.gather(1, lane[:, None])[:, 0], 0)
+            block = row[:, META_LANE + KEYS_PER_BUCKET * j : META_LANE + KEYS_PER_BUCKET * (j + 1)]
+            total = torch.where(eq, block.to(torch.int64) & _MASK32, 0).sum(dim=1)
+            words[j, s : s + step] = ((total + 2**31) & _MASK32) - 2**31  # wrapped, as int32 bits
     return (
         found.reshape(shape),
         slot.to(torch.int32).reshape(shape),
@@ -222,8 +227,10 @@ def bucket_lookup(rows, h_bits: int, salt: int, qhi, qlo):
 
 def _check_ring_args(n: int, w: int, d: int, chunk: int) -> None:
     """bucket_lookup_pallas_manual's checks (pallas_lookup.py:228-231), then
-    the ring kernel's own bounds: blockDim = 12 w threads and D x w x 192
-    bytes of shared memory, within the 48 KiB a block gets by default."""
+    the ring kernel's own bounds: w rows a group held by a team of at most
+    32 lanes (two rows a lane at most), at most 8 groups in flight, and a
+    ring's D x w x 64 bytes of stages and D mbarriers within the 48 KiB a
+    block gets by default."""
     if chunk % w:
         raise ValueError("chunk must be a multiple of w")
     if n % chunk:
@@ -237,9 +244,10 @@ def bucket_lookup_ring(rows, h_bits: int, salt: int, qhi, qlo, *,
     """Kernel K5 on CUDA tensors, the plain version on CPU tensors.
 
     The contract of ``bucket_lookup`` (K2), resolved by a block per
-    ``chunk`` queries that keeps ``d`` groups of ``w`` row copies in flight.
-    Where not found it returns K2's (jnp's) slot = bucket * 16 and meta = 0;
-    the Pallas kernel returns bucket * 16 + 16 there."""
+    ``chunk`` queries, split over rings that each keep up to ``d`` groups
+    of ``w`` key_hi copies in flight.  Where not found it returns K2's
+    (jnp's) slot = bucket * 16 and meta = 0; the Pallas kernel returns
+    bucket * 16 + 16 there."""
     _check_ring_args(qhi.numel(), w, d, chunk)
     if not _on_cuda("bucket_lookup_ring", rows, qhi, qlo):
         return bucket_lookup_plain(rows, h_bits, salt, qhi, qlo)

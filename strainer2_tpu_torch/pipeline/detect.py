@@ -45,12 +45,11 @@ from strainer2_tpu_torch.io.batches import (
     read_codes_from_batch,
 )
 from strainer2_tpu_torch.io.fastx import open_maybe_gzip, read_fastx
-from strainer2_tpu_torch.ops.lookup import bucket_lookup, passing_any
+from strainer2_tpu_torch.ops.lookup import passing_any
 from strainer2_tpu_torch.ops.packing_np import (
     canonical_codes_np,
     decode_codes_np,
     encode_ascii_np,
-    split_code64_np,
 )
 from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
 from strainer2_tpu_torch.pipeline.scrub_count import count_panel_file, read_list_file
@@ -227,28 +226,13 @@ class StrainDetector:
     # ---- stage 2: mark informative k-mers ----
     def _key_pos(self, codes: np.ndarray) -> np.ndarray:
         """Map codes to key indices (first-encounter order), -1 if absent
-        (host search; used by the emission re-scan)."""
+        (a host search, as the JAX package marks the -a file: no table is
+        built for it)."""
         pos = np.searchsorted(self._sorted_codes, codes)
         pos = np.clip(pos, 0, self._sorted_codes.size - 1)
         ok = self._sorted_codes[pos] == codes
         out = np.where(ok, self._sorted_order[pos], -1)
         return out.astype(np.int64)
-
-    def _device_key_pos(self, codes: np.ndarray) -> np.ndarray:
-        """Map codes to key indices, -1 if absent, by probing the device
-        table with the lookup kernel and inverting slot_of_key there."""
-        t = self.index.table
-        eng = self.engine
-        hi, lo = split_code64_np(codes, self.cfg.k)
-        found, slot, _ = bucket_lookup(
-            eng.table_for(self.index), t.h_bits, t.salt, eng.to_device(hi), eng.to_device(lo)
-        )
-        key_of_slot = torch.full((t.num_slots,), -1, dtype=torch.int32, device=eng.device)
-        key_of_slot[eng.to_device(t.slot_of_key.astype(np.int64))] = torch.arange(
-            self.index.num_kmers, dtype=torch.int32, device=eng.device
-        )
-        keys = torch.where(found, key_of_slot[slot.to(torch.int64)], -1)
-        return keys.cpu().numpy().astype(np.int64)
 
     def _mark_scrubbed(self, a_file: str) -> int:
         """Mark the -a file's k-mers informative; diagnostics stay in line
@@ -272,7 +256,7 @@ class StrainDetector:
             fwd = (two * weights).sum(axis=1, dtype=np.uint64)
             rc = ((np.uint64(3) - two)[:, ::-1] * weights).sum(axis=1, dtype=np.uint64)
             ccodes = np.where(fwd >= rc, fwd, rc)
-            idx = np.where(valid, self._device_key_pos(ccodes), -1)
+            idx = np.where(valid, self._key_pos(ccodes), -1)
 
         n_marked = 0
         gi = 0

@@ -344,8 +344,6 @@ class MultiStrainDetector:
                 total_informative=int(np.count_nonzero(det.kmer_type == INFORMATIVE_KMER)),
                 num_marked=det.num_informative_marked,
             )
-            # the strain's own row table served only the marking
-            det.index.table_ = None
             return state, _StrainKeys(det._sorted_codes, det.kmer_type, det._sorted_order), buf
 
         def flush(result):

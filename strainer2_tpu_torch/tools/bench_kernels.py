@@ -1,7 +1,8 @@
 """Device-only times of the kernels K1 (canonical_windows), K2
-(bucket_lookup), K3 (count_step), K4 (classify_step), K6
-(multi_hit_words) and K7 (boundary_strain_sums) at main-path shapes, and
-the timer, data and bounds that chip_smoke.py uses for every kernel.
+(bucket_lookup), K3 (count_step), K4 (classify_step), K5
+(bucket_lookup_ring), K6 (multi_hit_words) and K7 (boundary_strain_sums)
+at main-path shapes, and the timer, data and bounds that chip_smoke.py uses
+for every kernel.
 
     python strainer2_tpu_torch/tools/bench_kernels.py [--repo DIR] [--seed N] [--label L]
 
@@ -21,11 +22,11 @@ makes its detection batches; and ``targets``, made like chip_smoke.py's
 phase-4 targets and panel metagenomes: 1% of the reads from the genome,
 0.1% N bases (~77% valid: 120 of the 151 windows a read spans, less the
 few with an N; 1% of those hits).  K1 runs on ``count`` and ``targets``
-bases; K2 on the window codes of the ``count`` batches (every window,
-valid or not, ~25% found: the query set of chip_smoke.py phase 2) and on
-``main`` sets, MAIN_QUERIES keys of the table each, all present, as
-strain_detect probes its ``-a`` file's k-mers (pipeline/detect.py
-``_device_key_pos``, one launch a strain); K3 on ``count`` and
+bases; K2 and K5 (w = 8, d = 4, RING_CHUNK queries a block, as
+chip_smoke.py phase 2 runs it) on the window codes of the ``count`` batches
+(every window, valid or not, ~25% found: the query set of chip_smoke.py
+phase 2), and on ``main`` sets, MAIN_QUERIES keys of the table each, all
+present, as an ``-a`` file's k-mers are; K3 on ``count`` and
 ``targets``, K4 on ``phase2`` and ``targets``, K6 and K7 on ``phase2`` and
 ``targets`` at S = 16, 32, 96 and 256 strains (K7 on K6's words), over
 rows widened with seeded meta words.
@@ -59,6 +60,7 @@ ROUNDS = 5  # rounds of the N_BATCHES launches in one graph
 REPLAYS = 3
 S_SWEEP = (16, 32, 96, 256)
 MAIN_QUERIES = 67_000  # the -a file's k-mers of chip_smoke.py's phase-4 strain, about
+RING_CHUNK = 1024  # queries a K5 block (the wrapper's default)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 KEY_HALF_BYTES = 64  # the 16 key_hi (or the 16 key_lo) lanes of one bucket row
 BATCH_KINDS = {"phase2": (0.5, 0.03), "targets": (0.01, 0.001)}  # strain-read share, N rate
@@ -292,8 +294,8 @@ def bench(seed: int, label: str) -> dict:
     stats = {kind: [sum(x) / N_BATCHES for x in zip(*(batch_stats(rows, h_bits, salt, b) for b in bs))]
              for kind, bs in bases.items()}
     main_q = main_path_queries(rng, keys, dev)
-    result = {"label": label, "card": card, "k1": {}, "k2": {}, "k3": {}, "k4": {}, "k6": {},
-              "k7": {}}
+    result = {"label": label, "card": card, "k1": {}, "k2": {}, "k3": {}, "k4": {}, "k5": {},
+              "k6": {}, "k7": {}}
 
     def report(kernel: str, key: str, ms: float, bound: float, **extra) -> None:
         result[kernel][key] = {"ms": ms, "bound_ms": bound, **extra}
@@ -310,6 +312,12 @@ def bench(seed: int, label: str) -> dict:
         found = stats["count"][1] if kind == "count" else n
         ms = graph_ms(lambda i: L.bucket_lookup(rows, h_bits, salt, *qs[i]))
         report("k2", kind, ms, bound_ms(k2_bytes(n, found)), queries=n, found=found)
+        # K5 takes whole blocks of RING_CHUNK queries: the first n_ring of each set
+        n_ring = n // RING_CHUNK * RING_CHUNK
+        ring = [(qh.reshape(-1)[:n_ring], ql.reshape(-1)[:n_ring]) for qh, ql in qs]
+        ms = graph_ms(lambda i: L.bucket_lookup_ring(rows, h_bits, salt, *ring[i], chunk=RING_CHUNK))
+        report("k5", kind, ms, bound_ms(k2_bytes(n_ring, found * n_ring / n)), queries=n_ring,
+               found=found * n_ring / n)
     del codes
     counts = torch.zeros(rows.shape[0] * 16, dtype=torch.uint32, device=dev)
     for kind in ("count", "targets"):

@@ -1,5 +1,5 @@
-"""A/B of the bucket-row lookups on one device: the cp.async ring (K5)
-against K2 and the plain torch lookup.
+"""A/B of the bucket-row lookups on one device: the ring of bulk async
+key_hi copies (K5) against K2 and the plain torch lookup.
 
     python -m strainer2_tpu_torch.tools.bench_lookup [--kmers 6700000] [--queries 262144] \\
         [--variants plain,k2,ring8x4,ring8x8,ring16x4,ring16x8] [--row-width 64] \\
@@ -8,9 +8,9 @@ against K2 and the plain torch lookup.
 The torch twin of tools/bench_pallas_lookup.py.  A table of --kmers random
 k-mers (seed 11) with a seeded meta word per slot, and SLICES slices of
 --queries lookups each, half of them present.  ``ringWxD`` is K5 with w=W
-row copies per group and D groups in flight; its ``chunk`` (queries per
-block) is 2 W D, so that a 262,144-query step gives the card thousands of
-blocks.
+rows a group and up to D groups in flight a ring; its ``chunk`` (queries
+per block) is 2 W D, so that a 262,144-query step gives the card thousands
+of blocks.
 
 Every variant is checked exactly (found, slot, meta) against K2 and the
 plain version on every slice.  Timing follows the original's chain method:

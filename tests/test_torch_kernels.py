@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from strainer2_tpu_torch.index.bucket import build_bucket_table
+from strainer2_tpu_torch.index.bucket import EMPTY, build_bucket_table
 from strainer2_tpu_torch.index.hashing import cuckoo_slots_torch
 from strainer2_tpu_torch.io.batches import max_reads_capacity, pack_stream
 from strainer2_tpu_torch.ops import lookup as L
@@ -320,10 +320,10 @@ def hand_built_rows(rng, row_width: int, n_queries: int = 600, h_bits: int = 10)
     """A (2**h_bits, row_width) uint32 table written cell by cell, and
     n_queries (hi, lo) queries of distinct buckets (cuckoo_slots_torch with
     HAND_SALT), the rows of query i built as HAND_CASES[i % 6] says in
-    random cells. Returns rows, qhi, qlo, the lookup each query must get
-    (found, slot, meta: the first equal cell's, bucket * 16 and 0 on a
-    miss) and, for the queries whose key is in their row twice, the meta
-    of the second cell (0 elsewhere)."""
+    random cells. Returns rows, qhi, qlo and the lookup each query must get:
+    found, slot of the first equal cell, meta the uint32-wrapping sum of
+    the equal cells' meta words (both cells' where the key is in its row
+    twice), bucket * 16 and 0 on a miss."""
     n_rows = 1 << h_bits
     rows = rng.integers(0, 1 << 32, (n_rows, row_width), dtype=np.uint64).astype(np.uint32)
     cand = rng.integers(0, 1 << 32, (2, 4 * n_rows), dtype=np.uint64)
@@ -336,7 +336,6 @@ def hand_built_rows(rng, row_width: int, n_queries: int = 600, h_bits: int = 10)
     found = np.zeros(n_queries, dtype=bool)
     slot = (bucket * 16).astype(np.int32)
     meta = np.zeros(n_queries, dtype=np.uint32)
-    second = np.zeros(n_queries, dtype=np.uint32)
     for i, (h, l, b) in enumerate(zip(qhi, qlo, bucket)):
         row = rows[b]
         row[:16][row[:16] == h] ^= np.uint32(0x80000000)  # no stray key_hi match
@@ -349,7 +348,6 @@ def hand_built_rows(rng, row_width: int, n_queries: int = 600, h_bits: int = 10)
         elif case == "twice":
             cell, other = sorted(cells[:2])
             row[[cell, other]], row[[16 + cell, 16 + other]] = h, l
-            second[i] = row[32 + other]
         elif case == "hi_only":
             for c in cells[: 1 + i // 6 % 3]:
                 row[c], row[16 + c] = h, l ^ np.uint32(rng.integers(1, 1 << 32))
@@ -361,7 +359,34 @@ def hand_built_rows(rng, row_width: int, n_queries: int = 600, h_bits: int = 10)
             row[cell], row[16 + cell] = h, l
         if case in ("decoy_then_hit", "twice", "hit"):
             found[i], slot[i], meta[i] = True, b * 16 + cell, row[32 + cell]
-    return rows, qhi, qlo, (found, slot, meta), second
+        if case == "twice":
+            meta[i] = (int(row[32 + cell]) + int(row[32 + other])) & 0xFFFFFFFF
+    return rows, qhi, qlo, (found, slot, meta)
+
+
+def twice_queries(n_queries: int) -> np.ndarray:
+    """The queries of hand_built_rows whose key is in their row twice."""
+    return np.arange(n_queries) % len(HAND_CASES) == HAND_CASES.index("twice")
+
+
+def duplicate_keys(rows: np.ndarray, rng, share: float = 0.3) -> np.ndarray:
+    """A copy of a built table's rows in which a seeded share of the keys is
+    written a second time, whole cell (key and every meta lane), into the
+    first free cell after its own.  Its slot stays the first cell's; its meta
+    words double (wrapping), so a detection class of 1 reads as informative
+    (1 + 1 = 2) and one of 2 no longer does, as the JAX lookups' sum over
+    equal cells reads them."""
+    out = rows.copy()
+    used = out[:, :16] != EMPTY
+    for r in np.flatnonzero(used.any(axis=1) & ~used.all(axis=1)):
+        cells = np.flatnonzero(used[r])
+        free = np.flatnonzero(~used[r])
+        for c in cells[rng.random(cells.size) < share]:
+            later = free[free > c]
+            if later.size:
+                out[r, later[0] :: 16] = out[r, c :: 16]
+                free = free[free != later[0]]
+    return out
 
 
 @pytest.mark.parametrize("row_width", HAND_ROW_WIDTHS)
@@ -369,7 +394,7 @@ def test_bucket_lookup_kernel_hand_built_rows(dev, row_width):
     """K2 against its plain version and the built answers: a key_hi match
     without its key_lo is no hit, even before the matching cell; the first
     of two equal cells wins; a key_lo match alone is a miss."""
-    rows, qhi, qlo, expect, _ = hand_built_rows(np.random.default_rng(row_width), row_width)
+    rows, qhi, qlo, expect = hand_built_rows(np.random.default_rng(row_width), row_width)
     r, qh, ql = (torch.from_numpy(x).to(dev) for x in (rows, qhi, qlo))
     h_bits = int(np.log2(rows.shape[0]))
     out = L.bucket_lookup(r, h_bits, HAND_SALT, qh, ql)
@@ -379,10 +404,76 @@ def test_bucket_lookup_kernel_hand_built_rows(dev, row_width):
 
 @pytest.mark.parametrize("row_width", HAND_ROW_WIDTHS)
 def test_bucket_lookup_ring_kernel_hand_built_rows(dev, row_width):
-    """K5 on the same rows: its ring copies whole key spans, and picks the
-    first equal cell as K2 does."""
-    rows, qhi, qlo, expect, _ = hand_built_rows(np.random.default_rng(row_width), row_width)
+    """K5 on the same rows: its ring stages key_hi spans, and picks the
+    first equal cell and sums the equal cells' meta as K2 does."""
+    rows, qhi, qlo, expect = hand_built_rows(np.random.default_rng(row_width), row_width)
     r, qh, ql = (torch.from_numpy(x).to(dev) for x in (rows, qhi, qlo))
     h_bits = int(np.log2(rows.shape[0]))
     out = L.bucket_lookup_ring(r, h_bits, HAND_SALT, qh, ql, w=8, d=4, chunk=200)
     assert _equal(out, [torch.from_numpy(x).to(dev) for x in expect])
+
+
+# ---- K2, K4, K5, K6: keys held twice (the meta sum of equal cells) -------------
+
+RING_SHAPES = [(8, 4), (8, 8), (16, 4), (16, 8)]  # bench_lookup's default ringWxD variants
+
+
+@pytest.mark.parametrize("row_width", [64, 128, 288])
+@pytest.mark.parametrize("w,d", RING_SHAPES)
+def test_bucket_lookup_ring_kernel_ab_shapes_hand_built_rows(dev, w, d, row_width):
+    """K5 at each ringWxD shape of the lookup A/B tool (chunk 2 w d) on
+    hand-built rows: equal to the built answers (the first equal cell, the
+    sum of both cells' meta where a key is held twice), its plain version
+    and K2.  The wrapper takes whole chunks only, as the Pallas kernel
+    does, so no chunk is ragged."""
+    rows, qhi, qlo, expect = hand_built_rows(np.random.default_rng(row_width + w * d), row_width,
+                                             n_queries=768)
+    r, qh, ql = (torch.from_numpy(x).to(dev) for x in (rows, qhi, qlo))
+    h_bits = int(np.log2(rows.shape[0]))
+    out = L.bucket_lookup_ring(r, h_bits, HAND_SALT, qh, ql, w=w, d=d, chunk=2 * w * d)
+    assert _equal(out, [torch.from_numpy(x).to(dev) for x in expect])
+    assert _equal(out, L.bucket_lookup_plain(r, h_bits, HAND_SALT, qh, ql))
+    assert _equal(out, L.bucket_lookup(r, h_bits, HAND_SALT, qh, ql))
+
+
+def test_bucket_lookup_kernel_duplicate_keys(strain):
+    """K2 on a built table with a third of its keys held twice."""
+    rng, _, codes, table, rows = strain
+    dup = torch.from_numpy(duplicate_keys(rows.cpu().numpy(), rng)).to(rows.device)
+    q = np.where(rng.random(50_000) < 0.5, codes[rng.integers(0, codes.size, 50_000)],
+                 rng.integers(0, 1 << 62, 50_000, dtype=np.uint64))
+    qhi, qlo = (torch.from_numpy(x).to(rows.device) for x in split_code64_np(q, K))
+    out = L.bucket_lookup(dup, table.h_bits, table.salt, qhi, qlo)
+    assert _equal(out, L.bucket_lookup_plain(dup, table.h_bits, table.salt, qhi, qlo))
+    assert not _equal(out, L.bucket_lookup(rows, table.h_bits, table.salt, qhi, qlo))
+
+
+def test_classify_step_kernel_duplicate_keys(strain):
+    """K4 on a built table with a third of its keys held twice (a class of
+    1 then sums to informative, one of 2 no longer does)."""
+    rng, genome, _, table, rows = strain
+    dup = torch.from_numpy(duplicate_keys(rows.cpu().numpy(), rng)).to(rows.device)
+    reads = [genome[s : s + 150] if i % 2 else rng.integers(0, 4, 150, dtype=np.uint8)
+             for i, s in enumerate(rng.integers(0, genome.size - 150, 2000))]
+    batch = next(pack_stream(iter(reads), K, 64, 4096, with_read_ids=True))
+    bounds = np.full(max_reads_capacity(K, 64, 4096) + 1, 64 * (4096 - K + 1), dtype=np.int32)
+    bounds[: batch.n_reads] = batch.window_starts
+    b = torch.from_numpy(batch.bases).to(rows.device)
+    bd = torch.from_numpy(bounds).to(rows.device)
+    out = L.classify_step(dup, b, bd, table.h_bits, table.salt, K)
+    assert _equal(out, L.classify_step_plain(dup, b, bd, table.h_bits, table.salt, K))
+    assert not _equal(out[1:], L.classify_step(rows, b, bd, table.h_bits, table.salt, K)[1:])
+
+
+@pytest.mark.parametrize("n_strains", [1, 32, 256])
+def test_multi_hit_words_kernel_duplicate_keys(strain, n_strains):
+    """K6 on multi-word rows with a third of their keys held twice: every
+    word of such a key is the sum of both cells' words."""
+    rng, genome, _, _, rows64 = strain
+    n_words = G.words_for_strains(n_strains)
+    table, rows = _multi_rows(strain, n_words, rows64.device)
+    dup = torch.from_numpy(duplicate_keys(rows.cpu().numpy(), rng)).to(rows.device)
+    b = torch.from_numpy(edge_rows(rng, genome, 4096, n_rows=16)).to(rows.device)
+    out = G.multi_hit_words(dup, b, table.h_bits, table.salt, K, n_words)
+    assert _equal((out,), (G.multi_hit_words_plain(dup, b, table.h_bits, table.salt, K, n_words),))
+    assert not _equal((out,), (G.multi_hit_words(rows, b, table.h_bits, table.salt, K, n_words),))

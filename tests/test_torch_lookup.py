@@ -11,14 +11,18 @@ import torch
 from strainer2_tpu.index.bucket import build_bucket_table
 from strainer2_tpu.io.batches import pack_stream
 from strainer2_tpu.ops.lookup import bucket_lookup as jnp_bucket_lookup
+from strainer2_tpu.ops.lookup import bucket_lookup_words as jnp_bucket_lookup_words
 from strainer2_tpu.ops.packing_np import canonical_codes_np, split_code64_np
 from strainer2_tpu.ops.pallas_lookup import bucket_lookup_pallas_gridmap
 from strainer2_tpu.pipeline.detect import _passing_any_1d
 from strainer2_tpu.pipeline.engine import _classify_step_bucket, _count_step_bucket
-from strainer2_tpu_torch.ops.lookup import bucket_lookup, classify_step, count_step, passing_any
+from strainer2_tpu_torch.ops.lookup import (
+    bucket_lookup, bucket_lookup_words_plain, classify_step, count_step, passing_any,
+)
 from tests.oracle import random_dna, seq_to_base_codes
 from tests.test_torch_kernels import (
-    EDGE_K, HAND_ROW_WIDTHS, HAND_SALT, edge_bounds, edge_rows, hand_built_rows,
+    EDGE_K, HAND_ROW_WIDTHS, HAND_SALT, duplicate_keys, edge_bounds, edge_rows, hand_built_rows,
+    twice_queries,
 )
 
 K = 31
@@ -90,21 +94,13 @@ def test_plain_bucket_lookup_matches_jnp_and_pallas(strain):
 
 
 def _hand_lookups(row_width):
-    """The hand-built rows and queries, the plain lookup of them, and the
-    rest of hand_built_rows' answer."""
-    rows, qhi, qlo, expect, second = hand_built_rows(np.random.default_rng(row_width), row_width)
+    """The hand-built rows and queries, the plain lookup of them, and
+    hand_built_rows' answer."""
+    rows, qhi, qlo, expect = hand_built_rows(np.random.default_rng(row_width), row_width)
     h_bits = int(np.log2(rows.shape[0]))
     got = [x.numpy() for x in bucket_lookup(torch.from_numpy(rows), h_bits, HAND_SALT,
                                              torch.from_numpy(qhi), torch.from_numpy(qlo))]
-    return rows, h_bits, qhi, qlo, got, expect, second
-
-
-def _meta_sum_of_equal_cells(meta, second):
-    """The JAX lookups' meta: the sum of every equal cell's meta word
-    (_meta_block, _resolve), so a key held twice in a row (no built table
-    does that) gives both cells' words added, where the port's lookups
-    give the first cell's."""
-    return (meta.astype(np.uint64) + second) & np.uint64(0xFFFFFFFF)
+    return rows, h_bits, qhi, qlo, got, expect
 
 
 @pytest.mark.parametrize("row_width", HAND_ROW_WIDTHS)
@@ -112,29 +108,46 @@ def test_plain_bucket_lookup_hand_built_rows_match_jnp(row_width):
     """The key_hi-first contract on hand-built rows (a key_hi-only cell
     before the matching one, a key twice, key_hi-only and key_lo-only
     misses) at 48-, 64- and 288-lane rows: the plain lookup gives the built
-    answers, and the jnp bucket_lookup the same found and slot everywhere
-    and the same meta but where a key is in its row twice."""
-    rows, h_bits, qhi, qlo, got, expect, second = _hand_lookups(row_width)
+    answers, and the jnp bucket_lookup the same everywhere, the meta of a
+    key held twice included (the sum of both cells' words)."""
+    rows, h_bits, qhi, qlo, got, expect = _hand_lookups(row_width)
     for g, e in zip(got, expect):
         np.testing.assert_array_equal(g, e)
-    r_found, r_slot, r_meta = (
-        np.asarray(x) for x in jnp_bucket_lookup(jnp.asarray(rows), h_bits, HAND_SALT,
-                                                 jnp.asarray(qhi), jnp.asarray(qlo))
-    )
+    ref = jnp_bucket_lookup(jnp.asarray(rows), h_bits, HAND_SALT, jnp.asarray(qhi), jnp.asarray(qlo))
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, np.asarray(r))
     found, slot, meta = got
-    np.testing.assert_array_equal(r_found, found)
-    np.testing.assert_array_equal(r_slot, slot)
-    np.testing.assert_array_equal(r_meta, _meta_sum_of_equal_cells(meta, second))
-    twice = second != 0
-    assert twice.any() and 0 < found.sum() < found.size
-    np.testing.assert_array_equal(r_meta[~twice], meta[~twice])
+    twice = twice_queries(found.size)
+    assert twice.any() and found[twice].all() and 0 < found.sum() < found.size
+    first = rows[slot[twice] // 16, 32 + slot[twice] % 16]
+    assert (meta[twice] != first).all()  # the sum, not the first cell's word
+
+
+@pytest.mark.parametrize("row_width", [64, 288])
+def test_plain_bucket_lookup_words_hand_built_rows_match_jnp(row_width):
+    """Every meta word of the hand-built rows (2 and 16 blocks) through the
+    plain multi-word lookup and the jnp bucket_lookup_words: each word of a
+    key held twice is the sum of both cells' words."""
+    rows, h_bits, qhi, qlo, _, expect = _hand_lookups(row_width)
+    n_words = (row_width - 32) // 16
+    found, slot, words = bucket_lookup_words_plain(torch.from_numpy(rows), h_bits, HAND_SALT,
+                                                   torch.from_numpy(qhi), torch.from_numpy(qlo),
+                                                   n_words)
+    r_found, r_slot, r_words = jnp_bucket_lookup_words(jnp.asarray(rows), h_bits, HAND_SALT,
+                                                       jnp.asarray(qhi), jnp.asarray(qlo), n_words)
+    np.testing.assert_array_equal(found.numpy(), np.asarray(r_found))
+    np.testing.assert_array_equal(slot.numpy(), np.asarray(r_slot))
+    for w, r in zip(words, r_words, strict=True):
+        np.testing.assert_array_equal(w.numpy(), np.asarray(r))
+    np.testing.assert_array_equal(words[0].numpy(), expect[2])
 
 
 def test_plain_bucket_lookup_hand_built_rows_match_pallas():
     """The same 64-lane rows through the Pallas gridmap kernel (interpret
-    mode): found and meta as jnp gives them, slot where found (the kernel
-    answers bucket * 16 + 16 on a miss)."""
-    rows, h_bits, qhi, qlo, got, _, second = _hand_lookups(64)
+    mode): found and meta as the plain lookup gives them (the kernel sums
+    the equal cells' words too), slot where found (the kernel answers
+    bucket * 16 + 16 on a miss)."""
+    rows, h_bits, qhi, qlo, got, _ = _hand_lookups(64)
     p_found, p_slot, p_meta = (
         np.asarray(x)
         for x in bucket_lookup_pallas_gridmap(jnp.asarray(rows), h_bits, HAND_SALT,
@@ -142,7 +155,7 @@ def test_plain_bucket_lookup_hand_built_rows_match_pallas():
     )
     found, slot, meta = got
     np.testing.assert_array_equal(p_found.astype(bool), found)
-    np.testing.assert_array_equal(p_meta, _meta_sum_of_equal_cells(meta, second))
+    np.testing.assert_array_equal(p_meta, meta)
     np.testing.assert_array_equal(p_slot[found], slot[found])
     np.testing.assert_array_equal(p_slot[~found], slot[~found] + 16)
 
@@ -211,6 +224,34 @@ def test_plain_classify_step_matches_engine(strain, group_size):
     np.testing.assert_array_equal(inf.numpy(), r_inf)
     assert tot.dtype == inf.dtype == torch.int32
     assert r_tot.sum() > 0 and r_inf.sum() > 0
+
+
+def test_plain_classify_step_duplicate_keys_match_engine(strain):
+    """The plain K4 on rows where a third of the keys are held twice
+    (``duplicate_keys``: a class of 1 sums to informative, one of 2 to
+    not) against _classify_step_bucket, which compares bucket_lookup's meta
+    sum with INFORMATIVE_KMER; the first equal cell alone would differ."""
+    from strainer2_tpu.io.batches import max_reads_capacity
+
+    genome, _, table, rows = strain
+    rng = np.random.default_rng(31)
+    dup = duplicate_keys(rows, rng)
+    rows_n, row_len = 8, 256
+    batch = next(pack_stream(iter(_reads(rng, genome, 40)), K, rows_n, row_len, with_read_ids=True))
+    max_reads = max_reads_capacity(K, rows_n, row_len)
+    bounds = np.full(max_reads + 1, rows_n * (row_len - K + 1), dtype=np.int32)
+    bounds[: batch.n_reads] = batch.window_starts
+    outs = {}
+    for name, r in (("dup", dup), ("once", rows)):
+        ref = _classify_step_bucket(jnp.asarray(r), batch.bases, jnp.asarray(bounds), k=K,
+                                    h_bits=table.h_bits, salt=table.salt, max_reads=max_reads)
+        got = classify_step(torch.from_numpy(r), torch.from_numpy(batch.bases),
+                            torch.from_numpy(bounds), table.h_bits, table.salt, K)
+        for g, x in zip(got, ref):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(x))
+        outs[name] = got
+    np.testing.assert_array_equal(outs["dup"][0].numpy(), outs["once"][0].numpy())
+    assert not np.array_equal(outs["dup"][1].numpy(), outs["once"][1].numpy())
 
 
 @pytest.mark.parametrize("paired", [False, True])

@@ -98,6 +98,43 @@ def test_multi_matches_jax_and_single_runs(tmp_path, inf_dir, which, background)
     assert any(b"\t" in _read(p) for p in ours)
 
 
+@pytest.mark.parametrize("prebuilt", [False, True], ids=["own_indexes", "planner_indexes"])
+def test_multi_paths_never_build_per_strain_tables(inf_dir, monkeypatch, prebuilt):
+    """The port's twin of tests/test_multi_scrub.py's rule: building a
+    MultiStrainDetector leaves every strain index table-less (the -a file's
+    k-mers are marked by a host search; lookups go through the union table),
+    whether the detector builds the indexes or takes the planner's."""
+    from strainer2_tpu_torch.index import build
+    from strainer2_tpu_torch.index.build import StrainIndex
+    from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
+    from strainer2_tpu_torch.pipeline.multi_detect import MultiStrainDetector
+
+    strains = _three(inf_dir)
+    made: list = []
+    built: list = []
+    from_fasta = StrainIndex.from_fasta.__func__
+
+    def recording(cls, *args, **kw):
+        made.append(from_fasta(cls, *args, **kw))
+        return made[-1]
+
+    def build_table(codes, *args, **kw):
+        built.append(codes.size)
+        return build_bucket_table(codes, *args, **kw)
+
+    build_bucket_table = build.build_bucket_table
+    monkeypatch.setattr(StrainIndex, "from_fasta", classmethod(recording))
+    monkeypatch.setattr(build, "build_bucket_table", build_table)
+    indexes = None
+    if prebuilt:
+        eng = TorchKmerEngine(31, device="cpu")
+        indexes = [StrainIndex.from_fasta(r, eng) for r, _ in strains]
+    det = MultiStrainDetector(strains, cfg=_torch_cfg(), stdout=io.StringIO(), indexes=indexes)
+    assert len(det.states) == len(strains) == len(made) and built == []
+    for ix in made:
+        assert ix.table_ is None, "per-strain table was built needlessly"
+
+
 def _tools(argv):
     from strainer2_tpu_torch.cli.strainer2_tools import main
 

@@ -14,6 +14,7 @@ from strainer2_tpu.ops.packing_np import split_code64_np
 from strainer2_tpu.ops.pallas_lookup import bucket_lookup_pallas_manual
 from strainer2_tpu_torch.ops.lookup import bucket_lookup_ring
 from strainer2_tpu_torch.tools.bench_lookup import bench, main
+from tests.test_torch_kernels import HAND_ROW_WIDTHS, HAND_SALT, hand_built_rows, twice_queries
 
 K = 31
 N = 2048
@@ -79,6 +80,36 @@ def test_ring_shapes_match_jnp(table, w, d, chunk):
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("row_width", HAND_ROW_WIDTHS)
+def test_ring_hand_built_rows_match_pallas_manual_and_jnp(row_width):
+    """K5's plain side on the hand-built rows (a key_hi-only cell before the
+    matching one, a key twice, key_hi-only and key_lo-only misses): the
+    built answers and the jnp bucket_lookup everywhere, the meta of a key
+    held twice being the sum of both cells' words; on 64-lane rows also the
+    Pallas DMA-ring kernel (interpret mode) where found."""
+    rows, qhi, qlo, expect = hand_built_rows(np.random.default_rng(row_width), row_width)
+    h_bits = int(np.log2(rows.shape[0]))
+    got = [x.numpy() for x in bucket_lookup_ring(torch.from_numpy(rows), h_bits, HAND_SALT,
+                                                  torch.from_numpy(qhi), torch.from_numpy(qlo),
+                                                  w=8, d=4, chunk=200)]
+    ref = jnp_bucket_lookup(jnp.asarray(rows), h_bits, HAND_SALT, jnp.asarray(qhi), jnp.asarray(qlo))
+    for g, e, r in zip(got, expect, ref):
+        np.testing.assert_array_equal(g, e)
+        np.testing.assert_array_equal(g, np.asarray(r))
+    if row_width == 64:
+        found, slot, meta = got
+        p_found, p_slot, p_meta = (
+            np.asarray(x)
+            for x in bucket_lookup_pallas_manual(jnp.asarray(rows), h_bits, HAND_SALT,
+                                                 jnp.asarray(qhi), jnp.asarray(qlo),
+                                                 w=8, d=4, chunk=200)
+        )
+        np.testing.assert_array_equal(p_found.astype(bool), found)
+        np.testing.assert_array_equal(p_slot[found], slot[found])
+        np.testing.assert_array_equal(p_meta[found], meta[found])
+        assert found[twice_queries(found.size)].all()
+
+
 @pytest.mark.parametrize(
     "kw,msg,pallas_too",
     [
@@ -91,7 +122,8 @@ def test_ring_shapes_match_jnp(table, w, d, chunk):
 )
 def test_ring_argument_checks(table, kw, msg, pallas_too):
     """The Pallas kernel's checks with its messages, then the ring's own
-    bounds (12 w threads a block, D x w x 192 bytes of shared memory)."""
+    bounds (w <= 64 rows a group, d <= 8 groups in flight, d x w <= 256 key
+    spans of 64 bytes a ring)."""
     t, rows, qhi, qlo, _ = table
     with pytest.raises(ValueError, match=msg):
         _ring(table, **kw)

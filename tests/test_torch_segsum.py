@@ -21,7 +21,7 @@ from strainer2_tpu_torch.ops.lookup import bucket_lookup_words_plain
 from strainer2_tpu_torch.ops.segsum import boundary_strain_sums, multi_hit_words, words_for_strains
 from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
 from tests.oracle import random_dna, seq_to_base_codes
-from tests.test_torch_kernels import edge_rows, edge_bounds
+from tests.test_torch_kernels import duplicate_keys, edge_bounds, edge_rows
 
 K = 31
 
@@ -173,12 +173,12 @@ def test_multi_hit_words_plain_edges_match_jax(strain, k, n_words):
     assert hit.any()
 
 
-@pytest.mark.parametrize("n_strains", [3, 20, 40])
-def test_classify_multi_batch_matches_jax(strain, n_strains):
-    """The engine's K6 -> K7 on an (8, 256) batch == _classify_multi, with
-    per-strain 2-bit meta (present for ~70% of keys, informative for ~30%)."""
-    genome, codes = strain
-    rng = np.random.default_rng(100 + n_strains)
+def _classify_multi_both(genome, codes, n_strains, rng, duplicate=False):
+    """The engine's K6 -> K7 and _classify_multi on an (8, 256) batch, with
+    per-strain 2-bit meta (present for ~70% of keys, informative for
+    ~30%); with ``duplicate``, a third of the keys held twice in their rows
+    (duplicate_keys), whose meta words the JAX lookups sum.  Returns the
+    port's (tot, inf) and the JAX package's."""
     t = build_bucket_table(codes, K, row_width=32 + 16 * max(2, words_for_strains(n_strains)))
     present = rng.random((n_strains, codes.size)) < 0.7
     informative = present & (rng.random((n_strains, codes.size)) < 0.4)
@@ -190,17 +190,64 @@ def test_classify_multi_batch_matches_jax(strain, n_strains):
             w[t.slot_of_key] |= (present[s].astype(np.uint32) << sh) | (informative[s].astype(np.uint32) << (sh + 1))
         words.append(w)
     rows = t.with_meta_words(words)
+    if duplicate:
+        rows = duplicate_keys(rows, rng)
     batch, bounds, max_reads = _batch(genome, rng)
-    r_tot, r_inf = _classify_multi(jnp.asarray(rows), batch.bases, jnp.asarray(bounds), k=K,
-                                   h_bits=t.h_bits, salt=t.salt, max_reads=max_reads,
-                                   n_strains=n_strains)
+    ref = _classify_multi(jnp.asarray(rows), batch.bases, jnp.asarray(bounds), k=K,
+                          h_bits=t.h_bits, salt=t.salt, max_reads=max_reads,
+                          n_strains=n_strains)
     eng = TorchKmerEngine(K, max_reads, device="cpu")
-    tot, inf = eng.classify_multi_batch(torch.from_numpy(rows), t.h_bits, t.salt, batch.bases,
-                                        bounds, n_strains)
-    assert tot.shape == (max_reads, n_strains)
-    np.testing.assert_array_equal(tot.numpy(), np.asarray(r_tot))
-    np.testing.assert_array_equal(inf.numpy(), np.asarray(r_inf))
-    assert np.asarray(r_inf).sum() > 0
+    got = eng.classify_multi_batch(torch.from_numpy(rows), t.h_bits, t.salt, batch.bases,
+                                   bounds, n_strains)
+    assert got[0].shape == (max_reads, n_strains)
+    return [x.numpy() for x in got], [np.asarray(x) for x in ref]
+
+
+@pytest.mark.parametrize("n_strains", [3, 20, 40])
+def test_classify_multi_batch_matches_jax(strain, n_strains):
+    """The engine's K6 -> K7 on an (8, 256) batch == _classify_multi, with
+    per-strain 2-bit meta (present for ~70% of keys, informative for ~30%)."""
+    genome, codes = strain
+    (tot, inf), (r_tot, r_inf) = _classify_multi_both(genome, codes, n_strains,
+                                                      np.random.default_rng(100 + n_strains))
+    np.testing.assert_array_equal(tot, r_tot)
+    np.testing.assert_array_equal(inf, r_inf)
+    assert r_inf.sum() > 0
+
+
+@pytest.mark.parametrize("n_strains", [3, 40])
+def test_classify_multi_batch_duplicate_keys_match_jax(strain, n_strains):
+    """The same on rows where a third of the keys are held twice: the plain
+    multi words carry the sum of both cells' words, as bucket_lookup (S <=
+    16) and bucket_lookup_words (S > 16) give them to _classify_multi."""
+    genome, codes = strain
+    (tot, inf), (r_tot, r_inf) = _classify_multi_both(
+        genome, codes, n_strains, np.random.default_rng(200 + n_strains), duplicate=True)
+    np.testing.assert_array_equal(tot, r_tot)
+    np.testing.assert_array_equal(inf, r_inf)
+    assert r_inf.sum() > 0
+
+
+@pytest.mark.parametrize("n_words", [1, 3])
+def test_multi_hit_words_plain_duplicate_keys_match_jax(strain, n_words):
+    """K6's plain version on rows where a third of the keys are held twice
+    equals the JAX pieces, whose words are the sums over equal cells, and
+    differs from the same rows held once."""
+    genome, codes = strain
+    rng = np.random.default_rng(300 + n_words)
+    t, once = _rows(codes, max(2, n_words), n_words)
+    dup = duplicate_keys(once, rng)
+    batch, _, _ = _batch(genome, rng)
+    win = canonical_windows(jnp.asarray(batch.bases), K)
+    found, _, words = bucket_lookup_words(jnp.asarray(dup), t.h_bits, t.salt, win.hi, win.lo, n_words)
+    hit = np.asarray(found & win.valid).reshape(-1)
+    want = np.stack([np.where(hit, np.asarray(w).reshape(-1), 0) for w in words], axis=1)
+    got = multi_hit_words(torch.from_numpy(dup), torch.from_numpy(batch.bases), t.h_bits, t.salt, K,
+                          n_words).numpy()
+    np.testing.assert_array_equal(got, want)
+    plain_once = multi_hit_words(torch.from_numpy(once), torch.from_numpy(batch.bases), t.h_bits,
+                                 t.salt, K, n_words).numpy()
+    assert hit.any() and not np.array_equal(got, plain_once)
 
 
 # ---- edge cases of the per-read sums --------------------------------------
