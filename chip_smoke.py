@@ -18,6 +18,9 @@ Phases; any failure exits non-zero and no result line is printed:
    its inputs make it move;
 3. mini goldens: the four port CLIs with --device cuda on
    tests/golden/mini, byte-compared with the reference binaries' outputs;
+   the fused ``strainer2_tools pipeline`` to the same goldens, and
+   ``pipeline-multi`` on two strains byte-identical per strain to the
+   staged CLIs (coverage against ``coverage_depth`` on the fused hits);
 4. real size, the "strain vs metagenomes, joint scrub + detect" run of the
    README: a 6.7 Mbp strain, background genomes, metagenome panels and two
    target samples made from --seed, cut in depth (printed); the four CLIs
@@ -42,7 +45,24 @@ Phases; any failure exits non-zero and no result line is printed:
    on the GPU against the phase-4 targets, with its per-strain set-up
    (``multi.strain_states``) timed on a line of its own; strains 0, 15 and
    31 are byte-compared with single-strain ``strain_detect`` runs, and
-   every strain's hit rows with what the C++ ``NativeClassifier`` predicts.
+   every strain's hit rows with what the C++ ``NativeClassifier`` predicts;
+7. real size, single strain, fused: ``strainer2_tools pipeline`` on the
+   phase-4 data at phase 4's -m, every artifact byte-identical to phase
+   4's (coverage against ``coverage_depth`` on its own hits); then the
+   same run with --checkpoint in a child process killed (SIGKILL) once
+   the panel checkpoint lists a finished file, run again and killed once
+   the detect checkpoint holds sample 0, run a third time to the end: its
+   artifacts equal the uninterrupted run's; the time of one checkpoint
+   record of the real-size count buffer; peak RSS of strain_detect with
+   and without --checkpoint (child processes);
+8. real size, multi-strain, fused: ``pipeline-multi`` on 8 strains (the
+   phase-4 genome and the first 7 strains of phase 6), intermediates
+   written: strain 0's artifacts equal phase 7's, and for strains 3 and 7
+   the count columns equal the C++ ``NativePanelCounter``'s and the hit
+   rows the C++ ``NativeClassifier``'s prediction from the strain's own
+   scrubbed file; peak device memory.
+
+Phases run in the order 1, 2, 2b, 3, 4, 7, 6, 8, 5.
 """
 
 from __future__ import annotations
@@ -79,6 +99,9 @@ MULTI_STRAINS = 32
 SNP_RATE = 0.002  # tools/make_scale_data.py's default
 INFORMATIVE_FRACTION = 0.01
 MULTI_CHECKED = (0, 15, 31)  # strains byte-compared with single runs
+FUSED_STRAINS = 8  # phase 8: the phase-4 genome and the first 7 of phase 6
+FUSED_CHECKED = (3, 7)  # phase-8 strains checked against the C++ counters
+RECORD_REPS = 3  # timed checkpoint records in phase 7
 RING_DEFAULT = "ring8x4"  # bucket_lookup_pallas_manual's defaults w=8, d=4
 RING_CHUNK = 1024  # queries per K5 block in phase 2 (the wrapper's default)
 # lookups per A/B step: at the tool's default 262,144 a step is ~20 us of
@@ -501,10 +524,65 @@ def mini_goldens(repo: str, out: str) -> None:
         ("detect_bg_stdout.txt", same_bytes(o("detect_bg_stdout.txt"), os.path.join(exp, "detect_bg_stdout.txt"))),
         ("coverage_depth.tsv", same_bytes(o("coverage.tsv"), os.path.join(exp, "coverage_depth.tsv"))),
     ]
+    checks += mini_fused(mini, o)
     for name, ok in checks:
         print(f"mini golden {name}: {'identical' if ok else 'DIFFERS'}", flush=True)
     if not all(ok for _, ok in checks):
         fail("mini goldens differ")
+
+
+def same_payloads(a: str, b: str) -> bool:
+    """Equal decompressed payloads of two gzip files."""
+    with gzip.open(a, "rb") as f, gzip.open(b, "rb") as g:
+        return f.read() == g.read()
+
+
+def mini_fused(mini: str, o) -> list:
+    """The fused pipeline on the mini data to the goldens, and
+    pipeline-multi on strainA and drug1 against the staged CLIs run strain
+    by strain; coverage files against coverage_depth on their own hits."""
+    exp = lambda name: os.path.join(mini, "expected", name)  # noqa: E731
+    cwd = os.getcwd()
+    os.chdir(mini)
+    checks = []
+    try:
+        run_cli("strainer2_tools", ["pipeline", "-r", "data/strainA.fna.gz", "-A", "data/genomes.txt",
+                                    "-B", "data/metagenomes.txt", "-T", "data/targets.txt",
+                                    "-m", "0.05", "-o", o("fused")], o("fused_stdout.txt"))
+        f = lambda name: o(os.path.join("fused", "strainA" + name))  # noqa: E731
+        run_cli("coverage_depth", ["-k", f(".kmer_hits.gz")], o("fused_coverage.tsv"))
+        checks += [
+            ("pipeline counts", same_bytes(f(".scrub_kmer_counts.gz"), exp("scrub_counts.tsv"), gz=True)),
+            ("pipeline scrubbed", same_bytes(f(".scrubbed_kmers.gz"), exp("scrubbed_m05.txt"), gz=True)),
+            ("pipeline hits", same_bytes(f(".kmer_hits.gz"), exp("kmer_hits.txt"), gz=True)),
+            ("pipeline stdout", same_bytes(o("fused_stdout.txt"), exp("detect_stdout.txt"))),
+            ("pipeline coverage", same_bytes(f(".coverage_depth"), o("fused_coverage.tsv"))),
+        ]
+        strains = ["data/strainA.fna.gz", "data/drug1.fna.gz"]
+        with open(o("strains.txt"), "w") as fh:
+            fh.write("".join(r + "\n" for r in strains))
+        run_cli("strainer2_tools", ["pipeline-multi", "-R", o("strains.txt"), "-A", "data/genomes.txt",
+                                    "-B", "data/metagenomes.txt", "-T", "data/targets.txt",
+                                    "-m", "0.05", "-o", o("fusedm")], o("fusedm_stdout.txt"))
+        for r in strains:
+            stem = os.path.basename(r)[: -len(".fna.gz")]
+            s = lambda name: o(f"staged_{stem}{name}")  # noqa: E731
+            m = lambda name: o(os.path.join("fusedm", stem + name))  # noqa: E731
+            run_cli("kmer_scrub_count", ["-r", r, "-A", "data/genomes.txt", "-B", "data/metagenomes.txt"],
+                    s(".counts.tsv"))
+            run_cli("kmer_scrub_filter", ["-s", s(".counts.tsv"), "-m", "0.05"], s(".scrubbed.txt"))
+            run_cli("strain_detect", ["-r", r, "-a", s(".scrubbed.txt"), "-B", "data/targets.txt",
+                                      "-o", s(".hits.gz")], s(".detect_stdout.txt"))
+            run_cli("coverage_depth", ["-k", m(".kmer_hits.gz")], s(".coverage.tsv"))
+            checks += [
+                (f"pipeline-multi {stem} counts", same_bytes(m(".scrub_kmer_counts.gz"), s(".counts.tsv"), gz=True)),
+                (f"pipeline-multi {stem} scrubbed", same_bytes(m(".scrubbed_kmers.gz"), s(".scrubbed.txt"), gz=True)),
+                (f"pipeline-multi {stem} hits", same_payloads(m(".kmer_hits.gz"), s(".hits.gz"))),
+                (f"pipeline-multi {stem} coverage", same_bytes(m(".coverage_depth"), s(".coverage.tsv"))),
+            ]
+    finally:
+        os.chdir(cwd)
+    return checks
 
 
 def real_size(d: str, data: dict) -> dict:
@@ -529,9 +607,12 @@ def real_size(d: str, data: dict) -> dict:
     return walls
 
 
-def check_real_outputs(d: str, data: dict) -> None:
-    """Panel counts vs the C++ NativePanelCounter and detection rows vs the
-    C++ NativeClassifier, on the index the CLIs built."""
+def check_real_outputs(d: str, data: dict, genome: str, counts: str, informative: str,
+                       hits: str, label: str = "real-size"):
+    """Panel counts (the table at ``counts``) vs the C++ NativePanelCounter
+    and the detection rows of ``hits`` vs the C++ NativeClassifier's
+    prediction from the scrubbed k-mers of ``informative``, on the index
+    of ``genome``; returns that index."""
     from concurrent.futures import ThreadPoolExecutor
 
     from strainer2_tpu_torch import native
@@ -540,9 +621,9 @@ def check_real_outputs(d: str, data: dict) -> None:
     from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
 
     p = lambda name: os.path.join(d, name)  # noqa: E731
-    index = StrainIndex.from_fasta(p("strain.fna"), TorchKmerEngine(K, device=DEVICE))
+    index = StrainIndex.from_fasta(genome, TorchKmerEngine(K, device=DEVICE))
     order = reference_row_order(index.codes, K)
-    parsed = native.parse_scrub_table_native(p("counts.tsv"))
+    parsed = native.parse_scrub_table_native(counts)
     if parsed is None:
         fail("native library unavailable: cannot parse the count table for the check")
     _, _, c_ref, c_pan, c_meta, _, _ = parsed
@@ -564,14 +645,14 @@ def check_real_outputs(d: str, data: dict) -> None:
         "pangenome_count": np.array_equal(c_pan, index.key_values(pan)[order].astype(np.int64)),
         "metagenome_count": np.array_equal(c_meta, index.key_values(meta)[order].astype(np.int64)),
     }
-    print(f"real-size panel counts vs NativePanelCounter: {ok}; "
+    print(f"{label} panel counts vs NativePanelCounter: {ok}; "
           f"pangenome total {int(c_pan.sum())}, metagenome total {int(c_meta.sum())}", flush=True)
     if not all(ok.values()):
         fail("panel counts differ from NativePanelCounter")
 
     # detection: rows per sample = informative hits of the passing reads/pairs
     kinds = np.ones(index.num_kmers, dtype=np.int32)
-    with open(p("informative.txt"), "rb") as f:
+    with (gzip.open if informative.endswith(".gz") else open)(informative, "rb") as f:
         lines = [ln.rstrip(b"\n") for ln in f if not ln.startswith(b"#")]
     mat = np.frombuffer(b"".join(lines), dtype=np.uint8).reshape(len(lines), K)
     two = np.searchsorted(_ACGT, mat).astype(np.uint64)
@@ -583,7 +664,7 @@ def check_real_outputs(d: str, data: dict) -> None:
     kinds[pos] = 2
     classifier = native.NativeClassifier(index.codes, kinds, K)
     rows_by_sample: dict[str, int] = {}
-    with gzip.open(p("hits.gz"), "rt") as f:
+    with gzip.open(hits, "rt") as f:
         for line in f:
             if not line.startswith("#"):
                 s = line.split("\t", 1)[0]
@@ -599,10 +680,11 @@ def check_real_outputs(d: str, data: dict) -> None:
                 t, i = tot, inf
             expect += int(i[(t >= 1) & (i >= 1)].sum())
         got = rows_by_sample.get(f1, 0)
-        print(f"real-size detection {os.path.basename(f1)}: {got} hit rows, "
+        print(f"{label} detection {os.path.basename(f1)}: {got} hit rows, "
               f"NativeClassifier expects {expect}", flush=True)
         if got != expect or got == 0:
-            fail(f"detection rows for {f1}: {got} != {expect}")
+            fail(f"{label} detection rows for {f1}: {got} != {expect}")
+    return index
 
 
 # ---- phase 6: detect-multi at real size ----------------------------------------
@@ -734,6 +816,320 @@ def check_multi_outputs(d: str, multi: dict) -> None:
         fail("detect-multi hit rows differ from NativeClassifier's prediction")
 
 
+# ---- phases 7 and 8: the fused pipelines at real size ---------------------------
+
+def stage_deltas(before: dict, prefix: str = "fused.") -> dict:
+    from strainer2_tpu_torch.utils import observability
+
+    return {k: v - before.get(k, 0.0) for k, v in observability._totals.items()
+            if k.startswith(prefix) and v - before.get(k, 0.0) > 0}
+
+
+def fused_real(d: str) -> dict:
+    """Phase 7 (a): the fused pipeline in this process (its launches are
+    counted) on the phase-4 data at phase 4's -m; its wall and stage
+    timers."""
+    from strainer2_tpu_torch.utils import observability
+
+    p = lambda name: os.path.join(d, name)  # noqa: E731
+    before = dict(observability._totals)
+    wall = run_cli("strainer2_tools", ["pipeline", "-r", p("strain.fna"), "-A", p("genomes.txt"),
+                                       "-B", p("metagenomes.txt"), "-T", p("targets.txt"),
+                                       "-m", str(MIN_FRACTION), "-o", p("p7a")], p("p7a_stdout.txt"))
+    timers = stage_deltas(before)
+    print(f"stage pipeline (phase 7 a): wall {wall:.3f} s; "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(timers.items())), flush=True)
+    return {"wall": wall, "timers": timers}
+
+
+def fused_artifacts(out_dir: str, stem: str) -> dict:
+    """Payloads of a fused run's four artifacts (gzip ones decompressed)."""
+    out = {}
+    for key, suffix in (("counts", ".scrub_kmer_counts.gz"), ("scrubbed", ".scrubbed_kmers.gz"),
+                        ("hits", ".kmer_hits.gz"), ("coverage", ".coverage_depth")):
+        path = os.path.join(out_dir, stem + suffix)
+        with (gzip.open if suffix.endswith(".gz") else open)(path, "rb") as f:
+            out[key] = f.read()
+    return out
+
+
+def check_fused_against_phase4(d: str) -> dict:
+    """Phase 7 (a)'s artifacts against phase 4's staged outputs; coverage
+    against coverage_depth on the fused hits file itself (coverage names
+    come from the hits file's name)."""
+    p = lambda name: os.path.join(d, name)  # noqa: E731
+    got = fused_artifacts(p("p7a"), "strain")
+    run_cli("coverage_depth", ["-k", p("p7a/strain.kmer_hits.gz")], p("p7a_coverage.tsv"))
+    with open(p("counts.tsv"), "rb") as f1, open(p("informative.txt"), "rb") as f2, \
+            gzip.open(p("hits.gz"), "rb") as f3, open(p("p7a_coverage.tsv"), "rb") as f4:
+        want = {"counts": f1.read(), "scrubbed": f2.read(), "hits": f3.read(), "coverage": f4.read()}
+    ok = {k: got[k] == want[k] for k in want}
+    ok["detect stdout"] = same_bytes(p("p7a_stdout.txt"), p("detect_stdout.txt"))
+    n_lines = got["hits"].count(b"\n")
+    print(f"phase 7 (a) against phase 4: {ok}; {n_lines} hits lines", flush=True)
+    if not all(ok.values()):
+        fail("the fused pipeline differs from the staged CLIs at real size")
+    return got
+
+
+def _rss_kib(pid: int) -> int:
+    """The largest of VmHWM (the peak, where /proc/<pid>/status gives it),
+    VmRSS and statm's resident pages: KiB, 0 where /proc shows none."""
+    best = 0
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            for line in f:
+                if line.startswith(("VmHWM:", "VmRSS:")):
+                    best = max(best, int(line.split()[1]))
+    except (OSError, ValueError, IndexError):
+        pass
+    try:
+        with open(f"/proc/{pid}/statm") as f:
+            best = max(best, int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") // 1024)
+    except (OSError, ValueError, IndexError):
+        pass
+    return best
+
+
+def child(argv: list[str], d: str, label: str, stop=None) -> dict:
+    """Run ``python -m <argv>`` from this checkout in a child process with
+    stage timers on, stdout and stderr to files under d; with ``stop``,
+    SIGKILL it as soon as stop() is true (polled every 20 ms) and fail if
+    it ends first.  Returns its wall, exit code, whether it was killed and
+    its peak RSS as _rss_kib reads it at every poll (a child's ru_maxrss
+    would start from this process's RSS at the fork)."""
+    import signal
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, STRAINER2_TIMINGS="1",
+               PYTHONPATH=os.pathsep.join(x for x in (repo, os.environ.get("PYTHONPATH")) if x))
+    t0 = time.perf_counter()
+    with open(os.path.join(d, f"{label}.stdout"), "w") as out, \
+            open(os.path.join(d, f"{label}.stderr"), "w") as err:
+        proc = subprocess.Popen([sys.executable, "-m", *argv, "--device", DEVICE],
+                                stdout=out, stderr=err, env=env)
+        killed, status, hwm_kib = False, None, 0
+        try:
+            while True:
+                hwm_kib = max(hwm_kib, _rss_kib(proc.pid))
+                pid, st = os.waitpid(proc.pid, os.WNOHANG)
+                if pid:
+                    status = st
+                    break
+                if stop is not None and stop():
+                    proc.send_signal(signal.SIGKILL)
+                    killed = True
+                    _, status = os.waitpid(proc.pid, 0)
+                    break
+                if time.perf_counter() - t0 > 600:
+                    fail(f"{label}: no end after 600 s")
+                time.sleep(0.02)
+        finally:
+            if status is None:  # leaving early: stop the child first
+                proc.send_signal(signal.SIGKILL)
+                _, status = os.waitpid(proc.pid, 0)
+            proc.returncode = os.waitstatus_to_exitcode(status)
+    res = {"wall": time.perf_counter() - t0, "rc": proc.returncode, "killed": killed,
+           "maxrss_mib": hwm_kib / 1024}
+    rss = f"{res['maxrss_mib']:.1f} MiB" if hwm_kib else "not measured (no /proc entry)"
+    print(f"child {label}: wall {res['wall']:.3f} s, exit {res['rc']}, killed {killed}, "
+          f"peak RSS {rss}", flush=True)
+    if stop is not None and not killed:
+        fail(f"{label} ended before its kill point")
+    if stop is None and res["rc"] != 0:
+        with open(os.path.join(d, f"{label}.stderr")) as f:
+            print(f.read()[-3000:], flush=True)
+        fail(f"{label} exited {res['rc']}")
+    return res
+
+
+def _json_or_none(path: str):
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def fused_resume(d: str, want: dict) -> dict:
+    """Phase 7 (b): the checkpointed fused pipeline killed in its panel
+    scan, killed again in detection, then run to the end; its artifacts
+    must equal (a)'s, and each run must take up the work the one before
+    it finished instead of doing it again."""
+    p = lambda name: os.path.join(d, name)  # noqa: E731
+    ck = p("p7b_ckpt")
+    scrub_manifest = os.path.join(ck, "scrub", "manifest.json")
+    sample0 = os.path.join(ck, "detect", "sample_0.z")
+    argv = ["strainer2_tpu_torch.cli.strainer2_tools", "pipeline", "-r", p("strain.fna"),
+            "-A", p("genomes.txt"), "-B", p("metagenomes.txt"), "-T", p("targets.txt"),
+            "-m", str(MIN_FRACTION), "-o", p("p7b"), "--checkpoint", ck]
+    n_files = 0
+    for name in ("genomes.txt", "metagenomes.txt"):
+        with open(p(name)) as f:
+            n_files += sum(1 for line in f if line.strip())
+
+    def scrub_state():
+        """(inode, mtime, finished files) of the scrub manifest, read from
+        one open file: each record replaces it by a new file."""
+        try:
+            with open(scrub_manifest) as f:
+                st = os.fstat(f.fileno())
+                m = json.load(f)
+        except (OSError, ValueError):
+            return None
+        return st.st_ino, st.st_mtime_ns, sum(len(v) for v in m["done"].values())
+
+    def scrub_done():
+        st = scrub_state()
+        return st is not None and st[2] >= 1
+
+    def sample0_done():
+        m = _json_or_none(os.path.join(ck, "detect", "detect_manifest.json"))
+        return m is not None and "0" in m["samples"]
+
+    seen = []  # every scrub manifest run 2 leaves, first run 1's
+
+    def watch_scrub_until_sample0():
+        st = scrub_state()
+        if st is not None and (not seen or seen[-1][:2] != st[:2]):
+            seen.append(st)
+        return sample0_done()
+
+    runs = {"kill in scrub": child(argv, d, "p7b_run1", stop=scrub_done)}
+    n1 = scrub_state()[2]
+    print(f"phase 7 (b) run 1 left {n1} of {n_files} finished panel files", flush=True)
+    runs["kill in detect"] = child(argv, d, "p7b_run2", stop=watch_scrub_until_sample0)
+    after2 = scrub_state()
+    sample0_mtime = os.stat(sample0).st_mtime_ns
+    counts = [st[2] for st in seen]
+    print(f"phase 7 (b) run 2: finished panel files after each record {counts}", flush=True)
+    runs["to the end"] = child(argv, d, "p7b_run3")
+    with open(p("p7b_run3.stderr")) as f:
+        for line in f:
+            if line.startswith("#   "):
+                print(f"phase 7 (b) run 3 timer: {line[4:].rstrip()}", flush=True)
+    resumed = {}
+    for run in ("p7b_run2", "p7b_run3"):
+        with open(p(f"{run}.stderr")) as f:
+            resumed[f"{run} kept its checkpoint"] = "starting fresh" not in f.read()
+    resumed["run 2 began from run 1's files"] = bool(seen) and counts[0] == n1
+    resumed["run 2 only added files"] = all(b > a for a, b in zip(counts, counts[1:]))
+    resumed["run 2 counted no more than what was left"] = len(seen) - 1 <= n_files - n1
+    resumed["run 2 finished the scan"] = after2[2] == n_files
+    resumed["run 3 counted no panel file"] = scrub_state() == after2
+    resumed["run 3 kept sample 0"] = os.stat(sample0).st_mtime_ns == sample0_mtime
+    print(f"phase 7 (b) resume checks: {resumed}", flush=True)
+    if not all(resumed.values()):
+        fail("a resumed fused pipeline did work its checkpoint holds again")
+    got = fused_artifacts(p("p7b"), "strain")
+    ok = {k: got[k] == want[k] for k in want}
+    ok["stdout"] = same_bytes(p("p7b_run3.stdout"), p("p7a_stdout.txt"))
+    print(f"phase 7 (b) resumed run against (a): {ok}", flush=True)
+    if not all(ok.values()):
+        fail("the resumed fused pipeline differs from the uninterrupted run")
+    return runs
+
+
+def time_record(d: str, num_slots: int) -> list:
+    """What a checkpointed panel scan pays after each file: a record of the
+    whole real-size count buffer (device to host copy, np.save, manifest),
+    the call _count_files makes; wall ms of each of RECORD_REPS."""
+    import torch
+
+    from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
+    from strainer2_tpu_torch.pipeline.progress import ScrubCheckpoint
+
+    engine = TorchKmerEngine(K, device=DEVICE)
+    counts = torch.randint(0, 1 << 20, (num_slots,), dtype=torch.int32, device=DEVICE).view(torch.uint32)
+    ckpt = ScrubCheckpoint(os.path.join(d, "record_timing"))
+    times = []
+    for i in range(RECORD_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.record(1, f"panel{i}", engine.finalize_counts(counts))
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"checkpoint record of {num_slots} slots ({num_slots * 4 / 2**20:.0f} MiB): "
+          + ", ".join(f"{t:.1f}" for t in times) + " ms", flush=True)
+    return times
+
+
+def staged_detect_rss(d: str) -> dict:
+    """Peak RSS of strain_detect at real size, streaming and with
+    --checkpoint (the staged loop holds a sample's payload in memory),
+    each in a child process; both hit files equal phase 4's."""
+    p = lambda name: os.path.join(d, name)  # noqa: E731
+    out = {}
+    for label, extra in (("streaming", []), ("checkpoint", ["--checkpoint", p("p7c_ckpt")])):
+        res = child(["strainer2_tpu_torch.cli.strain_detect", "-r", p("strain.fna"),
+                     "-a", p("informative.txt"), "-B", p("targets.txt"),
+                     "-o", p(f"p7c_{label}.gz"), *extra], d, f"p7c_{label}")
+        if not same_payloads(p(f"p7c_{label}.gz"), p("hits.gz")):
+            fail(f"strain_detect ({label}) differs from phase 4's hits")
+        out[label] = res
+    return out
+
+
+def fused_multi_real(d: str, multi: dict) -> dict:
+    """Phase 8: pipeline-multi on FUSED_STRAINS strains in this process (its
+    launches are counted): wall, fused.* timers, peak device memory."""
+    import torch
+
+    from strainer2_tpu_torch.pipeline import multi_detect as md
+    from strainer2_tpu_torch.utils import observability
+
+    p = lambda name: os.path.join(d, name)  # noqa: E731
+    strains = [p("strain.fna")] + multi["strains"][: FUSED_STRAINS - 1]
+    with open(p("p8_strains.txt"), "w") as f:
+        f.write("".join(r + "\n" for r in strains))
+    # device memory held when the multi-strain rows upload: the union
+    # table and count buffer of the shared panel scan must be gone by then
+    at_rows: list = []
+    upload = md.MultiStrainDetector._device_rows
+
+    def probed(self, meta_words):
+        torch.cuda.synchronize()
+        at_rows.append(torch.cuda.memory_allocated())
+        return upload(self, meta_words)
+
+    before = dict(observability._totals)
+    torch.cuda.reset_peak_memory_stats()
+    md.MultiStrainDetector._device_rows = probed
+    try:
+        wall = run_cli("strainer2_tools", ["pipeline-multi", "-R", p("p8_strains.txt"),
+                                           "-A", p("genomes.txt"), "-B", p("metagenomes.txt"),
+                                           "-T", p("targets.txt"), "-m", str(MIN_FRACTION),
+                                           "-o", p("p8")], p("p8_stdout.txt"))
+    finally:
+        md.MultiStrainDetector._device_rows = upload
+    peak = torch.cuda.max_memory_allocated()
+    timers = stage_deltas(before)
+    print(f"stage pipeline-multi (phase 8, {len(strains)} strains): wall {wall:.3f} s; "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(timers.items())), flush=True)
+    print(f"phase 8 peak device memory: {peak / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated); allocated when the multi-strain rows upload: "
+          + ", ".join(f"{a / 2**30:.3f}" for a in at_rows) + " GiB", flush=True)
+    return {"wall": wall, "timers": timers, "peak_bytes": peak, "strains": strains}
+
+
+def check_fused_multi(d: str, data: dict, run: dict, want: dict) -> None:
+    """Strain 0's artifacts equal phase 7 (a)'s; strains FUSED_CHECKED
+    against the C++ counters from their own scrubbed files."""
+    from strainer2_tpu_torch.pipeline.fused import _stem
+
+    got = fused_artifacts(os.path.join(d, "p8"), "strain")
+    ok = {k: got[k] == want[k] for k in want}
+    print(f"phase 8 strain 0 against phase 7 (a): {ok}", flush=True)
+    if not all(ok.values()):
+        fail("pipeline-multi strain 0 differs from the single-strain fused run")
+    for i in FUSED_CHECKED:
+        if i >= len(run["strains"]):
+            continue
+        r = run["strains"][i]
+        o = lambda suffix: os.path.join(d, "p8", _stem(r) + suffix)  # noqa: E731
+        check_real_outputs(d, data, r, o(".scrub_kmer_counts.gz"), o(".scrubbed_kmers.gz"),
+                           o(".kmer_hits.gz"), label=f"phase 8 strain {i}")
+
+
 def profiled(out_dir: str, label: str, fn):
     """Run fn under torch.profiler: print device busy time against wall
     time, and write key_averages() sorted by device time to out_dir."""
@@ -770,7 +1166,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--keep", default=None, help="directory to keep the generated data and outputs in")
     ap.add_argument("--profile", default=None,
-                    help="trace phases 4 and 6 with torch.profiler; prints the device's busy "
+                    help="trace phases 4, 6, 7 and 8 with torch.profiler; prints the device's busy "
                          "share and writes the per-kernel tables into this directory")
     args = ap.parse_args()
 
@@ -829,11 +1225,28 @@ def main() -> int:
         phase("4")
         _build.reset_launches()
         if args.profile:
-            profiled(args.profile, "phase4", lambda: real_size(d, data))
+            walls = profiled(args.profile, "phase4", lambda: real_size(d, data))
         else:
-            real_size(d, data)
+            walls = real_size(d, data)
         launches = dict(_build.launches)
-        check_real_outputs(d, data)
+        p4 = lambda name: os.path.join(d, name)  # noqa: E731
+        index = check_real_outputs(d, data, p4("strain.fna"), p4("counts.tsv"),
+                                   p4("informative.txt"), p4("hits.gz"))
+        num_slots = index.table.num_slots
+        del index
+
+        # ---- phase 7: the fused single-strain pipeline at real size
+        phase("7")
+        _build.reset_launches()
+        if args.profile:
+            fused = profiled(args.profile, "phase7", lambda: fused_real(d))
+        else:
+            fused = fused_real(d)
+        fused_launches = dict(_build.launches)
+        want = check_fused_against_phase4(d)
+        fused_resume(d, want)
+        time_record(d, num_slots)
+        staged_detect_rss(d)
 
         # ---- phase 6: detect-multi at real size (path (b)); launches counted
         phase("6")
@@ -845,6 +1258,18 @@ def main() -> int:
             _, multi_launches = detect_multi_real(d, data, multi)
         check_multi_outputs(d, multi)
 
+        # ---- phase 8: the fused multi-strain pipeline at real size
+        phase("8")
+        _build.reset_launches()
+        if args.profile:
+            fused_multi = profiled(args.profile, "phase8", lambda: fused_multi_real(d, multi))
+        else:
+            fused_multi = fused_multi_real(d, multi)
+        fused_multi_launches = dict(_build.launches)
+        check_fused_multi(d, data, fused_multi, want)
+        print(f"phase 7 wall {fused['wall']:.3f} s against phase 4's four CLIs "
+              f"{sum(walls.values()):.3f} s; phase 8 wall {fused_multi['wall']:.3f} s", flush=True)
+
     # ---- phase 5
     phase("5")
     paths = {
@@ -854,6 +1279,13 @@ def main() -> int:
     }
     for path, counts in paths.items():
         print(f"launches during {path}: {counts}", flush=True)
+    for path, counts, need in (
+            ("pipeline (phase 7)", fused_launches, ("canonical_windows", "count_step", "classify_step")),
+            ("pipeline-multi (phase 8)", fused_multi_launches,
+             ("canonical_windows", "count_step", "multi_hit_words", "strain_sums"))):
+        print(f"launches during {path}: {counts}", flush=True)
+        if not all(counts[name] > 0 for name in need):
+            fail(f"a kernel of {path} was not launched: {need}")
     launched_by = dict.fromkeys(REPLACES, "strain scrub/filter/detect/coverage (phase 4)")
     for name, path, counts in (("bucket_lookup", "bench_lookup (phase 2b)", ab["launches"]),
                                ("bucket_lookup_ring", "bench_lookup (phase 2b)", ab["launches"]),

@@ -16,7 +16,6 @@ __all__ = ["add_device", "check_args"]
 
 _UNPORTED = {
     "mesh": "--mesh (device-mesh sharding)",
-    "checkpoint_dir": "--checkpoint (restartable runs)",
 }
 
 

@@ -57,7 +57,8 @@ def main(argv: list[str] | None = None) -> int:
         progress.write("adding kmer counts for:\n")
     try:
         run_scrub_count(args.r_file, args.a_list, args.b_list, c_list=args.c_list,
-                        out=sys.stdout, progress=progress, cfg=cfg)
+                        out=sys.stdout, progress=progress, cfg=cfg,
+                        checkpoint_dir=args.checkpoint_dir)
     finally:
         if progress is not None:
             progress.close()

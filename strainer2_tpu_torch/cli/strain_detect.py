@@ -84,7 +84,8 @@ def main(argv: list[str] | None = None) -> int:
         args.r_file, args.a_file, args.out_file,
         batch_list=args.batch_list, b_file=args.b_file, b_file2=args.b_file2,
         file_type=ftype, background_list=args.background_list, cfg=cfg,
-        index_cache=args.index_cache, gzip_output=not args.no_gzip,
+        index_cache=args.index_cache, checkpoint_dir=args.checkpoint_dir,
+        gzip_output=not args.no_gzip,
     )
     return 0
 

@@ -2,23 +2,27 @@
 strainer2_tpu.cli.strainer2_tools, plus --device on every subcommand).
 
 ``detect-multi`` scores many strains against shared target samples in one
-stream pass per planned pass of strains; every other subcommand is not
-ported yet and exits 1 saying so.
+stream pass per planned pass of strains; ``scrub-multi`` counts many
+strains' panels in one shared scan; ``pipeline`` and ``pipeline-multi``
+run scrub -> filter -> detect -> coverage in one process for one or many
+strains (``--checkpoint`` makes the long stages resumable).  The other
+subcommands are not ported yet and exit 1 saying so.
 
-    python -m strainer2_tpu_torch.cli.strainer2_tools detect-multi \\
-        -S strains.tsv -B targets.txt -o out_dir [-g background.txt] [--device cuda]
+    python -m strainer2_tpu_torch.cli.strainer2_tools pipeline \\
+        -r strain.fna -A genomes.txt -B metagenomes.txt -T targets.txt -o out_dir \\
+        [--checkpoint ckpt_dir] [--device cuda]
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-import re
 import sys
 
 from strainer2_tpu_torch.cli._common import add_device, check_args
+from strainer2_tpu_torch.pipeline.fused import _stem
 
-PORTED = ("detect-multi",)
+PORTED = ("detect-multi", "scrub-multi", "pipeline", "pipeline-multi")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -142,12 +146,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _stem(path: str) -> str:
-    """Genome-file output stem: the rule of strainer2_tpu.pipeline.fused._stem
-    (that module imports jax)."""
-    return re.sub(r"\.(fna|fasta|fa)(\.gz)?$", "", os.path.basename(path))
-
-
 def _read_strain_list(path: str) -> list[tuple[str, str]]:
     strains = []
     with open(path) as f:
@@ -221,6 +219,77 @@ def detect_multi(args) -> None:
         run_pass(chunk, idxs)
 
 
+def scrub_multi(args) -> None:
+    """One count table per strain, <out_dir>/<stem>.scrub_kmer_counts.tsv,
+    from one shared scan of the panels."""
+    from strainer2_tpu_torch.pipeline.multi_scrub import run_multi_scrub
+    from strainer2_tpu_torch.pipeline.scrub_count import ScrubCountConfig, read_list_file
+
+    r_files = [p for p in read_list_file(args.r_list) if p]
+    os.makedirs(args.out_dir, exist_ok=True)
+    progress = open(args.p_file, "w") if args.p_file else None
+    if progress:
+        progress.write("adding kmer counts for:\n")
+    outs = []
+    try:
+        for r in r_files:
+            outs.append(open(os.path.join(args.out_dir, _stem(r) + ".scrub_kmer_counts.tsv"), "w"))
+        run_multi_scrub(r_files, args.a_list, args.b_list, args.c_list, outs,
+                        cfg=ScrubCountConfig(device=args.device), progress=progress,
+                        checkpoint_dir=args.checkpoint_dir)
+    finally:
+        for o in outs:
+            o.close()
+        if progress:
+            progress.close()
+
+
+def _fused_cfg(args):
+    from strainer2_tpu_torch.pipeline.fused import FusedConfig
+
+    return FusedConfig(
+        min_fraction=args.min_fraction, independent=args.independent,
+        min_kmer_hits=args.min_kmer_hits, write_counts=not args.no_intermediates,
+        write_scrubbed=not args.no_intermediates, device=args.device,
+    )
+
+
+def pipeline(args) -> None:
+    """The fused single-strain pipeline; the artifacts' paths go to stderr."""
+    from strainer2_tpu_torch.pipeline.fused import run_pipeline
+
+    paths = run_pipeline(
+        args.r_file, args.a_list, args.b_list, args.target_list, args.out_dir,
+        c_list=args.c_list, background_list=args.background_list,
+        checkpoint_dir=args.checkpoint_dir, fused_cfg=_fused_cfg(args),
+    )
+    for k, v in paths.items():
+        if v:
+            print(f"{k}\t{v}", file=sys.stderr)
+
+
+def pipeline_multi(args) -> int:
+    """The fused pipeline for the strains of -R; the artifacts' paths go to
+    stderr."""
+    from strainer2_tpu_torch.pipeline.fused import run_multi_pipeline
+    from strainer2_tpu_torch.pipeline.scrub_count import read_list_file
+
+    r_files = read_list_file(args.r_list)
+    if not r_files:
+        print(f"error: no strain genomes listed in {args.r_list}", file=sys.stderr)
+        return 1
+    all_paths = run_multi_pipeline(
+        r_files, args.a_list, args.b_list, args.target_list, args.out_dir,
+        c_list=args.c_list, background_list=args.background_list,
+        checkpoint_dir=args.checkpoint_dir, fused_cfg=_fused_cfg(args),
+    )
+    for paths in all_paths:
+        for k, v in paths.items():
+            if v:
+                print(f"{k}\t{v}", file=sys.stderr)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -231,7 +300,14 @@ def main(argv: list[str] | None = None) -> int:
     rc = check_args(parser, args)
     if rc:
         return rc
-    detect_multi(args)
+    if args.cmd == "detect-multi":
+        detect_multi(args)
+    elif args.cmd == "scrub-multi":
+        scrub_multi(args)
+    elif args.cmd == "pipeline":
+        pipeline(args)
+    else:
+        return pipeline_multi(args)
     return 0
 
 

@@ -16,6 +16,12 @@ MAX_K = 32
 # separators in packed buffers, so windows crossing them are invalid.
 INVALID_BASE = 4
 
+# Count columns of the kmer_scrub_count table, which also name a
+# checkpoint's count files (reference src/kmer_scrub_count.c:43).
+COL_PANGENOME = 1
+COL_METAGENOME = 2
+COL_DRUG = 3
+
 # strain_detect k-mer classes (reference src/strain_detect.c:17-18).
 NON_INFORMATIVE_KMER = 1
 INFORMATIVE_KMER = 2

@@ -76,6 +76,15 @@ class StrainIndex:
         return cls(k=k, codes=codes, genome_counts=genome_counts)
 
     @classmethod
+    def from_unique_codes(cls, codes: np.ndarray, k: int = DEFAULT_K) -> "StrainIndex":
+        """Build from codes already known to be distinct (e.g. the union of
+        several strains' key sets): skips the first-encounter unique pass."""
+        codes = np.asarray(codes, dtype=np.uint64)
+        if codes.size == 0:
+            raise ValueError("no valid k-mers found in genome")
+        return cls(k=k, codes=codes, genome_counts=np.ones(codes.shape[0], dtype=np.uint32))
+
+    @classmethod
     def from_fasta(cls, path: str, engine, rows: int = DEFAULT_ROWS,
                    row_len: int = DEFAULT_ROW_LEN) -> "StrainIndex":
         return cls.from_scan_codes(scan_file_codes(path, engine, rows, row_len), k=engine.k)

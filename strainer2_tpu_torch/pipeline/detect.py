@@ -14,8 +14,10 @@ Port of ``strainer2_tpu.pipeline.detect`` (reference src/strain_detect.c):
    host, where the passing reads are re-scanned to emit their rows.
 
 Emission, summary lines and diagnostics are the JAX package's host code,
-copied, so the output bytes are the same.  Samples run one after another;
-this slice has no device mesh, no multi-process runs and no checkpointing.
+copied, so the output bytes are the same.  Samples run one after another.
+With a checkpoint directory each finished sample's payload is saved
+(pipeline/progress.py) and a restarted run replays it instead of scoring
+it again.  There is no device mesh and no multi-process run.
 """
 
 from __future__ import annotations
@@ -181,6 +183,45 @@ def _parse_batch_entries(batch_list: str) -> list:
     return entries
 
 
+def _staged_quantify(entries, run_one, new_sink, payload_of, emit, stdout,
+                     checkpoint_dir: str) -> None:
+    """Sample-granular resumable scoring, the single-process form of
+    ``strainer2_tpu.pipeline.detect._staged_quantify``.
+
+    Entries are taken in batch-list order: a stdout message is written
+    where it stands; a sample whose payload the checkpoint holds (same
+    ordinal, same (f1, f2, type) key) is replayed without scoring; any
+    other is scored by ``run_one(args, sink)`` into a fresh in-memory
+    ``sink``, its payloads (``payload_of(sink)``, one text per output
+    stream) are recorded and then emitted.  Output bytes, stdout warning
+    interleaving and failure position are those of the streaming loop: a
+    failing sample's partial payload is emitted, nothing after it is, and
+    its exception (or exit) propagates unrecorded."""
+    from strainer2_tpu_torch.pipeline.progress import DetectCheckpoint
+
+    ckpt = DetectCheckpoint(checkpoint_dir)
+    ordinal = 0
+    with stage("detect.score_samples"):
+        for kind, val in entries:
+            if kind == "msg":
+                stdout.write(val)
+                continue
+            key = DetectCheckpoint.sample_key(*val)
+            payloads = ckpt.get(ordinal, key)
+            if payloads is None:
+                sink = new_sink()
+                try:
+                    run_one(val, sink)
+                except BaseException:
+                    # the streaming loop has written these rows when it raises
+                    emit(payload_of(sink))
+                    raise
+                payloads = payload_of(sink)
+                ckpt.record(ordinal, key, payloads)
+            emit(payloads)
+            ordinal += 1
+
+
 def _load_or_build_index(r_file, engine, cfg, index_cache):
     """Build the strain index, or reuse a cached bucket one (StrainIndex.save
     of either package writes the same npz)."""
@@ -202,9 +243,14 @@ def _load_or_build_index(r_file, engine, cfg, index_cache):
 class StrainDetector:
     """The indexed strain state shared across target samples."""
 
-    def __init__(self, r_file: str, a_file: str, cfg: DetectConfig | None = None,
+    def __init__(self, r_file: str, a_file: str | None, cfg: DetectConfig | None = None,
                  stdout: IO | None = None, index_cache: str | None = None,
-                 index: StrainIndex | None = None):
+                 index: StrainIndex | None = None,
+                 informative_keys: np.ndarray | None = None):
+        """a_file marks informative k-mers from the scrubbed-k-mer file.
+        The fused pipeline instead passes a prebuilt ``index`` plus
+        ``informative_keys`` (key indices in first-encounter order),
+        skipping the genome re-scan and the k-mer string round trip."""
         self.cfg = cfg or DetectConfig()
         self.stdout = stdout if stdout is not None else sys.stdout
         self.engine = TorchKmerEngine(
@@ -221,7 +267,14 @@ class StrainDetector:
         self.kmer_type = np.full(self.index.num_kmers, NON_INFORMATIVE_KMER, np.uint32)
         self._sorted_order = np.argsort(self.index.codes, kind="stable")
         self._sorted_codes = self.index.codes[self._sorted_order]
-        self.num_informative_marked = self._mark_scrubbed(a_file)
+        if informative_keys is not None:
+            keys = np.asarray(informative_keys, dtype=np.int64)
+            self.kmer_type[keys] = INFORMATIVE_KMER
+            self.num_informative_marked = int(keys.size)
+        else:
+            if a_file is None:
+                raise ValueError("either a_file or informative_keys is required")
+            self.num_informative_marked = self._mark_scrubbed(a_file)
 
     # ---- stage 2: mark informative k-mers ----
     def _key_pos(self, codes: np.ndarray) -> np.ndarray:
@@ -318,13 +371,27 @@ class StrainDetector:
 
     def quantify_all(self, out_path: str, batch_list: str | None = None,
                      b_file: str | None = None, b_file2: str | None = None,
-                     file_type: int = NOT_PAIRED_END, gzip_output: bool = True) -> None:
+                     file_type: int = NOT_PAIRED_END, checkpoint_dir: str | None = None,
+                     gzip_output: bool = True) -> None:
         """Process all target samples and write the hits file (gzip, or
-        plain TSV with gzip_output=False; the row bytes are the same)."""
+        plain TSV with gzip_output=False; the row bytes are the same).
+        checkpoint_dir makes a -B batch run resumable at sample
+        granularity (DetectCheckpoint)."""
         import gzip
+        import io
 
         self._finalize_meta()
         out = gzip.open(out_path, "wt", compresslevel=9) if gzip_output else open(out_path, "w")
+        if batch_list is not None and checkpoint_dir:
+            with out:
+                _staged_quantify(
+                    _parse_batch_entries(batch_list),
+                    lambda args, sink: self._quantify_sample(*args, sink),
+                    io.StringIO, lambda sink: [sink.getvalue()],
+                    lambda payloads: out.write(payloads[0]),
+                    self.stdout, checkpoint_dir,
+                )
+            return
         with out, stage("detect.score_samples"):
             if batch_list is None:
                 self._quantify_sample(b_file, b_file2, file_type, out)
@@ -553,11 +620,14 @@ def run_detect(r_file: str, a_file: str, out_path: str, batch_list: str | None =
                b_file: str | None = None, b_file2: str | None = None,
                file_type: int = NOT_PAIRED_END, background_list: str | None = None,
                cfg: DetectConfig | None = None, stdout: IO | None = None,
-               index_cache: str | None = None, gzip_output: bool = True) -> StrainDetector:
-    """Full strain_detect stage."""
+               index_cache: str | None = None, checkpoint_dir: str | None = None,
+               gzip_output: bool = True) -> StrainDetector:
+    """Full strain_detect stage; checkpoint_dir makes the batch run
+    resumable at sample granularity."""
     det = StrainDetector(r_file, a_file, cfg, stdout=stdout, index_cache=index_cache)
     if background_list:
         det.background_filter(background_list)
     det.quantify_all(out_path, batch_list=batch_list, b_file=b_file, b_file2=b_file2,
-                     file_type=file_type, gzip_output=gzip_output)
+                     file_type=file_type, checkpoint_dir=checkpoint_dir,
+                     gzip_output=gzip_output)
     return det

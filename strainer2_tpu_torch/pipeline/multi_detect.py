@@ -11,10 +11,12 @@ read or pair passes for some strain do the passing rows cross to the host,
 where they are re-scanned to emit each strain's rows.  The per-strain files
 are byte-identical to single-strain ``strain_detect`` runs.
 
-One device per process; --mesh, checkpoints and multi-process runs are not
-carried (the CLI and ``quantify_all`` refuse them).  The JAX package's
-native CPU classifier route is not taken: classification always goes
-through the engine, as the single-strain ``StrainDetector`` does.
+With a checkpoint directory, samples run through the single-strain
+detector's resumable staged loop (``detect._staged_quantify``), one
+payload per strain per sample.  One device per process; --mesh and
+multi-process runs are not carried (the CLI refuses them).  The JAX
+package's native CPU classifier route is not taken: classification always
+goes through the engine, as the single-strain ``StrainDetector`` does.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from strainer2_tpu_torch.pipeline.detect import (
     _evaluated_totals,
     _exit_unreadable_sample,
     _parse_batch_entries,
+    _staged_quantify,
     background_demote,
     strain_threads,
 )
@@ -203,7 +206,9 @@ def plan_strain_passes_from_codes(codes_list, *, max_strains=MAX_STRAINS_PER_PAS
     """Exact pass planning from per-strain canonical-code arrays (or
     zero-arg callables returning them): merge codes strain by strain and
     cut a pass when the exact union's projected bytes exceed the budget.
-    Same return shape as plan_strain_passes."""
+    Same return shape as plan_strain_passes.  The unions are sorts and
+    merges (union_sorted), not np.unique or np.union1d: numpy 2.3's
+    np.unique is far slower than np.sort on millions of uint64 codes."""
     if budget is _UNSET:
         budget = device_mem_budget()
     if budget is not None:
@@ -211,16 +216,16 @@ def plan_strain_passes_from_codes(codes_list, *, max_strains=MAX_STRAINS_PER_PAS
 
     def get(i):
         c = codes_list[i]
-        return np.asarray(c() if callable(c) else c, dtype=np.uint64)
+        return np.sort(np.asarray(c() if callable(c) else c, dtype=np.uint64))
 
     passes = []
     start = 0
     n = len(codes_list)
     while start < n:
-        union = np.unique(get(start))
+        union = union_sorted(None, get(start))
         end = start + 1
         while end < n and end - start < max_strains:
-            cand = np.union1d(union, get(end))
+            cand = union_sorted(union, get(end))
             if budget is not None and projected_rows_bytes(cand.shape[0], end - start + 1) > budget:
                 break
             union = cand
@@ -300,31 +305,44 @@ def gather_passing_rows(tot, inf, sel, *, paired: bool):
 class MultiStrainDetector:
     """Score several strains against shared target streams in one pass."""
 
+    # the single-strain stream plumbing, borrowed (native or Python packer)
+    # as a class attribute: a bound method stored on the instance would make
+    # a reference cycle, and the union rows would stay on the device after
+    # the pass until the cycle collector ran
+    _read_stream = StrainDetector._read_stream
+
     def __init__(self, strains: list[tuple[str, str]], cfg: DetectConfig | None = None,
                  stdout: IO | None = None, background_list: str | None = None,
+                 prebuilt: "list[tuple[str, object, np.ndarray]] | None" = None,
                  indexes: "list | None" = None):
-        """strains: (genome, scrubbed-kmer-file) pairs.  ``indexes``
-        optionally supplies each strain's StrainIndex (the detect-multi CLI
-        hands over the ones its pass planner scanned, so each genome is read
-        once)."""
+        """strains: (genome, scrubbed-kmer-file) pairs.  The fused
+        multi-strain pipeline instead passes ``prebuilt``, (genome,
+        StrainIndex, informative key indices) triples, skipping the genome
+        re-scans and the scrubbed-file round trips.  ``indexes`` (exclusive
+        with prebuilt) supplies each strain's StrainIndex while keeping the
+        -a file marking (the detect-multi CLI hands over the ones its pass
+        planner scanned, so each genome is read once)."""
+        if prebuilt is not None:
+            strains = [(r, None) for r, _, _ in prebuilt]
+            indexes = [ix for _, ix, _ in prebuilt]
         if not 1 <= len(strains) <= MAX_STRAINS_PER_PASS:
             raise ValueError(f"1..{MAX_STRAINS_PER_PASS} strains per pass")
         self.cfg = cfg or DetectConfig()
         self.stdout = stdout if stdout is not None else sys.stdout
         self.max_reads = max_reads_capacity(self.cfg.k, self.cfg.rows, self.cfg.row_len)
         self.engine = TorchKmerEngine(self.cfg.k, self.max_reads, device=self.cfg.device)
-        # the single-strain stream plumbing, borrowed (native or Python packer)
-        self._read_stream = StrainDetector._read_stream.__get__(self)
         with stage("multi.strain_states"):
-            keys = self._build_states(strains, indexes)
+            keys = self._build_states(
+                strains, indexes, [inf for _, _, inf in prebuilt] if prebuilt is not None else None
+            )
         with stage("multi.union_table"):
             self._build_union(keys, background_list)
 
-    def _build_states(self, strains, indexes) -> list[_StrainKeys]:
+    def _build_states(self, strains, indexes, informative) -> list[_StrainKeys]:
         """Per-strain state through the single-strain constructor (the
-        scrubbed-file marking and its diagnostics) into ``self.states``;
-        returns each strain's keys.  Strains build on a worker pool; their
-        stdout flushes in strain order."""
+        scrubbed-file marking and its diagnostics, or the given informative
+        keys) into ``self.states``; returns each strain's keys.  Strains
+        build on a worker pool; their stdout flushes in strain order."""
 
         def build_one(s):
             r_file, a_file = strains[s]
@@ -333,6 +351,7 @@ class MultiStrainDetector:
                 det = StrainDetector(
                     r_file, a_file, self.cfg, stdout=buf,
                     index=indexes[s] if indexes is not None else None,
+                    informative_keys=informative[s] if informative is not None else None,
                 )
             except BaseException as e:
                 e._s2_stdout = buf.getvalue()  # type: ignore[attr-defined]
@@ -470,11 +489,26 @@ class MultiStrainDetector:
     def quantify_all(self, out_paths: list[str], batch_list: str,
                      checkpoint_dir: str | None = None) -> None:
         """One pass over every sample in the batch file; writes one
-        kmer_hits gz file per strain."""
-        if checkpoint_dir:
-            raise ValueError("checkpoint_dir (restartable runs) is not supported by the torch port yet")
+        kmer_hits gz file per strain.  checkpoint_dir makes the pass
+        resumable at sample granularity, one payload per strain per
+        sample."""
         outs = [gzip.open(p, "wt", compresslevel=9) for p in out_paths]
         try:
+            if checkpoint_dir:
+                n_strains = len(self.states)
+
+                def emit(payloads):
+                    for o, payload in zip(outs, payloads):
+                        o.write(payload)
+
+                _staged_quantify(
+                    _parse_batch_entries(batch_list),
+                    lambda args, sinks: self._quantify_sample(*args, sinks),
+                    lambda: [io.StringIO() for _ in range(n_strains)],
+                    lambda sinks: [b.getvalue() for b in sinks],
+                    emit, self.stdout, checkpoint_dir,
+                )
+                return
             with stage("multi.score_samples"):
                 for kind, val in _parse_batch_entries(batch_list):
                     if kind == "msg":

@@ -8,9 +8,11 @@ into a slot-indexed uint32 count buffer on the device, then write the
 4- or 5-column table in the reference's row order.
 
 Counts are integers, so neither the batch order nor the order in which
-the feeder threads' batches reach the device can change a byte.  This
-slice has no device mesh, no multi-process partitioning and no
-checkpointing; the CLI refuses those flags.
+the feeder threads' batches reach the device can change a byte.  With a
+checkpoint directory, files count one after another and the count buffer
+is saved after each (pipeline/progress.py), so a restarted run skips the
+finished files.  There is no device mesh and no multi-process
+partitioning; the CLI refuses those.
 """
 
 from __future__ import annotations
@@ -146,53 +148,89 @@ def _count_files_device_parallel(engine, index, counts, todo, n_threads, cfg):
     return counts
 
 
+def _resume_counts(engine: TorchKmerEngine, index, paths: list[str], column: int,
+                   checkpoint):
+    """(device counts, files of ``paths`` still to count): the checkpoint's
+    stored column and the files it has not recorded, or zeros and all of
+    them.  Finished files are a multiset: a duplicate list entry counts
+    again, as it does in an uninterrupted run."""
+    from collections import Counter
+
+    counts_np = checkpoint.counts(column) if checkpoint is not None else None
+    if counts_np is None:
+        return engine.init_counts(index), list(paths)
+    done = Counter(checkpoint.done_files(column))
+    todo = []
+    for path in paths:
+        if done[path] > 0:
+            done[path] -= 1
+            continue
+        todo.append(path)
+    return engine.counts_from_numpy(index, counts_np), todo
+
+
+def _count_files(engine: TorchKmerEngine, index, counts, todo: list[str],
+                 cfg: ScrubCountConfig, column: int = 0, checkpoint=None):
+    """Count every file of ``todo`` into the device ``counts``.  With a
+    checkpoint, files count one after another and the whole buffer is
+    saved after each: only that gives a snapshot that is complete per
+    file, so the device-parallel feeder serves runs without one."""
+    n_threads = _count_threads(len(todo))
+    if checkpoint is None and len(todo) > 1 and n_threads > 1:
+        try:
+            return _count_files_device_parallel(engine, index, counts, todo, n_threads, cfg)
+        except OSError as e:
+            _exit_could_not_read(
+                f"could not read file {getattr(e, 'filename', None) or e} "
+                "in GEN_calculate_kmer_count()"
+            )
+    for path in todo:
+        try:
+            counts = count_panel_file(engine, index, counts, path, cfg.rows, cfg.row_len)
+        except OSError:
+            # reference src/genome_compare.c:196
+            _exit_could_not_read(f"could not read file {path} in GEN_calculate_kmer_count()")
+        if checkpoint is not None:
+            checkpoint.record(column, path, engine.finalize_counts(counts))
+    return counts
+
+
 def _count_panel(engine: TorchKmerEngine, index: StrainIndex, list_path: str | None,
                  cfg: ScrubCountConfig, progress: IO | None,
-                 skip_path: str | None = None) -> np.ndarray:
-    """Count every file of one panel list into a fresh device column;
-    returns per-key counts in first-encounter order."""
-    counts = engine.init_counts(index)
+                 skip_path: str | None = None, column: int = 0,
+                 checkpoint=None) -> np.ndarray:
+    """Count every file of one panel list into a fresh device column (or
+    the checkpoint's stored one); returns per-key counts in
+    first-encounter order."""
+    todo: list[str] = []
     if list_path is not None:
         try:
             listed = read_list_file(list_path)
         except OSError:
             # reference src/genome_compare.c:125,159
             _exit_could_not_read(f"could not read file {list_path} in GEN_all_kmer_counts()")
-        todo: list[str] = []
         for path in listed:
             _progress_line(progress, path)
             if skip_path is not None and path == skip_path:
                 print(f"skipping {path} (identical match)", file=sys.stderr)
                 continue
             todo.append(path)
-        n_threads = _count_threads(len(todo))
-        if len(todo) > 1 and n_threads > 1:
-            try:
-                counts = _count_files_device_parallel(engine, index, counts, todo, n_threads, cfg)
-            except OSError as e:
-                _exit_could_not_read(
-                    f"could not read file {getattr(e, 'filename', None) or e} "
-                    "in GEN_calculate_kmer_count()"
-                )
-        else:
-            for path in todo:
-                try:
-                    counts = count_panel_file(engine, index, counts, path, cfg.rows, cfg.row_len)
-                except OSError:
-                    # reference src/genome_compare.c:196
-                    _exit_could_not_read(
-                        f"could not read file {path} in GEN_calculate_kmer_count()"
-                    )
+    counts, todo = _resume_counts(engine, index, todo, column, checkpoint)
+    counts = _count_files(engine, index, counts, todo, cfg, column, checkpoint)
     return index.key_values(engine.finalize_counts(counts))
 
 
 def run_scrub_count(r_file: str, a_list: str, b_list: str, c_list: str | None = None,
                     out: IO = None, progress: IO | None = None,
                     cfg: ScrubCountConfig | None = None,
-                    index: StrainIndex | None = None) -> StrainIndex:
+                    index: StrainIndex | None = None,
+                    checkpoint_dir: str | None = None) -> StrainIndex:
     """Full kmer_scrub_count stage; writes the count table to ``out`` and
-    returns the strain index."""
+    returns the strain index.  checkpoint_dir makes counting restartable
+    at panel-file granularity (bit-identical to an uninterrupted run)."""
     import threading
+
+    from strainer2_tpu_torch.constants import COL_DRUG, COL_METAGENOME, COL_PANGENOME
 
     cfg = cfg or ScrubCountConfig()
     out = out if out is not None else sys.stdout
@@ -209,6 +247,12 @@ def run_scrub_count(r_file: str, a_list: str, b_list: str, c_list: str | None = 
                     f"could not read file {r_file} GEN_hash_sequences_set_count_vec()"
                 )
 
+    ckpt = None
+    if checkpoint_dir:
+        from strainer2_tpu_torch.pipeline.progress import ScrubCheckpoint
+
+        ckpt = ScrubCheckpoint(checkpoint_dir)
+
     # the djb2 row-order replay needs only the index: overlap it with the
     # panel scans
     order_box: list = []
@@ -223,10 +267,13 @@ def run_scrub_count(r_file: str, a_list: str, b_list: str, c_list: str | None = 
         order_thread = threading.Thread(target=_order_bg, name="scrub-row-order")
         order_thread.start()
 
-    col_pan = _count_panel(engine, index, a_list, cfg, progress)
-    col_meta = _count_panel(engine, index, b_list, cfg, progress)
+    col_pan = _count_panel(engine, index, a_list, cfg, progress,
+                           column=COL_PANGENOME, checkpoint=ckpt)
+    col_meta = _count_panel(engine, index, b_list, cfg, progress,
+                            column=COL_METAGENOME, checkpoint=ckpt)
     col_drug = (
-        _count_panel(engine, index, c_list, cfg, progress, skip_path=r_file)
+        _count_panel(engine, index, c_list, cfg, progress, skip_path=r_file,
+                     column=COL_DRUG, checkpoint=ckpt)
         if c_list
         else None
     )

@@ -161,7 +161,7 @@ def test_native_library_builds_under_build_dir():
 
 def test_constants_copy_matches():
     names = [n for n in dir(t_constants) if n.isupper()]
-    assert len(names) == 10
+    assert len(names) == 13
     for n in names:
         assert getattr(t_constants, n) == getattr(j_constants, n), n
 

@@ -3,7 +3,9 @@
 interpreter with both blocked imports each module of the package, runs one
 CPU count step, and runs kmer_scrub_count on the mini data to its golden
 bytes; another imports the multi-strain modules and runs detect-multi and
-the lookup A/B tool on the CPU.  With the JAX package unimportable, no
+the lookup A/B tool on the CPU; a third runs pipeline-multi (shared panel
+scan, filters, multi-strain detection, coverage) to the goldens of
+strainA.  With the JAX package unimportable, no
 code of it (its native/ build step included) can write under
 strainer2_tpu/."""
 
@@ -96,6 +98,36 @@ _MULTI_SCRIPT = _BLOCK + textwrap.dedent(
 )
 
 
+_PIPELINE_MULTI_SCRIPT = _BLOCK + textwrap.dedent(
+    """
+    import gzip
+    from strainer2_tpu_torch.cli.strainer2_tools import main
+
+    mini = os.path.join(sys.argv[1], "tests", "golden", "mini")
+    out_dir = sys.argv[2]
+    os.chdir(mini)
+    r_list = os.path.join(out_dir, "r.txt")
+    with open(r_list, "w") as f:
+        f.write("data/strainA.fna.gz\\ndata/drug1.fna.gz\\n")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        assert main(["pipeline-multi", "-R", r_list, "-A", "data/genomes.txt",
+                     "-B", "data/metagenomes.txt", "-T", "data/targets.txt", "-m", "0.05",
+                     "-o", os.path.join(out_dir, "o"), "--checkpoint",
+                     os.path.join(out_dir, "ck"), "--device", "cpu"]) == 0
+    for name, golden in (("strainA.scrub_kmer_counts.gz", "scrub_counts.tsv"),
+                         ("strainA.scrubbed_kmers.gz", "scrubbed_m05.txt"),
+                         ("strainA.kmer_hits.gz", "kmer_hits.txt")):
+        with gzip.open(os.path.join(out_dir, "o", name), "rb") as f:
+            with open(os.path.join("expected", golden), "rb") as g:
+                assert f.read() == g.read(), name
+    assert os.path.exists(os.path.join(out_dir, "o", "drug1.coverage_depth"))
+    assert not [m for m in sys.modules if blocked(m)]
+    print("ok")
+    """
+)
+
+
 def _run(script: str, *args: str):
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
@@ -112,3 +144,7 @@ def test_package_imports_and_runs_without_jax():
 
 def test_detect_multi_and_bench_lookup_run_without_jax(tmp_path):
     assert _run(_MULTI_SCRIPT, str(tmp_path)).split()[-1] == "ok"
+
+
+def test_pipeline_multi_runs_without_jax(tmp_path):
+    assert _run(_PIPELINE_MULTI_SCRIPT, str(tmp_path)).split()[-1] == "ok"

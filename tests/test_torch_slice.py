@@ -132,9 +132,7 @@ def test_cli_chain_reproduces_goldens(tmp_path):
     "module,argv",
     [
         ("kmer_scrub_count", ["-r", "x", "-A", "x", "-B", "x", "--mesh", "2x1"]),
-        ("kmer_scrub_count", ["-r", "x", "-A", "x", "-B", "x", "--checkpoint", "ck"]),
         ("strain_detect", ["-r", "x", "-a", "x", "-b", "x", "-o", "o", "--mesh", "2x1"]),
-        ("strain_detect", ["-r", "x", "-a", "x", "-B", "x", "-o", "o", "--checkpoint", "ck"]),
     ],
 )
 def test_cli_refuses_unported_flags(tmp_path, capsys, module, argv):
