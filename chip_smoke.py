@@ -10,7 +10,10 @@ Phases; any failure exits non-zero and no result line is printed:
 2. kernels vs plain versions on the card, at main-path shapes: a 256 x 4096
    batch with ~3% invalid bases against a 6.7 M-key strain table, for K1,
    K3 and K4 also batches made like the phase-4 targets (0.1% N), and for
-   K2 also sets of present keys as strain_detect probes them; every
+   K2 also sets of present keys as strain_detect probes them; K8, K9 and
+   K3 with its valid count on the counting and target-like batches at
+   k = 20 and 31, K9 with ``remaining`` at 0, 1, the batch's valid total
+   and one past it; every
    output must be exactly equal (all values are integers); kernel times
    device-only (CUDA events around a CUDA-graph replay,
    strainer2_tpu_torch/tools/bench_kernels.py) and from a loop of
@@ -21,6 +24,10 @@ Phases; any failure exits non-zero and no result line is printed:
    the fused ``strainer2_tools pipeline`` to the same goldens, and
    ``pipeline-multi`` on two strains byte-identical per strain to the
    staged CLIs (coverage against ``coverage_depth`` on the fused hits);
+   the six ``gc_*`` goldens through ``genome_compare`` (k = 17, 20 and 40,
+   rapid, strain mode, one query with a header) and the ``modes/`` goldens
+   through ``strainer2_tools pangenome``, ``kmer-matrix`` and
+   ``strain-track``;
 4. real size, the "strain vs metagenomes, joint scrub + detect" run of the
    README: a 6.7 Mbp strain, background genomes, metagenome panels and two
    target samples made from --seed, cut in depth (printed); the four CLIs
@@ -33,10 +40,11 @@ Phases; any failure exits non-zero and no result line is printed:
    lookup, M lookups/s of each; then K6 and K7 at S = 16, 32, 96 and 256 strains on phase 2's key set
    with seeded meta words and its detection batches, each exactly equal to
    its plain version;
-5. launch counts of the seven kernels on their paths (phase 4 for K1, K3
-   and K4, the A/B tool for K2 and K5, phase 6 for K6 and K7; each must be
-   > 0; no CLI path probes a key set with K2 since the -a file's k-mers are
-   marked by a host search), a check that neither jax nor the JAX package
+5. launch counts of the ten kernels on their paths (phase 4 for K1, K3
+   and K4, the A/B tool for K2 and K5, phase 6 for K6 and K7, phase 9 for
+   K8, K9 and K3 with its valid count; each must be > 0; no CLI path
+   probes a key set with K2 since the -a file's k-mers are marked by a
+   host search), a check that neither jax nor the JAX package
    (strainer2_tpu) was imported, one JSON line of per-kernel results (each
    naming the path its launches were counted on), then the result line;
 6. real size, multi-strain: 32 strains made from the phase-4 genome with
@@ -60,9 +68,20 @@ Phases; any failure exits non-zero and no result line is printed:
    written: strain 0's artifacts equal phase 7's, and for strains 3 and 7
    the count columns equal the C++ ``NativePanelCounter``'s and the hit
    rows the C++ ``NativeClassifier``'s prediction from the strain's own
-   scrubbed file; peak device memory.
+   scrubbed file; peak device memory;
+9. real size, containment: ``genome_compare`` with -a the phase-4 strain
+   (k = 20) against the 10 background genomes and the 8 panel
+   metagenomes, fullmap, in strain mode (-S) and with -r 3000000 -t 0.02;
+   every line equal to the C++ ``NativeComparer``'s on this host (the
+   data is ACGTN only: the device path masks windows with other IUPAC
+   letters, which the string engine keeps); then ``strainer2_tools
+   strain-track -n`` of the first TRACK_STRAINS strains of phase 6 against
+   a metagenome made like the phase-4 panels with 1% of its reads from
+   each of those strains, each strain's used, possible and counted seeds
+   and the valid windows equal to what the C++ ``NativePanelCounter``
+   counts on the k-mers unique to one strain (found here with numpy).
 
-Phases run in the order 1, 2, 2b, 3, 4, 7, 6, 8, 5.
+Phases run in the order 1, 2, 2b, 3, 4, 7, 6, 8, 9, 5.
 """
 
 from __future__ import annotations
@@ -101,6 +120,11 @@ INFORMATIVE_FRACTION = 0.01
 MULTI_CHECKED = (0, 15, 31)  # strains byte-compared with single runs
 FUSED_STRAINS = 8  # phase 8: the phase-4 genome and the first 7 of phase 6
 FUSED_CHECKED = (3, 7)  # phase-8 strains checked against the C++ counters
+COMPARE_K = 20  # genome_compare's default k (phase 9)
+# phase 9's genome_compare runs: argv, and the (max_seeds, threshold) they set
+COMPARE_RUNS = {"fullmap": ([], 0, 0.1), "strain mode": (["-S"], 100_000, 0.05),
+                "rapid 3M": (["-r", "3000000", "-t", "0.02"], 3_000_000, 0.02)}
+TRACK_STRAINS = 4  # phase 9: the first strains of phase 6 in strain-track
 RECORD_REPS = 3  # timed checkpoint records in phase 7
 RING_DEFAULT = "ring8x4"  # bucket_lookup_pallas_manual's defaults w=8, d=4
 RING_CHUNK = 1024  # queries per K5 block in phase 2 (the wrapper's default)
@@ -117,6 +141,9 @@ SOURCES = {
     "bucket_lookup_ring": _CU + "strainer2_multi.cu",
     "multi_hit_words": _CU + "strainer2_multi.cu",
     "strain_sums": _CU + "strainer2_multi.cu",
+    "hit_accumulate": _CU + "strainer2_kernels.cu",
+    "hit_stats": _CU + "strainer2_kernels.cu",
+    "count_valid_step": _CU + "strainer2_kernels.cu",
 }
 REPLACES = {
     "canonical_windows": "strainer2_tpu/ops/pallas_kernels.py:127",
@@ -126,6 +153,9 @@ REPLACES = {
     "bucket_lookup_ring": "strainer2_tpu/ops/pallas_lookup.py:211",
     "multi_hit_words": "strainer2_tpu/ops/lookup.py:181",
     "strain_sums": "strainer2_tpu/ops/segsum.py:126",
+    "hit_accumulate": "strainer2_tpu/pipeline/engine.py:343",
+    "hit_stats": "strainer2_tpu/pipeline/engine.py:348",
+    "count_valid_step": "strainer2_tpu/pipeline/engine.py:330",
 }
 DEVICE = "cuda"
 _ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -395,7 +425,88 @@ def check_kernels(d: str, data: dict, rng, dev, seed: int) -> dict:
             results["classify_step"] = res
         else:
             results["classify_step"][kind] = res
-    return results, {"index": index, "detect": detect, "detect_stats": detect_stats, "rows": rows}
+    return results, {"index": index, "detect": detect, "detect_stats": detect_stats, "rows": rows,
+                     "count": [b for b, _, _ in count_in]}
+
+
+def check_compare_kernels(d: str, ctx: dict, dev) -> dict:
+    """Phase 2: K8, K9 and K3 with its valid count against their plain
+    versions on phase 2's counting and target-like batches, on the
+    phase-4 strain's index at k = 20 and 31; K9 at every ``remaining``
+    edge of each batch."""
+    import torch
+
+    from strainer2_tpu_torch.index.build import StrainIndex
+    from strainer2_tpu_torch.ops import lookup as L
+    from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
+    from strainer2_tpu_torch.tools.bench_kernels import (
+        COMPARE_KS, batch_stats, bound_ms, k3_bytes, k8_bytes, k9_bytes,
+    )
+
+    kinds = {"count": ctx["count"], "targets": [b for b, _, _ in ctx["detect"]["targets"]]}
+    out = {"hit_accumulate": {}, "hit_stats": {}, "count_valid_step": {}}
+    for k in COMPARE_KS:
+        if k == K:
+            index = ctx["index"]
+        else:
+            index = StrainIndex.from_fasta(os.path.join(d, "strain.fna"), TorchKmerEngine(k, device=dev))
+        t = index.table
+        h, salt = t.h_bits, t.salt
+        rows = torch.from_numpy(t.table).to(dev)
+        for kind, bs in kinds.items():
+            per = [batch_stats(rows, h, salt, b, k) for b in bs]
+            valid, _, hits = (sum(x) / N_BATCHES for x in zip(*per))
+            label = f"{kind} k={k}"
+            note = f"; {valid:.0f} valid windows, {hits:.0f} hits a batch"
+            acc, acc_plain = (torch.zeros(2, dtype=torch.int64, device=dev) for _ in range(2))
+            counts, counts_plain = (torch.zeros(t.num_slots, dtype=torch.uint32, device=dev)
+                                    for _ in range(2))
+            cases = {
+                "hit_accumulate": (
+                    lambda i: (L.hit_accumulate(acc, rows, bs[i], h, salt, k),),
+                    lambda i: (L.hit_accumulate_plain(acc_plain, rows, bs[i], h, salt, k),),
+                    k8_bytes(bs[0], valid, hits)),
+                "count_valid_step": (
+                    lambda i: L.count_valid_step(counts, rows, bs[i], h, salt, k),
+                    lambda i: L.count_valid_step_plain(counts_plain, rows, bs[i], h, salt, k),
+                    k3_bytes(bs[0], valid, hits) + 4),
+                "hit_stats": (
+                    lambda i: (L.hit_stats(rows, bs[i], per[i][0] // 2, h, salt, k),),
+                    lambda i: (L.hit_stats_plain(rows, bs[i], per[i][0] // 2, h, salt, k),),
+                    k9_bytes(bs[0], valid, hits, k)),
+            }
+            for name, (kern, plain, n_bytes) in cases.items():
+                err = checked(f"{name} {label}", kern, plain)
+                if name == "hit_stats":
+                    err = max(err, check_remaining_edges(rows, bs, per, h, salt, k, label))
+                out[name][label] = dict(timed(f"{name} {label}", kern, plain, bound_ms(n_bytes), note),
+                                        max_abs_err=err)
+            if int(acc[0]) <= 0 or not int(counts.view(torch.int32).ne(0).sum()):
+                fail(f"hit_accumulate / count_valid_step {label}: no hit counted")
+            del counts, counts_plain
+        del rows, index
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_remaining_edges(rows, bs, per, h, salt, k, label) -> int:
+    """K9 against its plain version with remaining at 0, 1, each batch's
+    valid total and one past it; fails on any difference."""
+    from strainer2_tpu_torch.ops import lookup as L
+
+    err = 0
+    for i, b in enumerate(bs):
+        total = per[i][0]
+        for rem in (0, 1, total, total + 1):
+            got = L.hit_stats(rows, b, rem, h, salt, k)
+            want = L.hit_stats_plain(rows, b, rem, h, salt, k)
+            err = max(err, max_abs_err((got,), (want,)))
+            if rem == total + 1 and got.tolist()[2:] != [0, -1]:
+                fail(f"hit_stats {label}: a crossing past the batch was found")
+    print(f"check hit_stats {label} remaining 0, 1, total, total + 1: max_abs_err {err}", flush=True)
+    if err:
+        fail(f"hit_stats {label} disagrees with its plain version at a remaining edge")
+    return err
 
 
 def lookup_ab() -> dict:
@@ -525,10 +636,87 @@ def mini_goldens(repo: str, out: str) -> None:
         ("coverage_depth.tsv", same_bytes(o("coverage.tsv"), os.path.join(exp, "coverage_depth.tsv"))),
     ]
     checks += mini_fused(mini, o)
+    checks += mini_compare(mini, o)
+    checks += mini_modes(mini, o)
     for name, ok in checks:
         print(f"mini golden {name}: {'identical' if ok else 'DIFFERS'}", flush=True)
     if not all(ok for _, ok in checks):
         fail("mini goldens differ")
+
+
+# tools/make_mini_fixtures.py's genome_compare runs
+GC_GOLDENS = {
+    "gc_single.txt": ["-b", "data/panel1.fna.gz", "-H"],
+    "gc_list_s17.txt": ["-B", "data/compare_list.txt", "-s", "17"],
+    "gc_rapid.txt": ["-B", "data/compare_list.txt", "-r", "300", "-t", "0.5"],
+    "gc_strainmode.txt": ["-B", "data/compare_list.txt", "-S"],
+    "gc_s40.txt": ["-B", "data/compare_list.txt", "-s", "40"],
+    "gc_s40_rapid.txt": ["-B", "data/compare_list.txt", "-s", "40", "-r", "200", "-t", "0.3"],
+}
+
+
+def mini_compare(mini: str, o) -> list:
+    """The six gc_* goldens through genome_compare (K8 and K9 at k <= 32,
+    the string engine at k = 40)."""
+    cwd = os.getcwd()
+    os.chdir(mini)
+    try:
+        for golden, argv in GC_GOLDENS.items():
+            run_cli("genome_compare", ["-a", "data/strainA.fna.gz", *argv], o(golden))
+    finally:
+        os.chdir(cwd)
+    return [(golden, same_bytes(o(golden), os.path.join(mini, "expected", golden)))
+            for golden in GC_GOLDENS]
+
+
+def mini_modes(mini: str, o) -> list:
+    """The modes/ goldens through strainer2_tools pangenome, kmer-matrix and
+    strain-track, on a copy of the mini data (the modes write their tracks
+    beside their inputs), with the paths the goldens were made with."""
+    import shutil
+
+    exp = lambda name: os.path.join(mini, "expected", "modes", name)  # noqa: E731
+    cwd = os.getcwd()
+    work = o("modes")
+    shutil.copytree(os.path.join(mini, "data"), os.path.join(work, "data"))
+    track = o("modes_track")
+    os.makedirs(track)
+    for name in ("strainA.fna.gz", "drug1.fna.gz", "scrubmeta1.fasta.gz"):
+        shutil.copy(os.path.join(mini, "data", name), track)
+    with open(os.path.join(track, "strains2.txt"), "w") as f:
+        f.write("strainA.fna.gz\ndrug1.fna.gz\n")
+    checks = []
+    try:
+        os.chdir(work)
+        w = lambda name: os.path.join(work, name)  # noqa: E731
+        run_cli("strainer2_tools", ["pangenome", "-A", "data/pangenomes.txt", "-r", "data/strainA.fna.gz"],
+                w("pg_ref.txt"))
+        checks += [("pangenome -r stdout", same_bytes(w("pg_ref.txt"), exp("pangenome_ref_stdout.txt"))),
+                   ("pangenome -r track", same_bytes(w("data/strainA.fna.gz_.pangenome"),
+                                                     exp("strainA.pangenome")))]
+        run_cli("strainer2_tools", ["pangenome", "-A", "data/pangenomes.txt", "-d"], w("pg_all.txt"))
+        checks.append(("pangenome -d stdout", same_bytes(w("pg_all.txt"), exp("pangenome_all_stdout.txt"))))
+        for name in ("panel1.fna.gz", "panel2.fna", "strainA.fna.gz"):
+            checks.append((f"pangenome {name}", same_bytes(w(f"data/{name}_.pangenome"),
+                                                           exp(f"{name}_.pangenome"))))
+        checks.append(("pangenome dist", same_bytes(w("data/pangenomes.txt_.pangenome_dist"),
+                                                    exp("pangenomes.pangenome_dist"))))
+        run_cli("strainer2_tools", ["kmer-matrix", "-A", "data/pangenomes.txt"], w("matrix.tsv"))
+        checks.append(("kmer-matrix", same_bytes(w("matrix.tsv"), exp("kmer_matrix.tsv"))))
+        os.chdir(track)
+        t = lambda name: os.path.join(track, name)  # noqa: E731
+        run_cli("strainer2_tools", ["strain-track", "-A", "strains2.txt", "-b", "scrubmeta1.fasta.gz"],
+                t("st.txt"))
+        checks.append(("strain-track stdout", same_bytes(t("st.txt"), exp("strain_track_stdout.txt"))))
+        for name in ("strainA.fna.gz_scrubmeta1.fasta.gz.strain_track",
+                     "drug1.fna.gz_scrubmeta1.fasta.gz.strain_track"):
+            checks.append((f"strain-track {name}", same_bytes(t(name), exp(name))))
+        run_cli("strainer2_tools", ["strain-track", "-A", "strains2.txt", "-b", "scrubmeta1.fasta.gz",
+                                    "-n", "-m", "60"], t("st_m.txt"))
+        checks.append(("strain-track -n -m 60", same_bytes(t("st_m.txt"), exp("strain_track_m100_stdout.txt"))))
+    finally:
+        os.chdir(cwd)
+    return checks
 
 
 def same_payloads(a: str, b: str) -> bool:
@@ -1130,6 +1318,113 @@ def check_fused_multi(d: str, data: dict, run: dict, want: dict) -> None:
                            o(".kmer_hits.gz"), label=f"phase 8 strain {i}")
 
 
+# ---- phase 9: genome_compare and strain-track at real size ----------------------
+
+def compare_real(d: str, data: dict) -> dict:
+    """genome_compare -a the strain against the 10 genomes and the 8 panel
+    metagenomes, in each of COMPARE_RUNS, in this process (launches
+    counted); every line against the C++ NativeComparer on this host."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from strainer2_tpu_torch import native
+    from strainer2_tpu_torch.pipeline.compare import _c_fraction
+
+    p = lambda name: os.path.join(d, name)  # noqa: E731
+    queries = data["genomes"] + data["metas"]
+    with open(p("compare_list.txt"), "w") as f:
+        f.write("".join(q + "\n" for q in queries))
+    windows = (N_GENOMES * (GENOME_BP - COMPARE_K + 1)
+               + N_METAGENOMES * METAGENOME_READS * (READ_LEN - COMPARE_K + 1))
+    t0 = time.perf_counter()
+    comparer = native.NativeComparer(p("strain.fna"), COMPARE_K)
+    print(f"NativeComparer: {comparer.num_kmers} {COMPARE_K}-mers of the strain, built in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    walls = {}
+    for run, (extra, max_seeds, threshold) in COMPARE_RUNS.items():
+        out = p(f"p9_{run.replace(' ', '_')}.txt")
+        walls[run] = run_cli("genome_compare", ["-a", p("strain.fna"), "-B", p("compare_list.txt"),
+                                                *extra], out)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as ex:
+            tallies = list(ex.map(lambda q: comparer.score(q, max_seeds, threshold), queries))
+        host_wall = time.perf_counter() - t0
+        want = "".join(f"{p('strain.fna')}\t{q}\t{h}\t{m}\t{_c_fraction(h, m)}\n"
+                       for q, (h, m) in zip(queries, tallies))
+        with open(out) as f:
+            got = f.read()
+        evaluated = sum(h + m for h, m in tallies)
+        fullmapped = sum(1 for h, m in tallies if not max_seeds or h + m > max_seeds)
+        print(f"stage genome_compare {run}: wall {walls[run]:.3f} s, {evaluated:,} windows evaluated "
+              f"({evaluated / walls[run]:,.0f}/s; {windows:,} windows in the queries), "
+              f"{fullmapped} of {len(queries)} queries fullmapped; "
+              f"NativeComparer on 8 threads {host_wall:.3f} s", flush=True)
+        lines = got.splitlines()
+        print(f"genome_compare {run}: {lines[0]} ... {lines[-1]}", flush=True)
+        if got != want:
+            fail(f"genome_compare {run}: lines differ from NativeComparer's")
+        print(f"genome_compare {run}: all {len(queries)} lines equal NativeComparer's", flush=True)
+    return walls
+
+
+def strain_track_real(d: str, multi: dict, rng) -> float:
+    """strain-track -n of the first TRACK_STRAINS strains of phase 6, in this
+    process (launches counted), against a metagenome made like the phase-4
+    panels whose strain reads (STRAIN_READ_FRACTION of them for each
+    strain) are drawn from those strains: a phase-4 metagenome holds none
+    of the k-mers unique to one of them, so every count would be 0. Each
+    strain's (used, possible, counted) seeds and the valid windows are
+    checked against the C++ NativePanelCounter on the k-mers that occur
+    once across the strains, found here with numpy."""
+    from strainer2_tpu_torch import native
+    from strainer2_tpu_torch.io.fastx import read_fastx
+    from strainer2_tpu_torch.ops.packing_np import canonical_codes_np, encode_ascii_np
+    from strainer2_tpu_torch.tools.bench_kernels import revcomp
+
+    p = lambda name: os.path.join(d, name)  # noqa: E731
+    strains = multi["strains"][:TRACK_STRAINS]
+    contigs = [[encode_ascii_np(np.frombuffer(rec.seq, dtype=np.uint8)) for rec in read_fastx(r)]
+               for r in strains]
+    reads = rng.integers(0, 4, size=(METAGENOME_READS, READ_LEN), dtype=np.uint8)
+    per = int(METAGENOME_READS * STRAIN_READ_FRACTION)
+    slots = rng.choice(METAGENOME_READS, size=per * len(strains), replace=False)
+    for s, cs in enumerate(contigs):
+        genome = np.concatenate(cs)
+        sample = genome[rng.integers(0, genome.size - READ_LEN, per)[:, None] + np.arange(READ_LEN)]
+        flip = rng.random(per) < 0.5
+        sample[flip] = revcomp(sample[flip])
+        reads[slots[s * per : (s + 1) * per]] = sample
+    meta = p("track_meta.fasta")
+    write_reads(meta, reads, 0.001, rng)
+    print(f"strain-track: the first {TRACK_STRAINS} of phase 6's {MULTI_STRAINS} strains against "
+          f"{METAGENOME_READS} reads, {STRAIN_READ_FRACTION:.0%} from each of them", flush=True)
+    with open(p("track_strains.txt"), "w") as f:
+        f.write("".join(r + "\n" for r in strains))
+    wall = run_cli("strainer2_tools", ["strain-track", "-A", p("track_strains.txt"), "-b", meta, "-n"],
+                   p("p9_track.txt"))
+    with open(p("p9_track.txt")) as f:
+        rows = [line.rstrip("\n").split("\t") for line in f if not line.startswith("#")]
+    got = [(r[0], int(r[2]), int(r[3]), int(r[4]), int(r[5])) for r in rows]
+
+    scans = [np.concatenate([c[v] for c, v in (canonical_codes_np(x, K) for x in cs)]) for cs in contigs]
+    allc = np.sort(np.concatenate(scans))
+    starts = np.flatnonzero(np.concatenate([[True], allc[1:] != allc[:-1]]))
+    unique = allc[starts[np.diff(np.append(starts, allc.size)) == 1]]
+    counter = native.NativePanelCounter(unique, np.arange(unique.size, dtype=np.int32), K)
+    counts = np.zeros(unique.size, dtype=np.uint32)
+    n_valid = counter.count_file(counts, meta)
+    want = []
+    for r, c in zip(strains, scans):
+        pos = np.minimum(np.searchsorted(unique, c), unique.size - 1)
+        seen = counts[pos[unique[pos] == c]].astype(np.int64)
+        want.append((r, int((seen > 0).sum()), int(seen.size), int(seen.sum()), n_valid))
+    print(f"stage strain-track ({TRACK_STRAINS} strains): wall {wall:.3f} s; {unique.size} unique "
+          f"k-mers of {allc.size} windows; (used, possible, counted, valid windows) "
+          f"{[g[1:] for g in got]}; NativePanelCounter {[w[1:] for w in want]}", flush=True)
+    if got != want or not all(g[1] > 0 for g in got):
+        fail("strain-track differs from NativePanelCounter on the unique k-mers")
+    return wall
+
+
 def profiled(out_dir: str, label: str, fn):
     """Run fn under torch.profiler: print device busy time against wall
     time, and write key_averages() sorted by device time to out_dir."""
@@ -1166,7 +1461,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--keep", default=None, help="directory to keep the generated data and outputs in")
     ap.add_argument("--profile", default=None,
-                    help="trace phases 4, 6, 7 and 8 with torch.profiler; prints the device's busy "
+                    help="trace phases 4, 6, 7, 8 and 9 with torch.profiler; prints the device's busy "
                          "share and writes the per-kernel tables into this directory")
     args = ap.parse_args()
 
@@ -1207,6 +1502,7 @@ def main() -> int:
         # ---- phase 2: kernels vs plain versions
         phase("2")
         results, ctx = check_kernels(d, data, rng, torch.device(DEVICE), args.seed)
+        compare_k = check_compare_kernels(d, ctx, torch.device(DEVICE))
 
         # ---- phase 2b: the lookup A/B tool (path (a)), K6/K7 at S strains
         phase("2b")
@@ -1270,12 +1566,24 @@ def main() -> int:
         print(f"phase 7 wall {fused['wall']:.3f} s against phase 4's four CLIs "
               f"{sum(walls.values()):.3f} s; phase 8 wall {fused_multi['wall']:.3f} s", flush=True)
 
+        # ---- phase 9: genome_compare and strain-track at real size; launches counted
+        phase("9")
+        _build.reset_launches()
+        if args.profile:
+            profiled(args.profile, "phase9", lambda: (compare_real(d, data),
+                                                      strain_track_real(d, multi, rng)))
+        else:
+            compare_real(d, data)
+            strain_track_real(d, multi, rng)
+        compare_launches = dict(_build.launches)
+
     # ---- phase 5
     phase("5")
     paths = {
         "strain scrub/filter/detect/coverage (phase 4)": launches,
         "bench_lookup (phase 2b)": ab["launches"],
         "detect-multi (phase 6)": multi_launches,
+        "genome_compare and strain-track (phase 9)": compare_launches,
     }
     for path, counts in paths.items():
         print(f"launches during {path}: {counts}", flush=True)
@@ -1290,7 +1598,10 @@ def main() -> int:
     for name, path, counts in (("bucket_lookup", "bench_lookup (phase 2b)", ab["launches"]),
                                ("bucket_lookup_ring", "bench_lookup (phase 2b)", ab["launches"]),
                                ("multi_hit_words", "detect-multi (phase 6)", multi_launches),
-                               ("strain_sums", "detect-multi (phase 6)", multi_launches)):
+                               ("strain_sums", "detect-multi (phase 6)", multi_launches),
+                               ("hit_accumulate", "genome_compare (phase 9)", compare_launches),
+                               ("hit_stats", "genome_compare (phase 9)", compare_launches),
+                               ("count_valid_step", "strain-track (phase 9)", compare_launches)):
         launches[name] = counts[name]
         launched_by[name] = path
     if not all(launches[name] > 0 for name in REPLACES):
@@ -1298,6 +1609,12 @@ def main() -> int:
     ring = results["bucket_lookup_ring"]
     ring.update(max_abs_err=max(ring["max_abs_err"], ab["max_abs_err"]),
                 ab_ms_per_4m=ab["ms"], ab_plain_ms_per_4m=ab["plain_ms"])
+    for name, headline in (("hit_accumulate", f"targets k={COMPARE_K}"),
+                           ("hit_stats", f"targets k={COMPARE_K}"),
+                           ("count_valid_step", f"targets k={K}")):
+        by = compare_k[name]
+        results[name] = dict(by[headline], max_abs_err=max(r["max_abs_err"] for r in by.values()),
+                             **{label: r for label, r in by.items() if label != headline})
     for name in ("multi_hit_words", "strain_sums"):
         by_kind = multi_k[name][MULTI_STRAINS]
         results[name] = dict(by_kind["phase2"], targets=by_kind["targets"], max_abs_err=max(

@@ -1,12 +1,13 @@
 """CLI: strainer2_tools on the torch engine (a copy of the parser of
 strainer2_tpu.cli.strainer2_tools, plus --device on every subcommand).
 
-``detect-multi`` scores many strains against shared target samples in one
-stream pass per planned pass of strains; ``scrub-multi`` counts many
-strains' panels in one shared scan; ``pipeline`` and ``pipeline-multi``
-run scrub -> filter -> detect -> coverage in one process for one or many
-strains (``--checkpoint`` makes the long stages resumable).  The other
-subcommands are not ported yet and exit 1 saying so.
+``pangenome``, ``kmer-matrix`` and ``strain-track`` are the reference's
+library-only modes (pipeline/multi.py); ``detect-multi`` scores many
+strains against shared target samples in one stream pass per planned pass
+of strains; ``scrub-multi`` counts many strains' panels in one shared
+scan; ``pipeline`` and ``pipeline-multi`` run scrub -> filter -> detect ->
+coverage in one process for one or many strains (``--checkpoint`` makes
+the long stages resumable).  ``--mesh`` is refused.
 
     python -m strainer2_tpu_torch.cli.strainer2_tools pipeline \\
         -r strain.fna -A genomes.txt -B metagenomes.txt -T targets.txt -o out_dir \\
@@ -21,8 +22,6 @@ import sys
 
 from strainer2_tpu_torch.cli._common import add_device, check_args
 from strainer2_tpu_torch.pipeline.fused import _stem
-
-PORTED = ("detect-multi", "scrub-multi", "pipeline", "pipeline-multi")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -293,14 +292,22 @@ def pipeline_multi(args) -> int:
 def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.cmd not in PORTED:
-        print(f"strainer2_tools {args.cmd}: not yet ported to the torch engine "
-              f"(ported: {', '.join(PORTED)})", file=sys.stderr)
-        return 1
     rc = check_args(parser, args)
     if rc:
         return rc
-    if args.cmd == "detect-multi":
+    if args.cmd in ("pangenome", "kmer-matrix", "strain-track"):
+        from strainer2_tpu_torch.pipeline import multi
+
+        if args.cmd == "pangenome":
+            multi.run_pangenome(args.a_list, ref_file=args.ref_file, write_dist=args.write_dist,
+                                k=args.seed, out=sys.stdout, device=args.device)
+        elif args.cmd == "kmer-matrix":
+            multi.run_kmer_matrix(args.a_list, k=args.seed, out=sys.stdout, device=args.device)
+        else:
+            multi.run_strain_track(args.a_list, args.b_file, k=args.seed,
+                                   print_track=not args.no_track, max_reads=args.max_reads,
+                                   out=sys.stdout, device=args.device)
+    elif args.cmd == "detect-multi":
         detect_multi(args)
     elif args.cmd == "scrub-multi":
         scrub_multi(args)

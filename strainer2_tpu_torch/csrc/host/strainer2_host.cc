@@ -12,7 +12,8 @@
 //   * bucket-table construction, first-encounter unique, count-table row
 //     formatting and parsing, kmer_hits parsing, the rolling canonical
 //     scanner,
-//   * the CPU panel counter and read classifiers the checks compare with.
+//   * the CPU panel counter and read classifiers the checks compare with,
+//   * genome_compare's string engine (CompareSet: any k, the CPU default).
 // One difference from the original: a counting stream splits a sequence
 // longer than one buffer across as many buffers as it needs (s2_next_batch),
 // where the original returns -3 once the first split is placed.
@@ -1675,5 +1676,280 @@ long long s2_classify_multi_next(void* h, int64_t* lens, uint32_t* tot,
   }
   return n;
 }
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// arbitrary-k genome_compare string engine (k > 32 path)
+//
+// Native equivalent of the reference's variable-seed containment scorer
+// (reference src/genome_compare.c:271-354 GEN_calculate_coverage and
+// :475-521 GEN_hash_sequences): canonical = lexicographic max of the raw
+// character window vs its IUPAC reverse complement (forward wins ties),
+// windows containing 'N' skipped, hybrid rapid mode decided at exactly
+// the max_seeds-th evaluated window.  Semantics are pinned byte-identical
+// to the Python twin pipeline/compare.py::_HostSetComparer.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+uint8_t g_comp_char[256];
+struct CompCharInit {
+  CompCharInit() {
+    for (int i = 0; i < 256; ++i) g_comp_char[i] = (uint8_t)i;
+    const char* a = "ABCDGHKMNRSTUVWXY";
+    const char* b = "TVGHCD.KNYSAABWXR";  // incl. the reference's K -> '.'
+    for (size_t i = 0; a[i]; ++i) g_comp_char[(uint8_t)a[i]] = (uint8_t)b[i];
+  }
+} g_comp_char_init;
+
+struct CompareSet {
+  struct Rec {
+    uint64_t h;     // FNV-1a of the key (0 = empty sentinel; real 0 remapped)
+    int64_t off;    // key offset into arena (off * k bytes)
+  };
+  std::vector<char> arena;   // n * k canonical key bytes
+  Rec* recs = nullptr;       // huge-page mmap: random probes are TLB-bound
+  size_t recs_bytes = 0;
+  size_t cap = 0, mask = 0, n = 0;
+  int k = 0;
+
+  ~CompareSet() {
+    if (recs) munmap(recs, recs_bytes);
+  }
+
+  static uint64_t fnv1a(const char* p, int k) {
+    uint64_t h = 1469598103934665603ULL;
+    for (int i = 0; i < k; ++i) {
+      h ^= (uint8_t)p[i];
+      h *= 1099511628211ULL;
+    }
+    return h ? h : 1;  // 0 is the empty-slot sentinel
+  }
+
+  bool init(size_t cap0) {
+    if (recs) munmap(recs, recs_bytes);
+    cap = cap0;
+    mask = cap - 1;
+    recs_bytes = cap * sizeof(Rec);
+    void* mem = s2_table_alloc(recs_bytes);  // touch-then-advise
+    if (mem == MAP_FAILED) {
+      recs = nullptr;
+      return false;
+    }
+    recs = static_cast<Rec*>(mem);
+    return true;
+  }
+
+  bool grow() {
+    Rec* old = recs;
+    size_t old_bytes = recs_bytes;
+    size_t old_cap = cap;
+    recs = nullptr;
+    if (!init(old_cap * 2)) {
+      recs = old;
+      recs_bytes = old_bytes;
+      cap = old_cap;
+      mask = cap - 1;
+      return false;
+    }
+    for (size_t i = 0; i < old_cap; ++i) {
+      if (!old[i].h) continue;
+      size_t p = old[i].h & mask;
+      while (recs[p].h) p = (p + 1) & mask;
+      recs[p] = old[i];
+    }
+    munmap(old, old_bytes);
+    return true;
+  }
+
+  bool failed = false;  // grow() allocation failure: abort the build
+                        // (a table at 100% load would probe forever)
+
+  bool insert(const char* key, uint64_t h) {
+    if (failed) return false;
+    size_t p = h & mask;
+    while (recs[p].h) {
+      if (recs[p].h == h &&
+          memcmp(arena.data() + recs[p].off * k, key, k) == 0)
+        return true;
+      p = (p + 1) & mask;
+    }
+    int64_t off = (int64_t)n;
+    arena.insert(arena.end(), key, key + k);
+    recs[p] = Rec{h, off};
+    if (++n * 2 >= cap && !grow()) failed = true;
+    return !failed;
+  }
+
+  bool contains(const char* key, uint64_t h) const {
+    size_t p = h & mask;
+    for (;;) {
+      const Rec& r = recs[p];
+      if (!r.h) return false;
+      if (r.h == h && memcmp(arena.data() + r.off * k, key, k) == 0)
+        return true;
+      p = (p + 1) & mask;
+    }
+  }
+};
+
+// Per-record scan state: uppercased seq, whole-sequence reverse
+// complement, and N prefix counts (window [i, i+k) has an N iff
+// npre[i + k] > npre[i]).
+struct CompareScan {
+  std::vector<uint8_t> seq;
+  std::vector<char> rc;
+  std::vector<int32_t> npre;
+
+  bool prep(int k) {
+    int64_t len = (int64_t)seq.size();
+    if (len < k) return false;
+    rc.resize(len);
+    npre.resize(len + 1);
+    npre[0] = 0;
+    for (int64_t i = 0; i < len; ++i) {
+      rc[(size_t)(len - 1 - i)] = (char)g_comp_char[seq[(size_t)i]];
+      npre[(size_t)i + 1] = npre[(size_t)i] + (seq[(size_t)i] == 'N');
+    }
+    return true;
+  }
+
+  // canonical window pointer: max(fwd, rc window), forward wins ties
+  const char* canon(int64_t i, int k) const {
+    const char* fwd = (const char*)seq.data() + i;
+    const char* rcw = rc.data() + ((int64_t)seq.size() - k - i);
+    return memcmp(fwd, rcw, (size_t)k) >= 0 ? fwd : rcw;
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+void* s2_compare_build(const char* a_file, int k) {
+  FastxReader r(a_file, /*raw=*/true);
+  if (!r.ok()) return nullptr;
+  auto* cs = new CompareSet();
+  cs->k = k;
+  // pass 1: load + prep all records (the reference also holds the whole
+  // -a genome in memory, src/genome_compare.c:454-473) and count windows
+  // so the table is sized once — no rehash during the insert sweep.
+  std::vector<CompareScan> recs;
+  long long total = 0;
+  {
+    CompareScan sc;
+    while (r.next(&sc.seq)) {
+      if (!sc.prep(k)) continue;
+      total += (long long)sc.seq.size() - k + 1;
+      recs.push_back(std::move(sc));
+      sc = CompareScan();
+    }
+  }
+  size_t cap = 1 << 10;
+  while ((long long)cap < 2 * (total > 1 ? total : 1)) cap <<= 1;
+  if (!cs->init(cap)) {
+    delete cs;
+    return nullptr;
+  }
+  cs->arena.reserve((size_t)(total > 0 ? total : 0) * (size_t)k);
+  // pass 2: software-pipelined inserts (prefetch the probe start kAhead
+  // windows ahead — same trick as s2_count_build)
+  constexpr int64_t kAhead = 8;
+  const char* pend_key[kAhead];
+  uint64_t pend_h[kAhead];
+  for (const auto& sc : recs) {
+    const int64_t nw = (int64_t)sc.seq.size() - k + 1;
+    int64_t npend = 0;
+    for (int64_t i = 0; i < nw; ++i) {
+      if (sc.npre[(size_t)(i + k)] > sc.npre[(size_t)i]) continue;
+      const char* key = sc.canon(i, k);
+      uint64_t h = CompareSet::fnv1a(key, k);
+      __builtin_prefetch(&cs->recs[h & cs->mask], 1, 1);
+      int64_t slot = npend % kAhead;
+      if (npend >= kAhead && !cs->insert(pend_key[slot], pend_h[slot])) break;
+      pend_key[slot] = key;
+      pend_h[slot] = h;
+      ++npend;
+    }
+    for (int64_t j = npend >= kAhead ? npend - kAhead : 0; j < npend; ++j) {
+      int64_t slot = j % kAhead;
+      if (!cs->insert(pend_key[slot], pend_h[slot])) break;
+    }
+    if (cs->failed) break;
+  }
+  if (cs->failed) {  // out of memory mid-build: report, don't hang later
+    delete cs;
+    return nullptr;
+  }
+  return cs;
+}
+
+long long s2_compare_size(void* h) {
+  return (long long)static_cast<CompareSet*>(h)->n;
+}
+
+// Score one query file.  Returns 0 on success (-1 unreadable file);
+// *hits/*misses receive the tallies.  max_seeds == 0 means full scan.
+int s2_compare_score(void* h, const char* path, long long max_seeds,
+                     double threshold, long long* hits_out,
+                     long long* misses_out) {
+  auto* cs = static_cast<CompareSet*>(h);
+  const int k = cs->k;
+  FastxReader r(path, /*raw=*/true);
+  if (!r.ok()) return -1;
+  long long hits = 0, misses = 0;
+  bool fullmap = max_seeds == 0;
+  CompareScan sc;
+  constexpr int64_t kAhead = 8;
+  const char* pend_key[kAhead];
+  uint64_t pend_h[kAhead];
+  while (r.next(&sc.seq)) {
+    if (!sc.prep(k)) continue;
+    const int64_t nw = (int64_t)sc.seq.size() - k + 1;
+    int64_t i = 0;
+    // careful region: per-window rapid-mode decision (few windows)
+    while (i < nw && max_seeds && !fullmap) {
+      if (sc.npre[(size_t)(i + k)] == sc.npre[(size_t)i]) {
+        const char* key = sc.canon(i, k);
+        if (cs->contains(key, CompareSet::fnv1a(key, k))) ++hits; else ++misses;
+      }
+      ++i;
+      if (hits + misses >= max_seeds) {
+        if ((double)hits / (double)(hits + misses) > threshold) {
+          fullmap = true;
+        } else {
+          *hits_out = hits;
+          *misses_out = misses;
+          return 0;
+        }
+      }
+    }
+    // fast region: software-pipelined probes for the rest of the record
+    int64_t npend = 0;
+    for (; i < nw; ++i) {
+      if (sc.npre[(size_t)(i + k)] > sc.npre[(size_t)i]) continue;
+      const char* key = sc.canon(i, k);
+      uint64_t hh = CompareSet::fnv1a(key, k);
+      __builtin_prefetch(&cs->recs[hh & cs->mask], 0, 1);
+      int64_t slot = npend % kAhead;
+      if (npend >= kAhead) {
+        if (cs->contains(pend_key[slot], pend_h[slot])) ++hits; else ++misses;
+      }
+      pend_key[slot] = key;
+      pend_h[slot] = hh;
+      ++npend;
+    }
+    for (int64_t j = npend >= kAhead ? npend - kAhead : 0; j < npend; ++j) {
+      int64_t slot = j % kAhead;
+      if (cs->contains(pend_key[slot], pend_h[slot])) ++hits; else ++misses;
+    }
+  }
+  *hits_out = hits;
+  *misses_out = misses;
+  return 0;
+}
+
+void s2_compare_free(void* h) { delete static_cast<CompareSet*>(h); }
 
 }  // extern "C"

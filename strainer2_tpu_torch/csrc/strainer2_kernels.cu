@@ -138,17 +138,109 @@ __global__ void bucket_lookup_kernel(const uint32_t* __restrict__ rows,
 //   adds commute, so the count bytes do not depend on the order the
 //   atomics land in.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kTile)
-count_step_kernel(uint32_t* __restrict__ counts, const uint32_t* __restrict__ rows,
-                  int row_width, int h_bits, uint32_t salt,
-                  const uint8_t* __restrict__ bases, int L, int k) {
+// probe_window that also says whether the window is valid (K3 with its
+// valid count, K8, K9).
+__device__ __forceinline__ unsigned probe_valid_window(const PackedTile& t, int p,
+                                                       const uint32_t* rows, int row_width,
+                                                       int h_bits, uint32_t salt, int w0,
+                                                       int W, int k, uint32_t* bucket,
+                                                       bool* valid) {
+  uint32_t h, l;
+  *valid = w0 + p < W && packed_window(t, p, k, min(k, 16), &h, &l);
+  if (!*valid) return 0u;
+  *bucket = bucket_of(h, l, h_bits, salt);
+  return match_mask(rows + static_cast<size_t>(*bucket) * row_width, h, l);
+}
+
+// One block of K3. kCountValid adds the tile's valid windows into
+// *valid_total (one __syncthreads_count and one atomicAdd a block), for
+// strain-track; the false instance is the count step of every other path
+// and compiles to the instructions it had before the flag.
+template <bool kCountValid>
+__device__ __forceinline__ void count_step_tile(uint32_t* __restrict__ counts,
+                                                const uint32_t* __restrict__ rows,
+                                                int row_width, int h_bits, uint32_t salt,
+                                                const uint8_t* __restrict__ bases, int L, int k,
+                                                int32_t* __restrict__ valid_total) {
   __shared__ PackedTile tile;
   const int w0 = blockIdx.x * kTile;
   pack_tile(tile, bases + static_cast<size_t>(blockIdx.y) * L, w0, L);
   uint32_t b;
-  const unsigned m = probe_window(tile, threadIdx.x, rows, row_width, h_bits, salt, w0,
-                                  L - k + 1, k, &b);
-  if (m) atomicAdd(counts + static_cast<size_t>(b) * kKeysPerBucket + (__ffs(m) - 1), 1u);
+  if constexpr (kCountValid) {
+    bool valid;
+    const unsigned m = probe_valid_window(tile, threadIdx.x, rows, row_width, h_bits, salt, w0,
+                                          L - k + 1, k, &b, &valid);
+    if (m) atomicAdd(counts + static_cast<size_t>(b) * kKeysPerBucket + (__ffs(m) - 1), 1u);
+    const int n_valid = __syncthreads_count(valid);
+    if (threadIdx.x == 0 && n_valid) atomicAdd(valid_total, n_valid);
+  } else {
+    const unsigned m = probe_window(tile, threadIdx.x, rows, row_width, h_bits, salt, w0,
+                                    L - k + 1, k, &b);
+    if (m) atomicAdd(counts + static_cast<size_t>(b) * kKeysPerBucket + (__ffs(m) - 1), 1u);
+  }
+}
+
+__global__ void __launch_bounds__(kTile)
+count_step_kernel(uint32_t* __restrict__ counts, const uint32_t* __restrict__ rows,
+                  int row_width, int h_bits, uint32_t salt,
+                  const uint8_t* __restrict__ bases, int L, int k) {
+  count_step_tile<false>(counts, rows, row_width, h_bits, salt, bases, L, k, nullptr);
+}
+
+// K3 with a valid-window count.
+// Replaces: the XLA program engine._count_valid_step_bucket
+//   (strainer2_tpu/pipeline/engine.py:330-334): K3's function and
+//   jnp.sum(win.valid), the metagenome scan of strain-track.
+// Bound on this card: K3's, and 4 bytes out.
+// Cost over K3 (H100 80GB HBM3, 700 W; PERF.md): 0.0051 ms a `targets`
+//   batch, 0.016 a `count` one. Most of it is the 4,096 atomicAdds a
+//   batch on the one valid_total word while K3's random atomicAdds fill
+//   the L2 (without that add, 0.0027 and 0.0025 over K3); the zeroing
+//   memset is about the rest. Eight adds a block, one a warp, took 2-3x
+//   as long as one.
+__global__ void __launch_bounds__(kTile)
+count_valid_step_kernel(uint32_t* __restrict__ counts, const uint32_t* __restrict__ rows,
+                        int row_width, int h_bits, uint32_t salt,
+                        const uint8_t* __restrict__ bases, int L, int k,
+                        int32_t* __restrict__ valid_total) {
+  count_step_tile<true>(counts, rows, row_width, h_bits, salt, bases, L, k, valid_total);
+}
+
+// ---------------------------------------------------------------------------
+// K8 hit_accumulate
+//
+// Replaces: the XLA program engine._hit_accum_bucket + _accum_from_masks
+//   (strainer2_tpu/pipeline/engine.py:343-345, :252-258): extract, probe,
+//   and (hits, valid windows) of the batch added to a (2,) accumulator;
+//   genome_compare's fullmap batches.
+// Bound on this card: random DRAM accesses, as K3's: the bases, a 64-byte
+//   key_hi probe a valid window and 64 bytes of key_lo where one matches.
+//   Nothing a window is written.
+// Design: K3's block (a 256-window tile of one row, the packed tile, the
+//   key_hi-first probe); the tile's hits and valid windows are two
+//   __syncthreads_count, and one thread adds them into the int64
+//   accumulator (two atomicAdds a block on two addresses), which stays on
+//   the card across a file and is read once at its end. int64 keeps the
+//   totals exact on any file: the JAX program's int32 lanes needed a host
+//   spill every 1024 batches.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kTile)
+hit_accumulate_kernel(unsigned long long* __restrict__ acc, const uint32_t* __restrict__ rows,
+                      int row_width, int h_bits, uint32_t salt,
+                      const uint8_t* __restrict__ bases, int L, int k) {
+  __shared__ PackedTile tile;
+  const int w0 = blockIdx.x * kTile;
+  pack_tile(tile, bases + static_cast<size_t>(blockIdx.y) * L, w0, L);
+  uint32_t b;
+  bool valid;
+  const bool hit = probe_valid_window(tile, threadIdx.x, rows, row_width, h_bits, salt, w0,
+                                      L - k + 1, k, &b, &valid) != 0;
+  const int n_hit = __syncthreads_count(hit);
+  const int n_valid = __syncthreads_count(valid);
+  if (threadIdx.x == 0) {
+    if (n_hit) atomicAdd(acc, static_cast<unsigned long long>(n_hit));
+    if (n_valid) atomicAdd(acc + 1, static_cast<unsigned long long>(n_valid));
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -334,6 +426,97 @@ __global__ void classify_sums_kernel(const int32_t* __restrict__ p_hit,
   inf[r] = prefix_at(p_inf, inf_mask, e, W, tpr) - prefix_at(p_inf, inf_mask, a, W, tpr);
 }
 
+// ---------------------------------------------------------------------------
+// K9 hit_stats
+//
+// Replaces: the XLA program engine._hit_stats_bucket + _stats_from_masks
+//   (strainer2_tpu/pipeline/engine.py:348-350, :261-276): extract, probe,
+//   then the batch's (hits, valid windows), the flat index row * W + col of
+//   its remaining-th valid window (jnp.searchsorted over the valid prefix:
+//   0 where remaining <= 0, -1 where the batch ends first) and the
+//   inclusive hit prefix there (0 where it ends first); genome_compare's
+//   rapid-mode batches before the decision.
+// Bound on this card: the probe's random DRAM accesses, as K8's, plus the
+//   mask words written and read back.
+// Design: K4's three launches.
+//   1. hit_masks: K3's block; hit and valid become bits by __ballot_sync,
+//      8 words a tile each, and the tile's two counts __syncthreads_count.
+//   2. classify_scan on those two count arrays: exclusive prefixes and the
+//      totals.
+//   3. hit_locate: one block; the one tile t with p_valid[t] < remaining
+//      <= p_valid[t + 1] is found by a coalesced pass over the prefixes,
+//      and its thread walks the tile's valid words by popcount to the
+//      window and adds the hit bits up to it to p_hit[t]. Only the four
+//      int32 results cross to the host.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kTile)
+hit_masks_kernel(const uint32_t* __restrict__ rows, int row_width, int h_bits, uint32_t salt,
+                 const uint8_t* __restrict__ bases, int L, int k,
+                 uint32_t* __restrict__ hit_mask, uint32_t* __restrict__ valid_mask,
+                 int32_t* __restrict__ tile_hits, int32_t* __restrict__ tile_valid) {
+  __shared__ PackedTile tile;
+  const int w0 = blockIdx.x * kTile;
+  pack_tile(tile, bases + static_cast<size_t>(blockIdx.y) * L, w0, L);
+  uint32_t b;
+  bool valid;
+  const bool hit = probe_valid_window(tile, threadIdx.x, rows, row_width, h_bits, salt, w0,
+                                      L - k + 1, k, &b, &valid) != 0;
+  const unsigned hm = __ballot_sync(0xffffffffu, hit);
+  const unsigned vm = __ballot_sync(0xffffffffu, valid);
+  const size_t t = static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+  if ((threadIdx.x & 31) == 0) {
+    hit_mask[t * kTileWords + (threadIdx.x >> 5)] = hm;
+    valid_mask[t * kTileWords + (threadIdx.x >> 5)] = vm;
+  }
+  const int n_hit = __syncthreads_count(hit);
+  const int n_valid = __syncthreads_count(valid);
+  if (threadIdx.x == 0) {
+    tile_hits[t] = n_hit;
+    tile_valid[t] = n_valid;
+  }
+}
+
+constexpr int kLocateThreads = 1024;
+
+// out = (batch hits, batch valid windows, hits at the crossing, its flat
+// index), from the n tiles' exclusive prefixes (totals at [n]) and masks.
+__global__ void __launch_bounds__(kLocateThreads)
+hit_locate_kernel(const int32_t* __restrict__ p_hit, const int32_t* __restrict__ p_valid,
+                  const uint32_t* __restrict__ hit_mask, const uint32_t* __restrict__ valid_mask,
+                  int n, int W, int tpr, int remaining, int32_t* __restrict__ out) {
+  if (threadIdx.x == 0) {
+    out[0] = p_hit[n];
+    out[1] = p_valid[n];
+    if (remaining <= 0) {  // searchsorted gives 0: the first window, valid or not
+      out[2] = static_cast<int32_t>(hit_mask[0] & 1u);
+      out[3] = 0;
+    } else if (remaining > p_valid[n]) {  // the batch ends first
+      out[2] = 0;
+      out[3] = -1;
+    }
+  }
+  if (remaining <= 0) return;
+  for (int t = threadIdx.x; t < n; t += blockDim.x) {
+    if (p_valid[t] >= remaining || p_valid[t + 1] < remaining) continue;
+    int need = remaining - p_valid[t];  // in [1, the tile's valid windows]
+    int hits = p_hit[t];
+    const uint32_t* vm = valid_mask + static_cast<size_t>(t) * kTileWords;
+    const uint32_t* hm = hit_mask + static_cast<size_t>(t) * kTileWords;
+    int j = 0;
+    for (; __popc(vm[j]) < need; ++j) {
+      need -= __popc(vm[j]);
+      hits += __popc(hm[j]);
+    }
+    uint32_t m = vm[j];
+    for (int i = 1; i < need; ++i) m &= m - 1u;
+    const int bit = __ffs(m) - 1;
+    hits += __popc(hm[j] & ((2u << bit) - 1u));  // bits 0..bit; 2u << 31 wraps to 0
+    const int r = t / tpr;
+    out[2] = hits;
+    out[3] = r * W + (t - r * tpr) * kTile + 32 * j + bit;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -371,6 +554,59 @@ int s2t_count_step(void* counts, const void* rows, int row_width, int h_bits,
   count_step_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint32_t*>(counts), static_cast<const uint32_t*>(rows),
       row_width, h_bits, salt, static_cast<const uint8_t*>(bases), L, k);
+  return launch_status();
+}
+
+// valid_total: one int32, zeroed here before the launch.
+int s2t_count_valid_step(void* counts, const void* rows, int row_width, int h_bits,
+                         uint32_t salt, const void* bases, int n_rows, int L, int k,
+                         void* valid_total, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t rc = cudaMemsetAsync(valid_total, 0, sizeof(int32_t), st);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int W = L - k + 1;
+  const dim3 grid((W + kTile - 1) / kTile, n_rows);
+  count_valid_step_kernel<<<grid, kTile, 0, st>>>(
+      static_cast<uint32_t*>(counts), static_cast<const uint32_t*>(rows),
+      row_width, h_bits, salt, static_cast<const uint8_t*>(bases), L, k,
+      static_cast<int32_t*>(valid_total));
+  return launch_status();
+}
+
+// acc: two int64, (hits, valid windows), added to in place.
+int s2t_hit_accumulate(void* acc, const void* rows, int row_width, int h_bits,
+                       uint32_t salt, const void* bases, int n_rows, int L, int k,
+                       void* stream) {
+  const int W = L - k + 1;
+  const dim3 grid((W + kTile - 1) / kTile, n_rows);
+  hit_accumulate_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(acc), static_cast<const uint32_t*>(rows),
+      row_width, h_bits, salt, static_cast<const uint8_t*>(bases), L, k);
+  return launch_status();
+}
+
+// masks: 2 x n_tiles x 8 uint32 scratch (hit, then valid); counts:
+// 2 x n_tiles + 2 x (n_tiles + 1) int32 scratch (tile counts, then their
+// prefixes); out: four int32; n_tiles = n_rows x ceil(W / 256), n_rows >= 1.
+int s2t_hit_stats(const void* rows, int row_width, int h_bits, uint32_t salt,
+                  const void* bases, int n_rows, int L, int k, int remaining,
+                  void* masks, void* counts, void* out, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int W = L - k + 1;
+  const int tpr = (W + kTile - 1) / kTile;
+  const int n = n_rows * tpr;
+  uint32_t* hit_mask = static_cast<uint32_t*>(masks);
+  uint32_t* valid_mask = hit_mask + static_cast<size_t>(n) * kTileWords;
+  int32_t* c_hit = static_cast<int32_t*>(counts);
+  int32_t* c_valid = c_hit + n;
+  int32_t* p_hit = c_valid + n;
+  int32_t* p_valid = p_hit + n + 1;
+  hit_masks_kernel<<<dim3(tpr, n_rows), kTile, 0, st>>>(
+      static_cast<const uint32_t*>(rows), row_width, h_bits, salt,
+      static_cast<const uint8_t*>(bases), L, k, hit_mask, valid_mask, c_hit, c_valid);
+  classify_scan_kernel<<<1, kScanThreads, 0, st>>>(c_hit, c_valid, n, p_hit, p_valid);
+  hit_locate_kernel<<<1, kLocateThreads, 0, st>>>(p_hit, p_valid, hit_mask, valid_mask, n, W,
+                                                  tpr, remaining, static_cast<int32_t*>(out));
   return launch_status();
 }
 

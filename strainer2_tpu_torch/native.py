@@ -1,5 +1,6 @@
-"""The C++ host data plane (readers, packer, table construction, parsers, and the
-CPU counter and classifiers the checks compare with).
+"""The C++ host data plane (readers, packer, table construction, parsers, the
+CPU counter and classifiers the checks compare with, and genome_compare's
+string engine).
 
 The library is the port's own copy of the JAX package's host library
 (``csrc/host/strainer2_host.cc``).  It is compiled at first use with
@@ -28,6 +29,7 @@ import numpy as np
 __all__ = [
     "pack_file",
     "NativeClassifier",
+    "NativeComparer",
     "NativePackStream",
     "NativePanelCounter",
     "Pe2EndedEarlyError",
@@ -84,6 +86,10 @@ _SIGNATURES = {
     "s2_classify_multi_next": (_LL, [_P, _P, _P, _P, _LL, _I]),
     "s2_classify_state": (_I, [_P]),
     "s2_close_classify": (None, [_P]),
+    "s2_compare_build": (_P, [_STR, _I]),
+    "s2_compare_size": (_LL, [_P]),
+    "s2_compare_score": (_I, [_P, _STR, _LL, ctypes.c_double, _P, _P]),
+    "s2_compare_free": (None, [_P]),
 }
 
 _lock = threading.Lock()
@@ -524,6 +530,56 @@ class NativeClassifyStream:
     def close(self):
         if getattr(self, "_s", None):
             self._lib.s2_close_classify(self._s)
+            self._s = None
+
+    def __del__(self):
+        self.close()
+
+
+class NativeComparer:
+    """Arbitrary-k genome_compare string engine: the CPU default, the k > 32
+    engine on either device, and the independent check of the device path.
+
+    Native twin of pipeline.compare._HostSetComparer (reference
+    src/genome_compare.c:271-354, 475-521): canonical = max(fwd, IUPAC rc)
+    on raw uppercased characters, N windows skipped, hybrid rapid mode.
+    A copy of strainer2_tpu.native.NativeComparer.
+    """
+
+    def __init__(self, a_file: str, k: int):
+        lib = _load()
+        if lib is None:
+            raise RuntimeError(f"native library unavailable: {build_error}")
+        self._lib = lib
+        self._s = lib.s2_compare_build(a_file.encode(), k)
+        if not self._s:
+            # a null handle is an unreadable file or an allocation failure
+            # mid-build: tell them apart, so that an OOM is not reported as
+            # a missing file
+            try:
+                open(a_file, "rb").close()
+            except OSError:
+                raise OSError(f"could not read file {a_file}")
+            raise MemoryError("native compare table allocation failed")
+
+    @property
+    def num_kmers(self) -> int:
+        return int(self._lib.s2_compare_size(self._s))
+
+    def score(self, path: str, max_seeds: int, threshold: float) -> tuple[int, int]:
+        hits = ctypes.c_longlong()
+        misses = ctypes.c_longlong()
+        rc = self._lib.s2_compare_score(
+            self._s, path.encode(), max_seeds, threshold,
+            ctypes.byref(hits), ctypes.byref(misses),
+        )
+        if rc != 0:
+            raise OSError(f"could not read file {path}")
+        return int(hits.value), int(misses.value)
+
+    def close(self):
+        if getattr(self, "_s", None):
+            self._lib.s2_compare_free(self._s)
             self._s = None
 
     def __del__(self):

@@ -1,4 +1,4 @@
-"""Bucket-row membership kernels K2-K4 and their plain torch versions.
+"""Bucket-row membership kernels K2-K5, K8, K9 and their plain torch versions.
 
 Row layout and lookup contract of the JAX package (strainer2_tpu/index/
 bucket.py, strainer2_tpu/ops/lookup.py): a (num_buckets, row_width) uint32
@@ -17,6 +17,13 @@ meta = 0, as the jnp ``bucket_lookup`` returns.
   words (the multi-strain probe; its kernel is fused into K6,
   ops/segsum.py).
 - ``count_step``      (K3): extract -> probe -> counts[slot] += 1, in place.
+- ``count_valid_step`` (K3 with a valid count): the same, and the batch's
+  valid windows (strain-track).
+- ``hit_accumulate``  (K8): extract -> probe -> (hits, valid windows) added
+  to a device accumulator (genome_compare, fullmap).
+- ``hit_stats``       (K9): extract -> probe -> the batch's (hits, valid
+  windows), and the flat index of its ``remaining``-th valid window with
+  the hits up to it (genome_compare, rapid mode).
 - ``classify_step``   (K4): extract -> probe -> per-read (total,
   informative) hit counts over contiguous window spans, as differences of
   hit prefixes at the read boundaries.
@@ -45,6 +52,12 @@ __all__ = [
     "bucket_lookup_words_plain",
     "count_step",
     "count_step_plain",
+    "count_valid_step",
+    "count_valid_step_plain",
+    "hit_accumulate",
+    "hit_accumulate_plain",
+    "hit_stats",
+    "hit_stats_plain",
     "classify_step",
     "classify_step_plain",
     "gather_index",
@@ -128,6 +141,47 @@ def count_step_plain(counts, rows, bases, h_bits: int, salt: int, k: int):
         0, hits, torch.ones_like(hits, dtype=torch.int32)
     )
     return counts
+
+
+def count_valid_step_plain(counts, rows, bases, h_bits: int, salt: int, k: int):
+    """count_step_plain, and the batch's valid windows as an int32 scalar:
+    the JAX ``_count_valid_step_bucket`` (strainer2_tpu/pipeline/engine.py:330)."""
+    idx, found, slot, _, _ = valid_hits_plain(rows, bases, h_bits, salt, k)
+    hits = slot[found].to(torch.int64)
+    counts.view(torch.int32).index_add_(0, hits, torch.ones_like(hits, dtype=torch.int32))
+    return counts, torch.tensor(idx.numel(), dtype=torch.int32, device=bases.device)
+
+
+def hit_accumulate_plain(acc, rows, bases, h_bits: int, salt: int, k: int):
+    """acc (2,) int64 += (hits, valid windows) of ``bases``, in place: the
+    JAX ``_hit_accum_bucket`` (strainer2_tpu/pipeline/engine.py:343), in
+    int64 lanes where the JAX program has int32 ones."""
+    idx, found, _, _, _ = valid_hits_plain(rows, bases, h_bits, salt, k)
+    acc += torch.stack([found.sum(), torch.tensor(idx.numel(), device=acc.device)]).to(torch.int64)
+    return acc
+
+
+def hit_stats_plain(rows, bases, remaining: int, h_bits: int, salt: int, k: int):
+    """int32 (4,): (batch hits, batch valid windows, hits at the crossing,
+    flat index of the crossing), as the JAX ``_stats_from_masks``
+    (strainer2_tpu/pipeline/engine.py:261) computes them: the crossing is
+    the first flat window row * W + col whose inclusive valid prefix
+    reaches ``remaining`` (searchsorted, left), -1 with 0 hits where the
+    batch ends first; hits are the inclusive hit prefix there."""
+    idx, found, _, _, n = valid_hits_plain(rows, bases, h_bits, salt, k)
+    dev = bases.device
+    hit = torch.zeros(n, dtype=torch.int32, device=dev)
+    valid = torch.zeros_like(hit)
+    hit[idx] = found.to(torch.int32)
+    valid[idx] = 1
+    cum_hit = torch.cumsum(hit, 0, dtype=torch.int32)
+    cum_valid = torch.cumsum(valid, 0, dtype=torch.int32)
+    target = torch.tensor([remaining], dtype=torch.int32, device=dev)
+    pos = torch.searchsorted(cum_valid, target).to(torch.int64)[0]
+    crossed = pos < n
+    hits_at = torch.where(crossed, cum_hit[torch.clamp(pos, max=n - 1)], 0)
+    return torch.stack([cum_hit[n - 1], cum_valid[n - 1], hits_at,
+                        torch.where(crossed, pos, -1)]).to(torch.int32)
 
 
 def gather_index(boundaries: torch.Tensor, n_windows: int) -> torch.Tensor:
@@ -275,10 +329,7 @@ def count_step(counts, rows, bases, h_bits: int, salt: int, k: int):
         return count_step_plain(counts, rows, bases, h_bits, salt, k)
     _check_rows(rows, h_bits)
     _check_bases(bases, k)
-    if counts.dtype != torch.uint32 or counts.dim() != 1 or not counts.is_contiguous():
-        raise ValueError("counts must be a contiguous 1-D uint32 tensor")
-    if counts.shape[0] != rows.shape[0] * KEYS_PER_BUCKET:
-        raise ValueError(f"counts has {counts.shape[0]} cells, table has {rows.shape[0] * KEYS_PER_BUCKET} slots")
+    _check_counts(counts, rows)
     if bases.shape[0]:
         _build.call(
             "count_step", bases.device, counts.data_ptr(), rows.data_ptr(),
@@ -321,3 +372,83 @@ def classify_step(rows, bases, boundaries, h_bits: int, salt: int, k: int):
             masks.data_ptr(), counts.data_ptr(), tot.data_ptr(), inf.data_ptr(),
         )
     return tot, inf
+
+
+def _check_counts(counts: torch.Tensor, rows: torch.Tensor) -> None:
+    if counts.dtype != torch.uint32 or counts.dim() != 1 or not counts.is_contiguous():
+        raise ValueError("counts must be a contiguous 1-D uint32 tensor")
+    if counts.shape[0] != rows.shape[0] * KEYS_PER_BUCKET:
+        raise ValueError(f"counts has {counts.shape[0]} cells, table has {rows.shape[0] * KEYS_PER_BUCKET} slots")
+
+
+def count_valid_step(counts, rows, bases, h_bits: int, salt: int, k: int):
+    """Kernel K3 with its valid count on CUDA tensors, the plain version on
+    CPU tensors.
+
+    counts as in ``count_step``, updated in place; returns (counts, the
+    batch's valid windows as an int32 scalar on the device)."""
+    if not _on_cuda("count_valid_step", counts, rows, bases):
+        return count_valid_step_plain(counts, rows, bases, h_bits, salt, k)
+    _check_rows(rows, h_bits)
+    _check_bases(bases, k)
+    _check_counts(counts, rows)
+    n_valid = torch.empty(1, dtype=torch.int32, device=bases.device)
+    if bases.shape[0]:
+        _build.call(
+            "count_valid_step", bases.device, counts.data_ptr(), rows.data_ptr(),
+            rows.shape[1], h_bits, salt, bases.data_ptr(), bases.shape[0],
+            bases.shape[1], k, n_valid.data_ptr(),
+        )
+    else:
+        n_valid.zero_()
+    return counts, n_valid.reshape(())
+
+
+def hit_accumulate(acc, rows, bases, h_bits: int, salt: int, k: int):
+    """Kernel K8 on CUDA tensors, the plain version on CPU tensors.
+
+    acc (2,) int64 (hits, valid windows) is added to in place and returned."""
+    if not _on_cuda("hit_accumulate", acc, rows, bases):
+        return hit_accumulate_plain(acc, rows, bases, h_bits, salt, k)
+    _check_rows(rows, h_bits)
+    _check_bases(bases, k)
+    if acc.dtype != torch.int64 or acc.shape != (2,) or not acc.is_contiguous():
+        raise ValueError("acc must be a contiguous (2,) int64 tensor")
+    if bases.shape[0]:
+        _build.call(
+            "hit_accumulate", bases.device, acc.data_ptr(), rows.data_ptr(), rows.shape[1],
+            h_bits, salt, bases.data_ptr(), bases.shape[0], bases.shape[1], k,
+        )
+    return acc
+
+
+def hit_stats(rows, bases, remaining: int, h_bits: int, salt: int, k: int):
+    """Kernel K9 on CUDA tensors, the plain version on CPU tensors.
+
+    ``remaining`` is a host int (int32 range).  Returns int32 (4,) on the
+    device: (batch hits, batch valid windows, hits at the crossing, flat
+    index row * W + col of the crossing or -1), as ``hit_stats_plain``.
+    The kernel runs in three launches (probe to hit and valid masks and
+    tile counts, prefix scan, locate) over scratch of 16 mask words and 4
+    counts a 256-window tile."""
+    if not -2**31 <= remaining < 2**31:
+        raise ValueError(f"remaining {remaining} is outside the int32 range")
+    if not _on_cuda("hit_stats", rows, bases):
+        return hit_stats_plain(rows, bases, remaining, h_bits, salt, k)
+    _check_rows(rows, h_bits)
+    _check_bases(bases, k)
+    n_rows, length = bases.shape
+    if n_rows < 1:
+        raise ValueError("bases must hold at least one row")
+    if n_rows * (length - k + 1) >= 2**31:
+        raise ValueError(f"{n_rows} x {length - k + 1} windows do not fit int32 offsets")
+    n_tiles = n_rows * (-(-(length - k + 1) // 256))
+    masks = torch.empty(2 * 8 * n_tiles, dtype=torch.int32, device=bases.device)
+    counts = torch.empty(4 * n_tiles + 2, dtype=torch.int32, device=bases.device)
+    out = torch.empty(4, dtype=torch.int32, device=bases.device)
+    _build.call(
+        "hit_stats", bases.device, rows.data_ptr(), rows.shape[1], h_bits, salt,
+        bases.data_ptr(), n_rows, length, k, remaining, masks.data_ptr(), counts.data_ptr(),
+        out.data_ptr(),
+    )
+    return out

@@ -2,12 +2,15 @@
 
 One ``TorchKmerEngine`` = one k and one batch geometry on one explicit
 device.  It keeps the part of ``strainer2_tpu.pipeline.engine.KmerEngine``'s
-contract that the scrub-count and detect stages use, bucket layout only:
+contract that the ported stages use, bucket layout only:
 
 - ``extract_codes``: canonical codes of a packed buffer (kernel K1);
 - ``table_for`` / ``init_counts`` / ``counts_from_numpy`` /
   ``finalize_counts``: the device state's life cycle;
-- ``count_batch`` (K3) and ``classify_batch`` (K4);
+- ``count_batch`` (K3) and ``count_batch_with_valid`` (K3 with its valid
+  count, strain-track); ``classify_batch`` (K4);
+- ``hit_accumulate`` (K8) and ``hit_stats`` (K9): genome_compare's
+  containment tallies, reduced on the device;
 - ``classify_multi_batch``: the multi-strain classify, K6
   (``hit_words_batch``) then K7 (``strain_sums``).
 
@@ -21,7 +24,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from strainer2_tpu_torch.ops.lookup import classify_step, count_step
+from strainer2_tpu_torch.ops.lookup import (
+    classify_step,
+    count_step,
+    count_valid_step,
+    hit_accumulate,
+    hit_stats,
+)
 from strainer2_tpu_torch.ops.packing import canonical_windows
 from strainer2_tpu_torch.ops.packing_np import merge_code64_np
 from strainer2_tpu_torch.ops.segsum import boundary_strain_sums, multi_hit_words, words_for_strains
@@ -91,6 +100,30 @@ class TorchKmerEngine:
     def count_batch(self, counts, table, h_bits: int, salt: int, bases) -> torch.Tensor:
         """counts[slot] += 1 per valid hit window of ``bases``, in place."""
         return count_step(counts, table, self.to_device(bases), h_bits, salt, self.k)
+
+    def count_batch_with_valid(self, counts, table, h_bits: int, salt: int, bases):
+        """count_batch, and this batch's valid windows as an int32 device
+        scalar (the caller adds them up across batches)."""
+        return count_valid_step(counts, table, self.to_device(bases), h_bits, salt, self.k)
+
+    # ---- containment scoring (genome_compare) ----
+    def init_accumulator(self) -> torch.Tensor:
+        """The (hits, valid windows) int64 accumulator of ``hit_accumulate``."""
+        return torch.zeros(2, dtype=torch.int64, device=self.device)
+
+    def hit_accumulate(self, acc, table, h_bits: int, salt: int, bases) -> torch.Tensor:
+        """acc (2,) int64 (hits, evaluated) += this batch's tallies, in place
+        on the device: the fullmap path reads it back once a file."""
+        return hit_accumulate(acc, table, self.to_device(bases), h_bits, salt, self.k)
+
+    def hit_stats(self, table, h_bits: int, salt: int, bases, remaining: int) -> torch.Tensor:
+        """Rapid-mode batch stats reduced on the device: int32 (4,) of
+        (batch hits, batch evaluated, hits at the crossing, crossing
+        position), the position being the flat index of the batch's
+        ``remaining``-th valid window (-1 if the batch ends first) and the
+        hits the inclusive prefix there: the reference's stop-and-test
+        point (reference src/genome_compare.c:327-340)."""
+        return hit_stats(table, self.to_device(bases), remaining, h_bits, salt, self.k)
 
     # ---- detection: per-read hit aggregation ----
     def classify_batch(self, table, h_bits: int, salt: int, bases, boundaries):

@@ -1,7 +1,8 @@
 """Device-only times of the kernels K1 (canonical_windows), K2
-(bucket_lookup), K3 (count_step), K4 (classify_step), K5
-(bucket_lookup_ring), K6 (multi_hit_words) and K7 (boundary_strain_sums)
-at main-path shapes, and the timer, data and bounds that chip_smoke.py uses
+(bucket_lookup), K3 (count_step, and count_valid_step: K3 with its valid
+count), K4 (classify_step), K5 (bucket_lookup_ring), K6 (multi_hit_words),
+K7 (boundary_strain_sums), K8 (hit_accumulate) and K9 (hit_stats) at
+main-path shapes, and the timer, data and bounds that chip_smoke.py uses
 for every kernel.
 
     python strainer2_tpu_torch/tools/bench_kernels.py [--repo DIR] [--seed N] [--label L]
@@ -29,7 +30,11 @@ phase 2), and on ``main`` sets, MAIN_QUERIES keys of the table each, all
 present, as an ``-a`` file's k-mers are; K3 on ``count`` and
 ``targets``, K4 on ``phase2`` and ``targets``, K6 and K7 on ``phase2`` and
 ``targets`` at S = 16, 32, 96 and 256 strains (K7 on K6's words), over
-rows widened with seeded meta words.
+rows widened with seeded meta words; K8, K9 and K3 with its valid count on
+all three kinds at k = 20 (genome_compare's default, a table of the same
+genome at k = 20) and k = 31, K9 with ``remaining`` at half the batch's
+valid windows.  A checkout whose package has no K8 or K9 (an older
+``--repo``) skips them.
 
 The timer is CUDA events around replays of one CUDA graph holding 5 rounds
 of the 8 batches' launches, so it sees device time and no host launch cost;
@@ -69,8 +74,9 @@ _ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 __all__ = [
     "BATCH_KINDS", "bound_ms", "graph_ms", "batch_stats", "count_batches", "detection_batches",
     "sample_reads", "multi_rows", "probe_bytes", "k1_bytes", "k2_bytes", "k3_bytes", "k4_bytes",
-    "k6_bytes", "k7_bytes",
+    "k6_bytes", "k7_bytes", "k8_bytes", "k9_bytes", "COMPARE_KS",
 ]
+COMPARE_KS = (20, 31)  # genome_compare's default k, and the port's
 
 
 # ---- timer and bounds ----------------------------------------------------------
@@ -147,6 +153,19 @@ def k4_bytes(bases, bounds, valid: float, hits: float) -> float:
     return bases.numel() + 4 * bounds.numel() + probe_bytes(valid, hits) + 4 * hits + 8 * reads
 
 
+def k8_bytes(bases, valid: float, hits: float) -> float:
+    """Bases read, a probe per valid window, the (2,) int64 accumulator read
+    and written."""
+    return bases.numel() + probe_bytes(valid, hits) + 32
+
+
+def k9_bytes(bases, valid: float, hits: float, k: int) -> float:
+    """Bases read, a probe per valid window, the hit and valid mask words (8
+    a 256-window tile each) written and read back, four int32 out."""
+    tiles = bases.shape[0] * -(-(bases.shape[1] - k + 1) // 256)
+    return bases.numel() + probe_bytes(valid, hits) + 2 * (2 * 8 * 4 * tiles) + 16
+
+
 def k7_bytes(words, bounds, n_strains: int) -> int:
     """The (Q, W) words and the boundaries read, two (R, S) int32 written."""
     reads = bounds.numel() - 1
@@ -189,13 +208,13 @@ def count_batches(rng, genome: np.ndarray, dev) -> list:
     return out
 
 
-def batch_stats(rows, h_bits: int, salt: int, bases) -> tuple[int, int, int]:
+def batch_stats(rows, h_bits: int, salt: int, bases, k: int = K) -> tuple[int, int, int]:
     """(valid windows, found queries over all windows, hits = found and
     valid) of one batch, from the plain versions."""
     from strainer2_tpu_torch.ops import lookup as L
     from strainer2_tpu_torch.ops.packing import canonical_windows_plain
 
-    hi, lo, valid = canonical_windows_plain(bases, K)
+    hi, lo, valid = canonical_windows_plain(bases, k)
     found = L.bucket_lookup_plain(rows, h_bits, salt, hi, lo)[0]
     return int(valid.sum()), int(found.sum()), int((found & valid.bool()).sum())
 
@@ -220,6 +239,19 @@ def detection_batches(rng, genome: np.ndarray, kind: str, dev) -> list:
         out.append((torch.from_numpy(batch.bases).to(dev), torch.from_numpy(bounds).to(dev),
                     batch.n_reads))
     return out
+
+
+def table_k(genome: np.ndarray, k: int, dev):
+    """The bucket table of the genome's k-mers at k (64 lanes, no meta) on
+    the device, h_bits and salt."""
+    import torch
+
+    from strainer2_tpu_torch.index.bucket import build_bucket_table
+    from strainer2_tpu_torch.ops.packing_np import canonical_codes_np
+
+    codes, valid = canonical_codes_np(genome, k)
+    table = build_bucket_table(np.unique(codes[valid]), k)
+    return torch.from_numpy(table.table).to(dev), table.h_bits, table.salt
 
 
 def _table(rng, dev):
@@ -295,7 +327,7 @@ def bench(seed: int, label: str) -> dict:
              for kind, bs in bases.items()}
     main_q = main_path_queries(rng, keys, dev)
     result = {"label": label, "card": card, "k1": {}, "k2": {}, "k3": {}, "k4": {}, "k5": {},
-              "k6": {}, "k7": {}}
+              "k6": {}, "k7": {}, "k3v": {}, "k8": {}, "k9": {}}
 
     def report(kernel: str, key: str, ms: float, bound: float, **extra) -> None:
         result[kernel][key] = {"ms": ms, "bound_ms": bound, **extra}
@@ -345,7 +377,35 @@ def bench(seed: int, label: str) -> dict:
             del words
         del mrows
         torch.cuda.empty_cache()
+    if hasattr(L, "hit_stats"):
+        compare_kernels(genome, bases, report, dev)
     return result
+
+
+def compare_kernels(genome, bases: dict, report, dev) -> None:
+    """K3 with its valid count, K8 and K9 on every batch kind at
+    COMPARE_KS, each on a table of the genome at that k."""
+    import torch
+
+    from strainer2_tpu_torch.ops import lookup as L
+
+    for k in COMPARE_KS:
+        rows, h_bits, salt = table_k(genome, k, dev)
+        counts = torch.zeros(rows.shape[0] * 16, dtype=torch.uint32, device=dev)
+        acc = torch.zeros(2, dtype=torch.int64, device=dev)
+        for kind, bs in bases.items():
+            per = [batch_stats(rows, h_bits, salt, b, k) for b in bs]
+            valid, _, hits = (sum(x) / N_BATCHES for x in zip(*per))
+            key = f"{kind} k={k}"
+            extra = dict(valid=valid, hits=hits)
+            ms = graph_ms(lambda i: L.count_valid_step(counts, rows, bs[i], h_bits, salt, k))
+            report("k3v", key, ms, bound_ms(k3_bytes(bs[0], valid, hits) + 4), **extra)
+            ms = graph_ms(lambda i: L.hit_accumulate(acc, rows, bs[i], h_bits, salt, k))
+            report("k8", key, ms, bound_ms(k8_bytes(bs[0], valid, hits)), **extra)
+            ms = graph_ms(lambda i: L.hit_stats(rows, bs[i], per[i][0] // 2, h_bits, salt, k))
+            report("k9", key, ms, bound_ms(k9_bytes(bs[0], valid, hits, k)), **extra)
+        del rows, counts
+        torch.cuda.empty_cache()
 
 
 def main(argv: list[str] | None = None) -> int:

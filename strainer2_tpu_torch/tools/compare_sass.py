@@ -6,9 +6,11 @@ Compiles each checkout's ``strainer2_tpu_torch/csrc/*.cu`` to a cubin with
 the architecture and optimisation flags of ``ops/_build.py``, disassembles
 it with ``cuobjdump`` and prints one line a kernel (a template instance
 each): ``same`` where its instructions are equal in both, ``DIFFERS``
-elsewhere.  An edit to the shared header (``csrc/kmer_device.cuh``) should
+where they are not, ``new`` or ``gone`` where only DIR_B or only DIR_A
+has it.  An edit to the shared header (``csrc/kmer_device.cuh``) should
 leave every kernel it does not mean to change ``same``.  Needs the CUDA
-toolkit (nvcc, cuobjdump), not a card; exits 1 if a kernel differs.
+toolkit (nvcc, cuobjdump), not a card; exits 1 if a kernel differs or is
+gone.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ def _sass(cubin: str) -> dict[str, list[str]]:
     return out
 
 
-def compare(repo_a: str, repo_b: str) -> dict[str, bool]:
+def compare(repo_a: str, repo_b: str) -> dict[str, str]:
     nvcc = _build._nvcc()
     with tempfile.TemporaryDirectory() as tmp:
         jobs = [(side, src, os.path.join(tmp, f"{side}_{os.path.basename(src)}.cubin"))
@@ -68,7 +70,15 @@ def compare(repo_a: str, repo_b: str) -> dict[str, bool]:
         sides: list[dict] = [{}, {}]
         for side, _, cubin in jobs:
             sides[side].update(_sass(cubin))
-    return {name: sides[0].get(name) == sides[1].get(name) for name in sorted(set(sides[0]) | set(sides[1]))}
+    out = {}
+    for name in sorted(set(sides[0]) | set(sides[1])):
+        if name not in sides[0]:
+            out[name] = "new"
+        elif name not in sides[1]:
+            out[name] = "gone"
+        else:
+            out[name] = "same" if sides[0][name] == sides[1][name] else "DIFFERS"
+    return out
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -77,9 +87,9 @@ def main(argv: list[str] | None = None) -> int:
         print(__doc__.split("\n\n")[1])
         return 2
     result = compare(*args)
-    for name, same in result.items():
-        print(f"sass {'same' if same else 'DIFFERS'}: {name}")
-    return 0 if all(result.values()) else 1
+    for name, verdict in result.items():
+        print(f"sass {verdict}: {name}")
+    return 0 if all(v in ("same", "new") for v in result.values()) else 1
 
 
 if __name__ == "__main__":

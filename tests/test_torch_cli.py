@@ -8,11 +8,13 @@ import argparse
 import pytest
 
 import strainer2_tpu.cli.coverage_depth as j_coverage_depth
+import strainer2_tpu.cli.genome_compare as j_genome_compare
 import strainer2_tpu.cli.kmer_scrub_count as j_kmer_scrub_count
 import strainer2_tpu.cli.kmer_scrub_filter as j_kmer_scrub_filter
 import strainer2_tpu.cli.strain_detect as j_strain_detect
 import strainer2_tpu.cli.strainer2_tools as j_strainer2_tools
 import strainer2_tpu_torch.cli.coverage_depth as t_coverage_depth
+import strainer2_tpu_torch.cli.genome_compare as t_genome_compare
 import strainer2_tpu_torch.cli.kmer_scrub_count as t_kmer_scrub_count
 import strainer2_tpu_torch.cli.kmer_scrub_filter as t_kmer_scrub_filter
 import strainer2_tpu_torch.cli.strain_detect as t_strain_detect
@@ -23,11 +25,12 @@ PAIRS = {
     "kmer_scrub_filter": (t_kmer_scrub_filter, j_kmer_scrub_filter),
     "coverage_depth": (t_coverage_depth, j_coverage_depth),
     "strain_detect": (t_strain_detect, j_strain_detect),
+    "genome_compare": (t_genome_compare, j_genome_compare),
     "strainer2_tools": (t_strainer2_tools, j_strainer2_tools),
 }
 
 # argv of the mini goldens (tests/test_torch_slice.py, chip_smoke.py phase
-# 3), of chip_smoke.py phases 4 and 6, and a few more
+# 3), of chip_smoke.py phases 4, 6 and 9, and a few more
 ARGV = {
     "kmer_scrub_count": [
         ["-r", "data/strainA.fna.gz", "-A", "data/genomes.txt", "-B", "data/metagenomes.txt"],
@@ -58,6 +61,17 @@ ARGV = {
         ["pipeline-multi", "-R", "r.txt", "-A", "a.txt", "-B", "b.txt", "-T", "t.txt", "-o", "o",
          "-m", "0.01"],
         ["strain-track", "-A", "a.txt", "-b", "m.fq", "-n", "-m", "100"],
+        ["pangenome", "-A", "data/pangenomes.txt", "-r", "data/strainA.fna.gz"],
+        ["pangenome", "-A", "data/pangenomes.txt", "-d"],
+        ["kmer-matrix", "-A", "data/pangenomes.txt", "-s", "20"],
+    ],
+    "genome_compare": [
+        ["-a", "data/strainA.fna.gz", "-b", "data/panel1.fna.gz", "-H"],
+        ["-a", "data/strainA.fna.gz", "-B", "data/compare_list.txt", "-s", "17"],
+        ["-a", "data/strainA.fna.gz", "-B", "data/compare_list.txt", "-r", "300", "-t", "0.5"],
+        ["-a", "data/strainA.fna.gz", "-B", "data/compare_list.txt", "-S"],
+        ["-a", "strain.fna", "-B", "queries.txt", "-C"],
+        ["-a", "strain.fna", "-B", "queries.txt", "-r", "3000000", "-t", "0.02"],
     ],
 }
 

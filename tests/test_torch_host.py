@@ -323,3 +323,26 @@ def test_coverage_twin_matches(tmp_path, kwargs):
         mod.run_coverage_depth(hits, out=out, **kwargs)
         outs.append(out.getvalue())
     assert outs[0] == outs[1] != ""
+
+
+@pytest.mark.parametrize("k", [20, 40])
+def test_native_comparer_twin_matches(k):
+    """The port's NativeComparer against the JAX package's and against the
+    pure-Python _HostSetComparer, fullmap and in rapid mode on every query
+    of the compare list."""
+    from strainer2_tpu.native import NativeComparer as JaxComparer
+    from strainer2_tpu.pipeline.compare import _HostSetComparer
+    from strainer2_tpu_torch.native import NativeComparer
+
+    a = os.path.join(DATA, "strainA.fna.gz")
+    ours, theirs, python = NativeComparer(a, k), JaxComparer(a, k), _HostSetComparer(a, k)
+    assert ours.num_kmers == theirs.num_kmers == len(python.kmers) > 0
+    for name in ("panel1.fna.gz", "panel2.fna", "strainA.fna.gz", "target_SE.fastq"):
+        q = os.path.join(DATA, name)
+        for max_seeds, threshold in ((0, 0.1), (200, 0.3), (300, 0.9)):
+            got = ours.score(q, max_seeds, threshold)
+            assert got == theirs.score(q, max_seeds, threshold) == python.score(q, max_seeds, threshold)
+    with pytest.raises(OSError):
+        ours.score("/nonexistent_q.fa", 0, 0.1)
+    with pytest.raises(OSError):
+        NativeComparer("/nonexistent_a.fa", k)

@@ -1,4 +1,4 @@
-"""CUDA kernels K1-K7 vs their plain torch versions, on the card, with the
+"""CUDA kernels K1-K9 vs their plain torch versions, on the card, with the
 edge spans of the per-read sums (``edge_bounds``, also used by the CPU
 tests that hold the plain versions to the JAX functions).
 
@@ -477,3 +477,73 @@ def test_multi_hit_words_kernel_duplicate_keys(strain, n_strains):
     out = G.multi_hit_words(dup, b, table.h_bits, table.salt, K, n_words)
     assert _equal((out,), (G.multi_hit_words_plain(dup, b, table.h_bits, table.salt, K, n_words),))
     assert not _equal((out,), (G.multi_hit_words(rows, b, table.h_bits, table.salt, K, n_words),))
+
+
+# ---- K8, K9 and K3 with its valid count (genome_compare, strain-track) ---------
+
+def k9_remainings(valid_total: int) -> list:
+    """remaining at 0 and below, the first valid window, the batch's valid
+    total (its last valid window), past it, and a sweep between that lands
+    in many tiles and rows."""
+    return [0, -5, 1, valid_total, valid_total + 1, 2**31 - 1,
+            *range(2, valid_total, max(1, valid_total // 41))]
+
+
+@pytest.mark.parametrize("row_len", EDGE_ROW_LENS)
+@pytest.mark.parametrize("k", EDGE_K)
+def test_hit_accumulate_and_hit_stats_kernels_edges(strain, k, row_len):
+    """K8 and K9 against their plain versions for every k the port takes,
+    rows shorter than a tile and with partial tiles, N at row and tile
+    edges and an all-N last row, at every edge case of the crossing."""
+    rng, genome, _, _, rows64 = strain
+    table = _table_k(genome, k)
+    rows = torch.from_numpy(table.table).to(rows64.device)
+    b = torch.from_numpy(edge_rows(rng, genome, row_len)).to(rows.device)
+    acc0 = torch.tensor([5, 2**40], dtype=torch.int64, device=rows.device)
+    acc = L.hit_accumulate(acc0.clone(), rows, b, table.h_bits, table.salt, k)
+    ref = L.hit_accumulate_plain(acc0.clone(), rows, b, table.h_bits, table.salt, k)
+    assert _equal((acc,), (ref,))
+    hits, total = (int(x) for x in ref - acc0)
+    assert 0 < hits <= total
+    for rem in k9_remainings(total):
+        got = L.hit_stats(rows, b, rem, table.h_bits, table.salt, k)
+        want = L.hit_stats_plain(rows, b, rem, table.h_bits, table.salt, k)
+        assert got.tolist() == want.tolist(), rem
+
+
+@pytest.mark.parametrize("row_len", EDGE_ROW_LENS)
+@pytest.mark.parametrize("k", EDGE_K)
+def test_count_valid_step_kernel_edges(strain, k, row_len):
+    """K3 with its valid count against its plain version, at K3's edges."""
+    rng, genome, _, _, rows64 = strain
+    table = _table_k(genome, k)
+    rows = torch.from_numpy(table.table).to(rows64.device)
+    b = torch.from_numpy(edge_rows(rng, genome, row_len)).to(rows.device)
+    start = np.zeros(table.num_slots, dtype=np.uint32)
+    start[table.slot_of_key[::3]] = 0xFFFFFFFF  # wraps on a hit
+    c0 = torch.from_numpy(start).to(rows.device)
+    c1, n1 = L.count_valid_step(c0.clone(), rows, b, table.h_bits, table.salt, k)
+    c2, n2 = L.count_valid_step_plain(c0.clone(), rows, b, table.h_bits, table.salt, k)
+    assert _equal((c1, n1), (c2, n2))
+    assert n1.dtype == torch.int32 and int(n1) > 0 and not _equal((c1,), (c0,))
+    c3 = L.count_step(c0.clone(), rows, b, table.h_bits, table.salt, k)
+    assert _equal((c1,), (c3,))
+
+
+def test_hit_kernels_main_shape(strain):
+    """K8 and K9 on 64 x 4096 batches of reads, a third from the strain,
+    against their plain versions; the accumulator runs over them all."""
+    rng, genome, _, table, rows = strain
+    acc = torch.zeros(2, dtype=torch.int64, device=rows.device)
+    ref = acc.clone()
+    for _ in range(3):
+        reads = [genome[s : s + 150] if i % 3 == 0 else rng.integers(0, 4, 150, dtype=np.uint8)
+                 for i, s in enumerate(rng.integers(0, genome.size - 150, 1800))]
+        b = torch.from_numpy(next(pack_stream(iter(reads), K, 64, 4096)).bases).to(rows.device)
+        L.hit_accumulate(acc, rows, b, table.h_bits, table.salt, K)
+        L.hit_accumulate_plain(ref, rows, b, table.h_bits, table.salt, K)
+        total = int(L.hit_stats_plain(rows, b, 1, table.h_bits, table.salt, K)[1])
+        for rem in k9_remainings(total)[:12]:
+            assert (L.hit_stats(rows, b, rem, table.h_bits, table.salt, K).tolist()
+                    == L.hit_stats_plain(rows, b, rem, table.h_bits, table.salt, K).tolist()), rem
+    assert _equal((acc,), (ref,)) and int(acc[0]) > 0

@@ -258,12 +258,26 @@ def test_detect_multi_cli_refuses_mesh(tmp_path, capsys):
     assert "not supported by the torch port" in capsys.readouterr().err
 
 
+def _outcome(main, argv, capsys):
+    """(exit code, or the exception's type and text; stderr) of main(argv)."""
+    try:
+        rc = main(argv)
+    except (Exception, SystemExit) as e:  # noqa: BLE001 - the outcome is compared, not handled
+        rc = (type(e).__name__, str(e))
+    return rc, capsys.readouterr().err
+
+
 @pytest.mark.parametrize("argv", [["pangenome", "-A", "x"], ["kmer-matrix", "-A", "x"],
                                   ["strain-track", "-A", "x", "-b", "y"]],
                          ids=lambda a: a[0])
-def test_other_subcommands_are_not_yet_ported(capsys, argv):
-    assert _tools(argv + ["--device", "cpu"]) == 1
-    assert "not yet ported" in capsys.readouterr().err
+def test_library_modes_on_a_missing_list_end_as_jax(tmp_path, monkeypatch, capsys, argv):
+    """The library modes on a missing -A list end as the JAX CLI's do."""
+    from strainer2_tpu.cli.strainer2_tools import main as jax_main
+
+    monkeypatch.chdir(tmp_path)
+    want = _outcome(jax_main, argv, capsys)
+    assert _outcome(_tools, argv + ["--device", "cpu"], capsys) == want
+    assert want[0] == ("FileNotFoundError", "[Errno 2] No such file or directory: 'x'")
 
 
 def test_detect_multi_cuda_without_card_fails(tmp_path, capsys):

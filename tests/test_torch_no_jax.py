@@ -5,7 +5,8 @@ CPU count step, and runs kmer_scrub_count on the mini data to its golden
 bytes; another imports the multi-strain modules and runs detect-multi and
 the lookup A/B tool on the CPU; a third runs pipeline-multi (shared panel
 scan, filters, multi-strain detection, coverage) to the goldens of
-strainA.  With the JAX package unimportable, no
+strainA; a fourth runs genome_compare (the string engine and the plain
+K8/K9 path) and strain-track to their goldens.  With the JAX package unimportable, no
 code of it (its native/ build step included) can write under
 strainer2_tpu/."""
 
@@ -128,6 +129,40 @@ _PIPELINE_MULTI_SCRIPT = _BLOCK + textwrap.dedent(
 )
 
 
+_COMPARE_SCRIPT = _BLOCK + textwrap.dedent(
+    """
+    import shutil
+    from strainer2_tpu_torch.cli.genome_compare import main as compare_main
+    from strainer2_tpu_torch.cli.strainer2_tools import main as tools_main
+
+    mini = os.path.join(sys.argv[1], "tests", "golden", "mini")
+    out_dir = sys.argv[2]
+    os.chdir(mini)
+    for native in ("1", "0"):
+        os.environ["STRAINER2_NATIVE_COMPARE"] = native
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert compare_main(["-a", "data/strainA.fna.gz", "-B", "data/compare_list.txt",
+                                 "-r", "300", "-t", "0.5", "--device", "cpu"]) == 0
+        with open("expected/gc_rapid.txt") as f:
+            assert out.getvalue() == f.read(), native
+    for name in ("strainA.fna.gz", "drug1.fna.gz", "scrubmeta1.fasta.gz"):
+        shutil.copy(os.path.join("data", name), out_dir)
+    os.chdir(out_dir)
+    with open("strains2.txt", "w") as f:
+        f.write("strainA.fna.gz\\ndrug1.fna.gz\\n")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        assert tools_main(["strain-track", "-A", "strains2.txt", "-b", "scrubmeta1.fasta.gz",
+                           "-n", "-m", "60", "--device", "cpu"]) == 0
+    with open(os.path.join(mini, "expected", "modes", "strain_track_m100_stdout.txt")) as f:
+        assert out.getvalue() == f.read()
+    assert not [m for m in sys.modules if blocked(m)]
+    print("ok")
+    """
+)
+
+
 def _run(script: str, *args: str):
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
@@ -148,3 +183,7 @@ def test_detect_multi_and_bench_lookup_run_without_jax(tmp_path):
 
 def test_pipeline_multi_runs_without_jax(tmp_path):
     assert _run(_PIPELINE_MULTI_SCRIPT, str(tmp_path)).split()[-1] == "ok"
+
+
+def test_genome_compare_and_strain_track_run_without_jax(tmp_path):
+    assert _run(_COMPARE_SCRIPT, str(tmp_path)).split()[-1] == "ok"
