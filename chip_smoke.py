@@ -13,7 +13,8 @@ Phases; any failure exits non-zero and no result line is printed:
    K2 also sets of present keys as strain_detect probes them; K8, K9 and
    K3 with its valid count on the counting and target-like batches at
    k = 20 and 31, K9 with ``remaining`` at 0, 1, the batch's valid total
-   and one past it; every
+   and one past it, K3 with its valid count's tally total
+   (``valid_tally_total``) beside one torch.sum; every
    output must be exactly equal (all values are integers); kernel times
    device-only (CUDA events around a CUDA-graph replay,
    strainer2_tpu_torch/tools/bench_kernels.py) and from a loop of
@@ -40,9 +41,10 @@ Phases; any failure exits non-zero and no result line is printed:
    lookup, M lookups/s of each; then K6 and K7 at S = 16, 32, 96 and 256 strains on phase 2's key set
    with seeded meta words and its detection batches, each exactly equal to
    its plain version;
-5. launch counts of the ten kernels on their paths (phase 4 for K1, K3
+5. launch counts of the eleven kernels on their paths (phase 4 for K1, K3
    and K4, the A/B tool for K2 and K5, phase 6 for K6 and K7, phase 9 for
-   K8, K9 and K3 with its valid count; each must be > 0; no CLI path
+   K8, K9 and K3 with its valid count and its tally total; each must be >
+   0; no CLI path
    probes a key set with K2 since the -a file's k-mers are marked by a
    host search), a check that neither jax nor the JAX package
    (strainer2_tpu) was imported, one JSON line of per-kernel results (each
@@ -144,6 +146,7 @@ SOURCES = {
     "hit_accumulate": _CU + "strainer2_kernels.cu",
     "hit_stats": _CU + "strainer2_kernels.cu",
     "count_valid_step": _CU + "strainer2_kernels.cu",
+    "valid_tally_total": _CU + "strainer2_kernels.cu",
 }
 REPLACES = {
     "canonical_windows": "strainer2_tpu/ops/pallas_kernels.py:127",
@@ -156,6 +159,9 @@ REPLACES = {
     "hit_accumulate": "strainer2_tpu/pipeline/engine.py:343",
     "hit_stats": "strainer2_tpu/pipeline/engine.py:348",
     "count_valid_step": "strainer2_tpu/pipeline/engine.py:330",
+    # the JAX strain-track adds each batch's valid scalar on the host; the
+    # port totals its device tally once a stream
+    "valid_tally_total": "strainer2_tpu/pipeline/multi.py:284",
 }
 DEVICE = "cuda"
 _ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -433,18 +439,21 @@ def check_compare_kernels(d: str, ctx: dict, dev) -> dict:
     """Phase 2: K8, K9 and K3 with its valid count against their plain
     versions on phase 2's counting and target-like batches, on the
     phase-4 strain's index at k = 20 and 31; K9 at every ``remaining``
-    edge of each batch."""
+    edge of each batch. K3 with its valid count is checked on its counts
+    and its tally's total (kernel against plain, after each batch), timed
+    per batch without the total; the total (``valid_tally_total``) is
+    checked and timed on its own, beside one torch.sum of the tally."""
     import torch
 
     from strainer2_tpu_torch.index.build import StrainIndex
     from strainer2_tpu_torch.ops import lookup as L
     from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
     from strainer2_tpu_torch.tools.bench_kernels import (
-        COMPARE_KS, batch_stats, bound_ms, k3_bytes, k8_bytes, k9_bytes,
+        COMPARE_KS, batch_stats, bound_ms, graph_ms, k3v_bytes, k8_bytes, k9_bytes, tally_bytes,
     )
 
     kinds = {"count": ctx["count"], "targets": [b for b, _, _ in ctx["detect"]["targets"]]}
-    out = {"hit_accumulate": {}, "hit_stats": {}, "count_valid_step": {}}
+    out = {"hit_accumulate": {}, "hit_stats": {}, "count_valid_step": {}, "valid_tally_total": {}}
     for k in COMPARE_KS:
         if k == K:
             index = ctx["index"]
@@ -461,32 +470,75 @@ def check_compare_kernels(d: str, ctx: dict, dev) -> dict:
             acc, acc_plain = (torch.zeros(2, dtype=torch.int64, device=dev) for _ in range(2))
             counts, counts_plain = (torch.zeros(t.num_slots, dtype=torch.uint32, device=dev)
                                     for _ in range(2))
+            tally, tally_plain = (torch.zeros(L.n_tiles(ROWS, ROW_LEN, k), dtype=torch.int64,
+                                              device=dev) for _ in range(2))
+            k3v = lambda i: L.count_valid_step(counts, tally, rows, bs[i], h, salt, k)  # noqa: E731
+            k3v_plain = lambda i: L.count_valid_step_plain(  # noqa: E731
+                counts_plain, tally_plain, rows, bs[i], h, salt, k)
+            # name: (checked kernel, checked plain, bytes[, timed kernel, timed plain])
             cases = {
                 "hit_accumulate": (
                     lambda i: (L.hit_accumulate(acc, rows, bs[i], h, salt, k),),
                     lambda i: (L.hit_accumulate_plain(acc_plain, rows, bs[i], h, salt, k),),
                     k8_bytes(bs[0], valid, hits)),
                 "count_valid_step": (
-                    lambda i: L.count_valid_step(counts, rows, bs[i], h, salt, k),
-                    lambda i: L.count_valid_step_plain(counts_plain, rows, bs[i], h, salt, k),
-                    k3_bytes(bs[0], valid, hits) + 4),
+                    lambda i: (k3v(i), L.valid_tally_total(tally)),
+                    lambda i: (k3v_plain(i), L.valid_tally_total_plain(tally_plain)),
+                    k3v_bytes(bs[0], valid, hits),
+                    lambda i: (k3v(i),),
+                    lambda i: (k3v_plain(i),)),
                 "hit_stats": (
                     lambda i: (L.hit_stats(rows, bs[i], per[i][0] // 2, h, salt, k),),
                     lambda i: (L.hit_stats_plain(rows, bs[i], per[i][0] // 2, h, salt, k),),
-                    k9_bytes(bs[0], valid, hits, k)),
+                    k9_bytes(bs[0], valid, hits)),
             }
-            for name, (kern, plain, n_bytes) in cases.items():
+            for name, (kern, plain, n_bytes, *timed_fns) in cases.items():
                 err = checked(f"{name} {label}", kern, plain)
                 if name == "hit_stats":
                     err = max(err, check_remaining_edges(rows, bs, per, h, salt, k, label))
-                out[name][label] = dict(timed(f"{name} {label}", kern, plain, bound_ms(n_bytes), note),
-                                        max_abs_err=err)
+                out[name][label] = dict(timed(f"{name} {label}", *(timed_fns or (kern, plain)),
+                                              bound_ms(n_bytes), note), max_abs_err=err)
             if int(acc[0]) <= 0 or not int(counts.view(torch.int32).ne(0).sum()):
                 fail(f"hit_accumulate / count_valid_step {label}: no hit counted")
-            del counts, counts_plain
+            # the kernel's tally after the timed stream, every slot in use
+            kern = lambda i: (L.valid_tally_total(tally),)  # noqa: E731
+            plain = lambda i: (L.valid_tally_total_plain(tally),)  # noqa: E731
+            err = checked(f"valid_tally_total {label}", kern, plain)
+            library_ms = graph_ms(lambda i: tally.sum(), N_BATCHES)
+            out["valid_tally_total"][label] = dict(
+                timed(f"valid_tally_total {label}", kern, plain, bound_ms(tally_bytes(tally)),
+                      f"; {tally.numel()} slots; torch.sum {library_ms:.4f} ms"),
+                max_abs_err=err, library_ms=library_ms)
+            if k == COMPARE_K and kind == "targets":
+                device_work(lambda: (L.hit_stats(rows, bs[0], per[0][0] // 2, h, salt, k), k3v(0)))
+            del counts, counts_plain, tally, tally_plain
         del rows, index
         torch.cuda.empty_cache()
     return out
+
+
+DEVICE_WORK = ("hit_stats_kernel", "hit_crossing_kernel", "count_valid_step_kernel")
+
+
+def device_work(fn) -> None:
+    """Print the device kernels and memsets of one K9 call and one call of
+    K3 with its valid count (fn makes both), as torch.profiler records
+    them; fails unless they are K9's masks and crossing kernels and one
+    K3 kernel, no memset. It is the smoke's first profiler session: a
+    later one in the same process may record nothing, and then fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"device work of one hit_stats and one count_valid_step call: {len(names)} "
+          f"{names if names else '(not traced)'}", flush=True)
+    short = sorted(n.split("::")[-1].split("(")[0] for n in names)
+    if short != sorted(DEVICE_WORK):
+        fail(f"hit_stats and count_valid_step ran {short}, not {sorted(DEVICE_WORK)}")
 
 
 def check_remaining_edges(rows, bs, per, h, salt, k, label) -> int:
@@ -1601,7 +1653,8 @@ def main() -> int:
                                ("strain_sums", "detect-multi (phase 6)", multi_launches),
                                ("hit_accumulate", "genome_compare (phase 9)", compare_launches),
                                ("hit_stats", "genome_compare (phase 9)", compare_launches),
-                               ("count_valid_step", "strain-track (phase 9)", compare_launches)):
+                               ("count_valid_step", "strain-track (phase 9)", compare_launches),
+                               ("valid_tally_total", "strain-track (phase 9)", compare_launches)):
         launches[name] = counts[name]
         launched_by[name] = path
     if not all(launches[name] > 0 for name in REPLACES):
@@ -1611,7 +1664,8 @@ def main() -> int:
                 ab_ms_per_4m=ab["ms"], ab_plain_ms_per_4m=ab["plain_ms"])
     for name, headline in (("hit_accumulate", f"targets k={COMPARE_K}"),
                            ("hit_stats", f"targets k={COMPARE_K}"),
-                           ("count_valid_step", f"targets k={K}")):
+                           ("count_valid_step", f"targets k={K}"),
+                           ("valid_tally_total", f"targets k={K}")):
         by = compare_k[name]
         results[name] = dict(by[headline], max_abs_err=max(r["max_abs_err"] for r in by.values()),
                              **{label: r for label, r in by.items() if label != headline})

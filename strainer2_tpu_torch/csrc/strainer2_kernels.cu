@@ -152,28 +152,33 @@ __device__ __forceinline__ unsigned probe_valid_window(const PackedTile& t, int 
   return match_mask(rows + static_cast<size_t>(*bucket) * row_width, h, l);
 }
 
-// One block of K3. kCountValid adds the tile's valid windows into
-// *valid_total (one __syncthreads_count and one atomicAdd a block), for
-// strain-track; the false instance is the count step of every other path
-// and compiles to the instructions it had before the flag.
+// One block of K3. kCountValid adds the tile's valid windows into its own
+// slot of the caller's int64 tally (strain-track); the false instance is
+// the count step of every other path and compiles to the instructions it
+// had before the flag.
 template <bool kCountValid>
 __device__ __forceinline__ void count_step_tile(uint32_t* __restrict__ counts,
                                                 const uint32_t* __restrict__ rows,
                                                 int row_width, int h_bits, uint32_t salt,
                                                 const uint8_t* __restrict__ bases, int L, int k,
-                                                int32_t* __restrict__ valid_total) {
+                                                long long* __restrict__ tally) {
   __shared__ PackedTile tile;
   const int w0 = blockIdx.x * kTile;
-  pack_tile(tile, bases + static_cast<size_t>(blockIdx.y) * L, w0, L);
   uint32_t b;
   if constexpr (kCountValid) {
+    // the slot is read before the tile is packed, so its latency hides
+    // behind the probe; no other block of the launch touches it
+    const size_t t = static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+    const long long before = threadIdx.x == 0 ? tally[t] : 0;
+    pack_tile(tile, bases + static_cast<size_t>(blockIdx.y) * L, w0, L);
     bool valid;
     const unsigned m = probe_valid_window(tile, threadIdx.x, rows, row_width, h_bits, salt, w0,
                                           L - k + 1, k, &b, &valid);
     if (m) atomicAdd(counts + static_cast<size_t>(b) * kKeysPerBucket + (__ffs(m) - 1), 1u);
     const int n_valid = __syncthreads_count(valid);
-    if (threadIdx.x == 0 && n_valid) atomicAdd(valid_total, n_valid);
+    if (threadIdx.x == 0 && n_valid) tally[t] = before + n_valid;
   } else {
+    pack_tile(tile, bases + static_cast<size_t>(blockIdx.y) * L, w0, L);
     const unsigned m = probe_window(tile, threadIdx.x, rows, row_width, h_bits, salt, w0,
                                     L - k + 1, k, &b);
     if (m) atomicAdd(counts + static_cast<size_t>(b) * kKeysPerBucket + (__ffs(m) - 1), 1u);
@@ -191,19 +196,46 @@ count_step_kernel(uint32_t* __restrict__ counts, const uint32_t* __restrict__ ro
 // Replaces: the XLA program engine._count_valid_step_bucket
 //   (strainer2_tpu/pipeline/engine.py:330-334): K3's function and
 //   jnp.sum(win.valid), the metagenome scan of strain-track.
-// Bound on this card: K3's, and 4 bytes out.
-// Cost over K3 (H100 80GB HBM3, 700 W; PERF.md): 0.0051 ms a `targets`
-//   batch, 0.016 a `count` one. Most of it is the 4,096 atomicAdds a
-//   batch on the one valid_total word while K3's random atomicAdds fill
-//   the L2 (without that add, 0.0027 and 0.0025 over K3); the zeroing
-//   memset is about the rest. Eight adds a block, one a warp, took 2-3x
-//   as long as one.
+// Bound on this card: K3's, and a tally slot a tile read and written.
+// Design: K3's block; the tile's valid windows (__syncthreads_count) go
+//   into slot blockIdx.y * gridDim.x + blockIdx.x of an int64 tally that
+//   the caller zeroes once a stream, by a plain load and store of one
+//   thread: one block a launch owns each slot, and launches on one stream
+//   are ordered, so no atomic is needed. The stream's total is read once,
+//   at its end, by valid_tally_total_kernel. It runs within 0.0004 ms of
+//   K3 (k = 31: 0.0290-0.0291 ms a `targets` batch, 0.0357 a `count` one;
+//   H100 80GB HBM3, 700 W; PERF.md). The first form zeroed one int32 with
+//   a memset and added every tile into it by atomicAdd: 4,096 adds a batch
+//   on one word behind K3's random atomics cost 0.0051 ms a `targets`
+//   batch and 0.016 a `count` one over K3.
 __global__ void __launch_bounds__(kTile)
 count_valid_step_kernel(uint32_t* __restrict__ counts, const uint32_t* __restrict__ rows,
                         int row_width, int h_bits, uint32_t salt,
                         const uint8_t* __restrict__ bases, int L, int k,
-                        int32_t* __restrict__ valid_total) {
-  count_step_tile<true>(counts, rows, row_width, h_bits, salt, bases, L, k, valid_total);
+                        long long* __restrict__ tally) {
+  count_step_tile<true>(counts, rows, row_width, h_bits, salt, bases, L, k, tally);
+}
+
+constexpr int kTotalThreads = 1024;
+
+// The sum of the n slots of a valid-window tally, into *total: one block,
+// strided loads, then warp shuffles.
+__global__ void __launch_bounds__(kTotalThreads)
+valid_tally_total_kernel(const long long* __restrict__ tally, int n,
+                         long long* __restrict__ total) {
+  __shared__ long long warp_sums[kTotalThreads / 32];
+  long long s = 0;
+  for (int i = threadIdx.x; i < n; i += kTotalThreads) s += tally[i];
+#pragma unroll
+  for (int off = 16; off; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = s;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    s = warp_sums[threadIdx.x];
+#pragma unroll
+    for (int off = 16; off; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+    if (threadIdx.x == 0) *total = s;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -436,25 +468,169 @@ __global__ void classify_sums_kernel(const int32_t* __restrict__ p_hit,
 //   0 where remaining <= 0, -1 where the batch ends first) and the
 //   inclusive hit prefix there (0 where it ends first); genome_compare's
 //   rapid-mode batches before the decision.
-// Bound on this card: the probe's random DRAM accesses, as K8's, plus the
-//   mask words written and read back.
-// Design: K4's three launches.
-//   1. hit_masks: K3's block; hit and valid become bits by __ballot_sync,
-//      8 words a tile each, and the tile's two counts __syncthreads_count.
-//   2. classify_scan on those two count arrays: exclusive prefixes and the
-//      totals.
-//   3. hit_locate: one block; the one tile t with p_valid[t] < remaining
-//      <= p_valid[t + 1] is found by a coalesced pass over the prefixes,
-//      and its thread walks the tile's valid words by popcount to the
-//      window and adds the hit bits up to it to p_hit[t]. Only the four
-//      int32 results cross to the host.
+// Bound on this card: the probe's random DRAM accesses, as K8's; the
+//   function needs no mask words (they are this design's scratch).
+// Design: two launches joined by programmatic dependent launch (PDL). The
+//   first form ran K4's three launches (masks, a one-block scan, a
+//   one-block locate): the two serial one-block nodes cost a fixed ~0.009
+//   ms a call over K8 (H100 80GB HBM3, 700 W; PERF.md).
+//   1. hit_stats_kernel, K8's block: K3's packed tile and key_hi-first
+//      probe; hit and valid become bits by __ballot_sync, 8 words a tile
+//      each, and the tile's two counts come from __syncthreads_count.
+//      Thread 0 stores the 16 words and the counts packed in one word.
+//      Each block first lets the dependent launch start
+//      (griddepcontrol.launch_dependents).
+//   2. hit_crossing_kernel, one block, launched with
+//      cudaLaunchAttributeProgrammaticStreamSerialization: it is resident
+//      before the masks launch ends and waits in griddepcontrol.wait, which
+//      returns once that launch has finished and its stores are visible.
+//      It reads every tile's count word, kStatItems a thread held in
+//      registers, and scans their sums over the block; the one thread
+//      whose tiles hold the crossing (p_valid[t] < remaining <= p_valid[t
+//      + 1]) picks the tile from its registers and walks the tile's valid
+//      words by popcount to the window. No prefix array is written; the
+//      block waits on two L2 round trips, the counts, then the crossing
+//      tile's words (a first form re-read a thread's counts one by one, a
+//      chain of L2 round trips). The edge survives CUDA-graph capture.
+//   A `targets` batch at k = 20 takes 0.0348-0.0350 ms, K8 + 0.0031-0.0033,
+//   0.50 of the bound (H100 80GB HBM3, 700 W; PERF.md). One launch whose
+//   last block ran the same epilogue, found by a ticket from a device
+//   counter (__threadfence + atomicAdd, or one acq_rel atomic, a block),
+//   took 0.0028-0.0038 ms more: 4,096 returning atomics that each hold
+//   their block until they return.
 // ---------------------------------------------------------------------------
+constexpr int kStatItems = 16;  // tile counts a thread scans in one pass: one pass per 256 x 4096 batch
+
+// (hits, flat index) of the need-th valid window of tile t (need >= 1),
+// whose hit and valid words are the 16 words at m, hits the hits before
+// the tile; tpr tiles a row of W windows.
+__device__ __forceinline__ int2 locate_in_tile(const uint32_t* m, int t, int need, int hits,
+                                               int W, int tpr) {
+  const uint4* m4 = reinterpret_cast<const uint4*>(m);
+  const uint4 h0 = __ldcg(m4), h1 = __ldcg(m4 + 1), v0 = __ldcg(m4 + 2), v1 = __ldcg(m4 + 3);
+  const uint32_t hw[kTileWords] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+  const uint32_t vw[kTileWords] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+  int word = -1;
+  uint32_t mv = 0, mh = 0;
+#pragma unroll
+  for (int j = 0; j < kTileWords; ++j) {
+    if (word < 0) {
+      const int pv = __popc(vw[j]);
+      if (need <= pv) {
+        word = j;
+        mv = vw[j];
+        mh = hw[j];
+      } else {
+        need -= pv;
+        hits += __popc(hw[j]);
+      }
+    }
+  }
+  for (int i = 1; i < need; ++i) mv &= mv - 1u;
+  const int bit = __ffs(mv) - 1;
+  hits += __popc(mh & ((2u << bit) - 1u));  // bits 0..bit; 2u << 31 wraps to 0
+  const int r = t / tpr;
+  return make_int2(hits, r * W + (t - r * tpr) * kTile + 32 * word + bit);
+}
+
+// The four results of K9 from its n tiles' packed counts (hits << 16 |
+// valid) and mask words, by one block of kTile threads (warp_sums: kTile
+// / 32 entries of shared memory). Counts and words are read through the
+// L2 (__ldcg): the masks launch wrote them while this block waited.
+__device__ __forceinline__ void crossing_epilogue(const uint32_t* masks,
+                                                  const uint32_t* tile_counts, int n, int W,
+                                                  int tpr, int remaining, int32_t* out,
+                                                  int2* warp_sums) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int carry_h = 0, carry_v = 0;  // the same in every thread
+  for (int base = 0; base < n; base += kTile * kStatItems) {
+    const int i0 = base + threadIdx.x * kStatItems;
+    uint32_t c[kStatItems];
+    if (i0 + kStatItems <= n) {
+      const uint4* c4 = reinterpret_cast<const uint4*>(tile_counts + i0);
+#pragma unroll
+      for (int j = 0; j < kStatItems / 4; ++j) {
+        const uint4 q = __ldcg(c4 + j);
+        c[4 * j] = q.x;
+        c[4 * j + 1] = q.y;
+        c[4 * j + 2] = q.z;
+        c[4 * j + 3] = q.w;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kStatItems; ++j) c[j] = i0 + j < n ? __ldcg(tile_counts + i0 + j) : 0u;
+    }
+    uint32_t packed = 0;  // each half <= kStatItems * kTile: no carry between them
+#pragma unroll
+    for (int j = 0; j < kStatItems; ++j) packed += c[j];
+    const int sh = packed >> 16, sv = packed & 0xffff;
+    int xh = sh, xv = sv;  // inclusive scan over the warp
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int yh = __shfl_up_sync(0xffffffffu, xh, off);
+      const int yv = __shfl_up_sync(0xffffffffu, xv, off);
+      if (lane >= off) {
+        xh += yh;
+        xv += yv;
+      }
+    }
+    if (lane == 31) warp_sums[warp] = make_int2(xh, xv);
+    __syncthreads();
+    int eh = carry_h + xh - sh, ev = carry_v + xv - sv;  // before this thread's tiles
+#pragma unroll
+    for (int w = 0; w < kTile / 32; ++w) {
+      const int2 s = warp_sums[w];
+      if (w < warp) {
+        eh += s.x;
+        ev += s.y;
+      }
+      carry_h += s.x;
+      carry_v += s.y;
+    }
+    if (ev < remaining && remaining <= ev + sv) {  // the crossing is in this thread's tiles
+      int t = -1;
+#pragma unroll
+      for (int j = 0; j < kStatItems; ++j) {
+        if (t < 0) {
+          const int v = c[j] & 0xffff;
+          if (remaining <= ev + v) {
+            t = i0 + j;
+          } else {
+            ev += v;
+            eh += c[j] >> 16;
+          }
+        }
+      }
+      const int2 r = locate_in_tile(masks + static_cast<size_t>(t) * 2 * kTileWords, t,
+                                    remaining - ev, eh, W, tpr);
+      out[2] = r.x;
+      out[3] = r.y;
+    }
+    __syncthreads();  // warp_sums is written again in the next pass
+  }
+  if (threadIdx.x == 0) {
+    out[0] = carry_h;
+    out[1] = carry_v;
+    if (remaining <= 0) {  // searchsorted gives 0: the first window, valid or not
+      out[2] = static_cast<int32_t>(__ldcg(masks) & 1u);
+      out[3] = 0;
+    } else if (remaining > carry_v) {  // the batch ends first
+      out[2] = 0;
+      out[3] = -1;
+    }
+  }
+}
+
+// masks: 16 words a tile (hit, then valid); tile_counts: hits << 16 |
+// valid, a word a tile.
 __global__ void __launch_bounds__(kTile)
-hit_masks_kernel(const uint32_t* __restrict__ rows, int row_width, int h_bits, uint32_t salt,
+hit_stats_kernel(const uint32_t* __restrict__ rows, int row_width, int h_bits, uint32_t salt,
                  const uint8_t* __restrict__ bases, int L, int k,
-                 uint32_t* __restrict__ hit_mask, uint32_t* __restrict__ valid_mask,
-                 int32_t* __restrict__ tile_hits, int32_t* __restrict__ tile_valid) {
+                 uint32_t* __restrict__ masks, uint32_t* __restrict__ tile_counts) {
   __shared__ PackedTile tile;
+  __shared__ __align__(16) uint32_t words[2 * kTileWords];
+  asm volatile("griddepcontrol.launch_dependents;");
   const int w0 = blockIdx.x * kTile;
   pack_tile(tile, bases + static_cast<size_t>(blockIdx.y) * L, w0, L);
   uint32_t b;
@@ -463,58 +639,30 @@ hit_masks_kernel(const uint32_t* __restrict__ rows, int row_width, int h_bits, u
                                       L - k + 1, k, &b, &valid) != 0;
   const unsigned hm = __ballot_sync(0xffffffffu, hit);
   const unsigned vm = __ballot_sync(0xffffffffu, valid);
-  const size_t t = static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
   if ((threadIdx.x & 31) == 0) {
-    hit_mask[t * kTileWords + (threadIdx.x >> 5)] = hm;
-    valid_mask[t * kTileWords + (threadIdx.x >> 5)] = vm;
+    words[threadIdx.x >> 5] = hm;
+    words[kTileWords + (threadIdx.x >> 5)] = vm;
   }
-  const int n_hit = __syncthreads_count(hit);
+  const int n_hit = __syncthreads_count(hit);  // also orders the words above
   const int n_valid = __syncthreads_count(valid);
   if (threadIdx.x == 0) {
-    tile_hits[t] = n_hit;
-    tile_valid[t] = n_valid;
+    const int t = blockIdx.y * gridDim.x + blockIdx.x;
+    uint4* m4 = reinterpret_cast<uint4*>(masks + static_cast<size_t>(t) * 2 * kTileWords);
+    const uint4* w4 = reinterpret_cast<const uint4*>(words);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) m4[j] = w4[j];
+    tile_counts[t] = static_cast<uint32_t>(n_hit) << 16 | static_cast<uint32_t>(n_valid);
   }
 }
 
-constexpr int kLocateThreads = 1024;
-
 // out = (batch hits, batch valid windows, hits at the crossing, its flat
-// index), from the n tiles' exclusive prefixes (totals at [n]) and masks.
-__global__ void __launch_bounds__(kLocateThreads)
-hit_locate_kernel(const int32_t* __restrict__ p_hit, const int32_t* __restrict__ p_valid,
-                  const uint32_t* __restrict__ hit_mask, const uint32_t* __restrict__ valid_mask,
-                  int n, int W, int tpr, int remaining, int32_t* __restrict__ out) {
-  if (threadIdx.x == 0) {
-    out[0] = p_hit[n];
-    out[1] = p_valid[n];
-    if (remaining <= 0) {  // searchsorted gives 0: the first window, valid or not
-      out[2] = static_cast<int32_t>(hit_mask[0] & 1u);
-      out[3] = 0;
-    } else if (remaining > p_valid[n]) {  // the batch ends first
-      out[2] = 0;
-      out[3] = -1;
-    }
-  }
-  if (remaining <= 0) return;
-  for (int t = threadIdx.x; t < n; t += blockDim.x) {
-    if (p_valid[t] >= remaining || p_valid[t + 1] < remaining) continue;
-    int need = remaining - p_valid[t];  // in [1, the tile's valid windows]
-    int hits = p_hit[t];
-    const uint32_t* vm = valid_mask + static_cast<size_t>(t) * kTileWords;
-    const uint32_t* hm = hit_mask + static_cast<size_t>(t) * kTileWords;
-    int j = 0;
-    for (; __popc(vm[j]) < need; ++j) {
-      need -= __popc(vm[j]);
-      hits += __popc(hm[j]);
-    }
-    uint32_t m = vm[j];
-    for (int i = 1; i < need; ++i) m &= m - 1u;
-    const int bit = __ffs(m) - 1;
-    hits += __popc(hm[j] & ((2u << bit) - 1u));  // bits 0..bit; 2u << 31 wraps to 0
-    const int r = t / tpr;
-    out[2] = hits;
-    out[3] = r * W + (t - r * tpr) * kTile + 32 * j + bit;
-  }
+// index), from the n tiles of hit_stats_kernel, the launch before it.
+__global__ void __launch_bounds__(kTile)
+hit_crossing_kernel(const uint32_t* __restrict__ masks, const uint32_t* __restrict__ tile_counts,
+                    int n, int W, int tpr, int remaining, int32_t* __restrict__ out) {
+  __shared__ int2 warp_sums[kTile / 32];
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  crossing_epilogue(masks, tile_counts, n, W, tpr, remaining, out, warp_sums);
 }
 
 }  // namespace
@@ -557,19 +705,24 @@ int s2t_count_step(void* counts, const void* rows, int row_width, int h_bits,
   return launch_status();
 }
 
-// valid_total: one int32, zeroed here before the launch.
+// tally: int64 slots, at least n_rows x ceil(W / 256); each tile adds its
+// valid windows into its own slot (no memset: the caller zeroes it once).
 int s2t_count_valid_step(void* counts, const void* rows, int row_width, int h_bits,
                          uint32_t salt, const void* bases, int n_rows, int L, int k,
-                         void* valid_total, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t rc = cudaMemsetAsync(valid_total, 0, sizeof(int32_t), st);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
+                         void* tally, void* stream) {
   const int W = L - k + 1;
   const dim3 grid((W + kTile - 1) / kTile, n_rows);
-  count_valid_step_kernel<<<grid, kTile, 0, st>>>(
+  count_valid_step_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint32_t*>(counts), static_cast<const uint32_t*>(rows),
       row_width, h_bits, salt, static_cast<const uint8_t*>(bases), L, k,
-      static_cast<int32_t*>(valid_total));
+      static_cast<long long*>(tally));
+  return launch_status();
+}
+
+// total: one int64, the sum of the n int64 slots of tally.
+int s2t_valid_tally_total(const void* tally, int n, void* total, void* stream) {
+  valid_tally_total_kernel<<<1, kTotalThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(tally), n, static_cast<long long*>(total));
   return launch_status();
 }
 
@@ -585,29 +738,34 @@ int s2t_hit_accumulate(void* acc, const void* rows, int row_width, int h_bits,
   return launch_status();
 }
 
-// masks: 2 x n_tiles x 8 uint32 scratch (hit, then valid); counts:
-// 2 x n_tiles + 2 x (n_tiles + 1) int32 scratch (tile counts, then their
-// prefixes); out: four int32; n_tiles = n_rows x ceil(W / 256), n_rows >= 1.
+// masks: n_tiles x 16 uint32 scratch (a tile's hit words, then its valid
+// words), 16-byte aligned; tile_counts: n_tiles uint32 scratch, 16-byte
+// aligned; out: four int32; n_tiles = n_rows x ceil(W / 256), n_rows >= 1.
 int s2t_hit_stats(const void* rows, int row_width, int h_bits, uint32_t salt,
                   const void* bases, int n_rows, int L, int k, int remaining,
-                  void* masks, void* counts, void* out, void* stream) {
+                  void* masks, void* tile_counts, void* out, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int W = L - k + 1;
   const int tpr = (W + kTile - 1) / kTile;
-  const int n = n_rows * tpr;
-  uint32_t* hit_mask = static_cast<uint32_t*>(masks);
-  uint32_t* valid_mask = hit_mask + static_cast<size_t>(n) * kTileWords;
-  int32_t* c_hit = static_cast<int32_t*>(counts);
-  int32_t* c_valid = c_hit + n;
-  int32_t* p_hit = c_valid + n;
-  int32_t* p_valid = p_hit + n + 1;
-  hit_masks_kernel<<<dim3(tpr, n_rows), kTile, 0, st>>>(
+  uint32_t* m = static_cast<uint32_t*>(masks);
+  uint32_t* c = static_cast<uint32_t*>(tile_counts);
+  hit_stats_kernel<<<dim3(tpr, n_rows), kTile, 0, st>>>(
       static_cast<const uint32_t*>(rows), row_width, h_bits, salt,
-      static_cast<const uint8_t*>(bases), L, k, hit_mask, valid_mask, c_hit, c_valid);
-  classify_scan_kernel<<<1, kScanThreads, 0, st>>>(c_hit, c_valid, n, p_hit, p_valid);
-  hit_locate_kernel<<<1, kLocateThreads, 0, st>>>(p_hit, p_valid, hit_mask, valid_mask, n, W,
-                                                  tpr, remaining, static_cast<int32_t*>(out));
-  return launch_status();
+      static_cast<const uint8_t*>(bases), L, k, m, c);
+  const int rc = launch_status();
+  if (rc != 0) return rc;
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1);
+  cfg.blockDim = dim3(kTile);
+  cfg.stream = st;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  const cudaError_t rc2 = cudaLaunchKernelEx(&cfg, hit_crossing_kernel, m, c, n_rows * tpr, W,
+                                             tpr, remaining, static_cast<int32_t*>(out));
+  return rc2 != cudaSuccess ? static_cast<int>(rc2) : launch_status();
 }
 
 // masks: 2 x n_tiles x 8 uint32 scratch (hit, then informative), 32-byte

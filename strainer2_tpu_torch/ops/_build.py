@@ -43,6 +43,7 @@ _SIGNATURES = {
     "s2t_count_step": [_P, _P, _I, _I, _U32, _P, _I, _I, _I, _P],
     "s2t_count_valid_step": [_P, _P, _I, _I, _U32, _P, _I, _I, _I, _P, _P],
     "s2t_hit_accumulate": [_P, _P, _I, _I, _U32, _P, _I, _I, _I, _P],
+    "s2t_valid_tally_total": [_P, _I, _P, _P],
     "s2t_hit_stats": [_P, _I, _I, _U32, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "s2t_classify_step": [_P, _I, _I, _U32, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P],
     "s2t_bucket_lookup_ring": [_P, _I, _I, _U32, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P],

@@ -18,7 +18,9 @@ meta = 0, as the jnp ``bucket_lookup`` returns.
   ops/segsum.py).
 - ``count_step``      (K3): extract -> probe -> counts[slot] += 1, in place.
 - ``count_valid_step`` (K3 with a valid count): the same, and the batch's
-  valid windows (strain-track).
+  valid windows added into an int64 tally that stays on the device across
+  a stream (strain-track); ``valid_tally_total`` reads its total once, at
+  the stream's end.
 - ``hit_accumulate``  (K8): extract -> probe -> (hits, valid windows) added
   to a device accumulator (genome_compare, fullmap).
 - ``hit_stats``       (K9): extract -> probe -> the batch's (hits, valid
@@ -54,6 +56,9 @@ __all__ = [
     "count_step_plain",
     "count_valid_step",
     "count_valid_step_plain",
+    "valid_tally_total",
+    "valid_tally_total_plain",
+    "n_tiles",
     "hit_accumulate",
     "hit_accumulate_plain",
     "hit_stats",
@@ -68,6 +73,13 @@ KEYS_PER_BUCKET = 16
 META_LANE = 32
 _GATHER_ELEMS = 1 << 24  # row lanes gathered per block of queries in the plain lookup
 _MASK32 = 0xFFFFFFFF
+TILE = 256  # windows a block of K3, K4, K8 and K9
+
+
+def n_tiles(n_rows: int, length: int, k: int) -> int:
+    """256-window tiles of a (n_rows, length) batch at k: each row's
+    windows are padded to whole tiles."""
+    return n_rows * max(0, -(-(length - k + 1) // TILE))
 
 
 # ---- plain versions -------------------------------------------------------
@@ -143,13 +155,22 @@ def count_step_plain(counts, rows, bases, h_bits: int, salt: int, k: int):
     return counts
 
 
-def count_valid_step_plain(counts, rows, bases, h_bits: int, salt: int, k: int):
-    """count_step_plain, and the batch's valid windows as an int32 scalar:
-    the JAX ``_count_valid_step_bucket`` (strainer2_tpu/pipeline/engine.py:330)."""
+def count_valid_step_plain(counts, tally, rows, bases, h_bits: int, salt: int, k: int):
+    """count_step_plain, and the batch's valid windows added into slot 0 of
+    the int64 ``tally``, both in place: the JAX ``_count_valid_step_bucket``
+    (strainer2_tpu/pipeline/engine.py:330) with its per-batch scalar summed
+    over the stream.  Only the tally's total is the contract (the kernel
+    adds each tile into a slot of its own)."""
     idx, found, slot, _, _ = valid_hits_plain(rows, bases, h_bits, salt, k)
     hits = slot[found].to(torch.int64)
     counts.view(torch.int32).index_add_(0, hits, torch.ones_like(hits, dtype=torch.int32))
-    return counts, torch.tensor(idx.numel(), dtype=torch.int32, device=bases.device)
+    tally[0] += idx.numel()
+    return counts
+
+
+def valid_tally_total_plain(tally):
+    """The int64 total of a valid-window tally, a 0-d tensor."""
+    return tally.sum()
 
 
 def hit_accumulate_plain(acc, rows, bases, h_bits: int, salt: int, k: int):
@@ -360,12 +381,12 @@ def classify_step(rows, bases, boundaries, h_bits: int, salt: int, k: int):
     n_rows, length = bases.shape
     if n_rows * (length - k + 1) >= 2**31:
         raise ValueError(f"{n_rows} x {length - k + 1} windows do not fit int32 offsets")
-    n_tiles = n_rows * (-(-(length - k + 1) // 256))
+    tiles = n_tiles(n_rows, length, k)
     tot = torch.empty(max_reads, dtype=torch.int32, device=bases.device)
     inf = torch.empty_like(tot)
     if max_reads:
-        masks = torch.empty(2 * 8 * n_tiles, dtype=torch.int32, device=bases.device)
-        counts = torch.empty(4 * n_tiles + 2, dtype=torch.int32, device=bases.device)
+        masks = torch.empty(2 * 8 * tiles, dtype=torch.int32, device=bases.device)
+        counts = torch.empty(4 * tiles + 2, dtype=torch.int32, device=bases.device)
         _build.call(
             "classify_step", bases.device, rows.data_ptr(), rows.shape[1], h_bits,
             salt, bases.data_ptr(), n_rows, length, k, boundaries.data_ptr(), max_reads,
@@ -381,27 +402,51 @@ def _check_counts(counts: torch.Tensor, rows: torch.Tensor) -> None:
         raise ValueError(f"counts has {counts.shape[0]} cells, table has {rows.shape[0] * KEYS_PER_BUCKET} slots")
 
 
-def count_valid_step(counts, rows, bases, h_bits: int, salt: int, k: int):
+def _check_tally(tally: torch.Tensor, slots: int) -> None:
+    if tally.dtype != torch.int64 or tally.dim() != 1 or not tally.is_contiguous():
+        raise ValueError("tally must be a contiguous 1-D int64 tensor")
+    if tally.shape[0] < slots:
+        raise ValueError(f"tally has {tally.shape[0]} slots, the batch has {slots} tiles")
+
+
+def count_valid_step(counts, tally, rows, bases, h_bits: int, salt: int, k: int):
     """Kernel K3 with its valid count on CUDA tensors, the plain version on
     CPU tensors.
 
-    counts as in ``count_step``, updated in place; returns (counts, the
-    batch's valid windows as an int32 scalar on the device)."""
-    if not _on_cuda("count_valid_step", counts, rows, bases):
-        return count_valid_step_plain(counts, rows, bases, h_bits, salt, k)
+    counts as in ``count_step``, updated in place and returned; the batch's
+    valid windows are added into ``tally``, a contiguous int64 tensor of at
+    least ``n_tiles(rows, length, k)`` slots for the largest batch of the
+    stream, zeroed once by the caller: each 256-window tile adds into a
+    slot of its own (no atomic, no memset, no per-batch reduction), so
+    calls that share a tally must be ordered on one stream.  Read the
+    total once, with ``valid_tally_total``."""
+    if not _on_cuda("count_valid_step", counts, tally, rows, bases):
+        return count_valid_step_plain(counts, tally, rows, bases, h_bits, salt, k)
     _check_rows(rows, h_bits)
     _check_bases(bases, k)
     _check_counts(counts, rows)
-    n_valid = torch.empty(1, dtype=torch.int32, device=bases.device)
+    _check_tally(tally, n_tiles(*bases.shape, k))
     if bases.shape[0]:
         _build.call(
             "count_valid_step", bases.device, counts.data_ptr(), rows.data_ptr(),
             rows.shape[1], h_bits, salt, bases.data_ptr(), bases.shape[0],
-            bases.shape[1], k, n_valid.data_ptr(),
+            bases.shape[1], k, tally.data_ptr(),
         )
-    else:
-        n_valid.zero_()
-    return counts, n_valid.reshape(())
+    return counts
+
+
+def valid_tally_total(tally):
+    """The tally's total as a 0-d int64 tensor on its device: a one-block
+    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if not _on_cuda("valid_tally_total", tally):
+        return valid_tally_total_plain(tally)
+    _check_tally(tally, 0)
+    if tally.shape[0] >= 2**31:
+        raise ValueError(f"{tally.shape[0]} tally slots do not fit an int count")
+    total = torch.empty((), dtype=torch.int64, device=tally.device)
+    _build.call("valid_tally_total", tally.device, tally.data_ptr(), tally.shape[0],
+                total.data_ptr())
+    return total
 
 
 def hit_accumulate(acc, rows, bases, h_bits: int, salt: int, k: int):
@@ -428,9 +473,10 @@ def hit_stats(rows, bases, remaining: int, h_bits: int, salt: int, k: int):
     ``remaining`` is a host int (int32 range).  Returns int32 (4,) on the
     device: (batch hits, batch valid windows, hits at the crossing, flat
     index row * W + col of the crossing or -1), as ``hit_stats_plain``.
-    The kernel runs in three launches (probe to hit and valid masks and
-    tile counts, prefix scan, locate) over scratch of 16 mask words and 4
-    counts a 256-window tile."""
+    The kernel runs over scratch of 16 mask words and one count word a
+    256-window tile, in two launches that one call issues together: the
+    probe to masks and counts, then one block that finds the crossing,
+    started early by programmatic dependent launch."""
     if not -2**31 <= remaining < 2**31:
         raise ValueError(f"remaining {remaining} is outside the int32 range")
     if not _on_cuda("hit_stats", rows, bases):
@@ -442,13 +488,13 @@ def hit_stats(rows, bases, remaining: int, h_bits: int, salt: int, k: int):
         raise ValueError("bases must hold at least one row")
     if n_rows * (length - k + 1) >= 2**31:
         raise ValueError(f"{n_rows} x {length - k + 1} windows do not fit int32 offsets")
-    n_tiles = n_rows * (-(-(length - k + 1) // 256))
-    masks = torch.empty(2 * 8 * n_tiles, dtype=torch.int32, device=bases.device)
-    counts = torch.empty(4 * n_tiles + 2, dtype=torch.int32, device=bases.device)
+    tiles = n_tiles(n_rows, length, k)
+    masks = torch.empty(16 * tiles, dtype=torch.int32, device=bases.device)
+    tile_counts = torch.empty(tiles, dtype=torch.int32, device=bases.device)
     out = torch.empty(4, dtype=torch.int32, device=bases.device)
     _build.call(
         "hit_stats", bases.device, rows.data_ptr(), rows.shape[1], h_bits, salt,
-        bases.data_ptr(), n_rows, length, k, remaining, masks.data_ptr(), counts.data_ptr(),
-        out.data_ptr(),
+        bases.data_ptr(), n_rows, length, k, remaining, masks.data_ptr(),
+        tile_counts.data_ptr(), out.data_ptr(),
     )
     return out

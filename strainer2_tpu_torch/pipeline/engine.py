@@ -8,7 +8,8 @@ contract that the ported stages use, bucket layout only:
 - ``table_for`` / ``init_counts`` / ``counts_from_numpy`` /
   ``finalize_counts``: the device state's life cycle;
 - ``count_batch`` (K3) and ``count_batch_with_valid`` (K3 with its valid
-  count, strain-track); ``classify_batch`` (K4);
+  count, strain-track: a tally from ``init_valid_tally``, read once by
+  ``valid_total``); ``classify_batch`` (K4);
 - ``hit_accumulate`` (K8) and ``hit_stats`` (K9): genome_compare's
   containment tallies, reduced on the device;
 - ``classify_multi_batch``: the multi-strain classify, K6
@@ -30,6 +31,8 @@ from strainer2_tpu_torch.ops.lookup import (
     count_valid_step,
     hit_accumulate,
     hit_stats,
+    n_tiles,
+    valid_tally_total,
 )
 from strainer2_tpu_torch.ops.packing import canonical_windows
 from strainer2_tpu_torch.ops.packing_np import merge_code64_np
@@ -101,10 +104,21 @@ class TorchKmerEngine:
         """counts[slot] += 1 per valid hit window of ``bases``, in place."""
         return count_step(counts, table, self.to_device(bases), h_bits, salt, self.k)
 
-    def count_batch_with_valid(self, counts, table, h_bits: int, salt: int, bases):
-        """count_batch, and this batch's valid windows as an int32 device
-        scalar (the caller adds them up across batches)."""
-        return count_valid_step(counts, table, self.to_device(bases), h_bits, salt, self.k)
+    def init_valid_tally(self, rows: int, row_len: int) -> torch.Tensor:
+        """A zeroed int64 valid-window tally for a stream of batches of at
+        most (rows, row_len): a slot a 256-window tile."""
+        return torch.zeros(max(1, n_tiles(rows, row_len, self.k)), dtype=torch.int64,
+                           device=self.device)
+
+    def count_batch_with_valid(self, counts, tally, table, h_bits: int, salt: int, bases):
+        """count_batch, and this batch's valid windows added into ``tally``
+        on the device, in place; no per-batch reduction or readback."""
+        return count_valid_step(counts, tally, table, self.to_device(bases), h_bits, salt, self.k)
+
+    def valid_total(self, tally) -> int:
+        """The valid windows of every batch counted into ``tally``: one
+        reduction and one readback a stream."""
+        return int(valid_tally_total(tally))
 
     # ---- containment scoring (genome_compare) ----
     def init_accumulator(self) -> torch.Tensor:

@@ -30,7 +30,6 @@ from dataclasses import dataclass
 from typing import IO
 
 import numpy as np
-import torch
 
 from strainer2_tpu_torch.constants import DEFAULT_K
 from strainer2_tpu_torch.index.build import StrainIndex, scan_file_codes
@@ -270,13 +269,12 @@ def run_strain_track(
                 return
             yield rec.seq
 
-    # the valid-window total stays on the device, int64 (exact on any
-    # stream), read once at the end
-    valid_total = torch.zeros((), dtype=torch.int64, device=engine.device)
+    # the valid windows stay on the device in an int64 tally (exact on any
+    # stream), totalled and read once at the end
+    tally = engine.init_valid_tally(rows, row_len)
     for batch in pack_stream(read_stream(), k, rows=rows, row_len=row_len):
-        counts, n_valid = engine.count_batch_with_valid(counts, table, t.h_bits, t.salt, batch.bases)
-        valid_total += n_valid
-    non_n_windows = int(valid_total)
+        counts = engine.count_batch_with_valid(counts, tally, table, t.h_bits, t.salt, batch.bases)
+    non_n_windows = engine.valid_total(tally)
     per_key = surviving.key_values(engine.finalize_counts(counts)).astype(np.int64)
     num_matches = int(per_key.sum())
 

@@ -33,8 +33,12 @@ present, as an ``-a`` file's k-mers are; K3 on ``count`` and
 rows widened with seeded meta words; K8, K9 and K3 with its valid count on
 all three kinds at k = 20 (genome_compare's default, a table of the same
 genome at k = 20) and k = 31, K9 with ``remaining`` at half the batch's
-valid windows.  A checkout whose package has no K8 or K9 (an older
-``--repo``) skips them.
+valid windows, K3 with its valid count per batch into a tally kept across
+the stream, and the tally's once-a-stream total (``valid_tally_total``,
+"K3V_TOTAL") timed on its own.  A checkout whose package has no K8 or K9
+(an older ``--repo``) skips them; one whose K3 with its valid count still
+returns a per-batch scalar (no ``valid_tally_total``) is timed through
+that contract.
 
 The timer is CUDA events around replays of one CUDA graph holding 5 rounds
 of the 8 batches' launches, so it sees device time and no host launch cost;
@@ -74,7 +78,7 @@ _ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 __all__ = [
     "BATCH_KINDS", "bound_ms", "graph_ms", "batch_stats", "count_batches", "detection_batches",
     "sample_reads", "multi_rows", "probe_bytes", "k1_bytes", "k2_bytes", "k3_bytes", "k4_bytes",
-    "k6_bytes", "k7_bytes", "k8_bytes", "k9_bytes", "COMPARE_KS",
+    "k6_bytes", "k7_bytes", "k8_bytes", "k9_bytes", "k3v_bytes", "tally_bytes", "COMPARE_KS",
 ]
 COMPARE_KS = (20, 31)  # genome_compare's default k, and the port's
 
@@ -139,6 +143,16 @@ def k3_bytes(bases, valid: float, hits: float) -> float:
     return bases.numel() + probe_bytes(valid, hits) + 8 * hits
 
 
+def k3v_bytes(bases, valid: float, hits: float) -> float:
+    """K3's bytes, and the stream's int64 valid count read and written."""
+    return k3_bytes(bases, valid, hits) + 16
+
+
+def tally_bytes(tally) -> int:
+    """A tally's int64 slots read once, one int64 total written."""
+    return 8 * tally.numel() + 8
+
+
 def k6_bytes(bases, valid: float, hits: float, n_words: int) -> float:
     """Bases read, a probe per valid window, n_words meta words read per hit,
     n_words words written per window."""
@@ -159,11 +173,10 @@ def k8_bytes(bases, valid: float, hits: float) -> float:
     return bases.numel() + probe_bytes(valid, hits) + 32
 
 
-def k9_bytes(bases, valid: float, hits: float, k: int) -> float:
-    """Bases read, a probe per valid window, the hit and valid mask words (8
-    a 256-window tile each) written and read back, four int32 out."""
-    tiles = bases.shape[0] * -(-(bases.shape[1] - k + 1) // 256)
-    return bases.numel() + probe_bytes(valid, hits) + 2 * (2 * 8 * 4 * tiles) + 16
+def k9_bytes(bases, valid: float, hits: float) -> float:
+    """Bases read, a probe per valid window, four int32 out: the function
+    needs no mask words, whatever scratch a kernel keeps."""
+    return bases.numel() + probe_bytes(valid, hits) + 16
 
 
 def k7_bytes(words, bounds, n_strains: int) -> int:
@@ -327,7 +340,7 @@ def bench(seed: int, label: str) -> dict:
              for kind, bs in bases.items()}
     main_q = main_path_queries(rng, keys, dev)
     result = {"label": label, "card": card, "k1": {}, "k2": {}, "k3": {}, "k4": {}, "k5": {},
-              "k6": {}, "k7": {}, "k3v": {}, "k8": {}, "k9": {}}
+              "k6": {}, "k7": {}, "k3v": {}, "k3v_total": {}, "k8": {}, "k9": {}}
 
     def report(kernel: str, key: str, ms: float, bound: float, **extra) -> None:
         result[kernel][key] = {"ms": ms, "bound_ms": bound, **extra}
@@ -383,27 +396,38 @@ def bench(seed: int, label: str) -> dict:
 
 
 def compare_kernels(genome, bases: dict, report, dev) -> None:
-    """K3 with its valid count, K8 and K9 on every batch kind at
-    COMPARE_KS, each on a table of the genome at that k."""
+    """K3 with its valid count (per batch, then the tally's total), K8 and
+    K9 on every batch kind at COMPARE_KS, each on a table of the genome at
+    that k."""
     import torch
 
     from strainer2_tpu_torch.ops import lookup as L
 
+    tallied = hasattr(L, "valid_tally_total")
     for k in COMPARE_KS:
         rows, h_bits, salt = table_k(genome, k, dev)
         counts = torch.zeros(rows.shape[0] * 16, dtype=torch.uint32, device=dev)
         acc = torch.zeros(2, dtype=torch.int64, device=dev)
+        if tallied:
+            tally = torch.zeros(L.n_tiles(ROWS, ROW_LEN, k), dtype=torch.int64, device=dev)
+            k3v = lambda i: L.count_valid_step(counts, tally, rows, bs[i], h_bits, salt, k)  # noqa: E731
+        else:
+            k3v = lambda i: L.count_valid_step(counts, rows, bs[i], h_bits, salt, k)  # noqa: E731
         for kind, bs in bases.items():
             per = [batch_stats(rows, h_bits, salt, b, k) for b in bs]
             valid, _, hits = (sum(x) / N_BATCHES for x in zip(*per))
             key = f"{kind} k={k}"
             extra = dict(valid=valid, hits=hits)
-            ms = graph_ms(lambda i: L.count_valid_step(counts, rows, bs[i], h_bits, salt, k))
-            report("k3v", key, ms, bound_ms(k3_bytes(bs[0], valid, hits) + 4), **extra)
-            ms = graph_ms(lambda i: L.hit_accumulate(acc, rows, bs[i], h_bits, salt, k))
-            report("k8", key, ms, bound_ms(k8_bytes(bs[0], valid, hits)), **extra)
+            ms = graph_ms(k3v)
+            report("k3v", key, ms, bound_ms(k3v_bytes(bs[0], valid, hits)), **extra)
+            ms8 = graph_ms(lambda i: L.hit_accumulate(acc, rows, bs[i], h_bits, salt, k))
+            report("k8", key, ms8, bound_ms(k8_bytes(bs[0], valid, hits)), **extra)
             ms = graph_ms(lambda i: L.hit_stats(rows, bs[i], per[i][0] // 2, h_bits, salt, k))
-            report("k9", key, ms, bound_ms(k9_bytes(bs[0], valid, hits, k)), **extra)
+            report("k9", key, ms, bound_ms(k9_bytes(bs[0], valid, hits)), over_k8=ms - ms8, **extra)
+        if tallied:
+            ms = graph_ms(lambda i: L.valid_tally_total(tally))
+            report("k3v_total", f"k={k}", ms, bound_ms(tally_bytes(tally)), slots=tally.numel())
+            del tally
         del rows, counts
         torch.cuda.empty_cache()
 

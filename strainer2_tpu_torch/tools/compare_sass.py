@@ -50,7 +50,10 @@ def _sass(cubin: str) -> dict[str, list[str]]:
     out = {}
     for part in text.split("Function : ")[1:]:
         head, _, body = part.partition("\n")
-        lines = (re.sub(r"/\*[0-9a-f]{4}\*/|_ZN\w+", "", line).strip() for line in body.splitlines())
+        # addresses, mangled names and column padding (cuobjdump pads to the
+        # file's widest instruction) are not the kernel's instructions
+        lines = (" ".join(re.sub(r"/\*[0-9a-f]{4}\*/|_ZN\w+", "", line).split())
+                 for line in body.splitlines())
         out[kernel_name(head.strip())] = [x for x in lines if x and not x.startswith(".")]
     return out
 

@@ -514,7 +514,9 @@ def test_hit_accumulate_and_hit_stats_kernels_edges(strain, k, row_len):
 @pytest.mark.parametrize("row_len", EDGE_ROW_LENS)
 @pytest.mark.parametrize("k", EDGE_K)
 def test_count_valid_step_kernel_edges(strain, k, row_len):
-    """K3 with its valid count against its plain version, at K3's edges."""
+    """K3 with its valid count against its plain version, at K3's edges:
+    the counts, and the tally's total (kernel and plain) from a tally that
+    starts above 2**31."""
     rng, genome, _, _, rows64 = strain
     table = _table_k(genome, k)
     rows = torch.from_numpy(table.table).to(rows64.device)
@@ -522,12 +524,81 @@ def test_count_valid_step_kernel_edges(strain, k, row_len):
     start = np.zeros(table.num_slots, dtype=np.uint32)
     start[table.slot_of_key[::3]] = 0xFFFFFFFF  # wraps on a hit
     c0 = torch.from_numpy(start).to(rows.device)
-    c1, n1 = L.count_valid_step(c0.clone(), rows, b, table.h_bits, table.salt, k)
-    c2, n2 = L.count_valid_step_plain(c0.clone(), rows, b, table.h_bits, table.salt, k)
+    t0 = torch.zeros(L.n_tiles(*b.shape, k), dtype=torch.int64, device=rows.device)
+    t0[-1] = 2**31 + 7
+    t1, t2 = t0.clone(), t0.clone()
+    c1 = L.count_valid_step(c0.clone(), t1, rows, b, table.h_bits, table.salt, k)
+    c2 = L.count_valid_step_plain(c0.clone(), t2, rows, b, table.h_bits, table.salt, k)
+    n1, n2 = L.valid_tally_total(t1), L.valid_tally_total_plain(t2)
     assert _equal((c1, n1), (c2, n2))
-    assert n1.dtype == torch.int32 and int(n1) > 0 and not _equal((c1,), (c0,))
+    assert n1.dtype == torch.int64 and int(n1) > 2**31 + 7 and not _equal((c1,), (c0,))
+    assert int(n1) == int(t1.sum())
     c3 = L.count_step(c0.clone(), rows, b, table.h_bits, table.salt, k)
     assert _equal((c1,), (c3,))
+
+
+def test_count_valid_step_kernel_stream(strain):
+    """K3 with its valid count over a stream of batches of 64, 5, 1 and 64
+    rows of 4096 into one tally (the short batches use a prefix of its
+    slots), against the plain version's total and counts."""
+    rng, genome, _, _, rows64 = strain
+    table = _table_k(genome, K)
+    rows = torch.from_numpy(table.table).to(rows64.device)
+    c1 = torch.zeros(table.num_slots, dtype=torch.uint32, device=rows.device)
+    c2 = c1.clone()
+    t1 = torch.zeros(L.n_tiles(64, 4096, K), dtype=torch.int64, device=rows.device)
+    t2 = t1.clone()
+    for n_rows in (64, 5, 1, 64):
+        b = torch.from_numpy(edge_rows(rng, genome, 4096, n_rows=max(2, n_rows))[:n_rows]).to(rows.device)
+        L.count_valid_step(c1, t1, rows, b, table.h_bits, table.salt, K)
+        L.count_valid_step_plain(c2, t2, rows, b, table.h_bits, table.salt, K)
+    assert _equal((c1, L.valid_tally_total(t1)), (c2, L.valid_tally_total_plain(t2)))
+    assert int(t1.sum()) > 0 and int(t1[L.n_tiles(5, 4096, K):].sum()) > 0
+    with pytest.raises(ValueError, match="tiles"):
+        L.count_valid_step(c1, t1[:10], rows, b, table.h_bits, table.salt, K)
+
+
+def test_hit_stats_kernel_back_to_back(strain):
+    """K9 called back to back on one stream without a synchronisation
+    between calls, at batch shapes that change between calls and at every
+    edge of the crossing, equals its plain version each time: each
+    crossing block waits for its own masks launch."""
+    rng, genome, _, _, rows64 = strain
+    table = _table_k(genome, 20)
+    rows = torch.from_numpy(table.table).to(rows64.device)
+    batches = [torch.from_numpy(edge_rows(rng, genome, n, n_rows=r)).to(rows.device)
+               for r, n in ((6, 4096), (2, 40), (64, 1000), (1, 300), (6, 4096))]
+    calls = [(b, rem) for b in batches
+             for rem in k9_remainings(int(L.hit_stats_plain(rows, b, 1, table.h_bits, table.salt,
+                                                            20)[1]))]
+    got = [L.hit_stats(rows, b, rem, table.h_bits, table.salt, 20) for b, rem in calls]
+    for (b, rem), g in zip(calls, got):
+        want = L.hit_stats_plain(rows, b, rem, table.h_bits, table.salt, 20)
+        assert g.tolist() == want.tolist(), (tuple(b.shape), rem)
+
+
+def test_hit_stats_kernel_cuda_graph(strain):
+    """K9 captured in a CUDA graph (eight calls at different remaining
+    values: the programmatic edge between its two launches is captured)
+    and replayed twice equals its plain version after each replay."""
+    rng, genome, _, _, rows64 = strain
+    table = _table_k(genome, 20)
+    rows = torch.from_numpy(table.table).to(rows64.device)
+    b = torch.from_numpy(edge_rows(rng, genome, 4096, n_rows=16)).to(rows.device)
+    total = int(L.hit_stats_plain(rows, b, 1, table.h_bits, table.salt, 20)[1])
+    rems = [0, 1, total // 3, total // 2, total - 1, total, total + 1, -3]
+    want = [L.hit_stats_plain(rows, b, r, table.h_bits, table.salt, 20).tolist() for r in rems]
+    L.hit_stats(rows, b, 1, table.h_bits, table.salt, 20)  # builds the kernels off the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [L.hit_stats(rows, b, r, table.h_bits, table.salt, 20) for r in rems]
+    for _ in range(2):
+        for o in outs:
+            o.fill_(-9)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert [o.tolist() for o in outs] == want
 
 
 def test_hit_kernels_main_shape(strain):

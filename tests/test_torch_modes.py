@@ -1,8 +1,9 @@
 """The port's library modes (pipeline/multi.py) on the CPU against the
 reference goldens under tests/golden/mini/expected/modes, as
 tests/test_modes_parity.py holds the JAX package to them, at 8 x 1024
-batches; and the plain K3 with its valid count against the JAX program
-_count_valid_step_bucket."""
+batches; and the plain K3 with its valid count (and the engine's tally
+life cycle) against the JAX program _count_valid_step_bucket, its
+per-batch valid scalars summed over a stream."""
 
 import io
 import os
@@ -103,26 +104,100 @@ def test_strain_track_max_reads_no_track(tmp_path, monkeypatch):
     assert out.getvalue().encode() == expected("strain_track_m100_stdout.txt")
 
 
-@pytest.mark.parametrize("k", [20, 31])
-def test_count_valid_step_plain_matches_jax(k):
+def _valid_stream(k):
+    """A bucket table of a random genome at k, and a stream of batches: 8 x
+    1024 rows, every other one from the genome, 3% N; then 3 rows of the
+    same kind (a batch with fewer rows); then 8 rows all N."""
     rng = np.random.default_rng(k)
     genome = rng.integers(0, 4, 30_000, dtype=np.uint8)
     codes, valid = canonical_codes_np(genome, k)
     table = build_bucket_table(np.unique(codes[valid]), k)
-    bases = rng.integers(0, 4, (8, 1024), dtype=np.uint8)
-    for r in range(0, 8, 2):
-        s = int(rng.integers(0, genome.size - 1024))
-        bases[r] = genome[s : s + 1024]
-    bases[rng.random(bases.shape) < 0.03] = 4
+    stream = []
+    for n_rows in (8, 3):
+        bases = rng.integers(0, 4, (n_rows, 1024), dtype=np.uint8)
+        for r in range(0, n_rows, 2):
+            s = int(rng.integers(0, genome.size - 1024))
+            bases[r] = genome[s : s + 1024]
+        bases[rng.random(bases.shape) < 0.03] = 4
+        stream.append(bases)
+    stream.append(np.full((8, 1024), 4, dtype=np.uint8))
+    return table, stream
+
+
+def _jax_valid_stream(table, stream, k):
+    """counts after the stream, and each batch's valid scalar, from the JAX
+    _count_valid_step_bucket."""
     start = np.zeros(table.num_slots, dtype=np.uint32)
     start[table.slot_of_key[::3]] = 0xFFFFFFFF  # wraps on a hit
     step = jax.jit(partial(jax_engine._count_valid_step_bucket, k=k),
                    static_argnames=("h_bits", "salt"))
-    j_counts, j_valid = step(jnp.asarray(start), jnp.asarray(table.table), jnp.asarray(bases),
-                             h_bits=table.h_bits, salt=table.salt)
-    counts, n_valid = L.count_valid_step_plain(torch.from_numpy(start.copy()),
-                                               torch.from_numpy(table.table),
-                                               torch.from_numpy(bases), table.h_bits, table.salt, k)
-    np.testing.assert_array_equal(counts.numpy(), np.asarray(j_counts))
-    assert n_valid.dtype == torch.int32 and int(n_valid) == int(j_valid) > 0
+    counts, per_batch = jnp.asarray(start), []
+    for bases in stream:
+        counts, n_valid = step(counts, jnp.asarray(table.table), jnp.asarray(bases),
+                               h_bits=table.h_bits, salt=table.salt)
+        per_batch.append(int(n_valid))
+    return start, np.asarray(counts), per_batch
+
+
+def _check_plain_valid_stream(k, tally_start):
+    """The plain K3 with its valid count over _valid_stream into a tally
+    whose slot 0 starts at tally_start: counts equal the JAX program's,
+    and the total is tally_start plus the sum of its per-batch scalars."""
+    table, stream = _valid_stream(k)
+    start, j_counts, j_valid = _jax_valid_stream(table, stream, k)
+    counts = torch.from_numpy(start.copy())
+    tally = torch.zeros(L.n_tiles(8, 1024, k), dtype=torch.int64)
+    tally[0] = tally_start
+    rows = torch.from_numpy(table.table)
+    for bases in stream:
+        out = L.count_valid_step_plain(counts, tally, rows, torch.from_numpy(bases),
+                                       table.h_bits, table.salt, k)
+        assert out is counts
+    np.testing.assert_array_equal(counts.numpy(), j_counts)
+    total = L.valid_tally_total_plain(tally)
+    assert total.dtype == torch.int64 and int(total) == tally_start + sum(j_valid)
+    assert j_valid[0] > 0 and j_valid[1] > 0 and j_valid[2] == 0
     assert not np.array_equal(counts.numpy(), start)
+    return table, stream, start, j_valid
+
+
+@pytest.mark.parametrize("k", [20, 31])
+def test_count_valid_step_plain_matches_jax(k):
+    """The plain K3 with its valid count over a stream (a full batch, one
+    with fewer rows, one all N) against the JAX program: equal counts, and
+    a tally total equal to the sum of its per-batch scalars; the wrappers
+    take the plain path on CPU tensors."""
+    table, stream, start, j_valid = _check_plain_valid_stream(k, 0)
+    tally = torch.zeros(L.n_tiles(8, 1024, k), dtype=torch.int64)
+    L.count_valid_step(torch.from_numpy(start.copy()), tally, torch.from_numpy(table.table),
+                       torch.from_numpy(stream[0]), table.h_bits, table.salt, k)
+    assert int(L.valid_tally_total(tally)) == j_valid[0]
+
+
+@pytest.mark.parametrize("k", [20, 31])
+def test_count_valid_step_plain_tally_past_2_31(k):
+    """The same stream into a tally that starts 5 below 2**31: the total
+    passes 2**31 exactly (int64, no wrap)."""
+    _check_plain_valid_stream(k, 2**31 - 5)
+
+
+@pytest.mark.parametrize("k", [20, 31])
+def test_engine_valid_tally_matches_jax(k):
+    """TorchKmerEngine's tally life cycle on the CPU (init_valid_tally,
+    count_batch_with_valid, valid_total) against the JAX program's per-batch
+    scalars summed over the stream."""
+    from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
+
+    table, stream = _valid_stream(k)
+    start, j_counts, j_valid = _jax_valid_stream(table, stream, k)
+    engine = TorchKmerEngine(k, device="cpu")
+    tally = engine.init_valid_tally(8, 1024)
+    assert tally.dtype == torch.int64 and tally.shape == (8 * -(-(1024 - k + 1) // 256),)
+    assert not tally.any()
+    counts = engine.counts_from_numpy(None, start)
+    rows = engine.to_device(table.table)
+    for bases in stream:
+        counts = engine.count_batch_with_valid(counts, tally, rows, table.h_bits, table.salt, bases)
+    np.testing.assert_array_equal(engine.finalize_counts(counts), j_counts)
+    total = engine.valid_total(tally)
+    assert type(total) is int and total == sum(j_valid) > 0
