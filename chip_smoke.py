@@ -14,7 +14,13 @@ Phases; any failure exits non-zero and no result line is printed:
    K3 with its valid count on the counting and target-like batches at
    k = 20 and 31, K9 with ``remaining`` at 0, 1, the batch's valid total
    and one past it, K3 with its valid count's tally total
-   (``valid_tally_total``) beside one torch.sum; every
+   (``valid_tally_total``) beside one torch.sum; the cuckoo layout's
+   kernels on the same batches over a cuckoo table of the same keys: K10
+   (``cuckoo_lookup``) on the counting batches' window codes and on the
+   present-key sets, the cuckoo instances of K3 and K4 on their batches,
+   of K8, K9 and K3 with its valid count at k = 20 and 31 (K9 at the same
+   ``remaining`` edges), and every cuckoo kernel at k = 32 on batches with
+   a poly-T run (the empty-slot sentinel window); every
    output must be exactly equal (all values are integers); kernel times
    device-only (CUDA events around a CUDA-graph replay,
    strainer2_tpu_torch/tools/bench_kernels.py) and from a loop of
@@ -28,7 +34,9 @@ Phases; any failure exits non-zero and no result line is printed:
    the six ``gc_*`` goldens through ``genome_compare`` (k = 17, 20 and 40,
    rapid, strain mode, one query with a header) and the ``modes/`` goldens
    through ``strainer2_tools pangenome``, ``kmer-matrix`` and
-   ``strain-track``;
+   ``strain-track``; then, in the cuckoo layout through the stage APIs,
+   run_scrub_count, strain_detect (and coverage_depth on its hits), the
+   gc_* cases at k <= 32 and strain-track, to the same goldens;
 4. real size, the "strain vs metagenomes, joint scrub + detect" run of the
    README: a 6.7 Mbp strain, background genomes, metagenome panels and two
    target samples made from --seed, cut in depth (printed); the four CLIs
@@ -38,12 +46,15 @@ Phases; any failure exits non-zero and no result line is printed:
 2b. the lookup A/B tool (``python -m strainer2_tpu_torch.tools.bench_lookup``)
    on a 6.7 M-key table at 64-, 128- and 288-lane rows, 4 M lookups a
    step: every ring variant of K5 exactly equal to K2 and to the plain
-   lookup, M lookups/s of each; then K6 and K7 at S = 16, 32, 96 and 256 strains on phase 2's key set
+   lookup, K10 on a cuckoo table of the same keys equal to the plain
+   cuckoo lookup and to K2's found keys, M lookups/s of each; then K6 and K7 at S = 16, 32, 96 and 256 strains on phase 2's key set
    with seeded meta words and its detection batches, each exactly equal to
    its plain version;
-5. launch counts of the eleven kernels on their paths (phase 4 for K1, K3
-   and K4, the A/B tool for K2 and K5, phase 6 for K6 and K7, phase 9 for
-   K8, K9 and K3 with its valid count and its tally total; each must be >
+5. launch counts of the seventeen kernels on their paths (phase 4 for K1,
+   K3 and K4, the A/B tool for K2, K5 and K10, phase 6 for K6 and K7,
+   phase 9 for K8, K9 and K3 with its valid count and its tally total,
+   phase 10 for the cuckoo K3, K4, K8 and K9, phase 3's cuckoo
+   strain-track for the cuckoo K3 with its valid count; each must be >
    0; no CLI path
    probes a key set with K2 since the -a file's k-mers are marked by a
    host search), a check that neither jax nor the JAX package
@@ -81,9 +92,16 @@ Phases; any failure exits non-zero and no result line is printed:
    a metagenome made like the phase-4 panels with 1% of its reads from
    each of those strains, each strain's used, possible and counted seeds
    and the valid windows equal to what the C++ ``NativePanelCounter``
-   counts on the k-mers unique to one strain (found here with numpy).
+   counts on the k-mers unique to one strain (found here with numpy);
+10. real size, the cuckoo layout: the phase-4 strain's cuckoo index built
+   on the card (K1, then the native builder), every key checked to sit at
+   one of its two slots; run_scrub_count, strain_detect and genome_compare
+   fullmap and -S with layout="cuckoo" through the stage APIs, each
+   byte-identical to phases 4 and 9, with walls and windows/s (idle share
+   with --profile); a strain_detect run on the saved npz as its
+   --index-cache reuses it unwritten (bytes and mtime).
 
-Phases run in the order 1, 2, 2b, 3, 4, 7, 6, 8, 9, 5.
+Phases run in the order 1, 2, 2b, 3, 4, 7, 6, 8, 9, 10, 5.
 """
 
 from __future__ import annotations
@@ -147,6 +165,12 @@ SOURCES = {
     "hit_stats": _CU + "strainer2_kernels.cu",
     "count_valid_step": _CU + "strainer2_kernels.cu",
     "valid_tally_total": _CU + "strainer2_kernels.cu",
+    "cuckoo_lookup": _CU + "strainer2_kernels.cu",
+    "cuckoo_count_step": _CU + "strainer2_kernels.cu",
+    "cuckoo_count_valid_step": _CU + "strainer2_kernels.cu",
+    "cuckoo_classify_step": _CU + "strainer2_kernels.cu",
+    "cuckoo_hit_accumulate": _CU + "strainer2_kernels.cu",
+    "cuckoo_hit_stats": _CU + "strainer2_kernels.cu",
 }
 REPLACES = {
     "canonical_windows": "strainer2_tpu/ops/pallas_kernels.py:127",
@@ -162,6 +186,13 @@ REPLACES = {
     # the JAX strain-track adds each batch's valid scalar on the host; the
     # port totals its device tally once a stream
     "valid_tally_total": "strainer2_tpu/pipeline/multi.py:284",
+    # the cuckoo layout (the JAX package's default off the TPU)
+    "cuckoo_lookup": "strainer2_tpu/ops/lookup.py:39",
+    "cuckoo_count_step": "strainer2_tpu/pipeline/engine.py:301",
+    "cuckoo_count_valid_step": "strainer2_tpu/pipeline/engine.py:294",
+    "cuckoo_classify_step": "strainer2_tpu/pipeline/engine.py:307",
+    "cuckoo_hit_accumulate": "strainer2_tpu/pipeline/engine.py:279",
+    "cuckoo_hit_stats": "strainer2_tpu/pipeline/engine.py:284",
 }
 DEVICE = "cuda"
 _ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -432,17 +463,93 @@ def check_kernels(d: str, data: dict, rng, dev, seed: int) -> dict:
         else:
             results["classify_step"][kind] = res
     return results, {"index": index, "detect": detect, "detect_stats": detect_stats, "rows": rows,
-                     "count": [b for b, _, _ in count_in]}
+                     "count": [b for b, _, _ in count_in], "kinds": kinds,
+                     "count_codes": [(qh, ql) for _, qh, ql in count_in], "main_q": main_q,
+                     "count_stats": (c_valid, c_hits)}
+
+
+def check_cuckoo_kernels(ctx: dict, dev) -> dict:
+    """Phase 2, the cuckoo layout: K10 and the cuckoo K3 and K4 against their
+    plain versions on phase 2's batches and query sets, over a cuckoo table
+    of the phase-4 strain's keys and classes (the class a slot-indexed
+    array); K10 on the ``count`` window codes and the ``main`` sets of
+    present keys (all found)."""
+    import torch
+
+    from strainer2_tpu_torch.index.build import StrainIndex
+    from strainer2_tpu_torch.ops import lookup as L
+    from strainer2_tpu_torch.tools.bench_kernels import (
+        MAIN_QUERIES, bound_ms, k3_bytes, k4_bytes, k10_bytes,
+    )
+
+    index = ctx["index"]
+    cidx = StrainIndex(k=K, codes=index.codes, genome_counts=index.genome_counts, layout_="cuckoo")
+    ct = cidx.table
+    table = torch.from_numpy(ct.table).to(dev)
+    meta = torch.from_numpy(cidx.slot_values(ctx["kinds"])).to(dev)
+    h, salt = ct.h_bits, ct.salt
+    print(f"cuckoo table: {index.num_kmers} keys, 2 x 2^{h} slots ({table.numel() * 4 / 2**20:.0f} "
+          f"MiB), salt {salt}", flush=True)
+    codes, main_q, bases = ctx["count_codes"], ctx["main_q"], ctx["count"]
+    targets = [b for b, _, _ in ctx["detect"]["targets"]]
+    c_valid, c_hits = ctx["count_stats"]
+    n_win = codes[0][0].numel()
+    counts, counts_plain = (torch.zeros(ct.num_slots, dtype=torch.uint32, device=dev) for _ in range(2))
+    t_counts, t_counts_plain = (torch.zeros(ct.num_slots, dtype=torch.uint32, device=dev)
+                                for _ in range(2))
+    d_valid, _, d_hits = ctx["detect_stats"]["targets"]
+    # name: {label: (kernel, plain, bytes)}; the first label is the headline
+    cases = {
+        "cuckoo_lookup": {
+            "count": (lambda i: L.cuckoo_lookup(table, h, salt, *codes[i]),
+                      lambda i: L.cuckoo_lookup_plain(table, h, salt, *codes[i]), k10_bytes(n_win)),
+            "main": (lambda i: L.cuckoo_lookup(table, h, salt, *main_q[i]),
+                     lambda i: L.cuckoo_lookup_plain(table, h, salt, *main_q[i]),
+                     k10_bytes(MAIN_QUERIES))},
+        # each pair of count buffers starts at zero and takes the same batches in turn
+        "cuckoo_count_step": {
+            "count": (lambda i: (L.cuckoo_count_step(counts, table, bases[i], h, salt, K),),
+                      lambda i: (L.cuckoo_count_step_plain(counts_plain, table, bases[i], h, salt, K),),
+                      k3_bytes(bases[0], c_valid, c_hits, "cuckoo")),
+            "targets": (lambda i: (L.cuckoo_count_step(t_counts, table, targets[i], h, salt, K),),
+                        lambda i: (L.cuckoo_count_step_plain(t_counts_plain, table, targets[i], h,
+                                                             salt, K),),
+                        k3_bytes(targets[0], d_valid, d_hits, "cuckoo"))},
+        "cuckoo_classify_step": {
+            kind: (lambda i, bs=bs: L.cuckoo_classify_step(table, meta, bs[i][0], bs[i][1], h, salt, K),
+                   lambda i, bs=bs: L.cuckoo_classify_step_plain(table, meta, bs[i][0], bs[i][1], h,
+                                                                 salt, K),
+                   k4_bytes(bs[0][0], bs[0][1], *ctx["detect_stats"][kind][::2], "cuckoo"))
+            for kind, bs in ctx["detect"].items()},
+    }
+    out = {}
+    for name, by_label in cases.items():
+        for label, (kern, plain, n_bytes) in by_label.items():
+            err = checked(f"{name} {label}", kern, plain)
+            res = dict(timed(f"{name} {label}", kern, plain, bound_ms(n_bytes)), max_abs_err=err)
+            if name not in out:
+                out[name] = res
+            else:
+                out[name][label] = res
+                out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+    if not all(bool(L.cuckoo_lookup(table, h, salt, *main_q[i])[0].all()) for i in range(N_BATCHES)):
+        fail("cuckoo_lookup main: a key of the table was not found")
+    if not int(counts.view(torch.int32).ne(0).sum()) or not int(t_counts.view(torch.int32).ne(0).sum()):
+        fail("cuckoo_count_step: no hit counted")
+    return out
 
 
 def check_compare_kernels(d: str, ctx: dict, dev) -> dict:
-    """Phase 2: K8, K9 and K3 with its valid count against their plain
+    """Phase 2: K8, K9 and K3 with its valid count, and their cuckoo
+    instances over a cuckoo table of the same keys, against their plain
     versions on phase 2's counting and target-like batches, on the
     phase-4 strain's index at k = 20 and 31; K9 at every ``remaining``
     edge of each batch. K3 with its valid count is checked on its counts
     and its tally's total (kernel against plain, after each batch), timed
     per batch without the total; the total (``valid_tally_total``) is
-    checked and timed on its own, beside one torch.sum of the tally."""
+    checked and timed on its own, beside one torch.sum of the tally.
+    Then every cuckoo kernel at k = 32 on counting batches with a poly-T
+    run, whose windows are the empty-slot sentinel."""
     import torch
 
     from strainer2_tpu_torch.index.build import StrainIndex
@@ -453,7 +560,9 @@ def check_compare_kernels(d: str, ctx: dict, dev) -> dict:
     )
 
     kinds = {"count": ctx["count"], "targets": [b for b, _, _ in ctx["detect"]["targets"]]}
-    out = {"hit_accumulate": {}, "hit_stats": {}, "count_valid_step": {}, "valid_tally_total": {}}
+    out = {name: {} for name in ("hit_accumulate", "hit_stats", "count_valid_step",
+                                 "valid_tally_total", "cuckoo_hit_accumulate", "cuckoo_hit_stats",
+                                 "cuckoo_count_valid_step")}
     for k in COMPARE_KS:
         if k == K:
             index = ctx["index"]
@@ -462,6 +571,8 @@ def check_compare_kernels(d: str, ctx: dict, dev) -> dict:
         t = index.table
         h, salt = t.h_bits, t.salt
         rows = torch.from_numpy(t.table).to(dev)
+        cuckoo, cuckoo_table = cuckoo_hit_cases(index, dev)
+        k9_tables = {"hit_stats": (rows, h, salt), "cuckoo_hit_stats": cuckoo_table}
         for kind, bs in kinds.items():
             per = [batch_stats(rows, h, salt, b, k) for b in bs]
             valid, _, hits = (sum(x) / N_BATCHES for x in zip(*per))
@@ -492,10 +603,11 @@ def check_compare_kernels(d: str, ctx: dict, dev) -> dict:
                     lambda i: (L.hit_stats_plain(rows, bs[i], per[i][0] // 2, h, salt, k),),
                     k9_bytes(bs[0], valid, hits)),
             }
+            cases.update(cuckoo(bs, per, k, valid, hits))
             for name, (kern, plain, n_bytes, *timed_fns) in cases.items():
                 err = checked(f"{name} {label}", kern, plain)
-                if name == "hit_stats":
-                    err = max(err, check_remaining_edges(rows, bs, per, h, salt, k, label))
+                if name in k9_tables:
+                    err = max(err, check_remaining_edges(name, k9_tables[name], bs, per, k, label))
                 out[name][label] = dict(timed(f"{name} {label}", *(timed_fns or (kern, plain)),
                                               bound_ms(n_bytes), note), max_abs_err=err)
             if int(acc[0]) <= 0 or not int(counts.view(torch.int32).ne(0).sum()):
@@ -512,9 +624,100 @@ def check_compare_kernels(d: str, ctx: dict, dev) -> dict:
             if k == COMPARE_K and kind == "targets":
                 device_work(lambda: (L.hit_stats(rows, bs[0], per[0][0] // 2, h, salt, k), k3v(0)))
             del counts, counts_plain, tally, tally_plain
-        del rows, index
+        del rows, index, cuckoo, cuckoo_table, k9_tables
         torch.cuda.empty_cache()
+    check_poly_t(d, ctx, dev)
     return out
+
+
+def cuckoo_hit_cases(index, dev):
+    """The cuckoo K8, K9 and K3 with its valid count over a cuckoo table of
+    ``index``'s keys: a function of (batches, their batch_stats, k, valid,
+    hits) that gives check_compare_kernels' cases, and the table as
+    (slots, h_bits, salt)."""
+    import torch
+
+    from strainer2_tpu_torch.index.build import StrainIndex
+    from strainer2_tpu_torch.ops import lookup as L
+    from strainer2_tpu_torch.tools.bench_kernels import k3v_bytes, k8_bytes, k9_bytes
+
+    ct = StrainIndex(k=index.k, codes=index.codes, genome_counts=index.genome_counts,
+                     layout_="cuckoo").table
+    table = torch.from_numpy(ct.table).to(dev)
+    h, salt = ct.h_bits, ct.salt
+
+    def cases(bs, per, k, valid, hits):
+        acc, acc_plain = (torch.zeros(2, dtype=torch.int64, device=dev) for _ in range(2))
+        counts, counts_plain = (torch.zeros(ct.num_slots, dtype=torch.uint32, device=dev)
+                                for _ in range(2))
+        tally, tally_plain = (torch.zeros(L.n_tiles(ROWS, ROW_LEN, k), dtype=torch.int64,
+                                          device=dev) for _ in range(2))
+        k3v = lambda i: L.cuckoo_count_valid_step(counts, tally, table, bs[i], h, salt, k)  # noqa: E731
+        k3v_plain = lambda i: L.cuckoo_count_valid_step_plain(  # noqa: E731
+            counts_plain, tally_plain, table, bs[i], h, salt, k)
+        half = [p[0] // 2 for p in per]
+        return {
+            "cuckoo_hit_accumulate": (
+                lambda i: (L.cuckoo_hit_accumulate(acc, table, bs[i], h, salt, k),),
+                lambda i: (L.cuckoo_hit_accumulate_plain(acc_plain, table, bs[i], h, salt, k),),
+                k8_bytes(bs[0], valid, hits, "cuckoo")),
+            "cuckoo_count_valid_step": (
+                lambda i: (k3v(i), L.valid_tally_total(tally)),
+                lambda i: (k3v_plain(i), L.valid_tally_total_plain(tally_plain)),
+                k3v_bytes(bs[0], valid, hits, "cuckoo"),
+                lambda i: (k3v(i),),
+                lambda i: (k3v_plain(i),)),
+            "cuckoo_hit_stats": (
+                lambda i: (L.cuckoo_hit_stats(table, bs[i], half[i], h, salt, k),),
+                lambda i: (L.cuckoo_hit_stats_plain(table, bs[i], half[i], h, salt, k),),
+                k9_bytes(bs[0], valid, hits, "cuckoo")),
+        }
+
+    return cases, (table, h, salt)
+
+
+def check_poly_t(d: str, ctx: dict, dev) -> None:
+    """Every cuckoo kernel at k = 32 against its plain version on phase 2's
+    counting batches with a run of 300 T in every fourth row: those
+    windows code as the empty-slot sentinel (0xFFFFFFFF in both halves)
+    and are found at an empty slot, in both packages."""
+    import torch
+
+    from strainer2_tpu_torch.index.build import StrainIndex
+    from strainer2_tpu_torch.ops import lookup as L
+    from strainer2_tpu_torch.ops.packing import canonical_windows_plain
+    from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
+
+    ct = StrainIndex.from_fasta(os.path.join(d, "strain.fna"),
+                                TorchKmerEngine(32, device=dev, layout="cuckoo")).table
+    table = torch.from_numpy(ct.table).to(dev)
+    h, salt, k = ct.h_bits, ct.salt, 32
+    bs = []
+    for b in ctx["count"]:
+        b = b.clone()
+        b[::4, 1000:1300] = 3
+        bs.append(b)
+    meta = torch.from_numpy((np.arange(ct.num_slots) % 3 == 0).astype(np.uint32) + 1).to(dev)
+    bounds = torch.arange(0, ROWS * (ROW_LEN - k + 1) + 1, 997, dtype=torch.int32, device=dev)
+    z = lambda dt, n: torch.zeros(n, dtype=dt, device=dev)  # noqa: E731
+    n_tally = L.n_tiles(ROWS, ROW_LEN, k)
+    pairs = {
+        "cuckoo_lookup": lambda f, i: f(table, h, salt, *canonical_windows_plain(bs[i], k)[:2]),
+        "cuckoo_count_step": lambda f, i: (f(z(torch.uint32, ct.num_slots), table, bs[i], h, salt, k),),
+        "cuckoo_count_valid_step": lambda f, i: (f(z(torch.uint32, ct.num_slots),
+                                                   z(torch.int64, n_tally), table, bs[i], h, salt, k),),
+        "cuckoo_classify_step": lambda f, i: f(table, meta, bs[i], bounds, h, salt, k),
+        "cuckoo_hit_accumulate": lambda f, i: (f(z(torch.int64, 2), table, bs[i], h, salt, k),),
+        "cuckoo_hit_stats": lambda f, i: (f(table, bs[i], 77, h, salt, k),),
+    }
+    for name, call in pairs.items():
+        kern, plain = getattr(L, name), getattr(L, name + "_plain")
+        checked(f"{name} k=32 poly-T", lambda i: call(kern, i), lambda i: call(plain, i))
+    sentinel = L.cuckoo_lookup_plain(table, h, salt, torch.full((1,), -1, dtype=torch.int32,
+                                                                device=dev).view(torch.uint32),
+                                     torch.full((1,), -1, dtype=torch.int32, device=dev).view(torch.uint32))
+    print(f"poly-T at k = 32: the sentinel window found {bool(sentinel[0])} (slot {int(sentinel[1])})",
+          flush=True)
 
 
 DEVICE_WORK = ("hit_stats_kernel", "hit_crossing_kernel", "count_valid_step_kernel")
@@ -541,23 +744,25 @@ def device_work(fn) -> None:
         fail(f"hit_stats and count_valid_step ran {short}, not {sorted(DEVICE_WORK)}")
 
 
-def check_remaining_edges(rows, bs, per, h, salt, k, label) -> int:
-    """K9 against its plain version with remaining at 0, 1, each batch's
-    valid total and one past it; fails on any difference."""
+def check_remaining_edges(name, table, bs, per, k, label) -> int:
+    """K9 (``name`` hit_stats or cuckoo_hit_stats, on ``table`` = (rows or
+    slots, h_bits, salt)) against its plain version with remaining at 0, 1,
+    each batch's valid total and one past it; fails on any difference."""
     from strainer2_tpu_torch.ops import lookup as L
 
+    kern, plain = getattr(L, name), getattr(L, name + "_plain")
+    t, h, salt = table
     err = 0
     for i, b in enumerate(bs):
         total = per[i][0]
         for rem in (0, 1, total, total + 1):
-            got = L.hit_stats(rows, b, rem, h, salt, k)
-            want = L.hit_stats_plain(rows, b, rem, h, salt, k)
-            err = max(err, max_abs_err((got,), (want,)))
+            got = kern(t, b, rem, h, salt, k)
+            err = max(err, max_abs_err((got,), (plain(t, b, rem, h, salt, k),)))
             if rem == total + 1 and got.tolist()[2:] != [0, -1]:
-                fail(f"hit_stats {label}: a crossing past the batch was found")
-    print(f"check hit_stats {label} remaining 0, 1, total, total + 1: max_abs_err {err}", flush=True)
+                fail(f"{name} {label}: a crossing past the batch was found")
+    print(f"check {name} {label} remaining 0, 1, total, total + 1: max_abs_err {err}", flush=True)
     if err:
-        fail(f"hit_stats {label} disagrees with its plain version at a remaining edge")
+        fail(f"{name} {label} disagrees with its plain version at a remaining edge")
     return err
 
 
@@ -586,6 +791,9 @@ def lookup_ab() -> dict:
         "max_abs_err": max(r[v]["err_plain"] for r in runs.values() for v in rings),
         "ms": base[RING_DEFAULT]["ms"],
         "plain_ms": base["plain"]["ms"],
+        "k10_max_abs_err": max(max(r["k10"]["err_plain"], r["k10"]["err_k2"]) for r in runs.values()),
+        "k10_ms": base["k10"]["ms"],
+        "k2_ms": base["k2"]["ms"],
     }
 
 
@@ -690,10 +898,90 @@ def mini_goldens(repo: str, out: str) -> None:
     checks += mini_fused(mini, o)
     checks += mini_compare(mini, o)
     checks += mini_modes(mini, o)
+    cuckoo_checks, cuckoo_launches = mini_cuckoo(mini, o)
+    checks += cuckoo_checks
     for name, ok in checks:
         print(f"mini golden {name}: {'identical' if ok else 'DIFFERS'}", flush=True)
     if not all(ok for _, ok in checks):
         fail("mini goldens differ")
+    return cuckoo_launches
+
+
+# the gc_* goldens at k <= 32 as run_genome_compare arguments: (call, config)
+CUCKOO_GC = {
+    "gc_single.txt": (dict(b_file="data/panel1.fna.gz", print_header=True), {}),
+    "gc_list_s17.txt": (dict(b_list="data/compare_list.txt"), dict(k=17)),
+    "gc_rapid.txt": (dict(b_list="data/compare_list.txt"),
+                     dict(max_seeds=300, threshold_for_fullmap=0.5)),
+    "gc_strainmode.txt": (dict(b_list="data/compare_list.txt"),
+                          dict(max_seeds=100_000, threshold_for_fullmap=0.05)),
+}
+
+
+def mini_cuckoo(mini: str, o) -> tuple[list, dict]:
+    """The mini goldens in the cuckoo layout, through the stage APIs (no
+    CLI takes a layout): run_scrub_count, strain_detect (run_detect) and
+    coverage_depth on its hits, genome_compare in the gc_* cases at k <=
+    32, strain-track with its tracks.  Returns the checks and the kernel
+    launches of this block, counted from 0 (strain-track's is the cuckoo
+    K3 with its valid count's path)."""
+    import shutil
+
+    import torch
+
+    from strainer2_tpu_torch.ops import _build
+    from strainer2_tpu_torch.pipeline.compare import CompareConfig, run_genome_compare
+    from strainer2_tpu_torch.pipeline.detect import DetectConfig, run_detect
+    from strainer2_tpu_torch.pipeline.multi import run_strain_track
+    from strainer2_tpu_torch.pipeline.scrub_count import ScrubCountConfig, run_scrub_count
+
+    exp = lambda name: os.path.join(mini, "expected", name)  # noqa: E731
+    c = lambda name: o(os.path.join("cuckoo", name))  # noqa: E731
+    os.makedirs(c("track"))
+    for name in ("strainA.fna.gz", "drug1.fna.gz", "scrubmeta1.fasta.gz"):
+        shutil.copy(os.path.join(mini, "data", name), c("track"))
+    with open(c("track/strains2.txt"), "w") as f:
+        f.write("strainA.fna.gz\ndrug1.fna.gz\n")
+    cwd = os.getcwd()
+    _build.reset_launches()
+    try:
+        os.chdir(mini)
+        with open(c("counts.tsv"), "w") as f:
+            run_scrub_count("data/strainA.fna.gz", "data/genomes.txt", "data/metagenomes.txt",
+                            out=f, cfg=ScrubCountConfig(device=DEVICE, layout="cuckoo"))
+        with open(c("detect_stdout.txt"), "w") as f:
+            run_detect("data/strainA.fna.gz", "expected/scrubbed_m05.txt",
+                       c("strainA_x.kmer_hits.gz"), batch_list="data/targets.txt", stdout=f,
+                       cfg=DetectConfig(device=DEVICE, layout="cuckoo"))
+        run_cli("coverage_depth", ["-k", c("strainA_x.kmer_hits.gz")], c("coverage.tsv"))
+        for golden, (call, cfg) in CUCKOO_GC.items():
+            with open(c(golden), "w") as f:
+                run_genome_compare("data/strainA.fna.gz", out=f, **call,
+                                   cfg=CompareConfig(device=DEVICE, layout="cuckoo", **cfg))
+        os.chdir(c("track"))
+        with open("st.txt", "w") as f:
+            run_strain_track("strains2.txt", "scrubmeta1.fasta.gz", out=f, device=DEVICE,
+                             layout="cuckoo")
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+    launches = dict(_build.launches)
+    track = "fna.gz_scrubmeta1.fasta.gz.strain_track"
+    checks = [
+        ("cuckoo scrub_counts.tsv", same_bytes(c("counts.tsv"), exp("scrub_counts.tsv"))),
+        ("cuckoo kmer_hits.txt", same_bytes(c("strainA_x.kmer_hits.gz"), exp("kmer_hits.txt"),
+                                            gz=True)),
+        ("cuckoo detect_stdout.txt", same_bytes(c("detect_stdout.txt"), exp("detect_stdout.txt"))),
+        ("cuckoo coverage_depth.tsv", same_bytes(c("coverage.tsv"), exp("coverage_depth.tsv"))),
+        *((f"cuckoo {g}", same_bytes(c(g), exp(g))) for g in CUCKOO_GC),
+        ("cuckoo strain-track stdout", same_bytes(c("track/st.txt"),
+                                                  exp("modes/strain_track_stdout.txt"))),
+        *((f"cuckoo strain-track {s}.{track}", same_bytes(c(f"track/{s}.{track}"),
+                                                          exp(f"modes/{s}.{track}")))
+          for s in ("strainA", "drug1")),
+    ]
+    print(f"launches during the cuckoo mini runs (phase 3): {launches}", flush=True)
+    return checks, launches
 
 
 # tools/make_mini_fixtures.py's genome_compare runs
@@ -1477,6 +1765,114 @@ def strain_track_real(d: str, multi: dict, rng) -> float:
     return wall
 
 
+# ---- phase 10: the cuckoo layout at real size ---------------------------------
+
+def real_size_cuckoo(d: str, data: dict) -> dict:
+    """The phase-4 strain's cuckoo index built on the card (K1, then the
+    port's native builder), every key checked to sit in one of its two
+    slots and saved; then, with layout="cuckoo" through the stage APIs,
+    run_scrub_count on the phase-4 panels, strain_detect on the phase-4
+    targets and genome_compare fullmap and -S on the phase-9 queries, each
+    byte-identical to phases 4 and 9; one more strain_detect on the saved
+    npz as its --index-cache must reuse it unwritten.  Launches counted
+    from 0 over the stage runs; every cuckoo kernel of the path must run
+    and no bucket twin may."""
+    import torch
+
+    from strainer2_tpu_torch.index.build import StrainIndex
+    from strainer2_tpu_torch.index.hashing import cuckoo_slots
+    from strainer2_tpu_torch.ops import _build
+    from strainer2_tpu_torch.ops.packing_np import split_code64_np
+    from strainer2_tpu_torch.pipeline.compare import CompareConfig, run_genome_compare
+    from strainer2_tpu_torch.pipeline.detect import DetectConfig, run_detect
+    from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
+    from strainer2_tpu_torch.pipeline.scrub_count import ScrubCountConfig, run_scrub_count
+
+    p = lambda name: os.path.join(d, name)  # noqa: E731
+    t0 = time.perf_counter()
+    index = StrainIndex.from_fasta(p("strain.fna"), TorchKmerEngine(K, device=DEVICE, layout="cuckoo"))
+    t = index.table
+    build_s = time.perf_counter() - t0
+    hi, lo = split_code64_np(index.codes, K)
+    s0 = cuckoo_slots(hi ^ np.uint32(t.salt), lo, t.h_bits, 0).astype(np.int64)
+    s1 = cuckoo_slots(hi ^ np.uint32(t.salt), lo, t.h_bits, 1).astype(np.int64) + t.num_slots // 2
+    slot = t.slot_of_key.astype(np.int64)
+    placed = bool(((slot == s0) | (slot == s1)).all()
+                  and np.array_equal(t.table[slot], np.stack([hi, lo], axis=1)))
+    print(f"phase 10 cuckoo index: {index.num_kmers} keys in 2 x 2^{t.h_bits} slots, salt {t.salt}, "
+          f"built in {build_s:.3f} s (scan on the card, native builder); every key at one of its "
+          f"two slots: {placed}", flush=True)
+    if not placed:
+        fail("a key of the cuckoo index is not at one of its two slots")
+    npz = p("cuckoo_index.npz")
+    index.save(npz)
+    del index
+
+    walls, cfg = {}, dict(device=DEVICE, layout="cuckoo")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with open(p("p10_counts.tsv"), "w") as f:
+        run_scrub_count(p("strain.fna"), p("genomes.txt"), p("metagenomes.txt"), out=f,
+                        cfg=ScrubCountConfig(**cfg))
+    torch.cuda.synchronize()
+    walls["kmer_scrub_count"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with open(p("p10_detect_stdout.txt"), "w") as f:
+        run_detect(p("strain.fna"), p("informative.txt"), p("p10_hits.gz"),
+                   batch_list=p("targets.txt"), stdout=f, cfg=DetectConfig(**cfg))
+    torch.cuda.synchronize()
+    walls["strain_detect"] = time.perf_counter() - t0
+    evaluated = {}
+    for run in ("fullmap", "strain mode"):
+        _, max_seeds, threshold = COMPARE_RUNS[run]
+        out = p(f"p10_{run.replace(' ', '_')}.txt")
+        t0 = time.perf_counter()
+        with open(out, "w") as f:
+            run_genome_compare(p("strain.fna"), b_list=p("compare_list.txt"), out=f,
+                               cfg=CompareConfig(max_seeds=max_seeds, threshold_for_fullmap=threshold,
+                                                 **cfg))
+        torch.cuda.synchronize()
+        walls[f"genome_compare {run}"] = time.perf_counter() - t0
+        with open(out) as f:
+            evaluated[run] = sum(int(x[2]) + int(x[3]) for x in (ln.split("\t") for ln in f))
+    launches = dict(_build.launches)
+
+    with open(npz, "rb") as f:
+        npz_bytes = f.read()
+    npz_mtime = os.stat(npz).st_mtime_ns
+    with open(p("p10_cache_stdout.txt"), "w") as f:
+        run_detect(p("strain.fna"), p("informative.txt"), p("p10_cache_hits.gz"),
+                   batch_list=p("targets.txt"), stdout=f, index_cache=npz, cfg=DetectConfig(**cfg))
+    with open(npz, "rb") as f:
+        cache_kept = f.read() == npz_bytes and os.stat(npz).st_mtime_ns == npz_mtime
+
+    rates = {"kmer_scrub_count": data["windows"]["panel"], "strain_detect": data["windows"]["targets"],
+             "genome_compare fullmap": evaluated["fullmap"],
+             "genome_compare strain mode": evaluated["strain mode"]}
+    for stage, wall in walls.items():
+        print(f"stage {stage} (cuckoo, phase 10): wall {wall:.3f} s, {rates[stage] / wall:,.0f} "
+              f"windows/s ({rates[stage]} windows)", flush=True)
+    ok = {
+        "counts": same_bytes(p("p10_counts.tsv"), p("counts.tsv")),
+        "hits": same_payloads(p("p10_hits.gz"), p("hits.gz")),
+        "detect stdout": same_bytes(p("p10_detect_stdout.txt"), p("detect_stdout.txt")),
+        "genome_compare fullmap": same_bytes(p("p10_fullmap.txt"), p("p9_fullmap.txt")),
+        "genome_compare -S": same_bytes(p("p10_strain_mode.txt"), p("p9_strain_mode.txt")),
+        "index-cache hits": same_payloads(p("p10_cache_hits.gz"), p("hits.gz")),
+        "index cache reused unwritten": cache_kept,
+    }
+    print(f"phase 10 (cuckoo) against phases 4 and 9: {ok}", flush=True)
+    if not all(ok.values()):
+        fail("the cuckoo layout's outputs differ from the bucket layout's at real size")
+    print(f"launches during phase 10 (cuckoo scrub, detect, genome_compare): {launches}", flush=True)
+    ran = ("canonical_windows", "cuckoo_count_step", "cuckoo_classify_step", "cuckoo_hit_accumulate",
+           "cuckoo_hit_stats")
+    twins = ("count_step", "classify_step", "hit_accumulate", "hit_stats")
+    if not all(launches[name] > 0 for name in ran) or any(launches[name] for name in twins):
+        fail(f"phase 10 did not run {ran} alone of the probing kernels")
+    return launches
+
+
 def profiled(out_dir: str, label: str, fn):
     """Run fn under torch.profiler: print device busy time against wall
     time, and write key_averages() sorted by device time to out_dir."""
@@ -1513,7 +1909,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--keep", default=None, help="directory to keep the generated data and outputs in")
     ap.add_argument("--profile", default=None,
-                    help="trace phases 4, 6, 7, 8 and 9 with torch.profiler; prints the device's busy "
+                    help="trace phases 4, 6, 7, 8, 9 and 10 with torch.profiler; prints the device's busy "
                          "share and writes the per-kernel tables into this directory")
     args = ap.parse_args()
 
@@ -1554,6 +1950,7 @@ def main() -> int:
         # ---- phase 2: kernels vs plain versions
         phase("2")
         results, ctx = check_kernels(d, data, rng, torch.device(DEVICE), args.seed)
+        cuckoo_k = check_cuckoo_kernels(ctx, torch.device(DEVICE))
         compare_k = check_compare_kernels(d, ctx, torch.device(DEVICE))
 
         # ---- phase 2b: the lookup A/B tool (path (a)), K6/K7 at S strains
@@ -1567,7 +1964,7 @@ def main() -> int:
         phase("3")
         mini_out = os.path.join(d, "mini")
         os.makedirs(mini_out, exist_ok=True)
-        mini_goldens(repo, mini_out)
+        mini_cuckoo_launches = mini_goldens(repo, mini_out)
 
         # ---- phase 4: real size through the CLIs; launches counted here
         phase("4")
@@ -1629,6 +2026,14 @@ def main() -> int:
             strain_track_real(d, multi, rng)
         compare_launches = dict(_build.launches)
 
+        # ---- phase 10: the cuckoo layout at real size; launches counted
+        phase("10")
+        if args.profile:
+            cuckoo_launches = profiled(args.profile, "phase10", lambda: real_size_cuckoo(d, data))
+        else:
+            cuckoo_launches = real_size_cuckoo(d, data)
+            print("phase 10 idle share: not measured (run with --profile)", flush=True)
+
     # ---- phase 5
     phase("5")
     paths = {
@@ -1636,6 +2041,7 @@ def main() -> int:
         "bench_lookup (phase 2b)": ab["launches"],
         "detect-multi (phase 6)": multi_launches,
         "genome_compare and strain-track (phase 9)": compare_launches,
+        "cuckoo stage runs (phase 10)": cuckoo_launches,
     }
     for path, counts in paths.items():
         print(f"launches during {path}: {counts}", flush=True)
@@ -1654,7 +2060,17 @@ def main() -> int:
                                ("hit_accumulate", "genome_compare (phase 9)", compare_launches),
                                ("hit_stats", "genome_compare (phase 9)", compare_launches),
                                ("count_valid_step", "strain-track (phase 9)", compare_launches),
-                               ("valid_tally_total", "strain-track (phase 9)", compare_launches)):
+                               ("valid_tally_total", "strain-track (phase 9)", compare_launches),
+                               ("cuckoo_lookup", "bench_lookup (phase 2b)", ab["launches"]),
+                               ("cuckoo_count_step", "scrub count, cuckoo (phase 10)", cuckoo_launches),
+                               ("cuckoo_classify_step", "strain_detect, cuckoo (phase 10)",
+                                cuckoo_launches),
+                               ("cuckoo_hit_accumulate", "genome_compare fullmap, cuckoo (phase 10)",
+                                cuckoo_launches),
+                               ("cuckoo_hit_stats", "genome_compare -S, cuckoo (phase 10)",
+                                cuckoo_launches),
+                               ("cuckoo_count_valid_step", "strain-track, cuckoo (phase 3)",
+                                mini_cuckoo_launches)):
         launches[name] = counts[name]
         launched_by[name] = path
     if not all(launches[name] > 0 for name in REPLACES):
@@ -1662,10 +2078,17 @@ def main() -> int:
     ring = results["bucket_lookup_ring"]
     ring.update(max_abs_err=max(ring["max_abs_err"], ab["max_abs_err"]),
                 ab_ms_per_4m=ab["ms"], ab_plain_ms_per_4m=ab["plain_ms"])
+    results.update(cuckoo_k)
+    k10 = results["cuckoo_lookup"]
+    k10.update(max_abs_err=max(k10["max_abs_err"], ab["k10_max_abs_err"]), ab_ms_per_4m=ab["k10_ms"],
+               ab_k2_ms_per_4m=ab["k2_ms"])
     for name, headline in (("hit_accumulate", f"targets k={COMPARE_K}"),
                            ("hit_stats", f"targets k={COMPARE_K}"),
                            ("count_valid_step", f"targets k={K}"),
-                           ("valid_tally_total", f"targets k={K}")):
+                           ("valid_tally_total", f"targets k={K}"),
+                           ("cuckoo_hit_accumulate", f"targets k={COMPARE_K}"),
+                           ("cuckoo_hit_stats", f"targets k={COMPARE_K}"),
+                           ("cuckoo_count_valid_step", f"targets k={K}")):
         by = compare_k[name]
         results[name] = dict(by[headline], max_abs_err=max(r["max_abs_err"] for r in by.values()),
                              **{label: r for label, r in by.items() if label != headline})

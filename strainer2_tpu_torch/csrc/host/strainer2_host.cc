@@ -9,7 +9,7 @@
 //     reference src/kseq.h, feeding fixed-shape device buffers),
 //   * replay of the reference hash's output row order (djb2 + linear
 //     probing + capacity doubling, reference src/BIO_hash.c),
-//   * bucket-table construction, first-encounter unique, count-table row
+//   * bucket- and cuckoo-table construction, first-encounter unique, count-table row
 //     formatting and parsing, kmer_hits parsing, the rolling canonical
 //     scanner,
 //   * the CPU panel counter and read classifiers the checks compare with,
@@ -558,6 +558,55 @@ static inline uint32_t cuckoo_slot(uint32_t hi, uint32_t lo, int h_bits, int whi
   uint32_t x = (hi * C[which][0]) ^ (lo * C[which][1]) ^ C[which][2];
   x = mix32(x);
   return h_bits < 32 ? (x >> (32 - h_bits)) : x;
+}
+
+// table: (2*(1<<h_bits)) x 2 uint32, pre-filled by caller with 0xFFFFFFFF.
+// Returns 0 on success, -1 on eviction failure (caller retries w/ new salt).
+int s2_build_cuckoo(const uint64_t* codes, long long n, int k, int h_bits,
+                    uint32_t salt, uint32_t* table, int32_t* slot_of_key) {
+  const long long h = 1LL << h_bits;
+  const int n_lo = k < 16 ? k : 16;
+  std::vector<long long> key_at_slot((size_t)(2 * h), -1);
+
+  // precompute both candidate slots per key in one streaming pass
+  std::vector<int32_t> s0v((size_t)n), s1v((size_t)n);
+  for (long long i = 0; i < n; ++i) {
+    uint64_t code = codes[i];
+    uint32_t lo = (uint32_t)(code & ((2 * n_lo < 64) ? ((1ULL << (2 * n_lo)) - 1) : ~0ULL));
+    uint32_t hi = (uint32_t)(code >> (2 * n_lo)) ^ salt;
+    s0v[(size_t)i] = (int32_t)cuckoo_slot(hi, lo, h_bits, 0);
+    s1v[(size_t)i] = (int32_t)(cuckoo_slot(hi, lo, h_bits, 1) + h);
+  }
+
+  for (long long i = 0; i < n; ++i) {
+    long long cur = i;
+    long long s0 = s0v[(size_t)i], s1 = s1v[(size_t)i];
+    long long target = key_at_slot[(size_t)s0] < 0 ? s0
+                       : key_at_slot[(size_t)s1] < 0 ? s1
+                                                     : s0;
+    int steps = 0;
+    while (true) {
+      long long displaced = key_at_slot[(size_t)target];
+      key_at_slot[(size_t)target] = cur;
+      slot_of_key[cur] = (int32_t)target;
+      if (displaced < 0) break;
+      if (++steps > 500) return -1;
+      cur = displaced;
+      s0 = s0v[(size_t)cur];
+      s1 = s1v[(size_t)cur];
+      target = (slot_of_key[cur] == (int32_t)s0) ? s1 : s0;
+    }
+  }
+
+  for (long long s = 0; s < 2 * h; ++s) {
+    long long key = key_at_slot[(size_t)s];
+    if (key >= 0) {
+      uint64_t code = codes[key];
+      table[2 * s + 1] = (uint32_t)(code & ((2 * n_lo < 64) ? ((1ULL << (2 * n_lo)) - 1) : ~0ULL));
+      table[2 * s] = (uint32_t)(code >> (2 * n_lo));
+    }
+  }
+  return 0;
 }
 
 // ---- fast scrub-table row formatting ---------------------------------------

@@ -12,7 +12,10 @@
 //   cell of the FIRST equal cell, as jnp.argmax picks it
 //   (strainer2_tpu/ops/lookup.py:128); a meta word is the uint32-wrapping
 //   SUM of that lane over every equal cell, as _meta_block sums it
-//   (strainer2_tpu/ops/lookup.py:133-136; meta_sum).
+//   (strainer2_tpu/ops/lookup.py:133-136; meta_sum);
+// - a cuckoo table is 2H slots of (hi, lo) uint32 pairs
+//   (strainer2_tpu/index/cuckoo.py); a key's slots are cuckoo_slot(hi ^ salt,
+//   lo, h_bits, 0) and cuckoo_slot(hi ^ salt, lo, h_bits, 1) + H.
 #pragma once
 
 #include <cstdint>
@@ -35,6 +38,17 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x *= 0x846CA68Bu;
   x ^= x >> 16;
   return x;
+}
+
+// cuckoo_slots(hi, lo, h_bits, which) (strainer2_tpu/index/hashing.py), with
+// both constant sets; the cuckoo layout salts hi before it calls this.
+// Same values as the host library's cuckoo_slot (csrc/host/strainer2_host.cc).
+__device__ __forceinline__ uint32_t cuckoo_slot(uint32_t hi, uint32_t lo, int h_bits, int which) {
+  const uint32_t a = which ? 0x27D4EB2Fu : 0x9E3779B1u;
+  const uint32_t b = which ? 0x165667B1u : 0x85EBCA77u;
+  const uint32_t c = which ? 0xD3A2646Du : 0xC2B2AE3Du;
+  const uint32_t x = mix32((hi * a) ^ (lo * b) ^ c);
+  return h_bits < 32 ? x >> (32 - h_bits) : x;
 }
 
 // cuckoo_slots(hi ^ salt, lo, h_bits, which=0)

@@ -7,7 +7,10 @@
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 //
 // The shared definitions (k-mer packing, bucket hash, row layout, first
-// equal cell) are in kmer_device.cuh.
+// equal cell, the cuckoo hash) are in kmer_device.cuh.  K3, K4, K8 and K9
+// take their table through a probe policy (BucketProbe, CuckooProbe): each
+// runs in the bucket layout and, as its cuckoo_ instance, in the cuckoo
+// layout, with K10 (cuckoo_lookup) the cuckoo twin of K2.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -111,6 +114,82 @@ __global__ void bucket_lookup_kernel(const uint32_t* __restrict__ rows,
 }
 
 // ---------------------------------------------------------------------------
+// Probe policies of K3, K4, K8 and K9: find() returns nonzero where the
+// table holds the key (hi, lo) and sets *where; slot() is the count index of
+// a hit, meta() its detection class.
+// ---------------------------------------------------------------------------
+// The bucket rows (K2's probe): where = the bucket, the mask its equal cells.
+struct BucketProbe {
+  const uint32_t* rows;
+  int row_width;
+  int h_bits;
+  uint32_t salt;
+
+  __device__ __forceinline__ unsigned find(uint32_t h, uint32_t l, uint32_t* where) const {
+    *where = bucket_of(h, l, h_bits, salt);
+    return match_mask(rows + static_cast<size_t>(*where) * row_width, h, l);
+  }
+  __device__ __forceinline__ size_t slot(uint32_t where, unsigned m) const {
+    return static_cast<size_t>(where) * kKeysPerBucket + (__ffs(m) - 1);
+  }
+  __device__ __forceinline__ uint32_t meta(uint32_t where, unsigned m) const {
+    return meta_sum(rows + static_cast<size_t>(where) * row_width + kMetaLane, m);
+  }
+};
+
+// The cuckoo table (K10's probe): where = s0 if slot s0 holds the key, else
+// s1, found or not, as the JAX cuckoo_lookup picks it; the class is meta[slot].
+struct CuckooProbe {
+  const uint2* table;  // 2H (hi, lo) slots
+  int h_bits;
+  uint32_t salt;
+  uint32_t H;
+  const uint32_t* meta_words;  // 2H classes (K4 only)
+
+  __device__ __forceinline__ unsigned find(uint32_t h, uint32_t l, uint32_t* where) const {
+    const uint32_t sh = h ^ salt;  // the salt enters the hash only
+    const uint32_t s0 = cuckoo_slot(sh, l, h_bits, 0);
+    const uint32_t s1 = cuckoo_slot(sh, l, h_bits, 1) + H;
+    const uint2 a = __ldg(table + s0);  // both loads in flight before either compare
+    const uint2 b = __ldg(table + s1);
+    const bool hit0 = (a.x == h) & (a.y == l);
+    const bool hit1 = (b.x == h) & (b.y == l);
+    *where = hit0 ? s0 : s1;
+    return hit0 | hit1;
+  }
+  __device__ __forceinline__ size_t slot(uint32_t where, unsigned) const { return where; }
+  __device__ __forceinline__ uint32_t meta(uint32_t where, unsigned) const {
+    return __ldg(meta_words + where);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// K10 cuckoo_lookup
+//
+// Replaces: the jnp cuckoo_lookup, strainer2_tpu/ops/lookup.py:39-72 (two
+//   gathers from the hi and lo planes of each slot, then the compares).
+// Bound on this card: random DRAM accesses. A query reads its two slots'
+//   8-byte (hi, lo) pairs, each a 32-byte sector at a hashed address, hit
+//   or miss, and writes 5 bytes.
+// Design: one thread a query; the table is read interleaved, (2H, 2)
+//   uint32 as the npz stores it, so one 8-byte __ldg a slot brings hi and
+//   lo from one sector (the JAX planes are for a v5e XLA gather rule), and
+//   both slots' loads are in flight before either compare: two independent
+//   misses a thread.
+// ---------------------------------------------------------------------------
+__global__ void cuckoo_lookup_kernel(const uint2* __restrict__ table, int h_bits, uint32_t H,
+                                     uint32_t salt, const uint32_t* __restrict__ qhi,
+                                     const uint32_t* __restrict__ qlo, int64_t n,
+                                     uint8_t* __restrict__ found, int32_t* __restrict__ slot) {
+  const int64_t q = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (q >= n) return;
+  const CuckooProbe probe{table, h_bits, salt, H, nullptr};
+  uint32_t where;
+  found[q] = probe.find(qhi[q], qlo[q], &where) != 0;
+  slot[q] = static_cast<int32_t>(where);
+}
+
+// ---------------------------------------------------------------------------
 // K3 count_step
 //
 // Replaces: the XLA program engine._count_step_bucket +
@@ -138,50 +217,45 @@ __global__ void bucket_lookup_kernel(const uint32_t* __restrict__ rows,
 //   adds commute, so the count bytes do not depend on the order the
 //   atomics land in.
 // ---------------------------------------------------------------------------
-// probe_window that also says whether the window is valid (K3 with its
-// valid count, K8, K9).
+// The probe of window w0 + p of a packed tile (K3, K8, K9): nonzero where
+// the window is valid and its key is in the table (*where as the probe sets
+// it); *valid says whether the window is valid.
+template <class Probe>
 __device__ __forceinline__ unsigned probe_valid_window(const PackedTile& t, int p,
-                                                       const uint32_t* rows, int row_width,
-                                                       int h_bits, uint32_t salt, int w0,
-                                                       int W, int k, uint32_t* bucket,
-                                                       bool* valid) {
+                                                       const Probe& probe, int w0, int W, int k,
+                                                       uint32_t* where, bool* valid) {
   uint32_t h, l;
   *valid = w0 + p < W && packed_window(t, p, k, min(k, 16), &h, &l);
   if (!*valid) return 0u;
-  *bucket = bucket_of(h, l, h_bits, salt);
-  return match_mask(rows + static_cast<size_t>(*bucket) * row_width, h, l);
+  return probe.find(h, l, where);
 }
 
 // One block of K3. kCountValid adds the tile's valid windows into its own
-// slot of the caller's int64 tally (strain-track); the false instance is
-// the count step of every other path and compiles to the instructions it
-// had before the flag.
-template <bool kCountValid>
-__device__ __forceinline__ void count_step_tile(uint32_t* __restrict__ counts,
-                                                const uint32_t* __restrict__ rows,
-                                                int row_width, int h_bits, uint32_t salt,
+// slot of the caller's int64 tally (strain-track).
+template <bool kCountValid, class Probe>
+__device__ __forceinline__ void count_step_tile(uint32_t* __restrict__ counts, const Probe& probe,
                                                 const uint8_t* __restrict__ bases, int L, int k,
                                                 long long* __restrict__ tally) {
   __shared__ PackedTile tile;
   const int w0 = blockIdx.x * kTile;
-  uint32_t b;
+  uint32_t where;
+  bool valid;
   if constexpr (kCountValid) {
     // the slot is read before the tile is packed, so its latency hides
     // behind the probe; no other block of the launch touches it
     const size_t t = static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
     const long long before = threadIdx.x == 0 ? tally[t] : 0;
     pack_tile(tile, bases + static_cast<size_t>(blockIdx.y) * L, w0, L);
-    bool valid;
-    const unsigned m = probe_valid_window(tile, threadIdx.x, rows, row_width, h_bits, salt, w0,
-                                          L - k + 1, k, &b, &valid);
-    if (m) atomicAdd(counts + static_cast<size_t>(b) * kKeysPerBucket + (__ffs(m) - 1), 1u);
+    const unsigned m = probe_valid_window(tile, threadIdx.x, probe, w0, L - k + 1, k, &where,
+                                          &valid);
+    if (m) atomicAdd(counts + probe.slot(where, m), 1u);
     const int n_valid = __syncthreads_count(valid);
     if (threadIdx.x == 0 && n_valid) tally[t] = before + n_valid;
   } else {
     pack_tile(tile, bases + static_cast<size_t>(blockIdx.y) * L, w0, L);
-    const unsigned m = probe_window(tile, threadIdx.x, rows, row_width, h_bits, salt, w0,
-                                    L - k + 1, k, &b);
-    if (m) atomicAdd(counts + static_cast<size_t>(b) * kKeysPerBucket + (__ffs(m) - 1), 1u);
+    const unsigned m = probe_valid_window(tile, threadIdx.x, probe, w0, L - k + 1, k, &where,
+                                          &valid);
+    if (m) atomicAdd(counts + probe.slot(where, m), 1u);
   }
 }
 
@@ -189,7 +263,22 @@ __global__ void __launch_bounds__(kTile)
 count_step_kernel(uint32_t* __restrict__ counts, const uint32_t* __restrict__ rows,
                   int row_width, int h_bits, uint32_t salt,
                   const uint8_t* __restrict__ bases, int L, int k) {
-  count_step_tile<false>(counts, rows, row_width, h_bits, salt, bases, L, k, nullptr);
+  count_step_tile<false>(counts, BucketProbe{rows, row_width, h_bits, salt}, bases, L, k,
+                         nullptr);
+}
+
+// K3 in the cuckoo layout.
+// Replaces: the XLA program engine._count_step + accumulate_counts
+//   (strainer2_tpu/pipeline/engine.py:301-304, ops/lookup.py:104-116).
+// Bound on this card: random DRAM accesses, two 32-byte sectors a valid
+//   window (its two slots, hit or miss) and a count sector a hit.
+// Design: K3's block with K10's probe; counts[slot] over 2H cells.
+__global__ void __launch_bounds__(kTile)
+cuckoo_count_step_kernel(uint32_t* __restrict__ counts, const uint2* __restrict__ table,
+                         int h_bits, uint32_t H, uint32_t salt,
+                         const uint8_t* __restrict__ bases, int L, int k) {
+  count_step_tile<false>(counts, CuckooProbe{table, h_bits, salt, H, nullptr}, bases, L, k,
+                         nullptr);
 }
 
 // K3 with a valid-window count.
@@ -213,7 +302,20 @@ count_valid_step_kernel(uint32_t* __restrict__ counts, const uint32_t* __restric
                         int row_width, int h_bits, uint32_t salt,
                         const uint8_t* __restrict__ bases, int L, int k,
                         long long* __restrict__ tally) {
-  count_step_tile<true>(counts, rows, row_width, h_bits, salt, bases, L, k, tally);
+  count_step_tile<true>(counts, BucketProbe{rows, row_width, h_bits, salt}, bases, L, k, tally);
+}
+
+// K3 with its valid count in the cuckoo layout.
+// Replaces: the XLA program engine._count_valid_step
+//   (strainer2_tpu/pipeline/engine.py:294-298).
+// Bound and design: cuckoo K3's, and the tally slot a tile of K3 with its
+//   valid count.
+__global__ void __launch_bounds__(kTile)
+cuckoo_count_valid_step_kernel(uint32_t* __restrict__ counts, const uint2* __restrict__ table,
+                               int h_bits, uint32_t H, uint32_t salt,
+                               const uint8_t* __restrict__ bases, int L, int k,
+                               long long* __restrict__ tally) {
+  count_step_tile<true>(counts, CuckooProbe{table, h_bits, salt, H, nullptr}, bases, L, k, tally);
 }
 
 constexpr int kTotalThreads = 1024;
@@ -256,23 +358,43 @@ valid_tally_total_kernel(const long long* __restrict__ tally, int n,
 //   totals exact on any file: the JAX program's int32 lanes needed a host
 //   spill every 1024 batches.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kTile)
-hit_accumulate_kernel(unsigned long long* __restrict__ acc, const uint32_t* __restrict__ rows,
-                      int row_width, int h_bits, uint32_t salt,
-                      const uint8_t* __restrict__ bases, int L, int k) {
+template <class Probe>
+__device__ __forceinline__ void hit_accumulate_tile(unsigned long long* __restrict__ acc,
+                                                    const Probe& probe,
+                                                    const uint8_t* __restrict__ bases, int L,
+                                                    int k) {
   __shared__ PackedTile tile;
   const int w0 = blockIdx.x * kTile;
   pack_tile(tile, bases + static_cast<size_t>(blockIdx.y) * L, w0, L);
-  uint32_t b;
+  uint32_t where;
   bool valid;
-  const bool hit = probe_valid_window(tile, threadIdx.x, rows, row_width, h_bits, salt, w0,
-                                      L - k + 1, k, &b, &valid) != 0;
+  const bool hit = probe_valid_window(tile, threadIdx.x, probe, w0, L - k + 1, k, &where,
+                                      &valid) != 0;
   const int n_hit = __syncthreads_count(hit);
   const int n_valid = __syncthreads_count(valid);
   if (threadIdx.x == 0) {
     if (n_hit) atomicAdd(acc, static_cast<unsigned long long>(n_hit));
     if (n_valid) atomicAdd(acc + 1, static_cast<unsigned long long>(n_valid));
   }
+}
+
+__global__ void __launch_bounds__(kTile)
+hit_accumulate_kernel(unsigned long long* __restrict__ acc, const uint32_t* __restrict__ rows,
+                      int row_width, int h_bits, uint32_t salt,
+                      const uint8_t* __restrict__ bases, int L, int k) {
+  hit_accumulate_tile(acc, BucketProbe{rows, row_width, h_bits, salt}, bases, L, k);
+}
+
+// K8 in the cuckoo layout.
+// Replaces: the XLA program engine._hit_accum + _accum_from_masks
+//   (strainer2_tpu/pipeline/engine.py:279-281, :252-258).
+// Bound on this card: the bases and two 32-byte sectors a valid window.
+// Design: K8's block with K10's probe.
+__global__ void __launch_bounds__(kTile)
+cuckoo_hit_accumulate_kernel(unsigned long long* __restrict__ acc,
+                             const uint2* __restrict__ table, int h_bits, uint32_t H,
+                             uint32_t salt, const uint8_t* __restrict__ bases, int L, int k) {
+  hit_accumulate_tile(acc, CuckooProbe{table, h_bits, salt, H, nullptr}, bases, L, k);
 }
 
 // ---------------------------------------------------------------------------
@@ -305,13 +427,13 @@ hit_accumulate_kernel(unsigned long long* __restrict__ acc, const uint32_t* __re
 // ---------------------------------------------------------------------------
 constexpr int kTileWords = kTile / 32;  // mask words a tile
 
-__global__ void classify_masks_kernel(const uint32_t* __restrict__ rows,
-                                      int row_width, int h_bits, uint32_t salt,
-                                      const uint8_t* __restrict__ bases, int L,
-                                      int k, uint32_t* __restrict__ hit_mask,
-                                      uint32_t* __restrict__ inf_mask,
-                                      int32_t* __restrict__ tile_hits,
-                                      int32_t* __restrict__ tile_infs) {
+template <class Probe>
+__device__ __forceinline__ void classify_masks_tile(const Probe& probe,
+                                                    const uint8_t* __restrict__ bases, int L,
+                                                    int k, uint32_t* __restrict__ hit_mask,
+                                                    uint32_t* __restrict__ inf_mask,
+                                                    int32_t* __restrict__ tile_hits,
+                                                    int32_t* __restrict__ tile_infs) {
   __shared__ uint8_t tile[kTile + kMaxK];
   const int W = L - k + 1;
   const int row = blockIdx.y;
@@ -321,12 +443,11 @@ __global__ void classify_masks_kernel(const uint32_t* __restrict__ rows,
   bool hit = false, informative = false;
   uint32_t h, l;
   if (w < W && canonical_window(tile + threadIdx.x, k, min(k, 16), &h, &l)) {
-    const uint32_t* r = rows + static_cast<size_t>(bucket_of(h, l, h_bits, salt)) * row_width;
-    unsigned m = lanes_equal(r, h);                // key_hi lanes
-    if (m) m &= lanes_equal(r + kKeysPerBucket, l);  // key_lo lanes, only then
+    uint32_t where;
+    const unsigned m = probe.find(h, l, &where);
     if (m) {
       hit = true;
-      informative = meta_sum(r + kMetaLane, m) == kInformative;
+      informative = probe.meta(where, m) == kInformative;
     }
   }
   const unsigned hm = __ballot_sync(0xffffffffu, hit);
@@ -342,6 +463,38 @@ __global__ void classify_masks_kernel(const uint32_t* __restrict__ rows,
     tile_hits[t] = n_hit;
     tile_infs[t] = n_inf;
   }
+}
+
+__global__ void classify_masks_kernel(const uint32_t* __restrict__ rows,
+                                      int row_width, int h_bits, uint32_t salt,
+                                      const uint8_t* __restrict__ bases, int L,
+                                      int k, uint32_t* __restrict__ hit_mask,
+                                      uint32_t* __restrict__ inf_mask,
+                                      int32_t* __restrict__ tile_hits,
+                                      int32_t* __restrict__ tile_infs) {
+  classify_masks_tile(BucketProbe{rows, row_width, h_bits, salt}, bases, L, k, hit_mask,
+                      inf_mask, tile_hits, tile_infs);
+}
+
+// K4's first launch in the cuckoo layout.
+// Replaces: the XLA program engine._classify_step
+//   (strainer2_tpu/pipeline/engine.py:307-320), its probe and meta gather.
+// Bound on this card: the bases, the boundaries, two 32-byte sectors a
+//   valid window, a meta word a hit, 8 bytes a read out.
+// Design: classify_masks' block with K10's probe; informative where the
+//   separate slot-indexed meta word is kInformative: one word, never a sum
+//   (a key held in both of its slots reads meta[s0]). The scan and sums
+//   launches are K4's.
+__global__ void cuckoo_classify_masks_kernel(const uint2* __restrict__ table,
+                                             const uint32_t* __restrict__ meta, int h_bits,
+                                             uint32_t H, uint32_t salt,
+                                             const uint8_t* __restrict__ bases, int L, int k,
+                                             uint32_t* __restrict__ hit_mask,
+                                             uint32_t* __restrict__ inf_mask,
+                                             int32_t* __restrict__ tile_hits,
+                                             int32_t* __restrict__ tile_infs) {
+  classify_masks_tile(CuckooProbe{table, h_bits, salt, H, meta}, bases, L, k, hit_mask, inf_mask,
+                      tile_hits, tile_infs);
 }
 
 constexpr int kScanThreads = 1024;
@@ -624,19 +777,20 @@ __device__ __forceinline__ void crossing_epilogue(const uint32_t* masks,
 
 // masks: 16 words a tile (hit, then valid); tile_counts: hits << 16 |
 // valid, a word a tile.
-__global__ void __launch_bounds__(kTile)
-hit_stats_kernel(const uint32_t* __restrict__ rows, int row_width, int h_bits, uint32_t salt,
-                 const uint8_t* __restrict__ bases, int L, int k,
-                 uint32_t* __restrict__ masks, uint32_t* __restrict__ tile_counts) {
+template <class Probe>
+__device__ __forceinline__ void hit_stats_tile(const Probe& probe,
+                                               const uint8_t* __restrict__ bases, int L, int k,
+                                               uint32_t* __restrict__ masks,
+                                               uint32_t* __restrict__ tile_counts) {
   __shared__ PackedTile tile;
   __shared__ __align__(16) uint32_t words[2 * kTileWords];
   asm volatile("griddepcontrol.launch_dependents;");
   const int w0 = blockIdx.x * kTile;
   pack_tile(tile, bases + static_cast<size_t>(blockIdx.y) * L, w0, L);
-  uint32_t b;
+  uint32_t where;
   bool valid;
-  const bool hit = probe_valid_window(tile, threadIdx.x, rows, row_width, h_bits, salt, w0,
-                                      L - k + 1, k, &b, &valid) != 0;
+  const bool hit = probe_valid_window(tile, threadIdx.x, probe, w0, L - k + 1, k, &where,
+                                      &valid) != 0;
   const unsigned hm = __ballot_sync(0xffffffffu, hit);
   const unsigned vm = __ballot_sync(0xffffffffu, valid);
   if ((threadIdx.x & 31) == 0) {
@@ -655,6 +809,26 @@ hit_stats_kernel(const uint32_t* __restrict__ rows, int row_width, int h_bits, u
   }
 }
 
+__global__ void __launch_bounds__(kTile)
+hit_stats_kernel(const uint32_t* __restrict__ rows, int row_width, int h_bits, uint32_t salt,
+                 const uint8_t* __restrict__ bases, int L, int k,
+                 uint32_t* __restrict__ masks, uint32_t* __restrict__ tile_counts) {
+  hit_stats_tile(BucketProbe{rows, row_width, h_bits, salt}, bases, L, k, masks, tile_counts);
+}
+
+// K9's first launch in the cuckoo layout.
+// Replaces: the XLA program engine._hit_stats + _stats_from_masks
+//   (strainer2_tpu/pipeline/engine.py:284-286, :261-276).
+// Bound on this card: the bases, two 32-byte sectors a valid window, 16 B
+//   out. Design: hit_stats_kernel's block with K10's probe; the one-block
+//   hit_crossing_kernel follows it unchanged, chained by PDL.
+__global__ void __launch_bounds__(kTile)
+cuckoo_hit_stats_kernel(const uint2* __restrict__ table, int h_bits, uint32_t H, uint32_t salt,
+                        const uint8_t* __restrict__ bases, int L, int k,
+                        uint32_t* __restrict__ masks, uint32_t* __restrict__ tile_counts) {
+  hit_stats_tile(CuckooProbe{table, h_bits, salt, H, nullptr}, bases, L, k, masks, tile_counts);
+}
+
 // out = (batch hits, batch valid windows, hits at the crossing, its flat
 // index), from the n tiles of hit_stats_kernel, the launch before it.
 __global__ void __launch_bounds__(kTile)
@@ -663,6 +837,41 @@ hit_crossing_kernel(const uint32_t* __restrict__ masks, const uint32_t* __restri
   __shared__ int2 warp_sums[kTile / 32];
   asm volatile("griddepcontrol.wait;" ::: "memory");
   crossing_epilogue(masks, tile_counts, n, W, tpr, remaining, out, warp_sums);
+}
+
+// The one-block crossing search after a K9 masks launch on stream st,
+// chained to it by programmatic dependent launch.
+int launch_crossing(cudaStream_t st, const uint32_t* masks, const uint32_t* tile_counts, int n,
+                    int W, int tpr, int remaining, int32_t* out) {
+  const int rc = launch_status();
+  if (rc != 0) return rc;
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1);
+  cfg.blockDim = dim3(kTile);
+  cfg.stream = st;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  const cudaError_t rc2 = cudaLaunchKernelEx(&cfg, hit_crossing_kernel, masks, tile_counts, n, W,
+                                             tpr, remaining, out);
+  return rc2 != cudaSuccess ? static_cast<int>(rc2) : launch_status();
+}
+
+// K4's scan and sums launches after its masks launch, over the n tiles'
+// counts at c_hit, c_inf and their prefixes at p_hit, p_inf.
+int launch_classify_sums(cudaStream_t st, const int32_t* c_hit, const int32_t* c_inf,
+                         int32_t* p_hit, int32_t* p_inf, const uint32_t* hit_mask,
+                         const uint32_t* inf_mask, int n, int n_rows, int W, int tpr,
+                         const void* bounds, int max_reads, void* tot, void* inf) {
+  classify_scan_kernel<<<1, kScanThreads, 0, st>>>(c_hit, c_inf, n, p_hit, p_inf);
+  const int threads = 256;
+  classify_sums_kernel<<<(max_reads + threads - 1) / threads, threads, 0, st>>>(
+      p_hit, p_inf, hit_mask, inf_mask, n_rows, W, tpr,
+      static_cast<const int32_t*>(bounds), max_reads, static_cast<int32_t*>(tot),
+      static_cast<int32_t*>(inf));
+  return launch_status();
 }
 
 }  // namespace
@@ -752,20 +961,7 @@ int s2t_hit_stats(const void* rows, int row_width, int h_bits, uint32_t salt,
   hit_stats_kernel<<<dim3(tpr, n_rows), kTile, 0, st>>>(
       static_cast<const uint32_t*>(rows), row_width, h_bits, salt,
       static_cast<const uint8_t*>(bases), L, k, m, c);
-  const int rc = launch_status();
-  if (rc != 0) return rc;
-  cudaLaunchAttribute pdl[1];
-  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(1);
-  cfg.blockDim = dim3(kTile);
-  cfg.stream = st;
-  cfg.attrs = pdl;
-  cfg.numAttrs = 1;
-  const cudaError_t rc2 = cudaLaunchKernelEx(&cfg, hit_crossing_kernel, m, c, n_rows * tpr, W,
-                                             tpr, remaining, static_cast<int32_t*>(out));
-  return rc2 != cudaSuccess ? static_cast<int>(rc2) : launch_status();
+  return launch_crossing(st, m, c, n_rows * tpr, W, tpr, remaining, static_cast<int32_t*>(out));
 }
 
 // masks: 2 x n_tiles x 8 uint32 scratch (hit, then informative), 32-byte
@@ -790,13 +986,93 @@ int s2t_classify_step(const void* rows, int row_width, int h_bits,
         static_cast<const uint32_t*>(rows), row_width, h_bits, salt,
         static_cast<const uint8_t*>(bases), L, k, hit_mask, inf_mask, c_hit, c_inf);
   }
-  classify_scan_kernel<<<1, kScanThreads, 0, st>>>(c_hit, c_inf, n, p_hit, p_inf);
+  return launch_classify_sums(st, c_hit, c_inf, p_hit, p_inf, hit_mask, inf_mask, n, n_rows, W,
+                              tpr, bounds, max_reads, tot, inf);
+}
+
+// ---- the cuckoo layout: table is 2H (hi, lo) uint32 pairs, 8-byte aligned;
+// slots are int32 in [0, 2H); counts and meta hold 2H uint32 cells.
+
+int s2t_cuckoo_lookup(const void* table, int h_bits, int H, uint32_t salt, const void* qhi,
+                      const void* qlo, long long n, void* found, void* slot, void* stream) {
   const int threads = 256;
-  classify_sums_kernel<<<(max_reads + threads - 1) / threads, threads, 0, st>>>(
-      p_hit, p_inf, hit_mask, inf_mask, n_rows, W, tpr,
-      static_cast<const int32_t*>(bounds), max_reads, static_cast<int32_t*>(tot),
-      static_cast<int32_t*>(inf));
+  const long long blocks = (n + threads - 1) / threads;
+  cuckoo_lookup_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint2*>(table), h_bits, static_cast<uint32_t>(H), salt,
+      static_cast<const uint32_t*>(qhi), static_cast<const uint32_t*>(qlo), n,
+      static_cast<uint8_t*>(found), static_cast<int32_t*>(slot));
   return launch_status();
+}
+
+int s2t_cuckoo_count_step(void* counts, const void* table, int h_bits, int H, uint32_t salt,
+                          const void* bases, int n_rows, int L, int k, void* stream) {
+  const int W = L - k + 1;
+  const dim3 grid((W + kTile - 1) / kTile, n_rows);
+  cuckoo_count_step_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(counts), static_cast<const uint2*>(table), h_bits,
+      static_cast<uint32_t>(H), salt, static_cast<const uint8_t*>(bases), L, k);
+  return launch_status();
+}
+
+int s2t_cuckoo_count_valid_step(void* counts, const void* table, int h_bits, int H,
+                                uint32_t salt, const void* bases, int n_rows, int L, int k,
+                                void* tally, void* stream) {
+  const int W = L - k + 1;
+  const dim3 grid((W + kTile - 1) / kTile, n_rows);
+  cuckoo_count_valid_step_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(counts), static_cast<const uint2*>(table), h_bits,
+      static_cast<uint32_t>(H), salt, static_cast<const uint8_t*>(bases), L, k,
+      static_cast<long long*>(tally));
+  return launch_status();
+}
+
+int s2t_cuckoo_hit_accumulate(void* acc, const void* table, int h_bits, int H, uint32_t salt,
+                              const void* bases, int n_rows, int L, int k, void* stream) {
+  const int W = L - k + 1;
+  const dim3 grid((W + kTile - 1) / kTile, n_rows);
+  cuckoo_hit_accumulate_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(acc), static_cast<const uint2*>(table), h_bits,
+      static_cast<uint32_t>(H), salt, static_cast<const uint8_t*>(bases), L, k);
+  return launch_status();
+}
+
+int s2t_cuckoo_hit_stats(const void* table, int h_bits, int H, uint32_t salt, const void* bases,
+                         int n_rows, int L, int k, int remaining, void* masks, void* tile_counts,
+                         void* out, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int W = L - k + 1;
+  const int tpr = (W + kTile - 1) / kTile;
+  uint32_t* m = static_cast<uint32_t*>(masks);
+  uint32_t* c = static_cast<uint32_t*>(tile_counts);
+  cuckoo_hit_stats_kernel<<<dim3(tpr, n_rows), kTile, 0, st>>>(
+      static_cast<const uint2*>(table), h_bits, static_cast<uint32_t>(H), salt,
+      static_cast<const uint8_t*>(bases), L, k, m, c);
+  return launch_crossing(st, m, c, n_rows * tpr, W, tpr, remaining, static_cast<int32_t*>(out));
+}
+
+int s2t_cuckoo_classify_step(const void* table, const void* meta, int h_bits, int H,
+                             uint32_t salt, const void* bases, int n_rows, int L, int k,
+                             const void* bounds, int max_reads, void* masks, void* counts,
+                             void* tot, void* inf, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int W = L - k + 1;
+  const int tpr = (W + kTile - 1) / kTile;
+  const int n = n_rows * tpr;
+  uint32_t* hit_mask = static_cast<uint32_t*>(masks);
+  uint32_t* inf_mask = hit_mask + static_cast<size_t>(n) * kTileWords;
+  int32_t* c_hit = static_cast<int32_t*>(counts);
+  int32_t* c_inf = c_hit + n;
+  int32_t* p_hit = c_inf + n;
+  int32_t* p_inf = p_hit + n + 1;
+  if (n_rows) {
+    cuckoo_classify_masks_kernel<<<dim3(tpr, n_rows), kTile, 0, st>>>(
+        static_cast<const uint2*>(table), static_cast<const uint32_t*>(meta), h_bits,
+        static_cast<uint32_t>(H), salt, static_cast<const uint8_t*>(bases), L, k, hit_mask,
+        inf_mask, c_hit, c_inf);
+  }
+  return launch_classify_sums(st, c_hit, c_inf, p_hit, p_inf, hit_mask, inf_mask, n, n_rows, W,
+                              tpr, bounds, max_reads, tot, inf);
 }
 
 }  // extern "C"

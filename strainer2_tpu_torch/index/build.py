@@ -1,4 +1,4 @@
-"""Strain k-mer index, bucket layout only.
+"""Strain k-mer index, in the bucket or the cuckoo layout.
 
 The state the JAX package's ``strainer2_tpu.index.build.StrainIndex``
 carries, with the same meaning and the same npz file:
@@ -7,8 +7,14 @@ carries, with the same meaning and the same npz file:
   order, which the djb2 replay (index/refhash_order.py) turns into the
   reference's printed row order;
 - ``genome_counts``: occurrences of each k-mer in the genome scan;
-- ``table``: the bucket row table, with ``slot_of_key`` linking each code
+- ``table``: the membership table its layout names, built on first use:
+  the bucket row table (index/bucket.py, the port's default) or the
+  two-choice cuckoo table (index/cuckoo.py, what the JAX package builds
+  on every backend but the TPU), with ``slot_of_key`` linking each code
   to its slot so slot-indexed device arrays gather back to key order.
+
+An npz of either layout loads in either package; one with no ``layout``
+entry is a cuckoo index, as the JAX package reads it.
 
 The genome scan runs on the engine: the genome is packed into fixed
 batches and every valid window's canonical code is extracted on the
@@ -23,9 +29,18 @@ import numpy as np
 
 from strainer2_tpu_torch.constants import DEFAULT_K
 from strainer2_tpu_torch.index.bucket import BucketTable, build_bucket_table
+from strainer2_tpu_torch.index.cuckoo import CuckooTable, build_cuckoo
 from strainer2_tpu_torch.io.batches import DEFAULT_ROW_LEN, DEFAULT_ROWS
 
-__all__ = ["StrainIndex", "scan_file_codes"]
+__all__ = ["LAYOUTS", "StrainIndex", "check_layout", "scan_file_codes"]
+
+LAYOUTS = ("bucket", "cuckoo")
+
+
+def check_layout(layout: str) -> str:
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown table layout {layout!r}: bucket or cuckoo")
+    return layout
 
 
 def scan_file_codes(path: str, engine, rows: int = DEFAULT_ROWS,
@@ -46,18 +61,26 @@ class StrainIndex:
     k: int
     codes: np.ndarray  # (N,) uint64, first-encounter order
     genome_counts: np.ndarray  # (N,) uint32
-    table_: BucketTable | None = field(default=None, repr=False)
+    table_: BucketTable | CuckooTable | None = field(default=None, repr=False)
+    layout_: str = "bucket"
 
-    layout = "bucket"
+    def __post_init__(self):
+        check_layout(self.layout_)
 
     @property
-    def table(self) -> BucketTable:
+    def layout(self) -> str:
+        return self.table_.layout if self.table_ is not None else self.layout_
+
+    @property
+    def table(self) -> BucketTable | CuckooTable:
         if self.table_ is None:
-            self.table_ = build_bucket_table(self.codes, self.k)
+            build = build_bucket_table if self.layout_ == "bucket" else build_cuckoo
+            self.table_ = build(self.codes, self.k)
         return self.table_
 
     @classmethod
-    def from_scan_codes(cls, scan_codes: np.ndarray, k: int = DEFAULT_K) -> "StrainIndex":
+    def from_scan_codes(cls, scan_codes: np.ndarray, k: int = DEFAULT_K,
+                        layout: str = "bucket") -> "StrainIndex":
         """Build from the full (with duplicates) genome-scan code stream."""
         if scan_codes.size == 0:
             raise ValueError("no valid k-mers found in genome")
@@ -73,21 +96,25 @@ class StrainIndex:
             order = np.argsort(first_idx, kind="stable")
             codes = uniq[order]
             genome_counts = counts[order].astype(np.uint32)
-        return cls(k=k, codes=codes, genome_counts=genome_counts)
+        return cls(k=k, codes=codes, genome_counts=genome_counts, layout_=layout)
 
     @classmethod
-    def from_unique_codes(cls, codes: np.ndarray, k: int = DEFAULT_K) -> "StrainIndex":
+    def from_unique_codes(cls, codes: np.ndarray, k: int = DEFAULT_K,
+                          layout: str = "bucket") -> "StrainIndex":
         """Build from codes already known to be distinct (e.g. the union of
         several strains' key sets): skips the first-encounter unique pass."""
         codes = np.asarray(codes, dtype=np.uint64)
         if codes.size == 0:
             raise ValueError("no valid k-mers found in genome")
-        return cls(k=k, codes=codes, genome_counts=np.ones(codes.shape[0], dtype=np.uint32))
+        return cls(k=k, codes=codes, genome_counts=np.ones(codes.shape[0], dtype=np.uint32),
+                   layout_=layout)
 
     @classmethod
     def from_fasta(cls, path: str, engine, rows: int = DEFAULT_ROWS,
                    row_len: int = DEFAULT_ROW_LEN) -> "StrainIndex":
-        return cls.from_scan_codes(scan_file_codes(path, engine, rows, row_len), k=engine.k)
+        """The index of a genome file, in the layout of ``engine``."""
+        return cls.from_scan_codes(scan_file_codes(path, engine, rows, row_len), k=engine.k,
+                                   layout=engine.layout)
 
     @property
     def num_kmers(self) -> int:
@@ -120,9 +147,8 @@ class StrainIndex:
     @classmethod
     def load(cls, path: str) -> "StrainIndex":
         z = np.load(path)
-        layout = str(z["layout"]) if "layout" in z else "cuckoo"
-        if layout != "bucket":
-            raise ValueError(f"{path}: {layout} index; the torch port reads bucket indexes only")
-        table = BucketTable(z["table"], z["slot_of_key"], int(z["h_bits"]), int(z["salt"]))
+        layout = check_layout(str(z["layout"]) if "layout" in z else "cuckoo")
+        table_cls = BucketTable if layout == "bucket" else CuckooTable
+        table = table_cls(z["table"], z["slot_of_key"], int(z["h_bits"]), int(z["salt"]))
         return cls(k=int(z["k"]), codes=z["codes"], genome_counts=z["genome_counts"],
-                   table_=table)
+                   table_=table, layout_=layout)

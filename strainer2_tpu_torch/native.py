@@ -35,6 +35,7 @@ __all__ = [
     "Pe2EndedEarlyError",
     "available",
     "build_bucket_native",
+    "build_cuckoo_native",
     "format_scrub_rows",
     "parse_hits_native",
     "parse_scrub_table_native",
@@ -60,6 +61,7 @@ _SIGNATURES = {
     "s2_close_pack_stream": (None, [_P]),
     "s2_reference_row_order": (_I, [_P, _LL, _I, _LL, _P]),
     "s2_build_bucket_w": (_I, [_P, _LL, _I, _I, ctypes.c_uint32, _P, _P, _I]),
+    "s2_build_cuckoo": (_I, [_P, _LL, _I, _I, ctypes.c_uint32, _P, _P]),
     "s2_unique_encounter": (_LL, [_P, _LL, _P, _P]),
     "s2_format_scrub_rows": (_LL, [_P, _LL] + [_P] * 5 + [_LL, _LL, _I]),
     "s2_parse_scrub_open": (_P, [_STR]),
@@ -314,6 +316,25 @@ def build_bucket_native(codes: np.ndarray, k: int, h_bits: int, salt: int,
     rc = lib.s2_build_bucket_w(
         codes.ctypes.data, codes.shape[0], k, h_bits, salt,
         table.ctypes.data, slot_of_key.ctypes.data, row_width,
+    )
+    if rc != 0:
+        return "retry"
+    return table, slot_of_key
+
+
+def build_cuckoo_native(codes: np.ndarray, k: int, h_bits: int, salt: int):
+    """(table (2H, 2) uint32, slot_of_key int32), "retry" on an eviction
+    chain past its limit (the caller retries with a new salt), or None when
+    the library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    codes = np.ascontiguousarray(codes, dtype=np.uint64)
+    table = np.full((2 << h_bits, 2), 0xFFFFFFFF, dtype=np.uint32)
+    slot_of_key = np.empty(codes.shape[0], dtype=np.int32)
+    rc = lib.s2_build_cuckoo(
+        codes.ctypes.data, codes.shape[0], k, h_bits, salt,
+        table.ctypes.data, slot_of_key.ctypes.data,
     )
     if rc != 0:
         return "retry"

@@ -61,6 +61,7 @@ class CompareConfig:
     max_seeds: int = 0  # 0 = scan everything
     threshold_for_fullmap: float = 0.1  # reference src/main.c:17
     device: str = "cuda"
+    layout: str = "bucket"  # table layout of the device path's index
 
 
 def _c_fraction(hits: int, misses: int) -> str:
@@ -150,7 +151,7 @@ class GenomeComparer:
                 return
             except (RuntimeError, OSError):
                 self._host = None
-        self.engine = TorchKmerEngine(self.cfg.k, device=device)
+        self.engine = TorchKmerEngine(self.cfg.k, device=device, layout=self.cfg.layout)
         # set semantics: the reference inserts each canonical k-mer once
         # (reference src/genome_compare.c:475-521)
         self.index = StrainIndex.from_fasta(a_file, self.engine, self.cfg.rows, self.cfg.row_len)

@@ -77,6 +77,7 @@ class DetectConfig:
     min_hits_for_informative_read: int = 1  # reference src/strain_detect.c:403
     fraction_background_to_remove: float = BACKGROUND_FRACTION_TO_REMOVE
     device: str = "cuda"
+    layout: str = "bucket"  # table layout of the index the detector builds
 
 
 def get_file_type(token: str) -> int:
@@ -223,16 +224,15 @@ def _staged_quantify(entries, run_one, new_sink, payload_of, emit, stdout,
 
 
 def _load_or_build_index(r_file, engine, cfg, index_cache):
-    """Build the strain index, or reuse a cached bucket one (StrainIndex.save
-    of either package writes the same npz)."""
+    """Build the strain index, or reuse a cached one whose k and layout are
+    the engine's (StrainIndex.save of either package writes the same npz),
+    as strainer2_tpu/pipeline/detect.py:485-496 does; any other is rebuilt
+    and overwritten."""
     import os
 
     if index_cache and os.path.exists(index_cache):
-        try:
-            idx = StrainIndex.load(index_cache)
-        except ValueError:
-            idx = None  # another layout: rebuild and overwrite
-        if idx is not None and idx.k == cfg.k:
+        idx = StrainIndex.load(index_cache)
+        if idx.k == cfg.k and idx.layout == engine.layout:
             return idx
     idx = StrainIndex.from_fasta(r_file, engine, cfg.rows, cfg.row_len)
     if index_cache:
@@ -257,6 +257,7 @@ class StrainDetector:
             self.cfg.k,
             max_reads_capacity(self.cfg.k, self.cfg.rows, self.cfg.row_len),
             device=self.cfg.device,
+            layout=index.layout if index is not None else self.cfg.layout,
         )
         if index is not None:
             self.index = index
@@ -352,18 +353,23 @@ class StrainDetector:
 
     # ---- stage 4: quantify ----
     def _finalize_meta(self):
-        """Classification table: the bucket rows with the k-mer class in
-        meta lanes 32:48, built on the device from the uploaded rows
-        (BucketTable.with_meta's result, without a host copy of the table)."""
+        """Classification table, built on the device: the bucket rows with
+        the k-mer class in meta lanes 32:48 (BucketTable.with_meta's result,
+        without a host copy of the table); in the cuckoo layout the slots
+        as they are, the class a separate slot-indexed array, as
+        strainer2_tpu/pipeline/detect.py:675-677 keeps it."""
         t = self.index.table
         eng = self.engine
         meta = torch.zeros(t.num_slots, dtype=torch.int32, device=eng.device)
         meta[eng.to_device(t.slot_of_key.astype(np.int64))] = eng.to_device(
             self.kmer_type.astype(np.int32)
         )
-        rows = eng.table_for(self.index).clone()
-        rows.view(torch.int32)[:, 32:48] = meta.view(-1, 16)
-        self._classify_table = rows
+        if self.index.layout == "bucket":
+            rows = eng.table_for(self.index).clone()
+            rows.view(torch.int32)[:, 32:48] = meta.view(-1, 16)
+            self._classify_table, self._meta_dev = rows, None
+        else:
+            self._classify_table, self._meta_dev = eng.table_for(self.index), meta.view(torch.uint32)
         self.total_genome_kmers = self.index.num_kmers
         self.total_genome_informative = int(
             np.count_nonzero(self.kmer_type == INFORMATIVE_KMER)
@@ -480,7 +486,8 @@ class StrainDetector:
             boundaries = np.full(max_reads + 1, n_windows, dtype=np.int32)
             boundaries[:n] = batch.window_starts
             tot_d, inf_d = self.engine.classify_batch(
-                self._classify_table, t.h_bits, t.salt, batch.bases, boundaries
+                self._classify_table, t.h_bits, t.salt, batch.bases, boundaries,
+                meta=self._meta_dev,
             )
             # D2H gate: one bool crosses back per batch; the per-read
             # vectors follow only when a read or pair passes (the skipped

@@ -1,8 +1,9 @@
 """Device engine of the single-strain path: the torch twin of KmerEngine.
 
-One ``TorchKmerEngine`` = one k and one batch geometry on one explicit
-device.  It keeps the part of ``strainer2_tpu.pipeline.engine.KmerEngine``'s
-contract that the ported stages use, bucket layout only:
+One ``TorchKmerEngine`` = one k, one table layout and one batch geometry
+on one explicit device.  It keeps the part of
+``strainer2_tpu.pipeline.engine.KmerEngine``'s contract that the ported
+stages use, in either layout:
 
 - ``extract_codes``: canonical codes of a packed buffer (kernel K1);
 - ``table_for`` / ``init_counts`` / ``counts_from_numpy`` /
@@ -13,7 +14,19 @@ contract that the ported stages use, bucket layout only:
 - ``hit_accumulate`` (K8) and ``hit_stats`` (K9): genome_compare's
   containment tallies, reduced on the device;
 - ``classify_multi_batch``: the multi-strain classify, K6
-  (``hit_words_batch``) then K7 (``strain_sums``).
+  (``hit_words_batch``) then K7 (``strain_sums``), bucket layout only, as
+  the JAX multi-strain detector forces it.
+
+``layout`` is "bucket" (the default: one 64-byte row a probe, the
+detection class in the row) or "cuckoo" (two 8-byte slots a probe, the
+class in a separate slot-indexed array; the cuckoo_ kernels).  The JAX
+package picks cuckoo on every backend but the TPU
+(``strainer2_tpu.pipeline.engine.default_layout``), from v5e and CPU
+measurements; on the H100 the port keeps bucket as its default on both
+devices, so that a run reads the same table it always did, until the
+bucket-vs-cuckoo cell of a port benchmark decides (PERF.md §6 has the
+first kernel times of both).  An index of either layout from either
+package runs on an engine of its layout.
 
 On a CUDA device every step runs a hand-written kernel; on the CPU the
 same calls run the kernels' plain torch versions.  A CUDA device that is
@@ -25,10 +38,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from strainer2_tpu_torch.index.build import check_layout
 from strainer2_tpu_torch.ops.lookup import (
     classify_step,
     count_step,
     count_valid_step,
+    cuckoo_classify_step,
+    cuckoo_count_step,
+    cuckoo_count_valid_step,
+    cuckoo_hit_accumulate,
+    cuckoo_hit_stats,
     hit_accumulate,
     hit_stats,
     n_tiles,
@@ -54,13 +73,28 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-class TorchKmerEngine:
-    layout = "bucket"
+# count, count with its valid tally, hit accumulate, hit stats of a layout
+_STEPS = {
+    "bucket": (count_step, count_valid_step, hit_accumulate, hit_stats),
+    "cuckoo": (cuckoo_count_step, cuckoo_count_valid_step, cuckoo_hit_accumulate,
+               cuckoo_hit_stats),
+}
 
-    def __init__(self, k: int, max_reads: int | None = None, device="cuda"):
+
+def index_layout(index) -> str:
+    """The layout of an index of either package (or a view with a table):
+    a table that names none is a cuckoo table, as the JAX package reads it."""
+    return getattr(index.table, "layout", "cuckoo")
+
+
+class TorchKmerEngine:
+    def __init__(self, k: int, max_reads: int | None = None, device="cuda",
+                 layout: str = "bucket"):
         self.k = k
         self.max_reads = max_reads
         self.device = resolve_device(device)
+        self.layout = check_layout(layout)
+        self._count, self._count_valid, self._hit_accum, self._hit_stats = _STEPS[layout]
         self._tables: dict[int, tuple[object, torch.Tensor]] = {}
 
     def to_device(self, arr: np.ndarray) -> torch.Tensor:
@@ -79,8 +113,11 @@ class TorchKmerEngine:
 
     # ---- device state life cycle ----
     def table_for(self, index) -> torch.Tensor:
-        """The index's bucket row table on the device (uploaded once).
-        Takes this package's StrainIndex or the JAX package's (bucket)."""
+        """The index's table on the device (uploaded once): the bucket rows,
+        or the (2H, 2) uint32 cuckoo slots.  Takes this package's
+        StrainIndex or the JAX package's, of the engine's layout."""
+        if index_layout(index) != self.layout:
+            raise ValueError(f"a {index_layout(index)} index on a {self.layout} engine")
         key = id(index)
         hit = self._tables.get(key)
         if hit is None or hit[0] is not index:
@@ -102,7 +139,7 @@ class TorchKmerEngine:
     # ---- panel counting (kmer_scrub_count hot loop) ----
     def count_batch(self, counts, table, h_bits: int, salt: int, bases) -> torch.Tensor:
         """counts[slot] += 1 per valid hit window of ``bases``, in place."""
-        return count_step(counts, table, self.to_device(bases), h_bits, salt, self.k)
+        return self._count(counts, table, self.to_device(bases), h_bits, salt, self.k)
 
     def init_valid_tally(self, rows: int, row_len: int) -> torch.Tensor:
         """A zeroed int64 valid-window tally for a stream of batches of at
@@ -113,7 +150,8 @@ class TorchKmerEngine:
     def count_batch_with_valid(self, counts, tally, table, h_bits: int, salt: int, bases):
         """count_batch, and this batch's valid windows added into ``tally``
         on the device, in place; no per-batch reduction or readback."""
-        return count_valid_step(counts, tally, table, self.to_device(bases), h_bits, salt, self.k)
+        return self._count_valid(counts, tally, table, self.to_device(bases), h_bits, salt,
+                                 self.k)
 
     def valid_total(self, tally) -> int:
         """The valid windows of every batch counted into ``tally``: one
@@ -128,7 +166,7 @@ class TorchKmerEngine:
     def hit_accumulate(self, acc, table, h_bits: int, salt: int, bases) -> torch.Tensor:
         """acc (2,) int64 (hits, evaluated) += this batch's tallies, in place
         on the device: the fullmap path reads it back once a file."""
-        return hit_accumulate(acc, table, self.to_device(bases), h_bits, salt, self.k)
+        return self._hit_accum(acc, table, self.to_device(bases), h_bits, salt, self.k)
 
     def hit_stats(self, table, h_bits: int, salt: int, bases, remaining: int) -> torch.Tensor:
         """Rapid-mode batch stats reduced on the device: int32 (4,) of
@@ -137,19 +175,24 @@ class TorchKmerEngine:
         ``remaining``-th valid window (-1 if the batch ends first) and the
         hits the inclusive prefix there: the reference's stop-and-test
         point (reference src/genome_compare.c:327-340)."""
-        return hit_stats(table, self.to_device(bases), remaining, h_bits, salt, self.k)
+        return self._hit_stats(table, self.to_device(bases), remaining, h_bits, salt, self.k)
 
     # ---- detection: per-read hit aggregation ----
-    def classify_batch(self, table, h_bits: int, salt: int, bases, boundaries):
+    def classify_batch(self, table, h_bits: int, salt: int, bases, boundaries, meta=None):
         """Per-read (total_hits, informative_hits), int32 (max_reads,) on the
         device; entries past the batch's reads are zero.
 
-        table: bucket rows with the k-mer class in meta lane block 32:48.
+        table: bucket rows with the k-mer class in meta lane block 32:48, or
+        the cuckoo slots, whose class is ``meta``, a (2H,) uint32 device
+        array (the bucket layout takes none).
         boundaries: (max_reads + 1,) int32 first flat window index of each
         read, padded with the batch's window count."""
-        return classify_step(
-            table, self.to_device(bases), self.to_device(boundaries), h_bits, salt, self.k
-        )
+        bases, boundaries = self.to_device(bases), self.to_device(boundaries)
+        if self.layout == "bucket":
+            return classify_step(table, bases, boundaries, h_bits, salt, self.k)
+        if meta is None:
+            raise ValueError("the cuckoo layout classifies with a slot-indexed meta array")
+        return cuckoo_classify_step(table, meta, bases, boundaries, h_bits, salt, self.k)
 
     def classify_multi_batch(self, rows, h_bits: int, salt: int, bases, boundaries,
                              n_strains: int):
@@ -165,6 +208,9 @@ class TorchKmerEngine:
     def hit_words_batch(self, rows, h_bits: int, salt: int, bases, n_strains: int):
         """K6: every window's meta words, (Q, ceil(S/16)) uint32 on the
         device, 0 on a miss or an invalid window."""
+        if self.layout != "bucket":
+            raise ValueError("multi-strain classification runs on bucket rows only: "
+                             "use a bucket engine, as the JAX multi-strain detector does")
         return multi_hit_words(
             rows, self.to_device(bases), h_bits, salt, self.k, words_for_strains(n_strains)
         )

@@ -49,6 +49,9 @@ class FusedConfig:
     write_counts: bool = True
     write_scrubbed: bool = True
     device: str = "cuda"
+    # table layout of the single-strain index and of the union panel scan;
+    # multi-strain detection runs on bucket rows whatever it is
+    layout: str = "bucket"
 
 
 # gzip level of the intermediates; the reference example uses `gzip --best`
@@ -156,8 +159,8 @@ def run_pipeline(r_file: str, a_list: str, b_list: str, target_list: str, out_di
         "coverage": os.path.join(out_dir, stem + ".coverage_depth"),
     }
 
-    cfg = ScrubCountConfig(device=fcfg.device)
-    engine = TorchKmerEngine(cfg.k, device=fcfg.device)
+    cfg = ScrubCountConfig(device=fcfg.device, layout=fcfg.layout)
+    engine = TorchKmerEngine(cfg.k, device=fcfg.device, layout=fcfg.layout)
     with stage("fused.index_build"):
         index = StrainIndex.from_fasta(r_file, engine, cfg.rows, cfg.row_len)
 
@@ -218,7 +221,7 @@ def run_pipeline(r_file: str, a_list: str, b_list: str, target_list: str, out_di
     # ---- stages 3+4: detect on the shared index, then coverage ----
     with stage("fused.detect"):
         det = StrainDetector(
-            r_file, None, DetectConfig(k=cfg.k, device=fcfg.device),
+            r_file, None, DetectConfig(k=cfg.k, device=fcfg.device, layout=fcfg.layout),
             stdout=stdout if stdout is not None else sys.stdout,
             index=index, informative_keys=informative_keys,
         )
@@ -276,7 +279,7 @@ def run_multi_pipeline(r_files: list, a_list: str, b_list: str, target_list: str
     fcfg = fused_cfg or FusedConfig()
     err = err if err is not None else sys.stderr
     os.makedirs(out_dir, exist_ok=True)
-    cfg = ScrubCountConfig(device=fcfg.device)
+    cfg = ScrubCountConfig(device=fcfg.device, layout=fcfg.layout)
 
     stems = [_stem(r) for r in r_files]
     if len(set(stems)) != len(stems):

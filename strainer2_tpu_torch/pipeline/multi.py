@@ -68,7 +68,7 @@ class UnionIndex:
 def build_union_index(paths: list[str], engine: TorchKmerEngine) -> UnionIndex:
     scans = [scan_file_codes(p, engine) for p in paths]
     scan = np.concatenate([s for s in scans if s.size] or [np.empty(0, np.uint64)])
-    index = StrainIndex.from_scan_codes(scan, k=engine.k)
+    index = StrainIndex.from_scan_codes(scan, k=engine.k, layout=engine.layout)
     return UnionIndex(index=index, occurrences=index.genome_counts.astype(np.int64))
 
 
@@ -154,10 +154,11 @@ def run_pangenome(
     k: int = DEFAULT_K,
     out: IO | None = None,
     device="cuda",
+    layout: str = "bucket",
 ) -> None:
     """Pangenome mode (reference src/genome_compare.c:651-744)."""
     out = out if out is not None else sys.stdout
-    engine = TorchKmerEngine(k, device=device)
+    engine = TorchKmerEngine(k, device=device, layout=layout)
     paths = read_list_file(a_list)
     for p in paths:
         print(f"hashing {p}", file=sys.stderr)
@@ -195,12 +196,13 @@ def run_kmer_matrix(
     device="cuda",
     rows: int = DEFAULT_ROWS,
     row_len: int = DEFAULT_ROW_LEN,
+    layout: str = "bucket",
 ) -> None:
     """k-mer x file count matrix (reference src/genome_compare.c:600-648;
-    row filters hardcoded there at 45-77).  Batch geometry changes no
-    output byte."""
+    row filters hardcoded there at 45-77).  Batch geometry and table layout
+    change no output byte."""
     out = out if out is not None else sys.stdout
-    engine = TorchKmerEngine(k, device=device)
+    engine = TorchKmerEngine(k, device=device, layout=layout)
     paths = read_list_file(a_list)
     union = build_union_index(paths, engine)
     index = union.index
@@ -233,13 +235,14 @@ def run_strain_track(
     device="cuda",
     rows: int = DEFAULT_ROWS,
     row_len: int = DEFAULT_ROW_LEN,
+    layout: str = "bucket",
 ) -> None:
     """Strain-track mode (reference src/genome_compare.c:747-864): keep
     k-mers unique across all strains, count one metagenome against them,
     and print per-strain usage + scale-normalized abundances.  Batch
-    geometry changes no output byte."""
+    geometry and table layout change no output byte."""
     out = out if out is not None else sys.stdout
-    engine = TorchKmerEngine(k, device=device)
+    engine = TorchKmerEngine(k, device=device, layout=layout)
     paths = read_list_file(a_list)
     union = build_union_index(paths, engine)
 
@@ -254,7 +257,7 @@ def run_strain_track(
         % (n_nonunique, n_total, n_nonunique / n_total if n_total else 0.0),
         file=sys.stderr,
     )
-    surviving = StrainIndex.from_scan_codes(union.index.codes[unique_mask], k=k)
+    surviving = StrainIndex.from_scan_codes(union.index.codes[unique_mask], k=k, layout=layout)
 
     # count the metagenome on the device (GEN_metagenome_coverage_to_ref,
     # reference src/genome_compare.c:356-441, incl. its max_reads quirk of

@@ -77,7 +77,7 @@ def multi_scrub_counts(r_files: list[str], a_list: str, b_list: str, c_list: str
 
     from strainer2_tpu_torch.constants import COL_DRUG, COL_METAGENOME, COL_PANGENOME
 
-    engine = TorchKmerEngine(cfg.k, device=cfg.device)
+    engine = TorchKmerEngine(cfg.k, device=cfg.device, layout=cfg.layout)
     threads = strain_threads(len(r_files))
 
     def position(union_codes, ix, order):
@@ -98,7 +98,7 @@ def multi_scrub_counts(r_files: list[str], a_list: str, b_list: str, c_list: str
             [ix.codes[o] for ix, o in zip(strain_indexes, orders)], threads)
         positions = list(ex.map(lambda a: position(union_codes, *a), zip(strain_indexes, orders)))
     del orders
-    union = StrainIndex.from_unique_codes(union_codes, k=cfg.k)
+    union = StrainIndex.from_unique_codes(union_codes, k=cfg.k, layout=cfg.layout)
 
     ckpt = None
     if checkpoint_dir:

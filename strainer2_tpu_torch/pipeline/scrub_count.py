@@ -51,6 +51,7 @@ class ScrubCountConfig:
     # first-encounter order (same counts, other order)
     reference_order: bool = True
     device: str = "cuda"
+    layout: str = "bucket"  # table layout of the index the stage builds
 
 
 def read_list_file(path: str) -> list[str]:
@@ -159,6 +160,12 @@ def _resume_counts(engine: TorchKmerEngine, index, paths: list[str], column: int
     counts_np = checkpoint.counts(column) if checkpoint is not None else None
     if counts_np is None:
         return engine.init_counts(index), list(paths)
+    if counts_np.shape[0] != index.table.num_slots:
+        raise ValueError(
+            f"scrub checkpoint {checkpoint.dir}: its counts have {counts_np.shape[0]} cells, "
+            f"the {index.layout} table has {index.table.num_slots} slots: the checkpoint was "
+            "counted in another table layout or size"
+        )
     done = Counter(checkpoint.done_files(column))
     todo = []
     for path in paths:
@@ -234,7 +241,8 @@ def run_scrub_count(r_file: str, a_list: str, b_list: str, c_list: str | None = 
 
     cfg = cfg or ScrubCountConfig()
     out = out if out is not None else sys.stdout
-    engine = TorchKmerEngine(cfg.k, device=cfg.device)
+    engine = TorchKmerEngine(cfg.k, device=cfg.device,
+                             layout=index.layout if index is not None else cfg.layout)
 
     if index is None:
         with stage("scrub.index_build"):

@@ -1,17 +1,22 @@
 """Device-only times of the kernels K1 (canonical_windows), K2
 (bucket_lookup), K3 (count_step, and count_valid_step: K3 with its valid
 count), K4 (classify_step), K5 (bucket_lookup_ring), K6 (multi_hit_words),
-K7 (boundary_strain_sums), K8 (hit_accumulate) and K9 (hit_stats) at
-main-path shapes, and the timer, data and bounds that chip_smoke.py uses
-for every kernel.
+K7 (boundary_strain_sums), K8 (hit_accumulate), K9 (hit_stats), K10
+(cuckoo_lookup) and the cuckoo instances of K3, K4, K8 and K9 at main-path
+shapes, and the timer, data and bounds that chip_smoke.py uses for every
+kernel.
 
-    python strainer2_tpu_torch/tools/bench_kernels.py [--repo DIR] [--seed N] [--label L]
+    python strainer2_tpu_torch/tools/bench_kernels.py [--repo DIR] [--seed N] [--label L] \
+        [--layout both|bucket|cuckoo]
 
 --repo names the checkout whose ``strainer2_tpu_torch`` is timed (default:
 the one holding this file), so that two commits are compared in one call on
 one card: unpack the other commit with ``git archive`` into a directory that
 git ignores and run parent, change, change, parent.  Both use this file's
-timer, data and bounds.
+timer, data and bounds.  ``--layout bucket`` times the bucket kernels only
+(a checkout without the cuckoo kernels), ``cuckoo`` K10 and the cuckoo
+instances only; every cuckoo kernel runs beside its bucket twin on the
+same batches and key set.
 
 A 6.7 Mbp random genome gives the table (6.7 M keys, 64-lane rows, 5% of the
 keys informative).  Three kinds of 256 x 4096 batch, 8 of each:
@@ -35,17 +40,18 @@ all three kinds at k = 20 (genome_compare's default, a table of the same
 genome at k = 20) and k = 31, K9 with ``remaining`` at half the batch's
 valid windows, K3 with its valid count per batch into a tally kept across
 the stream, and the tally's once-a-stream total (``valid_tally_total``,
-"K3V_TOTAL") timed on its own.  A checkout whose package has no K8 or K9
-(an older ``--repo``) skips them; one whose K3 with its valid count still
-returns a per-batch scalar (no ``valid_tally_total``) is timed through
-that contract.
+"K3V_TOTAL") timed on its own.  The cuckoo table holds the same keys
+(index/cuckoo.py's default size, (2H, 2) uint32) and, for K4, the same
+classes in a slot-indexed array.
 
 The timer is CUDA events around replays of one CUDA graph holding 5 rounds
 of the 8 batches' launches, so it sees device time and no host launch cost;
 the time is per wrapper call.  The bound is the least time the card could
 take: the bytes the function must move (inputs read once, outputs written
 once, per probed window the row's 64 bytes of key_hi lanes and, where the
-key is found, its 64 bytes of key_lo lanes) over the H100's 3.35 TB/s.
+key is found, its 64 bytes of key_lo lanes; in the cuckoo layout one
+32-byte sector for each of its two slots, hit or miss) over the H100's
+3.35 TB/s.
 Prints one line per kernel, batch kind and S, then one JSON line of the
 same numbers; needs a CUDA card.
 """
@@ -72,13 +78,15 @@ MAIN_QUERIES = 67_000  # the -a file's k-mers of chip_smoke.py's phase-4 strain,
 RING_CHUNK = 1024  # queries a K5 block (the wrapper's default)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 KEY_HALF_BYTES = 64  # the 16 key_hi (or the 16 key_lo) lanes of one bucket row
+SECTOR_BYTES = 32  # the DRAM sector a cuckoo slot's 8-byte (hi, lo) pair sits in
 BATCH_KINDS = {"phase2": (0.5, 0.03), "targets": (0.01, 0.001)}  # strain-read share, N rate
 _ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 
 __all__ = [
     "BATCH_KINDS", "bound_ms", "graph_ms", "batch_stats", "count_batches", "detection_batches",
     "sample_reads", "multi_rows", "probe_bytes", "k1_bytes", "k2_bytes", "k3_bytes", "k4_bytes",
-    "k6_bytes", "k7_bytes", "k8_bytes", "k9_bytes", "k3v_bytes", "tally_bytes", "COMPARE_KS",
+    "k6_bytes", "k7_bytes", "k8_bytes", "k9_bytes", "k3v_bytes", "k10_bytes", "tally_bytes",
+    "COMPARE_KS", "cuckoo_table_k",
 ]
 COMPARE_KS = (20, 31)  # genome_compare's default k, and the port's
 
@@ -120,10 +128,13 @@ def bound_ms(n_bytes: float) -> float:
     return n_bytes / HBM_BYTES_PER_S * 1e3
 
 
-def probe_bytes(probes: float, hits: float) -> float:
-    """Key bytes a lookup must read: the 16 key_hi lanes of every probed row
-    (a miss is settled there unless a key_hi matches), the 16 key_lo lanes
-    where one does (counted as the hits)."""
+def probe_bytes(probes: float, hits: float, layout: str = "bucket") -> float:
+    """Key bytes a lookup must read.  Bucket rows: the 16 key_hi lanes of
+    every probed row (a miss is settled there unless a key_hi matches),
+    the 16 key_lo lanes where one does (counted as the hits).  Cuckoo: one
+    32-byte sector for each of a probe's two slots, hit or miss."""
+    if layout == "cuckoo":
+        return 2 * SECTOR_BYTES * probes
     return KEY_HALF_BYTES * (probes + hits)
 
 
@@ -138,14 +149,20 @@ def k2_bytes(queries: float, found: float) -> float:
     return 17 * queries + probe_bytes(queries, found) + 4 * found
 
 
-def k3_bytes(bases, valid: float, hits: float) -> float:
+def k10_bytes(queries: float) -> float:
+    """(qhi, qlo) read, (found, slot) written: 13 bytes a query; a cuckoo
+    probe a query."""
+    return 13 * queries + probe_bytes(queries, 0, "cuckoo")
+
+
+def k3_bytes(bases, valid: float, hits: float, layout: str = "bucket") -> float:
     """Bases read, a probe per valid window, a count read and written per hit."""
-    return bases.numel() + probe_bytes(valid, hits) + 8 * hits
+    return bases.numel() + probe_bytes(valid, hits, layout) + 8 * hits
 
 
-def k3v_bytes(bases, valid: float, hits: float) -> float:
+def k3v_bytes(bases, valid: float, hits: float, layout: str = "bucket") -> float:
     """K3's bytes, and the stream's int64 valid count read and written."""
-    return k3_bytes(bases, valid, hits) + 16
+    return k3_bytes(bases, valid, hits, layout) + 16
 
 
 def tally_bytes(tally) -> int:
@@ -160,23 +177,24 @@ def k6_bytes(bases, valid: float, hits: float, n_words: int) -> float:
     return bases.numel() + probe_bytes(valid, hits) + 4 * n_words * (hits + n_win)
 
 
-def k4_bytes(bases, bounds, valid: float, hits: float) -> float:
+def k4_bytes(bases, bounds, valid: float, hits: float, layout: str = "bucket") -> float:
     """Bases and boundaries read, a probe per valid window, a meta word per
     hit, (total, informative) int32 written per read."""
     reads = bounds.numel() - 1
-    return bases.numel() + 4 * bounds.numel() + probe_bytes(valid, hits) + 4 * hits + 8 * reads
+    return (bases.numel() + 4 * bounds.numel() + probe_bytes(valid, hits, layout) + 4 * hits
+            + 8 * reads)
 
 
-def k8_bytes(bases, valid: float, hits: float) -> float:
+def k8_bytes(bases, valid: float, hits: float, layout: str = "bucket") -> float:
     """Bases read, a probe per valid window, the (2,) int64 accumulator read
     and written."""
-    return bases.numel() + probe_bytes(valid, hits) + 32
+    return bases.numel() + probe_bytes(valid, hits, layout) + 32
 
 
-def k9_bytes(bases, valid: float, hits: float) -> float:
+def k9_bytes(bases, valid: float, hits: float, layout: str = "bucket") -> float:
     """Bases read, a probe per valid window, four int32 out: the function
     needs no mask words, whatever scratch a kernel keeps."""
-    return bases.numel() + probe_bytes(valid, hits) + 16
+    return bases.numel() + probe_bytes(valid, hits, layout) + 16
 
 
 def k7_bytes(words, bounds, n_strains: int) -> int:
@@ -254,35 +272,56 @@ def detection_batches(rng, genome: np.ndarray, kind: str, dev) -> list:
     return out
 
 
+def _keys_k(genome: np.ndarray, k: int) -> np.ndarray:
+    from strainer2_tpu_torch.ops.packing_np import canonical_codes_np
+
+    codes, valid = canonical_codes_np(genome, k)
+    return np.unique(codes[valid])
+
+
 def table_k(genome: np.ndarray, k: int, dev):
     """The bucket table of the genome's k-mers at k (64 lanes, no meta) on
     the device, h_bits and salt."""
     import torch
 
     from strainer2_tpu_torch.index.bucket import build_bucket_table
-    from strainer2_tpu_torch.ops.packing_np import canonical_codes_np
 
-    codes, valid = canonical_codes_np(genome, k)
-    table = build_bucket_table(np.unique(codes[valid]), k)
+    table = build_bucket_table(_keys_k(genome, k), k)
     return torch.from_numpy(table.table).to(dev), table.h_bits, table.salt
+
+
+def cuckoo_table_k(keys: np.ndarray, k: int, dev, kinds: np.ndarray | None = None):
+    """The cuckoo table of ``keys`` on the device, h_bits, salt, and (with
+    per-key ``kinds``) their slot-indexed class array on the device."""
+    import torch
+
+    from strainer2_tpu_torch.index.cuckoo import build_cuckoo
+
+    table = build_cuckoo(keys, k)
+    meta = None
+    if kinds is not None:
+        meta_np = np.zeros(table.num_slots, dtype=np.uint32)
+        meta_np[table.slot_of_key] = kinds
+        meta = torch.from_numpy(meta_np).to(dev)
+    return torch.from_numpy(table.table).to(dev), table.h_bits, table.salt, meta
 
 
 def _table(rng, dev):
     """Genome, its bucket table with 5% of the keys informative (64 lanes,
-    on the device), h_bits, salt and the keys (sorted uint64 codes)."""
+    on the device), h_bits, salt, the keys (sorted uint64 codes) and their
+    classes."""
     import torch
 
     from strainer2_tpu_torch.index.bucket import build_bucket_table
-    from strainer2_tpu_torch.ops.packing_np import canonical_codes_np
 
     genome = rng.integers(0, 4, size=GENOME_BP, dtype=np.uint8)
-    codes, valid = canonical_codes_np(genome, K)
-    keys = np.unique(codes[valid])
+    keys = _keys_k(genome, K)
     table = build_bucket_table(keys, K)
+    key_kinds = np.where(rng.random(keys.size) < 0.05, 2, 1).astype(np.uint32)
     kinds = np.zeros(table.num_slots, dtype=np.uint32)
-    kinds[table.slot_of_key] = np.where(rng.random(table.slot_of_key.size) < 0.05, 2, 1)
+    kinds[table.slot_of_key] = key_kinds
     rows = torch.from_numpy(table.with_meta(kinds)).to(dev)
-    return genome, rows, table.h_bits, table.salt, keys
+    return genome, rows, table.h_bits, table.salt, keys, key_kinds
 
 
 def main_path_queries(rng, keys: np.ndarray, dev) -> list:
@@ -321,16 +360,16 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bench(seed: int, label: str) -> dict:
+def bench(seed: int, label: str, layout: str = "both") -> dict:
+    """Time the kernels of ``layout`` (both, bucket or cuckoo) on one seed's
+    data: the same batches and keys whatever the layout."""
     import torch
 
-    from strainer2_tpu_torch.ops import lookup as L
-    from strainer2_tpu_torch.ops import segsum as G
-    from strainer2_tpu_torch.ops.packing import canonical_windows, canonical_windows_plain
+    from strainer2_tpu_torch.ops.packing import canonical_windows_plain
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
-    genome, rows, h_bits, salt, keys = _table(rng, dev)
+    genome, rows, h_bits, salt, keys, key_kinds = _table(rng, dev)
     card = _card()
     print(f"[{label}] card: {card}; table {keys.size} keys, rows {tuple(rows.shape)}", flush=True)
     batches = {kind: detection_batches(rng, genome, kind, dev) for kind in BATCH_KINDS}
@@ -339,19 +378,37 @@ def bench(seed: int, label: str) -> dict:
     stats = {kind: [sum(x) / N_BATCHES for x in zip(*(batch_stats(rows, h_bits, salt, b) for b in bs))]
              for kind, bs in bases.items()}
     main_q = main_path_queries(rng, keys, dev)
-    result = {"label": label, "card": card, "k1": {}, "k2": {}, "k3": {}, "k4": {}, "k5": {},
-              "k6": {}, "k7": {}, "k3v": {}, "k3v_total": {}, "k8": {}, "k9": {}}
+    result = {"label": label, "card": card}
 
     def report(kernel: str, key: str, ms: float, bound: float, **extra) -> None:
-        result[kernel][key] = {"ms": ms, "bound_ms": bound, **extra}
+        result.setdefault(kernel, {})[key] = {"ms": ms, "bound_ms": bound, **extra}
         print(f"[{label}] {kernel.upper()} {key}: {ms:.4f} ms, bound {bound:.4f} ms "
               f"(share {bound / ms:.3f})", flush=True)
 
+    codes = [canonical_windows_plain(b, K)[:2] for b in bases["count"]]
+    if layout != "cuckoo":
+        bucket_kernels(rows, h_bits, salt, bases, batches, stats, codes, main_q, report)
+        compare_kernels(genome, bases, report, dev)
+    if layout != "bucket":
+        del rows
+        torch.cuda.empty_cache()
+        cuckoo_kernels(genome, keys, key_kinds, bases, batches, stats, codes, main_q, report, dev)
+    return result
+
+
+def bucket_kernels(rows, h_bits, salt, bases, batches, stats, codes, main_q, report) -> None:
+    """K1-K7 on the bucket table and the batches of each kind."""
+    import torch
+
+    from strainer2_tpu_torch.ops import lookup as L
+    from strainer2_tpu_torch.ops import segsum as G
+    from strainer2_tpu_torch.ops.packing import canonical_windows
+
+    dev = rows.device
     for kind in ("count", "targets"):
         bs = bases[kind]
         ms = graph_ms(lambda i: canonical_windows(bs[i], K))
         report("k1", kind, ms, bound_ms(k1_bytes(bs[0])))
-    codes = [canonical_windows_plain(b, K)[:2] for b in bases["count"]]
     for kind, qs in (("count", codes), ("main", main_q)):
         n = qs[0][0].numel()
         found = stats["count"][1] if kind == "count" else n
@@ -363,7 +420,6 @@ def bench(seed: int, label: str) -> dict:
         ms = graph_ms(lambda i: L.bucket_lookup_ring(rows, h_bits, salt, *ring[i], chunk=RING_CHUNK))
         report("k5", kind, ms, bound_ms(k2_bytes(n_ring, found * n_ring / n)), queries=n_ring,
                found=found * n_ring / n)
-    del codes
     counts = torch.zeros(rows.shape[0] * 16, dtype=torch.uint32, device=dev)
     for kind in ("count", "targets"):
         bs = bases[kind]
@@ -390,9 +446,6 @@ def bench(seed: int, label: str) -> dict:
             del words
         del mrows
         torch.cuda.empty_cache()
-    if hasattr(L, "hit_stats"):
-        compare_kernels(genome, bases, report, dev)
-    return result
 
 
 def compare_kernels(genome, bases: dict, report, dev) -> None:
@@ -403,16 +456,12 @@ def compare_kernels(genome, bases: dict, report, dev) -> None:
 
     from strainer2_tpu_torch.ops import lookup as L
 
-    tallied = hasattr(L, "valid_tally_total")
     for k in COMPARE_KS:
         rows, h_bits, salt = table_k(genome, k, dev)
         counts = torch.zeros(rows.shape[0] * 16, dtype=torch.uint32, device=dev)
         acc = torch.zeros(2, dtype=torch.int64, device=dev)
-        if tallied:
-            tally = torch.zeros(L.n_tiles(ROWS, ROW_LEN, k), dtype=torch.int64, device=dev)
-            k3v = lambda i: L.count_valid_step(counts, tally, rows, bs[i], h_bits, salt, k)  # noqa: E731
-        else:
-            k3v = lambda i: L.count_valid_step(counts, rows, bs[i], h_bits, salt, k)  # noqa: E731
+        tally = torch.zeros(L.n_tiles(ROWS, ROW_LEN, k), dtype=torch.int64, device=dev)
+        k3v = lambda i: L.count_valid_step(counts, tally, rows, bs[i], h_bits, salt, k)  # noqa: E731
         for kind, bs in bases.items():
             per = [batch_stats(rows, h_bits, salt, b, k) for b in bs]
             valid, _, hits = (sum(x) / N_BATCHES for x in zip(*per))
@@ -424,11 +473,61 @@ def compare_kernels(genome, bases: dict, report, dev) -> None:
             report("k8", key, ms8, bound_ms(k8_bytes(bs[0], valid, hits)), **extra)
             ms = graph_ms(lambda i: L.hit_stats(rows, bs[i], per[i][0] // 2, h_bits, salt, k))
             report("k9", key, ms, bound_ms(k9_bytes(bs[0], valid, hits)), over_k8=ms - ms8, **extra)
-        if tallied:
-            ms = graph_ms(lambda i: L.valid_tally_total(tally))
-            report("k3v_total", f"k={k}", ms, bound_ms(tally_bytes(tally)), slots=tally.numel())
-            del tally
-        del rows, counts
+        ms = graph_ms(lambda i: L.valid_tally_total(tally))
+        report("k3v_total", f"k={k}", ms, bound_ms(tally_bytes(tally)), slots=tally.numel())
+        del rows, counts, tally
+        torch.cuda.empty_cache()
+
+
+def cuckoo_kernels(genome, keys, key_kinds, bases, batches, stats, codes, main_q, report,
+                   dev) -> None:
+    """K10 on the bucket K2's query sets, cuckoo K3 and K4 on their kinds
+    of batch over a cuckoo table of the same keys and classes, and cuckoo
+    K3 with its valid count, K8 and K9 on every kind at COMPARE_KS."""
+    import torch
+
+    from strainer2_tpu_torch.ops import lookup as L
+
+    table, h_bits, salt, meta = cuckoo_table_k(keys, K, dev, key_kinds)
+    for kind, qs in (("count", codes), ("main", main_q)):
+        n = qs[0][0].numel()
+        ms = graph_ms(lambda i: L.cuckoo_lookup(table, h_bits, salt, *qs[i]))
+        report("k10", kind, ms, bound_ms(k10_bytes(n)), queries=n)
+    counts = torch.zeros(table.shape[0], dtype=torch.uint32, device=dev)
+    for kind in ("count", "targets"):
+        bs = bases[kind]
+        valid, _, hits = stats[kind]
+        ms = graph_ms(lambda i: L.cuckoo_count_step(counts, table, bs[i], h_bits, salt, K))
+        report("k3_cuckoo", kind, ms, bound_ms(k3_bytes(bs[0], valid, hits, "cuckoo")),
+               valid=valid, hits=hits)
+    for kind, bs in batches.items():
+        valid, _, hits = stats[kind]
+        ms = graph_ms(lambda i: L.cuckoo_classify_step(table, meta, bs[i][0], bs[i][1], h_bits,
+                                                       salt, K))
+        report("k4_cuckoo", kind, ms,
+               bound_ms(k4_bytes(bs[0][0], bs[0][1], valid, hits, "cuckoo")), valid=valid,
+               hits=hits)
+    del table, meta, counts
+    for k in COMPARE_KS:
+        table, h_bits, salt, _ = cuckoo_table_k(_keys_k(genome, k), k, dev)
+        counts = torch.zeros(table.shape[0], dtype=torch.uint32, device=dev)
+        acc = torch.zeros(2, dtype=torch.int64, device=dev)
+        tally = torch.zeros(L.n_tiles(ROWS, ROW_LEN, k), dtype=torch.int64, device=dev)
+        for kind, bs in bases.items():
+            per = [L.cuckoo_hit_stats_plain(table, b, 0, h_bits, salt, k)[:2].tolist() for b in bs]
+            hits, valid = (sum(x) / N_BATCHES for x in zip(*per))
+            key, extra = f"{kind} k={k}", dict(valid=valid, hits=hits)
+            ms = graph_ms(lambda i: L.cuckoo_count_valid_step(counts, tally, table, bs[i], h_bits,
+                                                              salt, k))
+            report("k3v_cuckoo", key, ms, bound_ms(k3v_bytes(bs[0], valid, hits, "cuckoo")),
+                   **extra)
+            ms8 = graph_ms(lambda i: L.cuckoo_hit_accumulate(acc, table, bs[i], h_bits, salt, k))
+            report("k8_cuckoo", key, ms8, bound_ms(k8_bytes(bs[0], valid, hits, "cuckoo")), **extra)
+            ms = graph_ms(lambda i: L.cuckoo_hit_stats(table, bs[i], int(per[i][1]) // 2, h_bits,
+                                                       salt, k))
+            report("k9_cuckoo", key, ms, bound_ms(k9_bytes(bs[0], valid, hits, "cuckoo")),
+                   over_k8=ms - ms8, **extra)
+        del table, counts, tally
         torch.cuda.empty_cache()
 
 
@@ -437,6 +536,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--repo", default=None, help="checkout whose strainer2_tpu_torch is timed")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--label", default=None)
+    ap.add_argument("--layout", default="both", choices=("both", "bucket", "cuckoo"),
+                    help="the kernels to time: bucket (K1-K9), cuckoo (K10 and the cuckoo "
+                         "instances) or both")
     args = ap.parse_args(argv)
     import torch
 
@@ -451,7 +553,7 @@ def main(argv: list[str] | None = None) -> int:
     if not strainer2_tpu_torch.__file__.startswith(repo + os.sep):
         print(f"FAIL: imported {strainer2_tpu_torch.__file__}, not the package under {repo}")
         return 1
-    print(json.dumps(bench(args.seed, args.label or repo)), flush=True)
+    print(json.dumps(bench(args.seed, args.label or repo, args.layout)), flush=True)
     return 0
 
 

@@ -1,8 +1,9 @@
-"""A/B of the bucket-row lookups on one device: the ring of bulk async
-key_hi copies (K5) against K2 and the plain torch lookup.
+"""A/B of the membership lookups on one device: the ring of bulk async
+key_hi copies (K5) against K2 and the plain torch lookup, and the cuckoo
+layout's two-probe lookup (K10) on a table of the same keys.
 
     python -m strainer2_tpu_torch.tools.bench_lookup [--kmers 6700000] [--queries 262144] \\
-        [--variants plain,k2,ring8x4,ring8x8,ring16x4,ring16x8] [--row-width 64] \\
+        [--variants plain,k2,ring8x4,ring8x8,ring16x4,ring16x8,k10] [--row-width 64] \\
         [--device cuda]
 
 The torch twin of tools/bench_pallas_lookup.py.  A table of --kmers random
@@ -12,13 +13,16 @@ rows a group and up to D groups in flight a ring; its ``chunk`` (queries
 per block) is 2 W D, so that a 262,144-query step gives the card thousands
 of blocks.
 
-Every variant is checked exactly (found, slot, meta) against K2 and the
-plain version on every slice.  Timing follows the original's chain method:
+Every bucket variant is checked exactly (found, slot, meta) against K2 and
+the plain version on every slice.  ``k10`` looks the same queries up in the
+cuckoo table of the same keys (index/cuckoo.py): its (found, slot) must
+equal the plain cuckoo lookup's, and its found set and the key at each
+found slot K2's.  Timing follows the original's chain method:
 N_SHORT and N_LONG lookup steps over the rotated slices, each chain timed
 with CUDA events (host clock on the CPU, where every variant is the plain
 version), the marginal per-step time reported as M lookups/s, and the
-chains' checksums (sum of found meta + found count, mod 2**32) checked for
-linearity.  Exit status 1 when a variant disagrees or a checksum is not
+chains' checksums (sum of found meta, or of found slots for k10, + found
+count, mod 2**32) checked for linearity.  Exit status 1 when a variant disagrees or a checksum is not
 linear.
 """
 
@@ -43,7 +47,7 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kmers", type=int, default=6_700_000)
     ap.add_argument("--queries", type=int, default=262_144, help="lookups per chain step")
-    ap.add_argument("--variants", default="plain,k2,ring8x4,ring8x8,ring16x4,ring16x8")
+    ap.add_argument("--variants", default="plain,k2,ring8x4,ring8x8,ring16x4,ring16x8,k10")
     ap.add_argument("--row-width", type=int, default=64, choices=(64, 128, 288),
                     help="bucket row lanes: 64 (the detection row), 128, 288 (256 strains)")
     ap.add_argument("--device", default="cuda")
@@ -67,6 +71,7 @@ def _checksum(found: torch.Tensor, meta: torch.Tensor) -> int:
 
 
 def _variant(name: str, rows, h_bits: int, salt: int):
+    """The lookup of a bucket variant; k10's is made in ``bench``."""
     from strainer2_tpu_torch.ops import lookup as L
 
     if name == "plain":
@@ -77,13 +82,15 @@ def _variant(name: str, rows, h_bits: int, salt: int):
         w, d = (int(x) for x in name[len("ring"):].split("x"))
         return lambda qh, ql: L.bucket_lookup_ring(rows, h_bits, salt, qh, ql, w=w, d=d,
                                                    chunk=2 * w * d)
-    raise ValueError(f"unknown variant {name!r}: plain, k2 or ringWxD")
+    raise ValueError(f"unknown variant {name!r}: plain, k2, ringWxD or k10")
 
 
 def bench(argv: list[str] | None = None, out=None) -> dict:
     """Run the A/B; returns {variant: {"ms", "mlookups_s", "err_k2",
     "err_plain", "sums", "linear"}} plus "ok" and "device"."""
     from strainer2_tpu_torch.index.bucket import build_bucket_table
+    from strainer2_tpu_torch.index.cuckoo import build_cuckoo
+    from strainer2_tpu_torch.ops import lookup as L
     from strainer2_tpu_torch.ops.packing_np import split_code64_np
     from strainer2_tpu_torch.pipeline.engine import resolve_device
 
@@ -118,6 +125,23 @@ def bench(argv: list[str] | None = None, out=None) -> dict:
 
     ref_k2 = [_variant("k2", rows, h_bits, salt)(qhi[i], qlo[i]) for i in range(SLICES)]
     ref_plain = [_variant("plain", rows, h_bits, salt)(qhi[i], qlo[i]) for i in range(SLICES)]
+    variants = [x.strip() for x in args.variants.split(",")]
+    if "k10" in variants:
+        t0 = time.perf_counter()
+        ct = build_cuckoo(codes, K)
+        ctab = torch.from_numpy(ct.table).to(dev)
+        print(f"# cuckoo table: 2 x 2^{ct.h_bits} slots ({ctab.numel() * 4 / 2**20:.0f} MiB), "
+              f"built {time.perf_counter() - t0:.1f} s", file=out)
+
+        def key_at(slots: int, slot_of_key: np.ndarray) -> torch.Tensor:
+            """Key index held at each slot (-1 where none)."""
+            kat = np.full(slots, -1, dtype=np.int64)
+            kat[slot_of_key] = np.arange(slot_of_key.size)
+            return torch.from_numpy(kat).to(dev)
+
+        key_b, key_c = key_at(table.num_slots, table.slot_of_key), key_at(ct.num_slots, ct.slot_of_key)
+        ref_k10 = [L.cuckoo_lookup_plain(ctab, ct.h_bits, ct.salt, qhi[i], qlo[i])
+                   for i in range(SLICES)]
 
     def sync():
         if on_cuda:
@@ -138,15 +162,28 @@ def bench(argv: list[str] | None = None, out=None) -> dict:
             end.record()
         sync()
         secs = start.elapsed_time(end) / 1e3 if on_cuda else time.perf_counter() - t
-        return secs, sum(_checksum(f, m) for f, _, m in outs) & _MASK32
+        return secs, sum(_checksum(o[0], o[-1]) for o in outs) & _MASK32
+
+    def k10_vs_k2(got, ref) -> int:
+        """Queries whose found flag, or key at a found slot, differ from K2's."""
+        (fc, sc), (fb, sb, _) = got, ref
+        same_key = key_c[sc.to(torch.int64)] == key_b[sb.to(torch.int64)]
+        return int(((fc != fb) | (fb & ~same_key)).sum())
 
     results: dict = {"device": name, "ok": True}
-    for v in (x.strip() for x in args.variants.split(",")):
-        fn = _variant(v, rows, h_bits, salt)
+    for v in variants:
+        if v == "k10":
+            fn = lambda qh, ql: L.cuckoo_lookup(ctab, ct.h_bits, ct.salt, qh, ql)  # noqa: E731
+        else:
+            fn = _variant(v, rows, h_bits, salt)
         got = [fn(qhi[i], qlo[i]) for i in range(SLICES)]
         sync()
-        err_k2 = max(_max_abs_err(g, r) for g, r in zip(got, ref_k2))
-        err_plain = max(_max_abs_err(g, r) for g, r in zip(got, ref_plain))
+        if v == "k10":
+            err_k2 = max(k10_vs_k2(g, r) for g, r in zip(got, ref_k2))
+            err_plain = max(_max_abs_err(g, r) for g, r in zip(got, ref_k10))
+        else:
+            err_k2 = max(_max_abs_err(g, r) for g, r in zip(got, ref_k2))
+            err_plain = max(_max_abs_err(g, r) for g, r in zip(got, ref_plain))
         chain(fn, N_SHORT)  # warm-up
         d_short, s_short = chain(fn, N_SHORT)
         d_long, s_long = chain(fn, N_LONG)

@@ -1,6 +1,7 @@
 """The port's host copies vs their JAX-package originals, on the same
 inputs: constants, stage timers, prefetch, readers, packer, bucket tables,
-row-order replay, index and its npz, filter and coverage.  Also the port's
+row-order replay, index and its npz, filter and coverage, the native
+cuckoo builder.  Also the port's
 own C++ host library: built under build/strainer2_tpu_torch/, equal to the
 JAX package's library batch for batch, and (unlike it) splitting a
 sequence longer than one buffer as the Python packer does."""
@@ -15,6 +16,7 @@ import torch
 
 import strainer2_tpu.constants as j_constants
 import strainer2_tpu.index.bucket as j_bucket
+import strainer2_tpu.native as j_native
 import strainer2_tpu.index.refhash_order as j_refhash
 import strainer2_tpu.io.batches as j_batches
 import strainer2_tpu.io.fastx as j_fastx
@@ -25,6 +27,7 @@ import strainer2_tpu.utils.observability as j_observability
 import strainer2_tpu.utils.prefetch as j_prefetch
 import strainer2_tpu_torch.constants as t_constants
 import strainer2_tpu_torch.index.bucket as t_bucket
+import strainer2_tpu_torch.native as t_native
 import strainer2_tpu_torch.index.refhash_order as t_refhash
 import strainer2_tpu_torch.io.batches as t_batches
 import strainer2_tpu_torch.io.fastx as t_fastx
@@ -205,6 +208,21 @@ def test_bucket_twin_matches():
     assert (tt.h_bits, tt.salt, tt.num_slots) == (jt.h_bits, jt.salt, jt.num_slots)
     meta = np.arange(jt.num_slots, dtype=np.uint32)
     np.testing.assert_array_equal(tt.with_meta(meta), jt.with_meta(meta))
+
+
+@pytest.mark.parametrize("k,h_bits,salt", [(31, 16, 0x9E3779B9), (20, 15, 0), (32, 16, 7)])
+def test_native_cuckoo_builder_twin_matches(k, h_bits, salt):
+    """build_cuckoo_native: the table and key slots of the JAX library's,
+    and "retry" where both libraries' eviction chains run past the limit."""
+    rng = np.random.default_rng(k)
+    codes = np.unique(rng.integers(0, (1 << (2 * k)) - 1, 20_000, dtype=np.uint64))
+    ours = t_native.build_cuckoo_native(codes, k, h_bits, salt)
+    theirs = j_native.build_cuckoo_native(codes, k, h_bits, salt)
+    assert ours not in (None, "retry")
+    for a, b in zip(ours, theirs):
+        np.testing.assert_array_equal(a, b)
+    assert t_native.build_cuckoo_native(codes, k, 13, salt) == "retry"
+    assert j_native.build_cuckoo_native(codes, k, 13, salt) == "retry"
 
 
 def test_refhash_order_twin_matches():

@@ -1,6 +1,7 @@
-"""CUDA kernels K1-K9 vs their plain torch versions, on the card, with the
-edge spans of the per-read sums (``edge_bounds``, also used by the CPU
-tests that hold the plain versions to the JAX functions).
+"""CUDA kernels K1-K10 (and the cuckoo instances of K3, K4, K8 and K9) vs
+their plain torch versions, on the card, with the edge spans of the
+per-read sums (``edge_bounds``, also used by the CPU tests that hold the
+plain versions to the JAX functions).
 
 These need an NVIDIA GPU with nvcc (a CUDA kernel has no interpret mode)
 and skip elsewhere; ``python3 chip_smoke.py`` runs the same comparisons at
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from strainer2_tpu_torch.index.bucket import EMPTY, build_bucket_table
+from strainer2_tpu_torch.index.cuckoo import build_cuckoo
 from strainer2_tpu_torch.index.hashing import cuckoo_slots_torch
 from strainer2_tpu_torch.io.batches import max_reads_capacity, pack_stream
 from strainer2_tpu_torch.ops import lookup as L
@@ -618,3 +620,204 @@ def test_hit_kernels_main_shape(strain):
             assert (L.hit_stats(rows, b, rem, table.h_bits, table.salt, K).tolist()
                     == L.hit_stats_plain(rows, b, rem, table.h_bits, table.salt, K).tolist()), rem
     assert _equal((acc,), (ref,)) and int(acc[0]) > 0
+
+
+# ---- the cuckoo layout: K10 and the cuckoo instances of K3, K4, K8, K9 --------
+
+def _cuckoo_k(genome, k, dev, h_bits=None):
+    """The genome's cuckoo table at k on the device, its CuckooTable, and a
+    seeded slot-indexed class array (2 for a third of the keys, else 1)."""
+    codes, valid = canonical_codes_np(genome, k)
+    table = build_cuckoo(np.unique(codes[valid]), k, h_bits=h_bits)
+    meta = np.zeros(table.num_slots, dtype=np.uint32)
+    meta[table.slot_of_key] = np.where(np.arange(table.slot_of_key.size) % 3 == 0, 2, 1)
+    return (torch.from_numpy(table.table).to(dev), table,
+            torch.from_numpy(meta).to(dev))
+
+
+def poly_t_rows(rng, genome, row_len, n_rows=6):
+    """edge_rows with a run of up to 80 T (code 3) in its second row: at
+    k = 32 those windows are the empty-slot sentinel (0xFFFFFFFF in both
+    halves)."""
+    bases = edge_rows(rng, genome, row_len, n_rows)
+    bases[1, row_len // 4 : row_len // 4 + 80] = 3  # a random row: the genome's rows keep their hits
+    return bases
+
+
+@pytest.mark.parametrize("salted", [False, True], ids=["salt0", "retried"])
+def test_cuckoo_lookup_kernel(strain, salted):
+    """K10 against its plain version on present and absent keys, in a table
+    built at its own size and in one whose first tries failed (a tiny
+    h_bits: a non-zero salt, a grown H)."""
+    rng, genome, codes, _, rows = strain
+    keys = np.unique(codes)
+    t = build_cuckoo(keys[:2000] if salted else keys, K, h_bits=10 if salted else None)
+    assert (t.salt != 0) == salted
+    table = torch.from_numpy(t.table).to(rows.device)
+    q = np.where(rng.random(50_000) < 0.5, keys[rng.integers(0, 2000 if salted else keys.size, 50_000)],
+                 rng.integers(0, 1 << 62, 50_000, dtype=np.uint64))
+    qhi, qlo = (torch.from_numpy(x).to(rows.device) for x in split_code64_np(q, K))
+    out = L.cuckoo_lookup(table, t.h_bits, t.salt, qhi, qlo)
+    assert _equal(out, L.cuckoo_lookup_plain(table, t.h_bits, t.salt, qhi, qlo))
+    assert 0 < int(out[0].sum()) < q.size
+
+
+def test_cuckoo_lookup_kernel_key_in_both_slots(dev):
+    """A hand-built table holding keys in both of their slots, in slot 1
+    only and not at all: found, slot s0 where s0 holds the key (else s1),
+    as the jnp lookup picks it."""
+    rng = np.random.default_rng(5)
+    h_bits, salt = 10, 0x5BD1E995
+    h = 1 << h_bits
+    table = np.full((2 * h, 2), 0xFFFFFFFF, dtype=np.uint32)
+    cand_hi, cand_lo = (rng.integers(0, 1 << 30, 4000, dtype=np.uint64).astype(np.uint32)
+                        for _ in range(2))
+    sh = torch.from_numpy(cand_hi.astype(np.int64)) ^ salt
+    lo = torch.from_numpy(cand_lo.astype(np.int64))
+    c0 = cuckoo_slots_torch(sh, lo, h_bits, 0).numpy()
+    c1 = cuckoo_slots_torch(sh, lo, h_bits, 1).numpy() + h
+    keep, used = [], set()
+    for i in range(4000):  # queries whose four slots no other query shares
+        if c0[i] not in used and c1[i] not in used and len(keep) < 600:
+            keep.append(i)
+            used.update((c0[i], c1[i]))
+    assert len(keep) == 600
+    qhi, qlo, s0, s1 = (x[keep] for x in (cand_hi, cand_lo, c0, c1))
+    for i in range(0, 600, 3):  # both slots; slot 1 only; absent
+        table[s1[i]] = qhi[i], qlo[i]
+        table[s0[i]] = qhi[i], qlo[i]
+        table[s1[i + 1]] = qhi[i + 1], qlo[i + 1]
+    t, qh, ql = (torch.from_numpy(x).to(dev) for x in (table, qhi, qlo))
+    found, slot = L.cuckoo_lookup(t, h_bits, salt, qh, ql)
+    assert _equal((found, slot), L.cuckoo_lookup_plain(t, h_bits, salt, qh, ql))
+    f, sl = found.cpu().numpy(), slot.cpu().numpy()
+    assert f[0::3].all() and (sl[0::3] == s0[0::3]).all()
+    assert f[1::3].all() and (sl[1::3] == s1[1::3]).all()
+
+
+@pytest.mark.parametrize("row_len", EDGE_ROW_LENS)
+@pytest.mark.parametrize("k", EDGE_K)
+def test_cuckoo_count_and_hit_kernels_edges(strain, k, row_len):
+    """Cuckoo K3, K3 with its valid count, K8 and K9 against their plain
+    versions at K3's edges (every k, short rows, partial tiles, N at tile
+    edges, an all-N row, a poly-T run: at k = 32 the empty-slot sentinel),
+    counts that wrap, and every edge of the crossing."""
+    rng, genome, _, _, rows64 = strain
+    dev = rows64.device
+    table, t, _ = _cuckoo_k(genome, k, dev)
+    h, salt = t.h_bits, t.salt
+    b = torch.from_numpy(poly_t_rows(rng, genome, row_len)).to(dev)
+    start = np.zeros(t.num_slots, dtype=np.uint32)
+    start[t.slot_of_key[::3]] = 0xFFFFFFFF  # wraps on a hit
+    c0 = torch.from_numpy(start).to(dev)
+    c1 = L.cuckoo_count_step(c0.clone(), table, b, h, salt, k)
+    assert _equal((c1,), (L.cuckoo_count_step_plain(c0.clone(), table, b, h, salt, k),))
+    t1 = torch.zeros(L.n_tiles(*b.shape, k), dtype=torch.int64, device=dev)
+    t2 = t1.clone()
+    c2 = L.cuckoo_count_valid_step(c0.clone(), t1, table, b, h, salt, k)
+    c3 = L.cuckoo_count_valid_step_plain(c0.clone(), t2, table, b, h, salt, k)
+    assert _equal((c2, L.valid_tally_total(t1)), (c3, L.valid_tally_total_plain(t2)))
+    assert _equal((c1,), (c2,)) and not _equal((c1,), (c0,))
+    acc0 = torch.tensor([5, 2**40], dtype=torch.int64, device=dev)
+    acc = L.cuckoo_hit_accumulate(acc0.clone(), table, b, h, salt, k)
+    ref = L.cuckoo_hit_accumulate_plain(acc0.clone(), table, b, h, salt, k)
+    assert _equal((acc,), (ref,))
+    hits, total = (int(x) for x in ref - acc0)
+    assert 0 < hits <= total
+    for rem in k9_remainings(total):
+        got = L.cuckoo_hit_stats(table, b, rem, h, salt, k)
+        assert got.tolist() == L.cuckoo_hit_stats_plain(table, b, rem, h, salt, k).tolist(), rem
+
+
+@pytest.mark.parametrize("k", [20, 31, 32])
+@pytest.mark.parametrize("n_rows,row_len", [(8, 512), (64, 4096)])
+def test_cuckoo_classify_step_kernel(strain, k, n_rows, row_len):
+    """Cuckoo K4 against its plain version over the edge spans, on reads
+    half from the genome and a poly-T read."""
+    rng, genome, _, _, rows64 = strain
+    dev = rows64.device
+    table, t, meta = _cuckoo_k(genome, k, dev)
+    reads = [genome[s : s + 150] if i % 2 else rng.integers(0, 4, 150, dtype=np.uint8)
+             for i, s in enumerate(rng.integers(0, genome.size - 150, 2000))]
+    reads[7] = np.full(150, 3, dtype=np.uint8)
+    batch = next(pack_stream(iter(reads), k, n_rows, row_len, with_read_ids=True))
+    q = n_rows * (row_len - k + 1)
+    bounds = np.full(max_reads_capacity(k, n_rows, row_len) + 1, q, dtype=np.int32)
+    bounds[: batch.n_reads] = batch.window_starts
+    b = torch.from_numpy(batch.bases).to(dev)
+    for bd_np in (bounds, edge_bounds(q, row_len - k + 1)):
+        bd = torch.from_numpy(bd_np).to(dev)
+        out = L.cuckoo_classify_step(table, meta, b, bd, t.h_bits, t.salt, k)
+        assert _equal(out, L.cuckoo_classify_step_plain(table, meta, b, bd, t.h_bits, t.salt, k))
+    assert int(out[1].sum()) > 0
+
+
+def test_cuckoo_classify_step_kernel_key_in_both_slots(strain):
+    """Cuckoo K4 on a table where a share of the keys held in slot s0 is
+    also written into its empty slot s1 with the other class: the class
+    read is meta[s0], one word, so the counts equal the built table's (a
+    sum over both slots, as the bucket lookups take, would read 3)."""
+    rng, genome, _, _, rows64 = strain
+    dev = rows64.device
+    _, t, meta = _cuckoo_k(genome, K, dev)
+    table, meta_np = t.table.copy(), meta.cpu().numpy().copy()
+    hi, lo = table[t.slot_of_key, 0], table[t.slot_of_key, 1]
+    h = table.shape[0] // 2
+    sh = torch.from_numpy(hi.astype(np.int64)) ^ t.salt
+    s0 = cuckoo_slots_torch(sh, torch.from_numpy(lo.astype(np.int64)), t.h_bits, 0).numpy()
+    s1 = cuckoo_slots_torch(sh, torch.from_numpy(lo.astype(np.int64)), t.h_bits, 1).numpy() + h
+    other = np.where(t.slot_of_key == s0, s1, s0)
+    pick = np.flatnonzero((rng.random(other.size) < 0.3) & (table[other, 0] == 0xFFFFFFFF)
+                          & (t.slot_of_key == s0))
+    assert pick.size > 1000
+    table[other[pick]] = table[t.slot_of_key[pick]]
+    meta_np[other[pick]] = 3 - meta_np[t.slot_of_key[pick]]
+    tb, mt = torch.from_numpy(table).to(dev), torch.from_numpy(meta_np).to(dev)
+    reads = [genome[s : s + 150] for s in rng.integers(0, genome.size - 150, 2000)]
+    batch = next(pack_stream(iter(reads), K, 64, 4096, with_read_ids=True))
+    bounds = np.full(max_reads_capacity(K, 64, 4096) + 1, 64 * (4096 - K + 1), dtype=np.int32)
+    bounds[: batch.n_reads] = batch.window_starts
+    b, bd = torch.from_numpy(batch.bases).to(dev), torch.from_numpy(bounds).to(dev)
+    out = L.cuckoo_classify_step(tb, mt, b, bd, t.h_bits, t.salt, K)
+    assert _equal(out, L.cuckoo_classify_step_plain(tb, mt, b, bd, t.h_bits, t.salt, K))
+    built = torch.from_numpy(t.table).to(dev)
+    assert _equal(out, L.cuckoo_classify_step(built, meta, b, bd, t.h_bits, t.salt, K))
+
+
+def test_cuckoo_hit_stats_kernel_cuda_graph(strain):
+    """Cuckoo K9 captured in a CUDA graph (eight calls at different
+    remaining values) and replayed twice equals its plain version."""
+    rng, genome, _, _, rows64 = strain
+    table, t, _ = _cuckoo_k(genome, 20, rows64.device)
+    b = torch.from_numpy(edge_rows(rng, genome, 4096, n_rows=16)).to(rows64.device)
+    total = int(L.cuckoo_hit_stats_plain(table, b, 1, t.h_bits, t.salt, 20)[1])
+    rems = [0, 1, total // 3, total // 2, total - 1, total, total + 1, -3]
+    want = [L.cuckoo_hit_stats_plain(table, b, r, t.h_bits, t.salt, 20).tolist() for r in rems]
+    L.cuckoo_hit_stats(table, b, 1, t.h_bits, t.salt, 20)  # builds the kernels off the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [L.cuckoo_hit_stats(table, b, r, t.h_bits, t.salt, 20) for r in rems]
+    for _ in range(2):
+        for o in outs:
+            o.fill_(-9)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert [o.tolist() for o in outs] == want
+
+
+def test_cuckoo_wrappers_refuse_mismatched_buffers(strain):
+    """A count buffer or a meta array that is not 2H cells, and a bucket
+    row table, raise before any launch."""
+    rng, genome, _, _, rows64 = strain
+    dev = rows64.device
+    table, t, meta = _cuckoo_k(genome, K, dev)
+    b = torch.from_numpy(edge_rows(rng, genome, 1000)).to(dev)
+    short = torch.zeros(t.num_slots - 16, dtype=torch.uint32, device=dev)
+    with pytest.raises(ValueError, match="cells"):
+        L.cuckoo_count_step(short, table, b, t.h_bits, t.salt, K)
+    bd = torch.zeros(5, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="cells"):
+        L.cuckoo_classify_step(table, meta[:-2], b, bd, t.h_bits, t.salt, K)
+    with pytest.raises(ValueError, match="cuckoo table"):
+        L.cuckoo_hit_stats(rows64, b, 1, t.h_bits, t.salt, K)

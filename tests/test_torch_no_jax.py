@@ -6,7 +6,9 @@ bytes; another imports the multi-strain modules and runs detect-multi and
 the lookup A/B tool on the CPU; a third runs pipeline-multi (shared panel
 scan, filters, multi-strain detection, coverage) to the goldens of
 strainA; a fourth runs genome_compare (the string engine and the plain
-K8/K9 path) and strain-track to their goldens.  With the JAX package unimportable, no
+K8/K9 path) and strain-track to their goldens; a fifth builds a cuckoo
+index (index/cuckoo.py) and runs strain_detect in the cuckoo layout to
+its golden.  With the JAX package unimportable, no
 code of it (its native/ build step included) can write under
 strainer2_tpu/."""
 
@@ -173,6 +175,29 @@ def _run(script: str, *args: str):
     return proc.stdout
 
 
+_CUCKOO_SCRIPT = _BLOCK + textwrap.dedent(
+    """
+    import numpy as np
+    from strainer2_tpu_torch.index.cuckoo import build_cuckoo
+    from strainer2_tpu_torch.pipeline.detect import DetectConfig, run_detect
+
+    mini = os.path.join(sys.argv[1], "tests", "golden", "mini")
+    out_dir = sys.argv[2]
+    os.chdir(mini)
+    assert build_cuckoo(np.arange(1, 5000, dtype=np.uint64), 31).num_slots >= 2 * 4999
+    hits = os.path.join(out_dir, "hits.txt")
+    det = run_detect("data/strainA.fna.gz", "expected/scrubbed_m05.txt", hits,
+                     batch_list="data/targets.txt", stdout=io.StringIO(), gzip_output=False,
+                     cfg=DetectConfig(device="cpu", rows=8, row_len=1024, layout="cuckoo"))
+    assert det.index.layout == "cuckoo"
+    with open(hits, "rb") as f, open("expected/kmer_hits.txt", "rb") as g:
+        assert f.read() == g.read()
+    assert not [m for m in sys.modules if blocked(m)]
+    print("ok")
+    """
+)
+
+
 def test_package_imports_and_runs_without_jax():
     assert int(_run(_SCRIPT).split()[-1]) >= 20
 
@@ -187,3 +212,7 @@ def test_pipeline_multi_runs_without_jax(tmp_path):
 
 def test_genome_compare_and_strain_track_run_without_jax(tmp_path):
     assert _run(_COMPARE_SCRIPT, str(tmp_path)).split()[-1] == "ok"
+
+
+def test_cuckoo_detect_runs_without_jax(tmp_path):
+    assert _run(_CUCKOO_SCRIPT, str(tmp_path)).split()[-1] == "ok"

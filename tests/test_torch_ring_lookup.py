@@ -147,6 +147,15 @@ def test_bench_lookup_cpu_variants_agree(capsys, row_width, variants):
     assert f"x {row_width} lanes" in capsys.readouterr().out
 
 
+def test_bench_lookup_k10_agrees_with_k2():
+    """The cuckoo lookup (K10) in the A/B: its (found, slot) equal the plain
+    cuckoo lookup's, and its found set and the key at each found slot K2's,
+    on a cuckoo table of the same keys."""
+    res = bench(["--device", "cpu", "--kmers", "5000", "--queries", str(N), "--variants", "k2,k10"])
+    assert res["ok"]
+    assert res["k10"]["err_k2"] == 0 and res["k10"]["err_plain"] == 0 and res["k10"]["linear"]
+
+
 def test_bench_lookup_main_exit_status(capsys):
     assert main(["--device", "cpu", "--kmers", "2000", "--queries", "512",
                  "--variants", "k2,ring8x4"]) == 0
