@@ -15,7 +15,10 @@ Phases; any failure exits non-zero and no result line is printed:
    k = 20 and 31, K9 with ``remaining`` at 0, 1, the batch's valid total
    and one past it, K3 with its valid count's tally total
    (``valid_tally_total``) beside one torch.sum; the cuckoo layout's
-   kernels on the same batches over a cuckoo table of the same keys: K10
+   kernels on the same batches over a cuckoo table of the same keys: the
+   slot fingerprint kernel (``cuckoo_fingerprints``), whose array the
+   others read before the table, and their plain versions read every
+   slot; K10
    (``cuckoo_lookup``) on the counting batches' window codes and on the
    present-key sets, the cuckoo instances of K3 and K4 on their batches,
    of K8, K9 and K3 with its valid count at k = 20 and 31 (K9 at the same
@@ -50,10 +53,11 @@ Phases; any failure exits non-zero and no result line is printed:
    cuckoo lookup and to K2's found keys, M lookups/s of each; then K6 and K7 at S = 16, 32, 96 and 256 strains on phase 2's key set
    with seeded meta words and its detection batches, each exactly equal to
    its plain version;
-5. launch counts of the seventeen kernels on their paths (phase 4 for K1,
+5. launch counts of the eighteen kernels on their paths (phase 4 for K1,
    K3 and K4, the A/B tool for K2, K5 and K10, phase 6 for K6 and K7,
    phase 9 for K8, K9 and K3 with its valid count and its tally total,
-   phase 10 for the cuckoo K3, K4, K8 and K9, phase 3's cuckoo
+   phase 10 for the fingerprint kernel and the cuckoo K3, K4, K8 and K9,
+   phase 3's cuckoo
    strain-track for the cuckoo K3 with its valid count; each must be >
    0; no CLI path
    probes a key set with K2 since the -a file's k-mers are marked by a
@@ -95,11 +99,13 @@ Phases; any failure exits non-zero and no result line is printed:
    counts on the k-mers unique to one strain (found here with numpy);
 10. real size, the cuckoo layout: the phase-4 strain's cuckoo index built
    on the card (K1, then the native builder), every key checked to sit at
-   one of its two slots; run_scrub_count, strain_detect and genome_compare
-   fullmap and -S with layout="cuckoo" through the stage APIs, each
-   byte-identical to phases 4 and 9, with walls and windows/s (idle share
-   with --profile); a strain_detect run on the saved npz as its
-   --index-cache reuses it unwritten (bytes and mtime).
+   one of its two slots, and saved; a cuckoo scrub checkpoint of the first
+   background genome written by the stage API; then the CLIs, which take
+   the layout of what is on disk: kmer_scrub_count --checkpoint resumes
+   it, strain_detect --index-cache reuses the npz unwritten (bytes and
+   mtime), each byte-identical to phase 4; genome_compare fullmap and -S
+   with layout="cuckoo" through the stage API, byte-identical to phase 9;
+   walls and windows/s (idle share with --profile).
 
 Phases run in the order 1, 2, 2b, 3, 4, 7, 6, 8, 9, 10, 5.
 """
@@ -165,6 +171,7 @@ SOURCES = {
     "hit_stats": _CU + "strainer2_kernels.cu",
     "count_valid_step": _CU + "strainer2_kernels.cu",
     "valid_tally_total": _CU + "strainer2_kernels.cu",
+    "cuckoo_fingerprints": _CU + "strainer2_kernels.cu",
     "cuckoo_lookup": _CU + "strainer2_kernels.cu",
     "cuckoo_count_step": _CU + "strainer2_kernels.cu",
     "cuckoo_count_valid_step": _CU + "strainer2_kernels.cu",
@@ -186,7 +193,9 @@ REPLACES = {
     # the JAX strain-track adds each batch's valid scalar on the host; the
     # port totals its device tally once a stream
     "valid_tally_total": "strainer2_tpu/pipeline/multi.py:284",
-    # the cuckoo layout (the JAX package's default off the TPU)
+    # the cuckoo layout (the JAX package's default off the TPU); the slot
+    # fingerprints are the port's own, for the probe of cuckoo_lookup
+    "cuckoo_fingerprints": "strainer2_tpu/ops/lookup.py:39",
     "cuckoo_lookup": "strainer2_tpu/ops/lookup.py:39",
     "cuckoo_count_step": "strainer2_tpu/pipeline/engine.py:301",
     "cuckoo_count_valid_step": "strainer2_tpu/pipeline/engine.py:294",
@@ -469,17 +478,21 @@ def check_kernels(d: str, data: dict, rng, dev, seed: int) -> dict:
 
 
 def check_cuckoo_kernels(ctx: dict, dev) -> dict:
-    """Phase 2, the cuckoo layout: K10 and the cuckoo K3 and K4 against their
-    plain versions on phase 2's batches and query sets, over a cuckoo table
-    of the phase-4 strain's keys and classes (the class a slot-indexed
-    array); K10 on the ``count`` window codes and the ``main`` sets of
-    present keys (all found)."""
+    """Phase 2, the cuckoo layout: the fingerprint kernel, K10 and the
+    cuckoo K3 and K4 against their plain versions on phase 2's batches and
+    query sets, over a cuckoo table of the phase-4 strain's keys and
+    classes (the class a slot-indexed array); K10 on the ``count`` window
+    codes and the ``main`` sets of present keys (all found).  The probing
+    kernels read the table through its fingerprints; their plain versions
+    read every slot, so equality shows the filter lost nothing.  Bounds
+    count what each batch's filtered probes read (the fingerprints once,
+    a table sector a matched slot), beside the unfiltered bound."""
     import torch
 
     from strainer2_tpu_torch.index.build import StrainIndex
     from strainer2_tpu_torch.ops import lookup as L
     from strainer2_tpu_torch.tools.bench_kernels import (
-        MAIN_QUERIES, bound_ms, k3_bytes, k4_bytes, k10_bytes,
+        batch_filter_stats, bound_ms, filter_stats, k3_bytes, k4_bytes, k10_bytes, mean_stats,
     )
 
     index = ctx["index"]
@@ -490,39 +503,57 @@ def check_cuckoo_kernels(ctx: dict, dev) -> dict:
     h, salt = ct.h_bits, ct.salt
     print(f"cuckoo table: {index.num_kmers} keys, 2 x 2^{h} slots ({table.numel() * 4 / 2**20:.0f} "
           f"MiB), salt {salt}", flush=True)
+    err = checked("cuckoo_fingerprints", lambda i: (L.cuckoo_fingerprints(table),),
+                  lambda i: (L.cuckoo_fingerprints_plain(table),))
+    out = {"cuckoo_fingerprints": dict(
+        timed("cuckoo_fingerprints", lambda i: L.cuckoo_fingerprints(table),
+              lambda i: L.cuckoo_fingerprints_plain(table), bound_ms(9 * ct.num_slots),
+              f"; {ct.num_slots} slots, once an index"), max_abs_err=err)}
+    fp = L.cuckoo_fingerprints(table)
     codes, main_q, bases = ctx["count_codes"], ctx["main_q"], ctx["count"]
     targets = [b for b, _, _ in ctx["detect"]["targets"]]
-    c_valid, c_hits = ctx["count_stats"]
-    n_win = codes[0][0].numel()
+    _, c_hits = ctx["count_stats"]
     counts, counts_plain = (torch.zeros(ct.num_slots, dtype=torch.uint32, device=dev) for _ in range(2))
     t_counts, t_counts_plain = (torch.zeros(ct.num_slots, dtype=torch.uint32, device=dev)
                                 for _ in range(2))
-    d_valid, _, d_hits = ctx["detect_stats"]["targets"]
+    _, _, d_hits = ctx["detect_stats"]["targets"]
+    st = {"count": mean_stats([batch_filter_stats(table, h, salt, b) for b in bases]),
+          "targets": mean_stats([batch_filter_stats(table, h, salt, b) for b in targets]),
+          "codes": mean_stats([filter_stats(table, h, salt, *q) for q in codes]),
+          "main": mean_stats([filter_stats(table, h, salt, *q) for q in main_q])}
+    st.update({kind: mean_stats([batch_filter_stats(table, h, salt, b) for b, _, _ in bs])
+               for kind, bs in ctx["detect"].items() if kind not in st})
+    for kind, x in st.items():
+        print(f"cuckoo filter, {kind}: {x.probes:.0f} probes, {x.hits:.0f} hits, {x.matched:.0f} "
+              f"table reads a batch, false match {x.false_match:.5f} of the probed slots",
+              flush=True)
     # name: {label: (kernel, plain, bytes)}; the first label is the headline
     cases = {
         "cuckoo_lookup": {
-            "count": (lambda i: L.cuckoo_lookup(table, h, salt, *codes[i]),
-                      lambda i: L.cuckoo_lookup_plain(table, h, salt, *codes[i]), k10_bytes(n_win)),
-            "main": (lambda i: L.cuckoo_lookup(table, h, salt, *main_q[i]),
+            "count": (lambda i: L.cuckoo_lookup(table, h, salt, *codes[i], fp=fp),
+                      lambda i: L.cuckoo_lookup_plain(table, h, salt, *codes[i]),
+                      k10_bytes(st["codes"])),
+            "main": (lambda i: L.cuckoo_lookup(table, h, salt, *main_q[i], fp=fp),
                      lambda i: L.cuckoo_lookup_plain(table, h, salt, *main_q[i]),
-                     k10_bytes(MAIN_QUERIES))},
+                     k10_bytes(st["main"]))},
         # each pair of count buffers starts at zero and takes the same batches in turn
         "cuckoo_count_step": {
-            "count": (lambda i: (L.cuckoo_count_step(counts, table, bases[i], h, salt, K),),
+            "count": (lambda i: (L.cuckoo_count_step(counts, table, bases[i], h, salt, K, fp=fp),),
                       lambda i: (L.cuckoo_count_step_plain(counts_plain, table, bases[i], h, salt, K),),
-                      k3_bytes(bases[0], c_valid, c_hits, "cuckoo")),
-            "targets": (lambda i: (L.cuckoo_count_step(t_counts, table, targets[i], h, salt, K),),
+                      k3_bytes(bases[0], st["count"], c_hits)),
+            "targets": (lambda i: (L.cuckoo_count_step(t_counts, table, targets[i], h, salt, K,
+                                                       fp=fp),),
                         lambda i: (L.cuckoo_count_step_plain(t_counts_plain, table, targets[i], h,
                                                              salt, K),),
-                        k3_bytes(targets[0], d_valid, d_hits, "cuckoo"))},
+                        k3_bytes(targets[0], st["targets"], d_hits))},
         "cuckoo_classify_step": {
-            kind: (lambda i, bs=bs: L.cuckoo_classify_step(table, meta, bs[i][0], bs[i][1], h, salt, K),
+            kind: (lambda i, bs=bs: L.cuckoo_classify_step(table, meta, bs[i][0], bs[i][1], h, salt,
+                                                           K, fp=fp),
                    lambda i, bs=bs: L.cuckoo_classify_step_plain(table, meta, bs[i][0], bs[i][1], h,
                                                                  salt, K),
-                   k4_bytes(bs[0][0], bs[0][1], *ctx["detect_stats"][kind][::2], "cuckoo"))
+                   k4_bytes(bs[0][0], bs[0][1], st[kind], ctx["detect_stats"][kind][2]))
             for kind, bs in ctx["detect"].items()},
     }
-    out = {}
     for name, by_label in cases.items():
         for label, (kern, plain, n_bytes) in by_label.items():
             err = checked(f"{name} {label}", kern, plain)
@@ -532,7 +563,8 @@ def check_cuckoo_kernels(ctx: dict, dev) -> dict:
             else:
                 out[name][label] = res
                 out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
-    if not all(bool(L.cuckoo_lookup(table, h, salt, *main_q[i])[0].all()) for i in range(N_BATCHES)):
+    if not all(bool(L.cuckoo_lookup(table, h, salt, *main_q[i], fp=fp)[0].all())
+               for i in range(N_BATCHES)):
         fail("cuckoo_lookup main: a key of the table was not found")
     if not int(counts.view(torch.int32).ne(0).sum()) or not int(t_counts.view(torch.int32).ne(0).sum()):
         fail("cuckoo_count_step: no hit counted")
@@ -639,41 +671,46 @@ def cuckoo_hit_cases(index, dev):
 
     from strainer2_tpu_torch.index.build import StrainIndex
     from strainer2_tpu_torch.ops import lookup as L
-    from strainer2_tpu_torch.tools.bench_kernels import k3v_bytes, k8_bytes, k9_bytes
+    from strainer2_tpu_torch.tools.bench_kernels import (
+        batch_filter_stats, k3v_bytes, k8_bytes, k9_bytes, mean_stats,
+    )
 
     ct = StrainIndex(k=index.k, codes=index.codes, genome_counts=index.genome_counts,
                      layout_="cuckoo").table
     table = torch.from_numpy(ct.table).to(dev)
+    fp = L.cuckoo_fingerprints(table)
     h, salt = ct.h_bits, ct.salt
 
     def cases(bs, per, k, valid, hits):
+        st = mean_stats([batch_filter_stats(table, h, salt, b, k) for b in bs])
         acc, acc_plain = (torch.zeros(2, dtype=torch.int64, device=dev) for _ in range(2))
         counts, counts_plain = (torch.zeros(ct.num_slots, dtype=torch.uint32, device=dev)
                                 for _ in range(2))
         tally, tally_plain = (torch.zeros(L.n_tiles(ROWS, ROW_LEN, k), dtype=torch.int64,
                                           device=dev) for _ in range(2))
-        k3v = lambda i: L.cuckoo_count_valid_step(counts, tally, table, bs[i], h, salt, k)  # noqa: E731
+        k3v = lambda i: L.cuckoo_count_valid_step(counts, tally, table, bs[i], h, salt, k,  # noqa: E731
+                                                  fp=fp)
         k3v_plain = lambda i: L.cuckoo_count_valid_step_plain(  # noqa: E731
             counts_plain, tally_plain, table, bs[i], h, salt, k)
         half = [p[0] // 2 for p in per]
         return {
             "cuckoo_hit_accumulate": (
-                lambda i: (L.cuckoo_hit_accumulate(acc, table, bs[i], h, salt, k),),
+                lambda i: (L.cuckoo_hit_accumulate(acc, table, bs[i], h, salt, k, fp=fp),),
                 lambda i: (L.cuckoo_hit_accumulate_plain(acc_plain, table, bs[i], h, salt, k),),
-                k8_bytes(bs[0], valid, hits, "cuckoo")),
+                k8_bytes(bs[0], st, hits)),
             "cuckoo_count_valid_step": (
                 lambda i: (k3v(i), L.valid_tally_total(tally)),
                 lambda i: (k3v_plain(i), L.valid_tally_total_plain(tally_plain)),
-                k3v_bytes(bs[0], valid, hits, "cuckoo"),
+                k3v_bytes(bs[0], st, hits),
                 lambda i: (k3v(i),),
                 lambda i: (k3v_plain(i),)),
             "cuckoo_hit_stats": (
-                lambda i: (L.cuckoo_hit_stats(table, bs[i], half[i], h, salt, k),),
+                lambda i: (L.cuckoo_hit_stats(table, bs[i], half[i], h, salt, k, fp=fp),),
                 lambda i: (L.cuckoo_hit_stats_plain(table, bs[i], half[i], h, salt, k),),
-                k9_bytes(bs[0], valid, hits, "cuckoo")),
+                k9_bytes(bs[0], st, hits)),
         }
 
-    return cases, (table, h, salt)
+    return cases, (table, h, salt, fp)
 
 
 def check_poly_t(d: str, ctx: dict, dev) -> None:
@@ -691,6 +728,7 @@ def check_poly_t(d: str, ctx: dict, dev) -> None:
     ct = StrainIndex.from_fasta(os.path.join(d, "strain.fna"),
                                 TorchKmerEngine(32, device=dev, layout="cuckoo")).table
     table = torch.from_numpy(ct.table).to(dev)
+    fp = L.cuckoo_fingerprints(table)
     h, salt, k = ct.h_bits, ct.salt, 32
     bs = []
     for b in ctx["count"]:
@@ -701,18 +739,23 @@ def check_poly_t(d: str, ctx: dict, dev) -> None:
     bounds = torch.arange(0, ROWS * (ROW_LEN - k + 1) + 1, 997, dtype=torch.int32, device=dev)
     z = lambda dt, n: torch.zeros(n, dtype=dt, device=dev)  # noqa: E731
     n_tally = L.n_tiles(ROWS, ROW_LEN, k)
+    # the kernels take the fingerprints (kw), the plain versions read every slot
     pairs = {
-        "cuckoo_lookup": lambda f, i: f(table, h, salt, *canonical_windows_plain(bs[i], k)[:2]),
-        "cuckoo_count_step": lambda f, i: (f(z(torch.uint32, ct.num_slots), table, bs[i], h, salt, k),),
-        "cuckoo_count_valid_step": lambda f, i: (f(z(torch.uint32, ct.num_slots),
-                                                   z(torch.int64, n_tally), table, bs[i], h, salt, k),),
-        "cuckoo_classify_step": lambda f, i: f(table, meta, bs[i], bounds, h, salt, k),
-        "cuckoo_hit_accumulate": lambda f, i: (f(z(torch.int64, 2), table, bs[i], h, salt, k),),
-        "cuckoo_hit_stats": lambda f, i: (f(table, bs[i], 77, h, salt, k),),
+        "cuckoo_lookup": lambda f, i, **kw: f(table, h, salt,
+                                              *canonical_windows_plain(bs[i], k)[:2], **kw),
+        "cuckoo_count_step": lambda f, i, **kw: (f(z(torch.uint32, ct.num_slots), table, bs[i], h,
+                                                   salt, k, **kw),),
+        "cuckoo_count_valid_step": lambda f, i, **kw: (f(z(torch.uint32, ct.num_slots),
+                                                         z(torch.int64, n_tally), table, bs[i], h,
+                                                         salt, k, **kw),),
+        "cuckoo_classify_step": lambda f, i, **kw: f(table, meta, bs[i], bounds, h, salt, k, **kw),
+        "cuckoo_hit_accumulate": lambda f, i, **kw: (f(z(torch.int64, 2), table, bs[i], h, salt, k,
+                                                       **kw),),
+        "cuckoo_hit_stats": lambda f, i, **kw: (f(table, bs[i], 77, h, salt, k, **kw),),
     }
     for name, call in pairs.items():
         kern, plain = getattr(L, name), getattr(L, name + "_plain")
-        checked(f"{name} k=32 poly-T", lambda i: call(kern, i), lambda i: call(plain, i))
+        checked(f"{name} k=32 poly-T", lambda i: call(kern, i, fp=fp), lambda i: call(plain, i))
     sentinel = L.cuckoo_lookup_plain(table, h, salt, torch.full((1,), -1, dtype=torch.int32,
                                                                 device=dev).view(torch.uint32),
                                      torch.full((1,), -1, dtype=torch.int32, device=dev).view(torch.uint32))
@@ -745,18 +788,20 @@ def device_work(fn) -> None:
 
 
 def check_remaining_edges(name, table, bs, per, k, label) -> int:
-    """K9 (``name`` hit_stats or cuckoo_hit_stats, on ``table`` = (rows or
-    slots, h_bits, salt)) against its plain version with remaining at 0, 1,
-    each batch's valid total and one past it; fails on any difference."""
+    """K9 (``name`` hit_stats or cuckoo_hit_stats, on ``table`` = (rows,
+    h_bits, salt) or (slots, h_bits, salt, fingerprints)) against its plain
+    version with remaining at 0, 1, each batch's valid total and one past
+    it; fails on any difference."""
     from strainer2_tpu_torch.ops import lookup as L
 
     kern, plain = getattr(L, name), getattr(L, name + "_plain")
-    t, h, salt = table
+    t, h, salt, *fp = table
+    kw = {"fp": fp[0]} if fp else {}
     err = 0
     for i, b in enumerate(bs):
         total = per[i][0]
         for rem in (0, 1, total, total + 1):
-            got = kern(t, b, rem, h, salt, k)
+            got = kern(t, b, rem, h, salt, k, **kw)
             err = max(err, max_abs_err((got,), (plain(t, b, rem, h, salt, k),)))
             if rem == total + 1 and got.tolist()[2:] != [0, -1]:
                 fail(f"{name} {label}: a crossing past the batch was found")
@@ -920,7 +965,7 @@ CUCKOO_GC = {
 
 def mini_cuckoo(mini: str, o) -> tuple[list, dict]:
     """The mini goldens in the cuckoo layout, through the stage APIs (no
-    CLI takes a layout): run_scrub_count, strain_detect (run_detect) and
+    CLI flag names a layout): run_scrub_count, strain_detect (run_detect) and
     coverage_depth on its hits, genome_compare in the gc_* cases at k <=
     32, strain-track with its tracks.  Returns the checks and the kernel
     launches of this block, counted from 0 (strain-track's is the cuckoo
@@ -1770,13 +1815,17 @@ def strain_track_real(d: str, multi: dict, rng) -> float:
 def real_size_cuckoo(d: str, data: dict) -> dict:
     """The phase-4 strain's cuckoo index built on the card (K1, then the
     port's native builder), every key checked to sit in one of its two
-    slots and saved; then, with layout="cuckoo" through the stage APIs,
-    run_scrub_count on the phase-4 panels, strain_detect on the phase-4
-    targets and genome_compare fullmap and -S on the phase-9 queries, each
-    byte-identical to phases 4 and 9; one more strain_detect on the saved
-    npz as its --index-cache must reuse it unwritten.  Launches counted
-    from 0 over the stage runs; every cuckoo kernel of the path must run
-    and no bucket twin may."""
+    slots and saved; a cuckoo scrub checkpoint of the first background
+    genome written by the port's stage API (the JAX package's format).
+    Then, through the CLIs, which take the layout of what is on disk:
+    kmer_scrub_count --checkpoint resumes that checkpoint, strain_detect
+    --index-cache reuses the saved npz unwritten, each byte-identical to
+    phase 4; and genome_compare fullmap and -S with layout="cuckoo"
+    through the stage API, byte-identical to phase 9.  Launches counted
+    from 0 over the CLI and stage runs; every cuckoo kernel of the path,
+    the fingerprint kernel included, must run and no bucket twin may."""
+    import shutil
+
     import torch
 
     from strainer2_tpu_torch.index.build import StrainIndex
@@ -1784,8 +1833,8 @@ def real_size_cuckoo(d: str, data: dict) -> dict:
     from strainer2_tpu_torch.ops import _build
     from strainer2_tpu_torch.ops.packing_np import split_code64_np
     from strainer2_tpu_torch.pipeline.compare import CompareConfig, run_genome_compare
-    from strainer2_tpu_torch.pipeline.detect import DetectConfig, run_detect
     from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
+    from strainer2_tpu_torch.pipeline.progress import ScrubCheckpoint
     from strainer2_tpu_torch.pipeline.scrub_count import ScrubCountConfig, run_scrub_count
 
     p = lambda name: os.path.join(d, name)  # noqa: E731
@@ -1806,22 +1855,36 @@ def real_size_cuckoo(d: str, data: dict) -> dict:
         fail("a key of the cuckoo index is not at one of its two slots")
     npz = p("cuckoo_index.npz")
     index.save(npz)
-    del index
+    num_slots = t.num_slots
+    del index, t
+
+    # a run killed after the first background genome leaves this checkpoint
+    ck = p("p10_checkpoint")
+    shutil.rmtree(ck, ignore_errors=True)
+    with open(p("genomes.txt")) as f:
+        first = f.readline()
+    with open(p("p10_first.txt"), "w") as f:
+        f.write(first)
+    open(p("p10_none.txt"), "w").close()
+    run_scrub_count(p("strain.fna"), p("p10_first.txt"), p("p10_none.txt"), out=io.StringIO(),
+                    cfg=ScrubCountConfig(device=DEVICE, layout="cuckoo"), checkpoint_dir=ck)
+    stored = ScrubCheckpoint(ck).counts(1)
+    if stored is None or stored.shape != (num_slots,):
+        fail("phase 10: the cuckoo checkpoint does not hold the table's 2H cells")
+    with open(npz, "rb") as f:
+        npz_bytes = f.read()
+    npz_mtime = os.stat(npz).st_mtime_ns
 
     walls, cfg = {}, dict(device=DEVICE, layout="cuckoo")
     _build.reset_launches()
-    t0 = time.perf_counter()
-    with open(p("p10_counts.tsv"), "w") as f:
-        run_scrub_count(p("strain.fna"), p("genomes.txt"), p("metagenomes.txt"), out=f,
-                        cfg=ScrubCountConfig(**cfg))
-    torch.cuda.synchronize()
-    walls["kmer_scrub_count"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    with open(p("p10_detect_stdout.txt"), "w") as f:
-        run_detect(p("strain.fna"), p("informative.txt"), p("p10_hits.gz"),
-                   batch_list=p("targets.txt"), stdout=f, cfg=DetectConfig(**cfg))
-    torch.cuda.synchronize()
-    walls["strain_detect"] = time.perf_counter() - t0
+    walls["kmer_scrub_count"] = run_cli(
+        "kmer_scrub_count", ["-r", p("strain.fna"), "-A", p("genomes.txt"), "-B",
+                             p("metagenomes.txt"), "--checkpoint", ck], p("p10_counts.tsv"))
+    walls["strain_detect"] = run_cli(
+        "strain_detect", ["-r", p("strain.fna"), "-a", p("informative.txt"), "-B", p("targets.txt"),
+                          "-o", p("p10_hits.gz"), "--index-cache", npz], p("p10_detect_stdout.txt"))
+    with open(npz, "rb") as f:
+        cache_kept = f.read() == npz_bytes and os.stat(npz).st_mtime_ns == npz_mtime
     evaluated = {}
     for run in ("fullmap", "strain mode"):
         _, max_seeds, threshold = COMPARE_RUNS[run]
@@ -1837,36 +1900,29 @@ def real_size_cuckoo(d: str, data: dict) -> dict:
             evaluated[run] = sum(int(x[2]) + int(x[3]) for x in (ln.split("\t") for ln in f))
     launches = dict(_build.launches)
 
-    with open(npz, "rb") as f:
-        npz_bytes = f.read()
-    npz_mtime = os.stat(npz).st_mtime_ns
-    with open(p("p10_cache_stdout.txt"), "w") as f:
-        run_detect(p("strain.fna"), p("informative.txt"), p("p10_cache_hits.gz"),
-                   batch_list=p("targets.txt"), stdout=f, index_cache=npz, cfg=DetectConfig(**cfg))
-    with open(npz, "rb") as f:
-        cache_kept = f.read() == npz_bytes and os.stat(npz).st_mtime_ns == npz_mtime
-
-    rates = {"kmer_scrub_count": data["windows"]["panel"], "strain_detect": data["windows"]["targets"],
+    resumed = data["windows"]["panel"] - (GENOME_BP - K + 1)  # the checkpoint held the first genome
+    rates = {"kmer_scrub_count": resumed,
+             "strain_detect": data["windows"]["targets"],
              "genome_compare fullmap": evaluated["fullmap"],
              "genome_compare strain mode": evaluated["strain mode"]}
     for stage, wall in walls.items():
         print(f"stage {stage} (cuckoo, phase 10): wall {wall:.3f} s, {rates[stage] / wall:,.0f} "
               f"windows/s ({rates[stage]} windows)", flush=True)
     ok = {
-        "counts": same_bytes(p("p10_counts.tsv"), p("counts.tsv")),
-        "hits": same_payloads(p("p10_hits.gz"), p("hits.gz")),
+        "resumed counts": same_bytes(p("p10_counts.tsv"), p("counts.tsv")),
+        "index-cache hits": same_payloads(p("p10_hits.gz"), p("hits.gz")),
         "detect stdout": same_bytes(p("p10_detect_stdout.txt"), p("detect_stdout.txt")),
+        "index cache reused unwritten": cache_kept,
         "genome_compare fullmap": same_bytes(p("p10_fullmap.txt"), p("p9_fullmap.txt")),
         "genome_compare -S": same_bytes(p("p10_strain_mode.txt"), p("p9_strain_mode.txt")),
-        "index-cache hits": same_payloads(p("p10_cache_hits.gz"), p("hits.gz")),
-        "index cache reused unwritten": cache_kept,
     }
     print(f"phase 10 (cuckoo) against phases 4 and 9: {ok}", flush=True)
     if not all(ok.values()):
         fail("the cuckoo layout's outputs differ from the bucket layout's at real size")
-    print(f"launches during phase 10 (cuckoo scrub, detect, genome_compare): {launches}", flush=True)
-    ran = ("canonical_windows", "cuckoo_count_step", "cuckoo_classify_step", "cuckoo_hit_accumulate",
-           "cuckoo_hit_stats")
+    print(f"launches during phase 10 (cuckoo scrub and detect CLIs, genome_compare): {launches}",
+          flush=True)
+    ran = ("canonical_windows", "cuckoo_fingerprints", "cuckoo_count_step", "cuckoo_classify_step",
+           "cuckoo_hit_accumulate", "cuckoo_hit_stats")
     twins = ("count_step", "classify_step", "hit_accumulate", "hit_stats")
     if not all(launches[name] > 0 for name in ran) or any(launches[name] for name in twins):
         fail(f"phase 10 did not run {ran} alone of the probing kernels")
@@ -2041,7 +2097,7 @@ def main() -> int:
         "bench_lookup (phase 2b)": ab["launches"],
         "detect-multi (phase 6)": multi_launches,
         "genome_compare and strain-track (phase 9)": compare_launches,
-        "cuckoo stage runs (phase 10)": cuckoo_launches,
+        "cuckoo CLI and stage runs (phase 10)": cuckoo_launches,
     }
     for path, counts in paths.items():
         print(f"launches during {path}: {counts}", flush=True)
@@ -2062,9 +2118,12 @@ def main() -> int:
                                ("count_valid_step", "strain-track (phase 9)", compare_launches),
                                ("valid_tally_total", "strain-track (phase 9)", compare_launches),
                                ("cuckoo_lookup", "bench_lookup (phase 2b)", ab["launches"]),
-                               ("cuckoo_count_step", "scrub count, cuckoo (phase 10)", cuckoo_launches),
-                               ("cuckoo_classify_step", "strain_detect, cuckoo (phase 10)",
+                               ("cuckoo_fingerprints", "cuckoo CLI and stage runs (phase 10)",
                                 cuckoo_launches),
+                               ("cuckoo_count_step", "kmer_scrub_count --checkpoint, cuckoo "
+                                                     "(phase 10)", cuckoo_launches),
+                               ("cuckoo_classify_step", "strain_detect --index-cache, cuckoo "
+                                                        "(phase 10)", cuckoo_launches),
                                ("cuckoo_hit_accumulate", "genome_compare fullmap, cuckoo (phase 10)",
                                 cuckoo_launches),
                                ("cuckoo_hit_stats", "genome_compare -S, cuckoo (phase 10)",

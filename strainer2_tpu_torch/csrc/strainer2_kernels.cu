@@ -137,10 +137,31 @@ struct BucketProbe {
   }
 };
 
+// The slot fingerprint of the cuckoo layout: 8 bits of a hash of the
+// unsalted key, with multipliers and a finalizer of its own, so that it
+// does not follow cuckoo_slot's bits (ops/lookup.py cuckoo_fingerprint_plain
+// is its twin).  An empty slot holds the fingerprint of the sentinel
+// (0xFFFFFFFF, 0xFFFFFFFF) like any other key.  Equal keys have equal
+// fingerprints, so a slot whose fingerprint is not the query's cannot hold
+// the query.
+__device__ __forceinline__ uint32_t cuckoo_fingerprint(uint32_t hi, uint32_t lo) {
+  uint32_t x = (hi * 0x2C1B3C6Du) ^ (lo * 0x297A2D39u) ^ 0x61C88647u;
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x >> 24;
+}
+
 // The cuckoo table (K10's probe): where = s0 if slot s0 holds the key, else
 // s1, found or not, as the JAX cuckoo_lookup picks it; the class is meta[slot].
+// A slot's 8-byte (hi, lo) pair is read only where its fingerprint (fp, a
+// byte a slot, 16 MiB for 2 x 2^23 slots: it stays in the 50 MB L2) is the
+// query's: a miss is settled in the L2 but for one slot in 256.
 struct CuckooProbe {
   const uint2* table;  // 2H (hi, lo) slots
+  const uint8_t* fp;   // 2H slot fingerprints
   int h_bits;
   uint32_t salt;
   uint32_t H;
@@ -150,10 +171,15 @@ struct CuckooProbe {
     const uint32_t sh = h ^ salt;  // the salt enters the hash only
     const uint32_t s0 = cuckoo_slot(sh, l, h_bits, 0);
     const uint32_t s1 = cuckoo_slot(sh, l, h_bits, 1) + H;
-    const uint2 a = __ldg(table + s0);  // both loads in flight before either compare
-    const uint2 b = __ldg(table + s1);
-    const bool hit0 = (a.x == h) & (a.y == l);
-    const bool hit1 = (b.x == h) & (b.y == l);
+    const uint32_t f0 = __ldg(fp + s0);  // both fingerprints in flight before either compare
+    const uint32_t f1 = __ldg(fp + s1);
+    const uint32_t f = cuckoo_fingerprint(h, l);
+    const bool m0 = f0 == f, m1 = f1 == f;
+    uint2 a = make_uint2(0u, 0u), b = make_uint2(0u, 0u);
+    if (m0) a = __ldg(table + s0);  // both slot loads, where taken, before either compare
+    if (m1) b = __ldg(table + s1);
+    const bool hit0 = m0 & (a.x == h) & (a.y == l);
+    const bool hit1 = m1 & (b.x == h) & (b.y == l);
     *where = hit0 ? s0 : s1;
     return hit0 | hit1;
   }
@@ -164,26 +190,89 @@ struct CuckooProbe {
 };
 
 // ---------------------------------------------------------------------------
+// cuckoo_fingerprints: fp[s] = cuckoo_fingerprint(table[s]) over the 2H
+// slots, once an index (TorchKmerEngine.table_for).
+//
+// Replaces: nothing of the JAX package: the array is this port's own, made
+//   on the device from the uploaded table, never saved; the probe of
+//   strainer2_tpu/ops/lookup.py:39 (cuckoo_lookup) is what it serves.
+// Bound on this card: device-memory bytes, 8 read and 1 written a slot.
+// Design: a thread a slot; a warp reads 256 consecutive bytes and writes
+//   32.
+// ---------------------------------------------------------------------------
+__global__ void cuckoo_fingerprints_kernel(const uint2* __restrict__ table, int64_t n,
+                                           uint8_t* __restrict__ fp) {
+  const int64_t s = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (s >= n) return;
+  const uint2 key = __ldg(table + s);
+  fp[s] = static_cast<uint8_t>(cuckoo_fingerprint(key.x, key.y));
+}
+
+// The L2 window of a probe launch: the fingerprint array's accesses persist
+// in the L2's set-aside (cudaLimitPersistingL2CacheSize, raised to the
+// array's size or the card's most by s2t_cuckoo_fingerprints), a share of
+// them (hitRatio) where the array is larger than the set-aside or the
+// card's largest window.
+cudaAccessPolicyWindow fp_window(const uint8_t* fp, size_t n) {
+  int dev = 0, max_window = 0;
+  size_t set_aside = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&max_window, cudaDevAttrMaxAccessPolicyWindowSize, dev);
+  cudaDeviceGetLimit(&set_aside, cudaLimitPersistingL2CacheSize);
+  cudaAccessPolicyWindow w = {};
+  w.base_ptr = const_cast<uint8_t*>(fp);
+  w.num_bytes = n < static_cast<size_t>(max_window) ? n : static_cast<size_t>(max_window);
+  w.hitRatio = w.num_bytes <= set_aside ? 1.0f : static_cast<float>(set_aside) / w.num_bytes;
+  w.hitProp = cudaAccessPropertyPersisting;
+  w.missProp = cudaAccessPropertyStreaming;
+  return w;
+}
+
+// Launch a probing kernel of the cuckoo layout on st, with the L2 window
+// on its 2H fingerprints as a launch attribute (a kernel node's attribute
+// under CUDA-graph capture); a refused attribute is a refused launch.
+// Without the window a `count` batch of cuckoo K3 took 0.0273 ms, with it
+// 0.0240; `targets` batches the same either way (H100 80GB HBM3, 700 W;
+// PERF.md).
+template <class... Params, class... Args>
+int launch_cuckoo(void (*kernel)(Params...), dim3 grid, dim3 block, cudaStream_t st,
+                  const uint8_t* fp, uint32_t H, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeAccessPolicyWindow;
+  attr[0].val.accessPolicyWindow = fp_window(fp, 2 * static_cast<size_t>(H));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t rc = cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+  return rc != cudaSuccess ? static_cast<int>(rc) : launch_status();
+}
+
+// ---------------------------------------------------------------------------
 // K10 cuckoo_lookup
 //
 // Replaces: the jnp cuckoo_lookup, strainer2_tpu/ops/lookup.py:39-72 (two
 //   gathers from the hi and lo planes of each slot, then the compares).
-// Bound on this card: random DRAM accesses. A query reads its two slots'
-//   8-byte (hi, lo) pairs, each a 32-byte sector at a hashed address, hit
-//   or miss, and writes 5 bytes.
-// Design: one thread a query; the table is read interleaved, (2H, 2)
-//   uint32 as the npz stores it, so one 8-byte __ldg a slot brings hi and
-//   lo from one sector (the JAX planes are for a v5e XLA gather rule), and
-//   both slots' loads are in flight before either compare: two independent
-//   misses a thread.
+// Bound on this card: random accesses. A query reads its two slots'
+//   fingerprints (bytes of an array the L2 holds) and, only where one is
+//   the query's, that slot's 8-byte (hi, lo) pair, a 32-byte DRAM sector
+//   at a hashed address; it writes 5 bytes.
+// Design: one thread a query, CuckooProbe's filtered probe (the
+//   fingerprints first, both in flight before either compare); the table
+//   is read interleaved, (2H, 2) uint32 as the npz stores it, so one
+//   8-byte __ldg a slot brings hi and lo from one sector (the JAX planes
+//   are for a v5e XLA gather rule).
 // ---------------------------------------------------------------------------
-__global__ void cuckoo_lookup_kernel(const uint2* __restrict__ table, int h_bits, uint32_t H,
+__global__ void cuckoo_lookup_kernel(const uint2* __restrict__ table,
+                                     const uint8_t* __restrict__ fp, int h_bits, uint32_t H,
                                      uint32_t salt, const uint32_t* __restrict__ qhi,
                                      const uint32_t* __restrict__ qlo, int64_t n,
                                      uint8_t* __restrict__ found, int32_t* __restrict__ slot) {
   const int64_t q = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (q >= n) return;
-  const CuckooProbe probe{table, h_bits, salt, H, nullptr};
+  const CuckooProbe probe{table, fp, h_bits, salt, H, nullptr};
   uint32_t where;
   found[q] = probe.find(qhi[q], qlo[q], &where) != 0;
   slot[q] = static_cast<int32_t>(where);
@@ -270,14 +359,24 @@ count_step_kernel(uint32_t* __restrict__ counts, const uint32_t* __restrict__ ro
 // K3 in the cuckoo layout.
 // Replaces: the XLA program engine._count_step + accumulate_counts
 //   (strainer2_tpu/pipeline/engine.py:301-304, ops/lookup.py:104-116).
-// Bound on this card: random DRAM accesses, two 32-byte sectors a valid
-//   window (its two slots, hit or miss) and a count sector a hit.
-// Design: K3's block with K10's probe; counts[slot] over 2H cells.
+// Bound on this card: random accesses. A valid window reads its two
+//   slots' fingerprint bytes (L2 sectors of a 2H-byte array, read at most
+//   once in all), a 32-byte DRAM sector of the table for each slot whose
+//   fingerprint matched (a hit's, and 0.0039 of the probed slots besides),
+//   and a count sector a hit. Two DRAM sectors a valid window, hit or
+//   miss, took 0.0461 ms a `targets` batch (0.34 of that unfiltered
+//   bound): the card's random DRAM read rate. Filtered, 0.0159 ms (1.6 M
+//   fingerprint reads at ~100 G L2 sectors/s), and 0.0240 a `count`
+//   batch, where it took 0.0365 (H100 80GB HBM3, 700 W; PERF.md).
+// Design: K3's block with CuckooProbe's filtered probe, launched with an
+//   L2 access-policy window that makes the fingerprints persist
+//   (launch_cuckoo): without it a `count` batch took 0.0273 ms, its table
+//   and count sectors evicting fingerprints; counts[slot] over 2H cells.
 __global__ void __launch_bounds__(kTile)
 cuckoo_count_step_kernel(uint32_t* __restrict__ counts, const uint2* __restrict__ table,
-                         int h_bits, uint32_t H, uint32_t salt,
+                         const uint8_t* __restrict__ fp, int h_bits, uint32_t H, uint32_t salt,
                          const uint8_t* __restrict__ bases, int L, int k) {
-  count_step_tile<false>(counts, CuckooProbe{table, h_bits, salt, H, nullptr}, bases, L, k,
+  count_step_tile<false>(counts, CuckooProbe{table, fp, h_bits, salt, H, nullptr}, bases, L, k,
                          nullptr);
 }
 
@@ -312,10 +411,11 @@ count_valid_step_kernel(uint32_t* __restrict__ counts, const uint32_t* __restric
 //   valid count.
 __global__ void __launch_bounds__(kTile)
 cuckoo_count_valid_step_kernel(uint32_t* __restrict__ counts, const uint2* __restrict__ table,
-                               int h_bits, uint32_t H, uint32_t salt,
-                               const uint8_t* __restrict__ bases, int L, int k,
+                               const uint8_t* __restrict__ fp, int h_bits, uint32_t H,
+                               uint32_t salt, const uint8_t* __restrict__ bases, int L, int k,
                                long long* __restrict__ tally) {
-  count_step_tile<true>(counts, CuckooProbe{table, h_bits, salt, H, nullptr}, bases, L, k, tally);
+  count_step_tile<true>(counts, CuckooProbe{table, fp, h_bits, salt, H, nullptr}, bases, L, k,
+                        tally);
 }
 
 constexpr int kTotalThreads = 1024;
@@ -388,13 +488,18 @@ hit_accumulate_kernel(unsigned long long* __restrict__ acc, const uint32_t* __re
 // K8 in the cuckoo layout.
 // Replaces: the XLA program engine._hit_accum + _accum_from_masks
 //   (strainer2_tpu/pipeline/engine.py:279-281, :252-258).
-// Bound on this card: the bases and two 32-byte sectors a valid window.
-// Design: K8's block with K10's probe.
+// Bound on this card: the bases, the fingerprint bytes and the table
+//   sectors of cuckoo K3, and nothing a window written. Unfiltered, a
+//   k = 20 `targets` batch took 0.0481 ms; filtered 0.0189 (H100 80GB
+//   HBM3, 700 W; PERF.md).
+// Design: K8's block with CuckooProbe's filtered probe, launched with the
+//   L2 window on the fingerprints (launch_cuckoo).
 __global__ void __launch_bounds__(kTile)
 cuckoo_hit_accumulate_kernel(unsigned long long* __restrict__ acc,
-                             const uint2* __restrict__ table, int h_bits, uint32_t H,
-                             uint32_t salt, const uint8_t* __restrict__ bases, int L, int k) {
-  hit_accumulate_tile(acc, CuckooProbe{table, h_bits, salt, H, nullptr}, bases, L, k);
+                             const uint2* __restrict__ table, const uint8_t* __restrict__ fp,
+                             int h_bits, uint32_t H, uint32_t salt,
+                             const uint8_t* __restrict__ bases, int L, int k) {
+  hit_accumulate_tile(acc, CuckooProbe{table, fp, h_bits, salt, H, nullptr}, bases, L, k);
 }
 
 // ---------------------------------------------------------------------------
@@ -479,13 +584,14 @@ __global__ void classify_masks_kernel(const uint32_t* __restrict__ rows,
 // K4's first launch in the cuckoo layout.
 // Replaces: the XLA program engine._classify_step
 //   (strainer2_tpu/pipeline/engine.py:307-320), its probe and meta gather.
-// Bound on this card: the bases, the boundaries, two 32-byte sectors a
-//   valid window, a meta word a hit, 8 bytes a read out.
-// Design: classify_masks' block with K10's probe; informative where the
+// Bound on this card: the bases, the boundaries, the probe of cuckoo K3,
+//   a meta word a hit, 8 bytes a read out.
+// Design: classify_masks' block with CuckooProbe; informative where the
 //   separate slot-indexed meta word is kInformative: one word, never a sum
 //   (a key held in both of its slots reads meta[s0]). The scan and sums
 //   launches are K4's.
 __global__ void cuckoo_classify_masks_kernel(const uint2* __restrict__ table,
+                                             const uint8_t* __restrict__ fp,
                                              const uint32_t* __restrict__ meta, int h_bits,
                                              uint32_t H, uint32_t salt,
                                              const uint8_t* __restrict__ bases, int L, int k,
@@ -493,7 +599,7 @@ __global__ void cuckoo_classify_masks_kernel(const uint2* __restrict__ table,
                                              uint32_t* __restrict__ inf_mask,
                                              int32_t* __restrict__ tile_hits,
                                              int32_t* __restrict__ tile_infs) {
-  classify_masks_tile(CuckooProbe{table, h_bits, salt, H, meta}, bases, L, k, hit_mask, inf_mask,
+  classify_masks_tile(CuckooProbe{table, fp, h_bits, salt, H, meta}, bases, L, k, hit_mask, inf_mask,
                       tile_hits, tile_infs);
 }
 
@@ -819,14 +925,16 @@ hit_stats_kernel(const uint32_t* __restrict__ rows, int row_width, int h_bits, u
 // K9's first launch in the cuckoo layout.
 // Replaces: the XLA program engine._hit_stats + _stats_from_masks
 //   (strainer2_tpu/pipeline/engine.py:284-286, :261-276).
-// Bound on this card: the bases, two 32-byte sectors a valid window, 16 B
-//   out. Design: hit_stats_kernel's block with K10's probe; the one-block
+// Bound on this card: the bases, the probe of cuckoo K3, 16 B out.
+//   Design: hit_stats_kernel's block with CuckooProbe; the one-block
 //   hit_crossing_kernel follows it unchanged, chained by PDL.
 __global__ void __launch_bounds__(kTile)
-cuckoo_hit_stats_kernel(const uint2* __restrict__ table, int h_bits, uint32_t H, uint32_t salt,
+cuckoo_hit_stats_kernel(const uint2* __restrict__ table, const uint8_t* __restrict__ fp,
+                        int h_bits, uint32_t H, uint32_t salt,
                         const uint8_t* __restrict__ bases, int L, int k,
                         uint32_t* __restrict__ masks, uint32_t* __restrict__ tile_counts) {
-  hit_stats_tile(CuckooProbe{table, h_bits, salt, H, nullptr}, bases, L, k, masks, tile_counts);
+  hit_stats_tile(CuckooProbe{table, fp, h_bits, salt, H, nullptr}, bases, L, k, masks,
+                 tile_counts);
 }
 
 // out = (batch hits, batch valid windows, hits at the crossing, its flat
@@ -991,68 +1099,101 @@ int s2t_classify_step(const void* rows, int row_width, int h_bits,
 }
 
 // ---- the cuckoo layout: table is 2H (hi, lo) uint32 pairs, 8-byte aligned;
-// slots are int32 in [0, 2H); counts and meta hold 2H uint32 cells.
+// fp its 2H slot fingerprints (s2t_cuckoo_fingerprints); slots are int32 in
+// [0, 2H); counts and meta hold 2H uint32 cells.  Every probing launch
+// carries the L2 window on fp.
 
-int s2t_cuckoo_lookup(const void* table, int h_bits, int H, uint32_t salt, const void* qhi,
-                      const void* qlo, long long n, void* found, void* slot, void* stream) {
+// fp[s] for the n slots of table; raises the card's persisting-L2 set-aside
+// to n bytes (at most the card's largest) for the probes' windows.
+int s2t_cuckoo_fingerprints(const void* table, long long n, void* fp, void* stream) {
+  int dev = 0, max_persist = 0;
+  size_t set_aside = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&max_persist, cudaDevAttrMaxPersistingL2CacheSize, dev);
+  cudaDeviceGetLimit(&set_aside, cudaLimitPersistingL2CacheSize);
+  const size_t want = static_cast<size_t>(n) < static_cast<size_t>(max_persist)
+                          ? static_cast<size_t>(n) : static_cast<size_t>(max_persist);
+  if (want > set_aside) {
+    const cudaError_t rc = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, want);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  const int threads = 256;
+  cuckoo_fingerprints_kernel<<<static_cast<unsigned>((n + threads - 1) / threads), threads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint2*>(table), n, static_cast<uint8_t*>(fp));
+  return launch_status();
+}
+
+int s2t_cuckoo_lookup(const void* table, const void* fp, int h_bits, int H, uint32_t salt,
+                      const void* qhi, const void* qlo, long long n, void* found, void* slot,
+                      void* stream) {
   const int threads = 256;
   const long long blocks = (n + threads - 1) / threads;
-  cuckoo_lookup_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint2*>(table), h_bits, static_cast<uint32_t>(H), salt,
-      static_cast<const uint32_t*>(qhi), static_cast<const uint32_t*>(qlo), n,
-      static_cast<uint8_t*>(found), static_cast<int32_t*>(slot));
-  return launch_status();
+  return launch_cuckoo(cuckoo_lookup_kernel, dim3(static_cast<unsigned>(blocks)), dim3(threads),
+                       static_cast<cudaStream_t>(stream), static_cast<const uint8_t*>(fp),
+                       static_cast<uint32_t>(H), static_cast<const uint2*>(table),
+                       static_cast<const uint8_t*>(fp), h_bits, static_cast<uint32_t>(H), salt,
+                       static_cast<const uint32_t*>(qhi), static_cast<const uint32_t*>(qlo),
+                       static_cast<int64_t>(n), static_cast<uint8_t*>(found),
+                       static_cast<int32_t*>(slot));
 }
 
-int s2t_cuckoo_count_step(void* counts, const void* table, int h_bits, int H, uint32_t salt,
-                          const void* bases, int n_rows, int L, int k, void* stream) {
+int s2t_cuckoo_count_step(void* counts, const void* table, const void* fp, int h_bits, int H,
+                          uint32_t salt, const void* bases, int n_rows, int L, int k,
+                          void* stream) {
   const int W = L - k + 1;
   const dim3 grid((W + kTile - 1) / kTile, n_rows);
-  cuckoo_count_step_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(counts), static_cast<const uint2*>(table), h_bits,
-      static_cast<uint32_t>(H), salt, static_cast<const uint8_t*>(bases), L, k);
-  return launch_status();
+  return launch_cuckoo(cuckoo_count_step_kernel, grid, dim3(kTile),
+                       static_cast<cudaStream_t>(stream), static_cast<const uint8_t*>(fp),
+                       static_cast<uint32_t>(H), static_cast<uint32_t*>(counts),
+                       static_cast<const uint2*>(table), static_cast<const uint8_t*>(fp), h_bits,
+                       static_cast<uint32_t>(H), salt, static_cast<const uint8_t*>(bases), L, k);
 }
 
-int s2t_cuckoo_count_valid_step(void* counts, const void* table, int h_bits, int H,
-                                uint32_t salt, const void* bases, int n_rows, int L, int k,
+int s2t_cuckoo_count_valid_step(void* counts, const void* table, const void* fp, int h_bits,
+                                int H, uint32_t salt, const void* bases, int n_rows, int L, int k,
                                 void* tally, void* stream) {
   const int W = L - k + 1;
   const dim3 grid((W + kTile - 1) / kTile, n_rows);
-  cuckoo_count_valid_step_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(counts), static_cast<const uint2*>(table), h_bits,
-      static_cast<uint32_t>(H), salt, static_cast<const uint8_t*>(bases), L, k,
-      static_cast<long long*>(tally));
-  return launch_status();
+  return launch_cuckoo(cuckoo_count_valid_step_kernel, grid, dim3(kTile),
+                       static_cast<cudaStream_t>(stream), static_cast<const uint8_t*>(fp),
+                       static_cast<uint32_t>(H), static_cast<uint32_t*>(counts),
+                       static_cast<const uint2*>(table), static_cast<const uint8_t*>(fp), h_bits,
+                       static_cast<uint32_t>(H), salt, static_cast<const uint8_t*>(bases), L, k,
+                       static_cast<long long*>(tally));
 }
 
-int s2t_cuckoo_hit_accumulate(void* acc, const void* table, int h_bits, int H, uint32_t salt,
-                              const void* bases, int n_rows, int L, int k, void* stream) {
+int s2t_cuckoo_hit_accumulate(void* acc, const void* table, const void* fp, int h_bits, int H,
+                              uint32_t salt, const void* bases, int n_rows, int L, int k,
+                              void* stream) {
   const int W = L - k + 1;
   const dim3 grid((W + kTile - 1) / kTile, n_rows);
-  cuckoo_hit_accumulate_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<unsigned long long*>(acc), static_cast<const uint2*>(table), h_bits,
-      static_cast<uint32_t>(H), salt, static_cast<const uint8_t*>(bases), L, k);
-  return launch_status();
+  return launch_cuckoo(cuckoo_hit_accumulate_kernel, grid, dim3(kTile),
+                       static_cast<cudaStream_t>(stream), static_cast<const uint8_t*>(fp),
+                       static_cast<uint32_t>(H), static_cast<unsigned long long*>(acc),
+                       static_cast<const uint2*>(table), static_cast<const uint8_t*>(fp), h_bits,
+                       static_cast<uint32_t>(H), salt, static_cast<const uint8_t*>(bases), L, k);
 }
 
-int s2t_cuckoo_hit_stats(const void* table, int h_bits, int H, uint32_t salt, const void* bases,
-                         int n_rows, int L, int k, int remaining, void* masks, void* tile_counts,
-                         void* out, void* stream) {
+int s2t_cuckoo_hit_stats(const void* table, const void* fp, int h_bits, int H, uint32_t salt,
+                         const void* bases, int n_rows, int L, int k, int remaining, void* masks,
+                         void* tile_counts, void* out, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int W = L - k + 1;
   const int tpr = (W + kTile - 1) / kTile;
   uint32_t* m = static_cast<uint32_t*>(masks);
   uint32_t* c = static_cast<uint32_t*>(tile_counts);
-  cuckoo_hit_stats_kernel<<<dim3(tpr, n_rows), kTile, 0, st>>>(
-      static_cast<const uint2*>(table), h_bits, static_cast<uint32_t>(H), salt,
-      static_cast<const uint8_t*>(bases), L, k, m, c);
+  const int rc = launch_cuckoo(cuckoo_hit_stats_kernel, dim3(tpr, n_rows), dim3(kTile), st,
+                               static_cast<const uint8_t*>(fp), static_cast<uint32_t>(H),
+                               static_cast<const uint2*>(table), static_cast<const uint8_t*>(fp),
+                               h_bits, static_cast<uint32_t>(H), salt,
+                               static_cast<const uint8_t*>(bases), L, k, m, c);
+  if (rc != 0) return rc;
   return launch_crossing(st, m, c, n_rows * tpr, W, tpr, remaining, static_cast<int32_t*>(out));
 }
 
-int s2t_cuckoo_classify_step(const void* table, const void* meta, int h_bits, int H,
-                             uint32_t salt, const void* bases, int n_rows, int L, int k,
+int s2t_cuckoo_classify_step(const void* table, const void* fp, const void* meta, int h_bits,
+                             int H, uint32_t salt, const void* bases, int n_rows, int L, int k,
                              const void* bounds, int max_reads, void* masks, void* counts,
                              void* tot, void* inf, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1066,10 +1207,13 @@ int s2t_cuckoo_classify_step(const void* table, const void* meta, int h_bits, in
   int32_t* p_hit = c_inf + n;
   int32_t* p_inf = p_hit + n + 1;
   if (n_rows) {
-    cuckoo_classify_masks_kernel<<<dim3(tpr, n_rows), kTile, 0, st>>>(
-        static_cast<const uint2*>(table), static_cast<const uint32_t*>(meta), h_bits,
-        static_cast<uint32_t>(H), salt, static_cast<const uint8_t*>(bases), L, k, hit_mask,
-        inf_mask, c_hit, c_inf);
+    const int rc = launch_cuckoo(
+        cuckoo_classify_masks_kernel, dim3(tpr, n_rows), dim3(kTile), st,
+        static_cast<const uint8_t*>(fp), static_cast<uint32_t>(H),
+        static_cast<const uint2*>(table), static_cast<const uint8_t*>(fp),
+        static_cast<const uint32_t*>(meta), h_bits, static_cast<uint32_t>(H), salt,
+        static_cast<const uint8_t*>(bases), L, k, hit_mask, inf_mask, c_hit, c_inf);
+    if (rc != 0) return rc;
   }
   return launch_classify_sums(st, c_hit, c_inf, p_hit, p_inf, hit_mask, inf_mask, n, n_rows, W,
                               tpr, bounds, max_reads, tot, inf);

@@ -14,7 +14,9 @@ carries, with the same meaning and the same npz file:
   to its slot so slot-indexed device arrays gather back to key order.
 
 An npz of either layout loads in either package; one with no ``layout``
-entry is a cuckoo index, as the JAX package reads it.
+entry is a cuckoo index, as the JAX package reads it.  A scrub checkpoint
+names no layout: ``layout_of_counts`` reads it from the size of its
+slot-indexed counts.
 
 The genome scan runs on the engine: the genome is packed into fixed
 batches and every valid window's canonical code is extracted on the
@@ -32,7 +34,8 @@ from strainer2_tpu_torch.index.bucket import BucketTable, build_bucket_table
 from strainer2_tpu_torch.index.cuckoo import CuckooTable, build_cuckoo
 from strainer2_tpu_torch.io.batches import DEFAULT_ROW_LEN, DEFAULT_ROWS
 
-__all__ = ["LAYOUTS", "StrainIndex", "check_layout", "scan_file_codes"]
+__all__ = ["LAYOUTS", "StrainIndex", "check_layout", "layout_of_counts", "scan_file_codes",
+           "table_slots"]
 
 LAYOUTS = ("bucket", "cuckoo")
 
@@ -41,6 +44,30 @@ def check_layout(layout: str) -> str:
     if layout not in LAYOUTS:
         raise ValueError(f"unknown table layout {layout!r}: bucket or cuckoo")
     return layout
+
+
+def table_slots(num_kmers: int, layout: str) -> int:
+    """Slots of the table a builder makes for ``num_kmers`` keys at its
+    default size (index/bucket.py, index/cuckoo.py): B x 16 cells of 2**h
+    bucket rows, h = max(4, ceil(log2(n / 3.3))), or 2H cuckoo slots, H =
+    2**max(4, ceil(log2(n / 0.84))).  A build that fails its tries grows
+    the table; this is the size of one that does not."""
+    n = max(num_kmers, 1)
+    if check_layout(layout) == "bucket":
+        return 16 << max(4, int(np.ceil(np.log2(n / 3.3))))
+    return 2 << max(4, int(np.ceil(np.log2(n / 0.84))))
+
+
+def layout_of_counts(num_kmers: int, n_cells: int) -> str | None:
+    """The layout whose table for ``num_kmers`` keys has ``n_cells`` slots
+    (``table_slots``), None where neither has.  The two default sizes never
+    meet (the bucket table has 2 or 4 times the cuckoo table's slots from
+    53 keys on, 2-8 times below), but a cuckoo table grown by failed tries
+    can reach the bucket size: such counts read as bucket."""
+    for layout in LAYOUTS:  # bucket first: it takes a tie
+        if table_slots(num_kmers, layout) == n_cells:
+            return layout
+    return None
 
 
 def scan_file_codes(path: str, engine, rows: int = DEFAULT_ROWS,
@@ -115,6 +142,14 @@ class StrainIndex:
         """The index of a genome file, in the layout of ``engine``."""
         return cls.from_scan_codes(scan_file_codes(path, engine, rows, row_len), k=engine.k,
                                    layout=engine.layout)
+
+    def in_layout(self, layout: str) -> "StrainIndex":
+        """This index in ``layout``: itself, or its keys with a table of the
+        other layout still to build."""
+        if check_layout(layout) == self.layout:
+            return self
+        return StrainIndex(k=self.k, codes=self.codes, genome_counts=self.genome_counts,
+                           layout_=layout)
 
     @property
     def num_kmers(self) -> int:

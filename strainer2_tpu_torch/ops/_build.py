@@ -49,13 +49,14 @@ _SIGNATURES = {
     "s2t_bucket_lookup_ring": [_P, _I, _I, _U32, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P],
     "s2t_multi_hit_words": [_P, _I, _I, _U32, _P, _I, _I, _I, _I, _P, _P],
     "s2t_strain_sums": [_P, _I, _I, _P, _I, _I, _P, _P, _P],
-    "s2t_cuckoo_lookup": [_P, _I, _I, _U32, _P, _P, _LL, _P, _P, _P],
-    "s2t_cuckoo_count_step": [_P, _P, _I, _I, _U32, _P, _I, _I, _I, _P],
-    "s2t_cuckoo_count_valid_step": [_P, _P, _I, _I, _U32, _P, _I, _I, _I, _P, _P],
-    "s2t_cuckoo_hit_accumulate": [_P, _P, _I, _I, _U32, _P, _I, _I, _I, _P],
-    "s2t_cuckoo_hit_stats": [_P, _I, _I, _U32, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "s2t_cuckoo_classify_step": [_P, _P, _I, _I, _U32, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P,
-                                 _P],
+    "s2t_cuckoo_fingerprints": [_P, _LL, _P, _P],
+    "s2t_cuckoo_lookup": [_P, _P, _I, _I, _U32, _P, _P, _LL, _P, _P, _P],
+    "s2t_cuckoo_count_step": [_P, _P, _P, _I, _I, _U32, _P, _I, _I, _I, _P],
+    "s2t_cuckoo_count_valid_step": [_P, _P, _P, _I, _I, _U32, _P, _I, _I, _I, _P, _P],
+    "s2t_cuckoo_hit_accumulate": [_P, _P, _P, _I, _I, _U32, _P, _I, _I, _I, _P],
+    "s2t_cuckoo_hit_stats": [_P, _P, _I, _I, _U32, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "s2t_cuckoo_classify_step": [_P, _P, _P, _I, _I, _U32, _P, _I, _I, _I, _P, _I, _P, _P, _P,
+                                 _P, _P],
 }
 
 # Kernel launches per wrapper; each wrapper adds one where it launches.

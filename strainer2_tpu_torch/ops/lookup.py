@@ -44,11 +44,20 @@ holds the key, slot = s0 where s0 holds it, else s1 (found or not).  A
 detection class is a separate slot-indexed (2H,) uint32 ``meta`` array:
 informative is meta[slot] == 2, one word, never a sum.
 
+- ``cuckoo_fingerprints``: a byte a slot, the 8-bit fingerprint of the key
+  it holds (``cuckoo_fingerprint_plain``; an empty slot holds the
+  sentinel's); made once an index on the device, never saved.
 - ``cuckoo_lookup``   (K10): found, slot per query.
 - ``cuckoo_count_step``, ``cuckoo_count_valid_step``,
   ``cuckoo_classify_step``, ``cuckoo_hit_accumulate``,
   ``cuckoo_hit_stats``: K3, K3 with its valid count, K4, K8 and K9 with
   the two-slot probe, same contracts (count buffers of 2H cells).
+
+The cuckoo kernels take the table's fingerprints (``fp=``) and read a slot
+of the table only where its fingerprint is the query's
+(``cuckoo_lookup_filtered_plain`` is that probe in torch).  A fingerprint
+is a function of the key, so the filter loses no hit: the results are
+those of the unfiltered probe, and the plain versions are that probe.
 
 Each kernel wrapper launches its CUDA kernel on a CUDA tensor and runs the
 plain version on a CPU tensor; nothing else takes the plain path.
@@ -59,7 +68,7 @@ from __future__ import annotations
 import torch
 
 from strainer2_tpu_torch.constants import INFORMATIVE_KMER, MAX_K
-from strainer2_tpu_torch.index.hashing import cuckoo_slots_torch
+from strainer2_tpu_torch.index.hashing import _mul32, cuckoo_slots_torch
 from strainer2_tpu_torch.ops import _build
 from strainer2_tpu_torch.ops.packing import canonical_windows_plain
 
@@ -83,8 +92,12 @@ __all__ = [
     "classify_step_plain",
     "gather_index",
     "passing_any",
+    "cuckoo_fingerprint_plain",
+    "cuckoo_fingerprints",
+    "cuckoo_fingerprints_plain",
     "cuckoo_lookup",
     "cuckoo_lookup_plain",
+    "cuckoo_lookup_filtered_plain",
     "cuckoo_count_step",
     "cuckoo_count_step_plain",
     "cuckoo_count_valid_step",
@@ -309,6 +322,54 @@ def cuckoo_lookup_plain(table, h_bits: int, salt: int, qhi, qlo):
     hit1 = (r1[:, 0] == qh) & (r1[:, 1] == ql)
     slot = torch.where(hit0, s0, s1)
     return (hit0 | hit1).reshape(shape), slot.to(torch.int32).reshape(shape)
+
+
+def cuckoo_fingerprint_plain(hi, lo):
+    """The 8-bit slot fingerprint of keys (hi, lo), int64 tensors holding
+    uint32 values: the top byte of a hash of the unsalted key with
+    multipliers and a finalizer of its own (the kernels'
+    ``cuckoo_fingerprint``), so that it does not follow the slot hash."""
+    x = _mul32(hi, 0x2C1B3C6D) ^ _mul32(lo, 0x297A2D39) ^ 0x61C88647
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return (x ^ (x >> 16)) >> 24
+
+
+def cuckoo_fingerprints_plain(table):
+    """(2H,) uint8: the fingerprint of every slot's (hi, lo) pair, empty
+    slots included."""
+    t = table.view(torch.int32).to(torch.int64) & _MASK32
+    return cuckoo_fingerprint_plain(t[:, 0], t[:, 1]).to(torch.uint8)
+
+
+def cuckoo_lookup_filtered_plain(table, fp, h_bits: int, salt: int, qhi, qlo):
+    """The kernels' probe in torch: (found, slot) as ``cuckoo_lookup_plain``
+    gives them, from fingerprints ``fp`` first, a slot of the table read
+    only where its fingerprint is the query's; and the number of slots so
+    read, (found, slot, reads)."""
+    shape = qhi.shape
+    qh = qhi.reshape(-1).to(torch.int64) & _MASK32
+    ql = qlo.reshape(-1).to(torch.int64) & _MASK32
+    h = table.shape[0] // 2
+    t = table.view(torch.int32)
+    shi = qh ^ salt if salt else qh
+    s0 = cuckoo_slots_torch(shi, ql, h_bits, 0)
+    s1 = cuckoo_slots_torch(shi, ql, h_bits, 1) + h
+    f = cuckoo_fingerprint_plain(qh, ql)
+    fps = fp.to(torch.int64)
+    hits = []
+    for s in (s0, s1):
+        match = fps[s] == f
+        read = s[match]  # the table is read at these slots only
+        slot_key = t[read].to(torch.int64) & _MASK32
+        hit = torch.zeros_like(match)
+        hit[match] = (slot_key[:, 0] == qh[match]) & (slot_key[:, 1] == ql[match])
+        hits.append((hit, int(read.numel())))
+    (hit0, r0), (hit1, r1) = hits
+    slot = torch.where(hit0, s0, s1)
+    return (hit0 | hit1).reshape(shape), slot.to(torch.int32).reshape(shape), r0 + r1
 
 
 def cuckoo_count_step_plain(counts, table, bases, h_bits: int, salt: int, k: int):
@@ -640,14 +701,45 @@ def _check_slot_array(name: str, a: torch.Tensor, table: torch.Tensor) -> None:
         raise ValueError(f"{name} has {a.shape[0]} cells, table has {table.shape[0]} slots")
 
 
-def cuckoo_lookup(table, h_bits: int, salt: int, qhi, qlo):
+def _check_fp(fp, table: torch.Tensor) -> None:
+    """The table's slot fingerprints, as ``cuckoo_fingerprints`` makes them."""
+    if fp is None:
+        raise ValueError("the cuckoo kernels take the table's slot fingerprints: "
+                         "fp=cuckoo_fingerprints(table)")
+    if (fp.dtype != torch.uint8 or fp.dim() != 1 or not fp.is_contiguous()
+            or fp.device != table.device):
+        raise ValueError("fp must be a contiguous 1-D uint8 tensor on the table's device")
+    if fp.shape[0] != table.shape[0]:
+        raise ValueError(f"fp has {fp.shape[0]} fingerprints, table has {table.shape[0]} slots")
+
+
+def cuckoo_fingerprints(table):
+    """The fingerprint kernel on a CUDA table, the plain version on a CPU
+    one: (2H,) uint8, a byte a slot.  On the card it also raises the
+    persisting-L2 set-aside to the array's size (at most the card's most),
+    for the L2 window the cuckoo kernels put on it."""
+    if not _on_cuda("cuckoo_fingerprints", table):
+        return cuckoo_fingerprints_plain(table)
+    if (table.dtype != torch.uint32 or table.dim() != 2 or table.shape[1] != 2
+            or not table.is_contiguous() or table.data_ptr() % 8):
+        raise ValueError("table must be a contiguous, 8-byte aligned (2H, 2) uint32 cuckoo table")
+    fp = torch.empty(table.shape[0], dtype=torch.uint8, device=table.device)
+    if table.shape[0]:
+        _build.call("cuckoo_fingerprints", table.device, table.data_ptr(), table.shape[0],
+                    fp.data_ptr())
+    return fp
+
+
+def cuckoo_lookup(table, h_bits: int, salt: int, qhi, qlo, *, fp=None):
     """Kernel K10 on CUDA tensors, the plain version on CPU tensors.
 
-    table (2H, 2) uint32; qhi, qlo uint32 of any one shape.  Returns
-    (found bool, slot int32) of that shape."""
+    table (2H, 2) uint32 and, on the card, its fingerprints ``fp``; qhi,
+    qlo uint32 of any one shape.  Returns (found bool, slot int32) of that
+    shape."""
     if not _on_cuda("cuckoo_lookup", table, qhi, qlo):
         return cuckoo_lookup_plain(table, h_bits, salt, qhi, qlo)
     _check_cuckoo_table(table, h_bits)
+    _check_fp(fp, table)
     if qhi.shape != qlo.shape or qhi.dtype != torch.uint32 or qlo.dtype != torch.uint32:
         raise ValueError("qhi and qlo must be uint32 tensors of one shape")
     qh, ql = qhi.contiguous(), qlo.contiguous()
@@ -655,72 +747,84 @@ def cuckoo_lookup(table, h_bits: int, salt: int, qhi, qlo):
     slot = torch.empty(qh.shape, dtype=torch.int32, device=qh.device)
     if qh.numel():
         _build.call(
-            "cuckoo_lookup", qh.device, table.data_ptr(), h_bits, table.shape[0] // 2, salt,
+            "cuckoo_lookup", qh.device, table.data_ptr(), fp.data_ptr(), h_bits,
+            table.shape[0] // 2, salt,
             qh.data_ptr(), ql.data_ptr(), qh.numel(), found.data_ptr(), slot.data_ptr(),
         )
     return found, slot
 
 
-def cuckoo_count_step(counts, table, bases, h_bits: int, salt: int, k: int):
-    """K3 with the two-slot probe on CUDA tensors, the plain version on CPU
-    tensors.  counts (2H,) uint32 is updated in place and returned."""
+def cuckoo_count_step(counts, table, bases, h_bits: int, salt: int, k: int, *, fp=None):
+    """K3 with the two-slot probe on CUDA tensors (``fp`` the table's
+    fingerprints), the plain version on CPU tensors.  counts (2H,) uint32
+    is updated in place and returned."""
     if not _on_cuda("cuckoo_count_step", counts, table, bases):
         return cuckoo_count_step_plain(counts, table, bases, h_bits, salt, k)
     _check_cuckoo_table(table, h_bits)
+    _check_fp(fp, table)
     _check_bases(bases, k)
     _check_slot_array("counts", counts, table)
     if bases.shape[0]:
         _build.call(
-            "cuckoo_count_step", bases.device, counts.data_ptr(), table.data_ptr(), h_bits,
+            "cuckoo_count_step", bases.device, counts.data_ptr(), table.data_ptr(),
+            fp.data_ptr(), h_bits,
             table.shape[0] // 2, salt, bases.data_ptr(), bases.shape[0], bases.shape[1], k,
         )
     return counts
 
 
-def cuckoo_count_valid_step(counts, tally, table, bases, h_bits: int, salt: int, k: int):
-    """K3 with its valid count and the two-slot probe on CUDA tensors, the
-    plain version on CPU tensors: the tally contract of
-    ``count_valid_step``."""
+def cuckoo_count_valid_step(counts, tally, table, bases, h_bits: int, salt: int, k: int, *,
+                            fp=None):
+    """K3 with its valid count and the two-slot probe on CUDA tensors
+    (``fp`` the table's fingerprints), the plain version on CPU tensors:
+    the tally contract of ``count_valid_step``."""
     if not _on_cuda("cuckoo_count_valid_step", counts, tally, table, bases):
         return cuckoo_count_valid_step_plain(counts, tally, table, bases, h_bits, salt, k)
     _check_cuckoo_table(table, h_bits)
+    _check_fp(fp, table)
     _check_bases(bases, k)
     _check_slot_array("counts", counts, table)
     _check_tally(tally, n_tiles(*bases.shape, k))
     if bases.shape[0]:
         _build.call(
-            "cuckoo_count_valid_step", bases.device, counts.data_ptr(), table.data_ptr(), h_bits,
+            "cuckoo_count_valid_step", bases.device, counts.data_ptr(), table.data_ptr(),
+            fp.data_ptr(), h_bits,
             table.shape[0] // 2, salt, bases.data_ptr(), bases.shape[0], bases.shape[1], k,
             tally.data_ptr(),
         )
     return counts
 
 
-def cuckoo_hit_accumulate(acc, table, bases, h_bits: int, salt: int, k: int):
-    """K8 with the two-slot probe on CUDA tensors, the plain version on CPU
-    tensors: acc (2,) int64 (hits, valid windows) is added to in place."""
+def cuckoo_hit_accumulate(acc, table, bases, h_bits: int, salt: int, k: int, *, fp=None):
+    """K8 with the two-slot probe on CUDA tensors (``fp`` the table's
+    fingerprints), the plain version on CPU tensors: acc (2,) int64 (hits,
+    valid windows) is added to in place."""
     if not _on_cuda("cuckoo_hit_accumulate", acc, table, bases):
         return cuckoo_hit_accumulate_plain(acc, table, bases, h_bits, salt, k)
     _check_cuckoo_table(table, h_bits)
+    _check_fp(fp, table)
     _check_bases(bases, k)
     if acc.dtype != torch.int64 or acc.shape != (2,) or not acc.is_contiguous():
         raise ValueError("acc must be a contiguous (2,) int64 tensor")
     if bases.shape[0]:
         _build.call(
-            "cuckoo_hit_accumulate", bases.device, acc.data_ptr(), table.data_ptr(), h_bits,
+            "cuckoo_hit_accumulate", bases.device, acc.data_ptr(), table.data_ptr(),
+            fp.data_ptr(), h_bits,
             table.shape[0] // 2, salt, bases.data_ptr(), bases.shape[0], bases.shape[1], k,
         )
     return acc
 
 
-def cuckoo_hit_stats(table, bases, remaining: int, h_bits: int, salt: int, k: int):
-    """K9 with the two-slot probe on CUDA tensors, the plain version on CPU
-    tensors: int32 (4,) as ``hit_stats`` returns, in its two launches."""
+def cuckoo_hit_stats(table, bases, remaining: int, h_bits: int, salt: int, k: int, *, fp=None):
+    """K9 with the two-slot probe on CUDA tensors (``fp`` the table's
+    fingerprints), the plain version on CPU tensors: int32 (4,) as
+    ``hit_stats`` returns, in its two launches."""
     if not -2**31 <= remaining < 2**31:
         raise ValueError(f"remaining {remaining} is outside the int32 range")
     if not _on_cuda("cuckoo_hit_stats", table, bases):
         return cuckoo_hit_stats_plain(table, bases, remaining, h_bits, salt, k)
     _check_cuckoo_table(table, h_bits)
+    _check_fp(fp, table)
     _check_bases(bases, k)
     if bases.shape[0] < 1:
         raise ValueError("bases must hold at least one row")
@@ -730,22 +834,26 @@ def cuckoo_hit_stats(table, bases, remaining: int, h_bits: int, salt: int, k: in
     tile_counts = torch.empty(tiles, dtype=torch.int32, device=bases.device)
     out = torch.empty(4, dtype=torch.int32, device=bases.device)
     _build.call(
-        "cuckoo_hit_stats", bases.device, table.data_ptr(), h_bits, table.shape[0] // 2, salt,
+        "cuckoo_hit_stats", bases.device, table.data_ptr(), fp.data_ptr(), h_bits,
+        table.shape[0] // 2, salt,
         bases.data_ptr(), bases.shape[0], bases.shape[1], k, remaining, masks.data_ptr(),
         tile_counts.data_ptr(), out.data_ptr(),
     )
     return out
 
 
-def cuckoo_classify_step(table, meta, bases, boundaries, h_bits: int, salt: int, k: int):
+def cuckoo_classify_step(table, meta, bases, boundaries, h_bits: int, salt: int, k: int, *,
+                         fp=None):
     """K4 with the two-slot probe and a gather of meta[slot] on CUDA
-    tensors, the plain version on CPU tensors.
+    tensors (``fp`` the table's fingerprints), the plain version on CPU
+    tensors.
 
     meta (2H,) uint32, the slot-indexed k-mer class; boundaries as in
     ``classify_step``.  Returns (total, informative) int32, (max_reads,)."""
     if not _on_cuda("cuckoo_classify_step", table, meta, bases, boundaries):
         return cuckoo_classify_step_plain(table, meta, bases, boundaries, h_bits, salt, k)
     _check_cuckoo_table(table, h_bits)
+    _check_fp(fp, table)
     _check_slot_array("meta", meta, table)
     _check_bases(bases, k)
     if boundaries.dtype != torch.int32 or boundaries.dim() != 1 or not boundaries.is_contiguous():
@@ -761,7 +869,8 @@ def cuckoo_classify_step(table, meta, bases, boundaries, h_bits: int, salt: int,
         masks = torch.empty(2 * 8 * tiles, dtype=torch.int32, device=bases.device)
         counts = torch.empty(4 * tiles + 2, dtype=torch.int32, device=bases.device)
         _build.call(
-            "cuckoo_classify_step", bases.device, table.data_ptr(), meta.data_ptr(), h_bits,
+            "cuckoo_classify_step", bases.device, table.data_ptr(), fp.data_ptr(),
+            meta.data_ptr(), h_bits,
             table.shape[0] // 2, salt, bases.data_ptr(), bases.shape[0], bases.shape[1], k,
             boundaries.data_ptr(), max_reads, masks.data_ptr(), counts.data_ptr(),
             tot.data_ptr(), inf.data_ptr(),

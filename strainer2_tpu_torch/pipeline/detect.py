@@ -223,21 +223,21 @@ def _staged_quantify(entries, run_one, new_sink, payload_of, emit, stdout,
             ordinal += 1
 
 
-def _load_or_build_index(r_file, engine, cfg, index_cache):
-    """Build the strain index, or reuse a cached one whose k and layout are
-    the engine's (StrainIndex.save of either package writes the same npz),
-    as strainer2_tpu/pipeline/detect.py:485-496 does; any other is rebuilt
-    and overwritten."""
+def _cached_index(index_cache, k: int):
+    """The index an ``--index-cache`` holds (StrainIndex.save of either
+    package writes the same npz), in its own layout, where its k is the
+    run's; None where there is no such file or its k is another, and the
+    run builds the index and overwrites it.  The JAX package
+    (strainer2_tpu/pipeline/detect.py:485-496) reuses only a cache of its
+    engine's layout, which off the TPU is the cuckoo layout its CLIs
+    write."""
     import os
 
     if index_cache and os.path.exists(index_cache):
         idx = StrainIndex.load(index_cache)
-        if idx.k == cfg.k and idx.layout == engine.layout:
+        if idx.k == k:
             return idx
-    idx = StrainIndex.from_fasta(r_file, engine, cfg.rows, cfg.row_len)
-    if index_cache:
-        idx.save(index_cache)
-    return idx
+    return None
 
 
 class StrainDetector:
@@ -253,17 +253,24 @@ class StrainDetector:
         skipping the genome re-scan and the k-mer string round trip."""
         self.cfg = cfg or DetectConfig()
         self.stdout = stdout if stdout is not None else sys.stdout
+        if index is None:
+            with stage("detect.index_build"):
+                index = _cached_index(index_cache, self.cfg.k)
+        # the engine takes the layout of the index it is given or finds on
+        # disk; one it builds is in the configured layout
         self.engine = TorchKmerEngine(
             self.cfg.k,
             max_reads_capacity(self.cfg.k, self.cfg.rows, self.cfg.row_len),
             device=self.cfg.device,
             layout=index.layout if index is not None else self.cfg.layout,
         )
-        if index is not None:
-            self.index = index
-        else:
+        if index is None:
             with stage("detect.index_build"):
-                self.index = _load_or_build_index(r_file, self.engine, self.cfg, index_cache)
+                index = StrainIndex.from_fasta(r_file, self.engine, self.cfg.rows,
+                                               self.cfg.row_len)
+                if index_cache:
+                    index.save(index_cache)
+        self.index = index
         # per-key k-mer class; genome k-mers start NON_INFORMATIVE
         self.kmer_type = np.full(self.index.num_kmers, NON_INFORMATIVE_KMER, np.uint32)
         self._sorted_order = np.argsort(self.index.codes, kind="stable")

@@ -19,7 +19,10 @@ stages use, in either layout:
 
 ``layout`` is "bucket" (the default: one 64-byte row a probe, the
 detection class in the row) or "cuckoo" (two 8-byte slots a probe, the
-class in a separate slot-indexed array; the cuckoo_ kernels).  The JAX
+class in a separate slot-indexed array; the cuckoo_ kernels, which read
+a slot only where a byte of the table's fingerprint array, made on the
+device when ``table_for`` uploads the table and kept beside it, matches
+the query's).  The JAX
 package picks cuckoo on every backend but the TPU
 (``strainer2_tpu.pipeline.engine.default_layout``), from v5e and CPU
 measurements; on the H100 the port keeps bucket as its default on both
@@ -46,6 +49,7 @@ from strainer2_tpu_torch.ops.lookup import (
     cuckoo_classify_step,
     cuckoo_count_step,
     cuckoo_count_valid_step,
+    cuckoo_fingerprints,
     cuckoo_hit_accumulate,
     cuckoo_hit_stats,
     hit_accumulate,
@@ -96,6 +100,8 @@ class TorchKmerEngine:
         self.layout = check_layout(layout)
         self._count, self._count_valid, self._hit_accum, self._hit_stats = _STEPS[layout]
         self._tables: dict[int, tuple[object, torch.Tensor]] = {}
+        # id(cuckoo table) -> (the table, its slot fingerprints)
+        self._fps: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
 
     def to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
@@ -114,8 +120,9 @@ class TorchKmerEngine:
     # ---- device state life cycle ----
     def table_for(self, index) -> torch.Tensor:
         """The index's table on the device (uploaded once): the bucket rows,
-        or the (2H, 2) uint32 cuckoo slots.  Takes this package's
-        StrainIndex or the JAX package's, of the engine's layout."""
+        or the (2H, 2) uint32 cuckoo slots, whose fingerprints are made
+        then (one launch an index).  Takes this package's StrainIndex or
+        the JAX package's, of the engine's layout."""
         if index_layout(index) != self.layout:
             raise ValueError(f"a {index_layout(index)} index on a {self.layout} engine")
         key = id(index)
@@ -123,7 +130,21 @@ class TorchKmerEngine:
         if hit is None or hit[0] is not index:
             hit = (index, self.to_device(index.table.table))
             self._tables[key] = hit
+            if self.layout == "cuckoo":
+                self._fp_kw(hit[1])
         return hit[1]
+
+    def _fp_kw(self, table) -> dict:
+        """The keyword of a cuckoo step: the fingerprints of ``table``, made
+        at its first use (``table_for`` makes them at the upload) and kept
+        while the engine lives; none in the bucket layout."""
+        if self.layout != "cuckoo":
+            return {}
+        hit = self._fps.get(id(table))
+        if hit is None or hit[0] is not table:
+            hit = (table, cuckoo_fingerprints(table))
+            self._fps[id(table)] = hit
+        return {"fp": hit[1]}
 
     def init_counts(self, index) -> torch.Tensor:
         return torch.zeros(index.table.num_slots, dtype=torch.uint32, device=self.device)
@@ -139,7 +160,8 @@ class TorchKmerEngine:
     # ---- panel counting (kmer_scrub_count hot loop) ----
     def count_batch(self, counts, table, h_bits: int, salt: int, bases) -> torch.Tensor:
         """counts[slot] += 1 per valid hit window of ``bases``, in place."""
-        return self._count(counts, table, self.to_device(bases), h_bits, salt, self.k)
+        return self._count(counts, table, self.to_device(bases), h_bits, salt, self.k,
+                           **self._fp_kw(table))
 
     def init_valid_tally(self, rows: int, row_len: int) -> torch.Tensor:
         """A zeroed int64 valid-window tally for a stream of batches of at
@@ -151,7 +173,7 @@ class TorchKmerEngine:
         """count_batch, and this batch's valid windows added into ``tally``
         on the device, in place; no per-batch reduction or readback."""
         return self._count_valid(counts, tally, table, self.to_device(bases), h_bits, salt,
-                                 self.k)
+                                 self.k, **self._fp_kw(table))
 
     def valid_total(self, tally) -> int:
         """The valid windows of every batch counted into ``tally``: one
@@ -166,7 +188,8 @@ class TorchKmerEngine:
     def hit_accumulate(self, acc, table, h_bits: int, salt: int, bases) -> torch.Tensor:
         """acc (2,) int64 (hits, evaluated) += this batch's tallies, in place
         on the device: the fullmap path reads it back once a file."""
-        return self._hit_accum(acc, table, self.to_device(bases), h_bits, salt, self.k)
+        return self._hit_accum(acc, table, self.to_device(bases), h_bits, salt, self.k,
+                               **self._fp_kw(table))
 
     def hit_stats(self, table, h_bits: int, salt: int, bases, remaining: int) -> torch.Tensor:
         """Rapid-mode batch stats reduced on the device: int32 (4,) of
@@ -175,7 +198,8 @@ class TorchKmerEngine:
         ``remaining``-th valid window (-1 if the batch ends first) and the
         hits the inclusive prefix there: the reference's stop-and-test
         point (reference src/genome_compare.c:327-340)."""
-        return self._hit_stats(table, self.to_device(bases), remaining, h_bits, salt, self.k)
+        return self._hit_stats(table, self.to_device(bases), remaining, h_bits, salt, self.k,
+                               **self._fp_kw(table))
 
     # ---- detection: per-read hit aggregation ----
     def classify_batch(self, table, h_bits: int, salt: int, bases, boundaries, meta=None):
@@ -192,7 +216,8 @@ class TorchKmerEngine:
             return classify_step(table, bases, boundaries, h_bits, salt, self.k)
         if meta is None:
             raise ValueError("the cuckoo layout classifies with a slot-indexed meta array")
-        return cuckoo_classify_step(table, meta, bases, boundaries, h_bits, salt, self.k)
+        return cuckoo_classify_step(table, meta, bases, boundaries, h_bits, salt, self.k,
+                                    **self._fp_kw(table))
 
     def classify_multi_batch(self, rows, h_bits: int, salt: int, bases, boundaries,
                              n_strains: int):

@@ -146,7 +146,11 @@ def run_pipeline(r_file: str, a_list: str, b_list: str, target_list: str, out_di
     from strainer2_tpu_torch.pipeline.coverage import run_coverage_depth
     from strainer2_tpu_torch.pipeline.detect import DetectConfig, StrainDetector
     from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
-    from strainer2_tpu_torch.pipeline.scrub_count import ScrubCountConfig, _count_panel
+    from strainer2_tpu_torch.pipeline.scrub_count import (
+        ScrubCountConfig,
+        _count_panel,
+        resume_layout,
+    )
 
     fcfg = fused_cfg or FusedConfig()
     err = err if err is not None else sys.stderr
@@ -185,6 +189,8 @@ def run_pipeline(r_file: str, a_list: str, b_list: str, target_list: str, out_di
 
         ckpt = ScrubCheckpoint(os.path.join(checkpoint_dir, "scrub"),
                                key=union_checkpoint_key(index.codes, cfg.k))
+        # stored counts set the layout of the scan and of detection
+        engine, index = resume_layout(engine, index, ckpt)
     with stage("fused.scrub"):
         col_pan = _count_panel(engine, index, a_list, cfg, progress,
                                column=COL_PANGENOME, checkpoint=ckpt)

@@ -12,8 +12,9 @@ strain skips its own genome file (reference src/genome_compare.c:115-146):
 here the total over all drug files minus the strain's own-file
 contribution, counted once per distinct own file.
 
-Only the union's bucket table is built and uploaded; the per-strain
-indexes keep their codes and genome counts and never build a table.
+Only the union's table is built and uploaded (bucket, or the layout of
+a checkpoint's stored counts); the per-strain indexes keep their codes
+and genome counts and never build a table.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from strainer2_tpu_torch.pipeline.scrub_count import (
     _resume_counts,
     count_panel_file,
     read_list_file,
+    resume_layout,
     write_scrub_table,
 )
 
@@ -105,6 +107,7 @@ def multi_scrub_counts(r_files: list[str], a_list: str, b_list: str, c_list: str
         from strainer2_tpu_torch.pipeline.progress import ScrubCheckpoint
 
         ckpt = ScrubCheckpoint(checkpoint_dir, key=union_checkpoint_key(union_codes, cfg.k))
+        engine, union = resume_layout(engine, union, ckpt)
 
     def count_list(paths: list[str], column: int) -> np.ndarray:
         for path in paths:

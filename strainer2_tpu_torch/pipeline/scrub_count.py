@@ -11,8 +11,10 @@ Counts are integers, so neither the batch order nor the order in which
 the feeder threads' batches reach the device can change a byte.  With a
 checkpoint directory, files count one after another and the count buffer
 is saved after each (pipeline/progress.py), so a restarted run skips the
-finished files.  There is no device mesh and no multi-process
-partitioning; the CLI refuses those.
+finished files; a run that finds stored counts counts in the table
+layout they were counted in (``resume_layout``), so that it resumes the
+cuckoo checkpoints the JAX CLIs write off the TPU.  There is no device
+mesh and no multi-process partitioning; the CLI refuses those.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import numpy as np
 
 from strainer2_tpu_torch import native
 from strainer2_tpu_torch.constants import DEFAULT_K
-from strainer2_tpu_torch.index.build import StrainIndex
+from strainer2_tpu_torch.index.build import StrainIndex, layout_of_counts
 from strainer2_tpu_torch.index.refhash_order import reference_row_order
 from strainer2_tpu_torch.io.batches import DEFAULT_ROW_LEN, DEFAULT_ROWS
 from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
@@ -38,6 +40,7 @@ __all__ = [
     "run_scrub_count",
     "count_panel_file",
     "read_list_file",
+    "resume_layout",
     "write_scrub_table",
 ]
 
@@ -149,6 +152,39 @@ def _count_files_device_parallel(engine, index, counts, todo, n_threads, cfg):
     return counts
 
 
+def _stored_cells(checkpoint, column: int) -> int | None:
+    """Cells of a column's stored counts (the npy header only), None where
+    the checkpoint holds none (as ScrubCheckpoint.counts reads it)."""
+    import os
+
+    path = os.path.join(checkpoint.dir, f"counts_{column}.npy")
+    if not checkpoint.done_files(column) or not os.path.exists(path):
+        return None
+    return np.load(path, mmap_mode="r").shape[0]
+
+
+def resume_layout(engine: TorchKmerEngine, index: StrainIndex, checkpoint):
+    """(engine, index) in the layout of the checkpoint's stored counts: the
+    layout whose table for the index's keys has that many slots
+    (``layout_of_counts``; a tie reads as bucket), read from the first
+    column that holds counts.  ``index`` must not have built its table.
+    Counts of neither size leave both as they are, and ``_resume_counts``
+    refuses them; so does a checkpoint with no counts."""
+    from strainer2_tpu_torch.constants import COL_DRUG, COL_METAGENOME, COL_PANGENOME
+
+    if checkpoint is None:
+        return engine, index
+    for column in (COL_PANGENOME, COL_METAGENOME, COL_DRUG):
+        n_cells = _stored_cells(checkpoint, column)
+        if n_cells is not None:
+            layout = layout_of_counts(index.num_kmers, n_cells)
+            if layout is None or layout == index.layout:
+                return engine, index
+            return (TorchKmerEngine(engine.k, engine.max_reads, device=engine.device,
+                                    layout=layout), index.in_layout(layout))
+    return engine, index
+
+
 def _resume_counts(engine: TorchKmerEngine, index, paths: list[str], column: int,
                    checkpoint):
     """(device counts, files of ``paths`` still to count): the checkpoint's
@@ -244,22 +280,23 @@ def run_scrub_count(r_file: str, a_list: str, b_list: str, c_list: str | None = 
     engine = TorchKmerEngine(cfg.k, device=cfg.device,
                              layout=index.layout if index is not None else cfg.layout)
 
-    if index is None:
-        with stage("scrub.index_build"):
-            try:
-                index = StrainIndex.from_fasta(r_file, engine, cfg.rows, cfg.row_len)
-                index.table
-            except OSError:
-                # reference src/genome_compare.c:986 (no "in", as printed)
-                _exit_could_not_read(
-                    f"could not read file {r_file} GEN_hash_sequences_set_count_vec()"
-                )
-
     ckpt = None
     if checkpoint_dir:
         from strainer2_tpu_torch.pipeline.progress import ScrubCheckpoint
 
         ckpt = ScrubCheckpoint(checkpoint_dir)
+
+    if index is None:
+        with stage("scrub.index_build"):
+            try:
+                index = StrainIndex.from_fasta(r_file, engine, cfg.rows, cfg.row_len)
+            except OSError:
+                # reference src/genome_compare.c:986 (no "in", as printed)
+                _exit_could_not_read(
+                    f"could not read file {r_file} GEN_hash_sequences_set_count_vec()"
+                )
+            engine, index = resume_layout(engine, index, ckpt)
+            index.table
 
     # the djb2 row-order replay needs only the index: overlap it with the
     # panel scans

@@ -49,9 +49,18 @@ of the 8 batches' launches, so it sees device time and no host launch cost;
 the time is per wrapper call.  The bound is the least time the card could
 take: the bytes the function must move (inputs read once, outputs written
 once, per probed window the row's 64 bytes of key_hi lanes and, where the
-key is found, its 64 bytes of key_lo lanes; in the cuckoo layout one
-32-byte sector for each of its two slots, hit or miss) over the H100's
-3.35 TB/s.
+key is found, its 64 bytes of key_lo lanes) over the H100's 3.35 TB/s.  In
+the cuckoo layout the kernels read a slot of the table only where its
+fingerprint is the query's: the bound counts the fingerprint array at
+most once (min(2H bytes, a 32-byte sector for each of a valid window's
+two slots)), a 32-byte table sector for each slot whose fingerprint
+matched on the batch and, for K3, a count sector a hit; "unfiltered" is
+the bound of the probe without the filter, two table sectors a valid
+window, hit or miss.  The cuckoo lines also give the share of probed
+slots whose fingerprint matched a key it is not ("false match").  A
+checkout whose cuckoo kernels take no fingerprints is timed without them,
+against the same bounds; ``fp`` times the fingerprint kernel once an
+index.
 Prints one line per kernel, batch kind and S, then one JSON line of the
 same numbers; needs a CUDA card.
 """
@@ -86,7 +95,8 @@ __all__ = [
     "BATCH_KINDS", "bound_ms", "graph_ms", "batch_stats", "count_batches", "detection_batches",
     "sample_reads", "multi_rows", "probe_bytes", "k1_bytes", "k2_bytes", "k3_bytes", "k4_bytes",
     "k6_bytes", "k7_bytes", "k8_bytes", "k9_bytes", "k3v_bytes", "k10_bytes", "tally_bytes",
-    "COMPARE_KS", "cuckoo_table_k",
+    "COMPARE_KS", "cuckoo_table_k", "fingerprints", "filter_stats", "fp_bytes", "fp_kw",
+    "FilterStats",
 ]
 COMPARE_KS = (20, 31)  # genome_compare's default k, and the port's
 
@@ -128,14 +138,39 @@ def bound_ms(n_bytes: float) -> float:
     return n_bytes / HBM_BYTES_PER_S * 1e3
 
 
+class FilterStats:
+    """What a batch's cuckoo probes read through the fingerprint filter:
+    probes (valid windows or queries), hits, the slots whose fingerprint
+    matched (hits' slots included) and the table's slot count."""
+
+    def __init__(self, probes: float, hits: float, matched: float, slots: int):
+        self.probes, self.hits, self.matched, self.slots = probes, hits, matched, slots
+
+    @property
+    def false_match(self) -> float:
+        """Share of probed slots whose fingerprint matched another key."""
+        return (self.matched - self.hits) / (2 * self.probes) if self.probes else 0.0
+
+
 def probe_bytes(probes: float, hits: float, layout: str = "bucket") -> float:
     """Key bytes a lookup must read.  Bucket rows: the 16 key_hi lanes of
     every probed row (a miss is settled there unless a key_hi matches),
-    the 16 key_lo lanes where one does (counted as the hits).  Cuckoo: one
-    32-byte sector for each of a probe's two slots, hit or miss."""
+    the 16 key_lo lanes where one does (counted as the hits).  Cuckoo
+    without the filter ("unfiltered"): one 32-byte sector for each of a
+    probe's two slots, hit or miss.  A FilterStats as ``probes`` counts
+    the filtered cuckoo probe: fp_bytes."""
+    if isinstance(probes, FilterStats):
+        return fp_bytes(probes)
     if layout == "cuckoo":
         return 2 * SECTOR_BYTES * probes
     return KEY_HALF_BYTES * (probes + hits)
+
+
+def fp_bytes(st: FilterStats) -> float:
+    """The filtered cuckoo probe: the fingerprint array read at most once,
+    min(2H bytes, a sector for each of every probe's two slots), and a
+    32-byte table sector for each slot whose fingerprint matched."""
+    return min(st.slots, 2 * SECTOR_BYTES * st.probes) + SECTOR_BYTES * st.matched
 
 
 def k1_bytes(bases, k: int = K) -> int:
@@ -149,14 +184,19 @@ def k2_bytes(queries: float, found: float) -> float:
     return 17 * queries + probe_bytes(queries, found) + 4 * found
 
 
-def k10_bytes(queries: float) -> float:
+def k10_bytes(queries) -> float:
     """(qhi, qlo) read, (found, slot) written: 13 bytes a query; a cuckoo
-    probe a query."""
-    return 13 * queries + probe_bytes(queries, 0, "cuckoo")
+    probe a query (a FilterStats: the filtered probe)."""
+    n = queries.probes if isinstance(queries, FilterStats) else queries
+    return 13 * n + probe_bytes(queries, 0, "cuckoo")
 
 
-def k3_bytes(bases, valid: float, hits: float, layout: str = "bucket") -> float:
-    """Bases read, a probe per valid window, a count read and written per hit."""
+def k3_bytes(bases, valid, hits: float, layout: str = "bucket") -> float:
+    """Bases read, a probe per valid window, a count read and written per
+    hit; the filtered cuckoo probe (``valid`` a FilterStats) a 32-byte
+    count sector a hit."""
+    if isinstance(valid, FilterStats):
+        return bases.numel() + fp_bytes(valid) + SECTOR_BYTES * hits
     return bases.numel() + probe_bytes(valid, hits, layout) + 8 * hits
 
 
@@ -185,9 +225,9 @@ def k4_bytes(bases, bounds, valid: float, hits: float, layout: str = "bucket") -
             + 8 * reads)
 
 
-def k8_bytes(bases, valid: float, hits: float, layout: str = "bucket") -> float:
+def k8_bytes(bases, valid, hits: float, layout: str = "bucket") -> float:
     """Bases read, a probe per valid window, the (2,) int64 accumulator read
-    and written."""
+    and written (one 32-byte sector)."""
     return bases.numel() + probe_bytes(valid, hits, layout) + 32
 
 
@@ -290,6 +330,69 @@ def table_k(genome: np.ndarray, k: int, dev):
     return torch.from_numpy(table.table).to(dev), table.h_bits, table.salt
 
 
+def fingerprints(hi, lo):
+    """The cuckoo kernels' 8-bit slot fingerprint of keys (hi, lo), int64
+    tensors holding uint32 values (ops/lookup.cuckoo_fingerprint_plain,
+    pinned by tests/test_torch_cuckoo_fp.py): here, so that the batches of
+    every checkout timed are counted alike."""
+    from strainer2_tpu_torch.index.hashing import _mul32
+
+    x = _mul32(hi, 0x2C1B3C6D) ^ _mul32(lo, 0x297A2D39) ^ 0x61C88647
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return (x ^ (x >> 16)) >> 24
+
+
+def filter_stats(table, h_bits: int, salt: int, qhi, qlo) -> FilterStats:
+    """FilterStats of cuckoo probes of (qhi, qlo) on ``table``."""
+    import torch
+
+    from strainer2_tpu_torch.index.hashing import cuckoo_slots_torch
+
+    t = table.view(torch.int32)  # torch gathers no uint32; same bits
+    h = table.shape[0] // 2
+    qh = qhi.reshape(-1).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    ql = qlo.reshape(-1).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    f = fingerprints(qh, ql)
+    sh = qh ^ salt if salt else qh
+    matched = hits = 0
+    hit0 = None
+    for which in (0, 1):
+        s = cuckoo_slots_torch(sh, ql, h_bits, which) + which * h
+        key = t[s].to(torch.int64) & 0xFFFFFFFF
+        hit = (key[:, 0] == qh) & (key[:, 1] == ql)
+        matched += int((fingerprints(key[:, 0], key[:, 1]) == f).sum())
+        hits += int((hit if hit0 is None else hit & ~hit0).sum())  # a key in both slots: once
+        hit0 = hit
+    return FilterStats(qh.numel(), hits, matched, table.shape[0])
+
+
+def batch_filter_stats(table, h_bits: int, salt: int, bases, k: int = K) -> FilterStats:
+    """FilterStats of one batch's valid windows."""
+    import torch
+
+    from strainer2_tpu_torch.ops.packing import canonical_windows_plain
+
+    hi, lo, valid = canonical_windows_plain(bases, k)
+    mask = valid.reshape(-1).bool()
+    return filter_stats(table, h_bits, salt, hi.view(torch.int32).reshape(-1)[mask],
+                        lo.view(torch.int32).reshape(-1)[mask])
+
+
+def mean_stats(stats: list) -> FilterStats:
+    n = len(stats)
+    return FilterStats(*(sum(getattr(x, a) for x in stats) / n
+                         for a in ("probes", "hits", "matched")), stats[0].slots)
+
+
+def fp_kw(L, table) -> dict:
+    """The keyword that gives checkout L's cuckoo kernels the table's
+    fingerprints: none where they take none."""
+    return {"fp": L.cuckoo_fingerprints(table)} if hasattr(L, "cuckoo_fingerprints") else {}
+
+
 def cuckoo_table_k(keys: np.ndarray, k: int, dev, kinds: np.ndarray | None = None):
     """The cuckoo table of ``keys`` on the device, h_bits, salt, and (with
     per-key ``kinds``) their slot-indexed class array on the device."""
@@ -382,8 +485,13 @@ def bench(seed: int, label: str, layout: str = "both") -> dict:
 
     def report(kernel: str, key: str, ms: float, bound: float, **extra) -> None:
         result.setdefault(kernel, {})[key] = {"ms": ms, "bound_ms": bound, **extra}
+        more = ""
+        if "unfiltered_ms" in extra:
+            more = (f", unfiltered {extra['unfiltered_ms']:.4f} ms "
+                    f"(share {extra['unfiltered_ms'] / ms:.3f}), false match "
+                    f"{extra['false_match']:.5f}")
         print(f"[{label}] {kernel.upper()} {key}: {ms:.4f} ms, bound {bound:.4f} ms "
-              f"(share {bound / ms:.3f})", flush=True)
+              f"(share {bound / ms:.3f}){more}", flush=True)
 
     codes = [canonical_windows_plain(b, K)[:2] for b in bases["count"]]
     if layout != "cuckoo":
@@ -481,53 +589,69 @@ def compare_kernels(genome, bases: dict, report, dev) -> None:
 
 def cuckoo_kernels(genome, keys, key_kinds, bases, batches, stats, codes, main_q, report,
                    dev) -> None:
-    """K10 on the bucket K2's query sets, cuckoo K3 and K4 on their kinds
-    of batch over a cuckoo table of the same keys and classes, and cuckoo
-    K3 with its valid count, K8 and K9 on every kind at COMPARE_KS."""
+    """The fingerprint kernel once an index, K10 on the bucket K2's query
+    sets, cuckoo K3 and K4 on their kinds of batch over a cuckoo table of
+    the same keys and classes, and cuckoo K3 with its valid count, K8 and
+    K9 on every kind at COMPARE_KS; each probing kernel's line also gives
+    its unfiltered bound and the batch's false-match share."""
     import torch
 
     from strainer2_tpu_torch.ops import lookup as L
 
+    def filtered(kernel, key, ms, n_bytes, unfiltered_bytes, st, **extra):
+        report(kernel, key, ms, bound_ms(n_bytes), unfiltered_ms=bound_ms(unfiltered_bytes),
+               false_match=st.false_match, matched=st.matched, **extra)
+
     table, h_bits, salt, meta = cuckoo_table_k(keys, K, dev, key_kinds)
+    fp = fp_kw(L, table)
+    if fp:
+        ms = graph_ms(lambda i: L.cuckoo_fingerprints(table), 1)
+        report("fp", "index", ms, bound_ms(9 * table.shape[0]), slots=table.shape[0])
     for kind, qs in (("count", codes), ("main", main_q)):
-        n = qs[0][0].numel()
-        ms = graph_ms(lambda i: L.cuckoo_lookup(table, h_bits, salt, *qs[i]))
-        report("k10", kind, ms, bound_ms(k10_bytes(n)), queries=n)
+        st = mean_stats([filter_stats(table, h_bits, salt, *q) for q in qs])
+        ms = graph_ms(lambda i: L.cuckoo_lookup(table, h_bits, salt, *qs[i], **fp))
+        filtered("k10", kind, ms, k10_bytes(st), k10_bytes(st.probes), st, queries=st.probes)
+    fstats = {kind: mean_stats([batch_filter_stats(table, h_bits, salt, b) for b in bs])
+              for kind, bs in bases.items()}
     counts = torch.zeros(table.shape[0], dtype=torch.uint32, device=dev)
     for kind in ("count", "targets"):
-        bs = bases[kind]
+        bs, st = bases[kind], fstats[kind]
         valid, _, hits = stats[kind]
-        ms = graph_ms(lambda i: L.cuckoo_count_step(counts, table, bs[i], h_bits, salt, K))
-        report("k3_cuckoo", kind, ms, bound_ms(k3_bytes(bs[0], valid, hits, "cuckoo")),
-               valid=valid, hits=hits)
+        ms = graph_ms(lambda i: L.cuckoo_count_step(counts, table, bs[i], h_bits, salt, K, **fp))
+        filtered("k3_cuckoo", kind, ms, k3_bytes(bs[0], st, hits),
+                 k3_bytes(bs[0], valid, hits, "cuckoo"), st, valid=valid, hits=hits)
     for kind, bs in batches.items():
         valid, _, hits = stats[kind]
+        st = fstats[kind]
         ms = graph_ms(lambda i: L.cuckoo_classify_step(table, meta, bs[i][0], bs[i][1], h_bits,
-                                                       salt, K))
-        report("k4_cuckoo", kind, ms,
-               bound_ms(k4_bytes(bs[0][0], bs[0][1], valid, hits, "cuckoo")), valid=valid,
-               hits=hits)
-    del table, meta, counts
+                                                       salt, K, **fp))
+        filtered("k4_cuckoo", kind, ms, k4_bytes(bs[0][0], bs[0][1], st, hits),
+                 k4_bytes(bs[0][0], bs[0][1], valid, hits, "cuckoo"), st, valid=valid, hits=hits)
+    del table, meta, counts, fp
     for k in COMPARE_KS:
         table, h_bits, salt, _ = cuckoo_table_k(_keys_k(genome, k), k, dev)
+        fp = fp_kw(L, table)
         counts = torch.zeros(table.shape[0], dtype=torch.uint32, device=dev)
         acc = torch.zeros(2, dtype=torch.int64, device=dev)
         tally = torch.zeros(L.n_tiles(ROWS, ROW_LEN, k), dtype=torch.int64, device=dev)
         for kind, bs in bases.items():
             per = [L.cuckoo_hit_stats_plain(table, b, 0, h_bits, salt, k)[:2].tolist() for b in bs]
             hits, valid = (sum(x) / N_BATCHES for x in zip(*per))
+            st = mean_stats([batch_filter_stats(table, h_bits, salt, b, k) for b in bs])
             key, extra = f"{kind} k={k}", dict(valid=valid, hits=hits)
             ms = graph_ms(lambda i: L.cuckoo_count_valid_step(counts, tally, table, bs[i], h_bits,
-                                                              salt, k))
-            report("k3v_cuckoo", key, ms, bound_ms(k3v_bytes(bs[0], valid, hits, "cuckoo")),
-                   **extra)
-            ms8 = graph_ms(lambda i: L.cuckoo_hit_accumulate(acc, table, bs[i], h_bits, salt, k))
-            report("k8_cuckoo", key, ms8, bound_ms(k8_bytes(bs[0], valid, hits, "cuckoo")), **extra)
+                                                              salt, k, **fp))
+            filtered("k3v_cuckoo", key, ms, k3v_bytes(bs[0], st, hits),
+                     k3v_bytes(bs[0], valid, hits, "cuckoo"), st, **extra)
+            ms8 = graph_ms(lambda i: L.cuckoo_hit_accumulate(acc, table, bs[i], h_bits, salt, k,
+                                                             **fp))
+            filtered("k8_cuckoo", key, ms8, k8_bytes(bs[0], st, hits),
+                     k8_bytes(bs[0], valid, hits, "cuckoo"), st, **extra)
             ms = graph_ms(lambda i: L.cuckoo_hit_stats(table, bs[i], int(per[i][1]) // 2, h_bits,
-                                                       salt, k))
-            report("k9_cuckoo", key, ms, bound_ms(k9_bytes(bs[0], valid, hits, "cuckoo")),
-                   over_k8=ms - ms8, **extra)
-        del table, counts, tally
+                                                       salt, k, **fp))
+            filtered("k9_cuckoo", key, ms, k9_bytes(bs[0], st, hits),
+                     k9_bytes(bs[0], valid, hits, "cuckoo"), st, over_k8=ms - ms8, **extra)
+        del table, counts, tally, fp
         torch.cuda.empty_cache()
 
 

@@ -15,7 +15,9 @@ of blocks.
 
 Every bucket variant is checked exactly (found, slot, meta) against K2 and
 the plain version on every slice.  ``k10`` looks the same queries up in the
-cuckoo table of the same keys (index/cuckoo.py): its (found, slot) must
+cuckoo table of the same keys (index/cuckoo.py), through its slot
+fingerprints (a byte a slot: 16 MiB for 6.7 M keys, 64 MiB for the 19.5 M
+of a 32-strain union, more than the 50 MB L2): its (found, slot) must
 equal the plain cuckoo lookup's, and its found set and the key at each
 found slot K2's.  Timing follows the original's chain method:
 N_SHORT and N_LONG lookup steps over the rotated slices, each chain timed
@@ -130,6 +132,7 @@ def bench(argv: list[str] | None = None, out=None) -> dict:
         t0 = time.perf_counter()
         ct = build_cuckoo(codes, K)
         ctab = torch.from_numpy(ct.table).to(dev)
+        cfp = L.cuckoo_fingerprints(ctab)  # the slot fingerprints K10 reads first
         print(f"# cuckoo table: 2 x 2^{ct.h_bits} slots ({ctab.numel() * 4 / 2**20:.0f} MiB), "
               f"built {time.perf_counter() - t0:.1f} s", file=out)
 
@@ -173,7 +176,7 @@ def bench(argv: list[str] | None = None, out=None) -> dict:
     results: dict = {"device": name, "ok": True}
     for v in variants:
         if v == "k10":
-            fn = lambda qh, ql: L.cuckoo_lookup(ctab, ct.h_bits, ct.salt, qh, ql)  # noqa: E731
+            fn = lambda qh, ql: L.cuckoo_lookup(ctab, ct.h_bits, ct.salt, qh, ql, fp=cfp)  # noqa: E731
         else:
             fn = _variant(v, rows, h_bits, salt)
         got = [fn(qhi[i], qlo[i]) for i in range(SLICES)]

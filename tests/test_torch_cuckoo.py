@@ -283,14 +283,18 @@ def test_cuckoo_index_npz_across_packages(mini, tmp_path, direction):
 
 # ---- the scrub checkpoint's geometry ----------------------------------------------
 
-def _jax_cuckoo_checkpoint(ck: str, first_file_only: bool = False) -> None:
+def _jax_cuckoo_checkpoint(ck: str, first_file_only: bool = False,
+                           h_bits: int | None = None) -> None:
     """A scrub checkpoint the JAX package writes off the TPU, where its
     default layout is cuckoo (here asked for by name): the whole run, or
     (first_file_only) the -A panel's first file, as a run killed after it
-    would leave."""
+    would leave; with h_bits, over a table of 2 x 2**h_bits slots, as its
+    builder grows one whose tries failed."""
     from strainer2_tpu.pipeline import scrub_count as jsc
 
     index = JaxIndex.from_fasta(SCRUB_ARGS[0], KmerEngine(31, layout="cuckoo"))
+    if h_bits is not None:
+        index.table_ = j_cuckoo.build_cuckoo(index.codes, 31, h_bits=h_bits)
     if not first_file_only:
         jsc.run_scrub_count(*SCRUB_ARGS, out=io.StringIO(), index=index, checkpoint_dir=ck)
         return
@@ -302,13 +306,16 @@ def _jax_cuckoo_checkpoint(ck: str, first_file_only: bool = False) -> None:
 
 
 def test_scrub_checkpoint_of_another_geometry_is_refused(mini, tmp_path):
-    """A bucket run handed a cuckoo checkpoint raises before it reads a
-    panel file, naming both sizes (its parent raised IndexError after
-    reading them)."""
+    """A run handed counts that fit neither of the strain's table sizes
+    (bucket 8,192 cells, cuckoo 4,096 slots; here a cuckoo table of 16,384
+    slots, as the JAX builder grows one) raises before it reads a panel
+    file, naming both sizes (unchecked, such counts raised IndexError after
+    the files were read).  A cuckoo checkpoint of the default size resumes:
+    tests/test_torch_cuckoo_fp.py."""
     from strainer2_tpu_torch.pipeline import scrub_count as sc
 
     ck = str(tmp_path / "ck")
-    _jax_cuckoo_checkpoint(ck)
+    _jax_cuckoo_checkpoint(ck, h_bits=13)
     with pytest.raises(ValueError, match=r"(?s)cells.*another table layout or size"):
         sc.run_scrub_count(*SCRUB_ARGS, out=io.StringIO(), checkpoint_dir=ck,
                            cfg=sc.ScrubCountConfig(device="cpu", rows=ROWS, row_len=ROW_LEN))

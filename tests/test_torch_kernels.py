@@ -657,7 +657,7 @@ def test_cuckoo_lookup_kernel(strain, salted):
     q = np.where(rng.random(50_000) < 0.5, keys[rng.integers(0, 2000 if salted else keys.size, 50_000)],
                  rng.integers(0, 1 << 62, 50_000, dtype=np.uint64))
     qhi, qlo = (torch.from_numpy(x).to(rows.device) for x in split_code64_np(q, K))
-    out = L.cuckoo_lookup(table, t.h_bits, t.salt, qhi, qlo)
+    out = L.cuckoo_lookup(table, t.h_bits, t.salt, qhi, qlo, fp=L.cuckoo_fingerprints(table))
     assert _equal(out, L.cuckoo_lookup_plain(table, t.h_bits, t.salt, qhi, qlo))
     assert 0 < int(out[0].sum()) < q.size
 
@@ -688,7 +688,7 @@ def test_cuckoo_lookup_kernel_key_in_both_slots(dev):
         table[s0[i]] = qhi[i], qlo[i]
         table[s1[i + 1]] = qhi[i + 1], qlo[i + 1]
     t, qh, ql = (torch.from_numpy(x).to(dev) for x in (table, qhi, qlo))
-    found, slot = L.cuckoo_lookup(t, h_bits, salt, qh, ql)
+    found, slot = L.cuckoo_lookup(t, h_bits, salt, qh, ql, fp=L.cuckoo_fingerprints(t))
     assert _equal((found, slot), L.cuckoo_lookup_plain(t, h_bits, salt, qh, ql))
     f, sl = found.cpu().numpy(), slot.cpu().numpy()
     assert f[0::3].all() and (sl[0::3] == s0[0::3]).all()
@@ -706,26 +706,27 @@ def test_cuckoo_count_and_hit_kernels_edges(strain, k, row_len):
     dev = rows64.device
     table, t, _ = _cuckoo_k(genome, k, dev)
     h, salt = t.h_bits, t.salt
+    fp = L.cuckoo_fingerprints(table)
     b = torch.from_numpy(poly_t_rows(rng, genome, row_len)).to(dev)
     start = np.zeros(t.num_slots, dtype=np.uint32)
     start[t.slot_of_key[::3]] = 0xFFFFFFFF  # wraps on a hit
     c0 = torch.from_numpy(start).to(dev)
-    c1 = L.cuckoo_count_step(c0.clone(), table, b, h, salt, k)
+    c1 = L.cuckoo_count_step(c0.clone(), table, b, h, salt, k, fp=fp)
     assert _equal((c1,), (L.cuckoo_count_step_plain(c0.clone(), table, b, h, salt, k),))
     t1 = torch.zeros(L.n_tiles(*b.shape, k), dtype=torch.int64, device=dev)
     t2 = t1.clone()
-    c2 = L.cuckoo_count_valid_step(c0.clone(), t1, table, b, h, salt, k)
+    c2 = L.cuckoo_count_valid_step(c0.clone(), t1, table, b, h, salt, k, fp=fp)
     c3 = L.cuckoo_count_valid_step_plain(c0.clone(), t2, table, b, h, salt, k)
     assert _equal((c2, L.valid_tally_total(t1)), (c3, L.valid_tally_total_plain(t2)))
     assert _equal((c1,), (c2,)) and not _equal((c1,), (c0,))
     acc0 = torch.tensor([5, 2**40], dtype=torch.int64, device=dev)
-    acc = L.cuckoo_hit_accumulate(acc0.clone(), table, b, h, salt, k)
+    acc = L.cuckoo_hit_accumulate(acc0.clone(), table, b, h, salt, k, fp=fp)
     ref = L.cuckoo_hit_accumulate_plain(acc0.clone(), table, b, h, salt, k)
     assert _equal((acc,), (ref,))
     hits, total = (int(x) for x in ref - acc0)
     assert 0 < hits <= total
     for rem in k9_remainings(total):
-        got = L.cuckoo_hit_stats(table, b, rem, h, salt, k)
+        got = L.cuckoo_hit_stats(table, b, rem, h, salt, k, fp=fp)
         assert got.tolist() == L.cuckoo_hit_stats_plain(table, b, rem, h, salt, k).tolist(), rem
 
 
@@ -747,7 +748,8 @@ def test_cuckoo_classify_step_kernel(strain, k, n_rows, row_len):
     b = torch.from_numpy(batch.bases).to(dev)
     for bd_np in (bounds, edge_bounds(q, row_len - k + 1)):
         bd = torch.from_numpy(bd_np).to(dev)
-        out = L.cuckoo_classify_step(table, meta, b, bd, t.h_bits, t.salt, k)
+        out = L.cuckoo_classify_step(table, meta, b, bd, t.h_bits, t.salt, k,
+                                     fp=L.cuckoo_fingerprints(table))
         assert _equal(out, L.cuckoo_classify_step_plain(table, meta, b, bd, t.h_bits, t.salt, k))
     assert int(out[1].sum()) > 0
 
@@ -778,10 +780,11 @@ def test_cuckoo_classify_step_kernel_key_in_both_slots(strain):
     bounds = np.full(max_reads_capacity(K, 64, 4096) + 1, 64 * (4096 - K + 1), dtype=np.int32)
     bounds[: batch.n_reads] = batch.window_starts
     b, bd = torch.from_numpy(batch.bases).to(dev), torch.from_numpy(bounds).to(dev)
-    out = L.cuckoo_classify_step(tb, mt, b, bd, t.h_bits, t.salt, K)
+    out = L.cuckoo_classify_step(tb, mt, b, bd, t.h_bits, t.salt, K, fp=L.cuckoo_fingerprints(tb))
     assert _equal(out, L.cuckoo_classify_step_plain(tb, mt, b, bd, t.h_bits, t.salt, K))
     built = torch.from_numpy(t.table).to(dev)
-    assert _equal(out, L.cuckoo_classify_step(built, meta, b, bd, t.h_bits, t.salt, K))
+    assert _equal(out, L.cuckoo_classify_step(built, meta, b, bd, t.h_bits, t.salt, K,
+                                              fp=L.cuckoo_fingerprints(built)))
 
 
 def test_cuckoo_hit_stats_kernel_cuda_graph(strain):
@@ -793,11 +796,11 @@ def test_cuckoo_hit_stats_kernel_cuda_graph(strain):
     total = int(L.cuckoo_hit_stats_plain(table, b, 1, t.h_bits, t.salt, 20)[1])
     rems = [0, 1, total // 3, total // 2, total - 1, total, total + 1, -3]
     want = [L.cuckoo_hit_stats_plain(table, b, r, t.h_bits, t.salt, 20).tolist() for r in rems]
-    L.cuckoo_hit_stats(table, b, 1, t.h_bits, t.salt, 20)  # builds the kernels off the capture
+    fp = L.cuckoo_fingerprints(table)  # builds the kernels off the capture
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        outs = [L.cuckoo_hit_stats(table, b, r, t.h_bits, t.salt, 20) for r in rems]
+    with torch.cuda.graph(graph):  # the L2 window on fp is a kernel node attribute
+        outs = [L.cuckoo_hit_stats(table, b, r, t.h_bits, t.salt, 20, fp=fp) for r in rems]
     for _ in range(2):
         for o in outs:
             o.fill_(-9)
@@ -807,17 +810,37 @@ def test_cuckoo_hit_stats_kernel_cuda_graph(strain):
 
 
 def test_cuckoo_wrappers_refuse_mismatched_buffers(strain):
-    """A count buffer or a meta array that is not 2H cells, and a bucket
-    row table, raise before any launch."""
+    """A count buffer or a meta array that is not 2H cells, a bucket row
+    table, and fingerprints that are missing or not the table's size,
+    raise before any launch."""
     rng, genome, _, _, rows64 = strain
     dev = rows64.device
     table, t, meta = _cuckoo_k(genome, K, dev)
+    fp = L.cuckoo_fingerprints(table)
     b = torch.from_numpy(edge_rows(rng, genome, 1000)).to(dev)
     short = torch.zeros(t.num_slots - 16, dtype=torch.uint32, device=dev)
     with pytest.raises(ValueError, match="cells"):
-        L.cuckoo_count_step(short, table, b, t.h_bits, t.salt, K)
+        L.cuckoo_count_step(short, table, b, t.h_bits, t.salt, K, fp=fp)
     bd = torch.zeros(5, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="cells"):
-        L.cuckoo_classify_step(table, meta[:-2], b, bd, t.h_bits, t.salt, K)
+        L.cuckoo_classify_step(table, meta[:-2], b, bd, t.h_bits, t.salt, K, fp=fp)
     with pytest.raises(ValueError, match="cuckoo table"):
-        L.cuckoo_hit_stats(rows64, b, 1, t.h_bits, t.salt, K)
+        L.cuckoo_hit_stats(rows64, b, 1, t.h_bits, t.salt, K, fp=fp)
+    counts = torch.zeros(t.num_slots, dtype=torch.uint32, device=dev)
+    with pytest.raises(ValueError, match="fingerprints"):
+        L.cuckoo_count_step(counts, table, b, t.h_bits, t.salt, K)
+    with pytest.raises(ValueError, match="fingerprints"):
+        L.cuckoo_hit_accumulate(torch.zeros(2, dtype=torch.int64, device=dev), table, b,
+                                t.h_bits, t.salt, K, fp=fp[:-8])
+
+
+@pytest.mark.parametrize("salted", [False, True], ids=["salt0", "retried"])
+def test_cuckoo_fingerprints_kernel(strain, salted):
+    """The fingerprint kernel against its plain version on a built table
+    (empty slots included) and on a table of random words."""
+    rng, genome, codes, _, rows = strain
+    keys = np.unique(codes)
+    t = build_cuckoo(keys[:2000] if salted else keys, K, h_bits=10 if salted else None)
+    for table_np in (t.table, rng.integers(0, 2**32, (4098, 2), dtype=np.uint64).astype(np.uint32)):
+        table = torch.from_numpy(table_np).to(rows.device)
+        assert _equal((L.cuckoo_fingerprints(table),), (L.cuckoo_fingerprints_plain(table),))
