@@ -28,7 +28,9 @@ Phases; any failure exits non-zero and no result line is printed:
    device-only (CUDA events around a CUDA-graph replay,
    strainer2_tpu_torch/tools/bench_kernels.py) and from a loop of
    launches, plain times from the loop; each kernel's bound from the bytes
-   its inputs make it move;
+   its inputs make it move; the device kernels of one call each of K9, K3
+   with its valid count and K4 in both layouts, as torch.profiler records
+   them (two a K9 or K4 call, no memset);
 3. mini goldens: the four port CLIs with --device cuda on
    tests/golden/mini, byte-compared with the reference binaries' outputs;
    the fused ``strainer2_tools pipeline`` to the same goldens, and
@@ -568,6 +570,7 @@ def check_cuckoo_kernels(ctx: dict, dev) -> dict:
         fail("cuckoo_lookup main: a key of the table was not found")
     if not int(counts.view(torch.int32).ne(0).sum()) or not int(t_counts.view(torch.int32).ne(0).sum()):
         fail("cuckoo_count_step: no hit counted")
+    ctx["cuckoo_k4"] = (table, meta, fp, h, salt)
     return out
 
 
@@ -654,7 +657,8 @@ def check_compare_kernels(d: str, ctx: dict, dev) -> dict:
                       f"; {tally.numel()} slots; torch.sum {library_ms:.4f} ms"),
                 max_abs_err=err, library_ms=library_ms)
             if k == COMPARE_K and kind == "targets":
-                device_work(lambda: (L.hit_stats(rows, bs[0], per[0][0] // 2, h, salt, k), k3v(0)))
+                device_work(lambda: (L.hit_stats(rows, bs[0], per[0][0] // 2, h, salt, k), k3v(0),
+                                     *classify_calls(ctx)))
             del counts, counts_plain, tally, tally_plain
         del rows, index, cuckoo, cuckoo_table, k9_tables
         torch.cuda.empty_cache()
@@ -763,15 +767,31 @@ def check_poly_t(d: str, ctx: dict, dev) -> None:
           flush=True)
 
 
-DEVICE_WORK = ("hit_stats_kernel", "hit_crossing_kernel", "count_valid_step_kernel")
+DEVICE_WORK = ("hit_stats_kernel", "hit_crossing_kernel", "count_valid_step_kernel",
+               "classify_masks_kernel", "classify_sums_kernel", "cuckoo_classify_masks_kernel",
+               "classify_sums_kernel")
+
+
+def classify_calls(ctx: dict) -> tuple:
+    """One K4 call and one cuckoo K4 call on phase 2's first ``targets``
+    batch."""
+    from strainer2_tpu_torch.ops import lookup as L
+
+    bases, bounds, _ = ctx["detect"]["targets"][0]
+    t = ctx["index"].table
+    table, meta, fp, h, salt = ctx["cuckoo_k4"]
+    return (L.classify_step(ctx["rows"], bases, bounds, t.h_bits, t.salt, K),
+            L.cuckoo_classify_step(table, meta, bases, bounds, h, salt, K, fp=fp))
 
 
 def device_work(fn) -> None:
-    """Print the device kernels and memsets of one K9 call and one call of
-    K3 with its valid count (fn makes both), as torch.profiler records
-    them; fails unless they are K9's masks and crossing kernels and one
-    K3 kernel, no memset. It is the smoke's first profiler session: a
-    later one in the same process may record nothing, and then fails."""
+    """Print the device kernels and memsets of one K9 call, one call of K3
+    with its valid count and one call of K4 in each layout (fn makes
+    them), as torch.profiler records them; fails unless they are K9's
+    masks and crossing kernels, one K3 kernel, and each K4 call's masks
+    and sums kernels, no memset. It is the smoke's first profiler
+    session: a later one in the same process may record nothing, and
+    then fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -780,11 +800,13 @@ def device_work(fn) -> None:
         fn()
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    print(f"device work of one hit_stats and one count_valid_step call: {len(names)} "
-          f"{names if names else '(not traced)'}", flush=True)
+    print(f"device work of one hit_stats, one count_valid_step, one classify_step and one "
+          f"cuckoo_classify_step call: {len(names)} {names if names else '(not traced)'}",
+          flush=True)
     short = sorted(n.split("::")[-1].split("(")[0] for n in names)
     if short != sorted(DEVICE_WORK):
-        fail(f"hit_stats and count_valid_step ran {short}, not {sorted(DEVICE_WORK)}")
+        fail(f"hit_stats, count_valid_step and the two classify_step calls ran {short}, "
+             f"not {sorted(DEVICE_WORK)}")
 
 
 def check_remaining_edges(name, table, bs, per, k, label) -> int:

@@ -26,10 +26,9 @@ namespace s2t {
 constexpr uint32_t kInvalidBase = 4;
 constexpr int kKeysPerBucket = 16;
 constexpr int kMetaLane = 32;
-constexpr int kTile = 256;  // windows per block of K3, K4 and K6
+constexpr int kTile = 256;  // windows per block of K3, K4, K6, K8 and K9
 constexpr int kPackedBases = kTile + 64;  // a packed tile: its windows' bases and the 64
                                           // that packed_window's reads run past them
-constexpr int kMaxK = 32;
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x ^= x >> 16;
@@ -59,34 +58,14 @@ __device__ __forceinline__ uint32_t bucket_of(uint32_t hi, uint32_t lo,
   return h_bits < 32 ? x >> (32 - h_bits) : x;
 }
 
-// Canonical (hi, lo) of the k bases at p; returns window validity.
-// Invalid bases pack as (b & 3), exactly as the plain torch version does,
-// so the two agree on every window and not only the valid ones.
-__device__ __forceinline__ bool canonical_window(const uint8_t* p, int k,
-                                                 int n_lo, uint32_t* hi,
-                                                 uint32_t* lo) {
-  uint64_t fwd = 0, rc = 0;
-  bool ok = true;
-  for (int i = 0; i < k; ++i) {
-    const uint32_t b = p[i];
-    ok &= b < kInvalidBase;
-    const uint64_t t = b & 3u;
-    fwd = (fwd << 2) | t;
-    rc |= (3ull - t) << (2 * i);
-  }
-  const uint64_t c = fwd >= rc ? fwd : rc;
-  *lo = static_cast<uint32_t>(c & ((1ull << (2 * n_lo)) - 1ull));
-  *hi = static_cast<uint32_t>(c >> (2 * n_lo));
-  return ok;
-}
-
 // The bases of one row's tile packed for constant-time window codes:
 // kBases bases from the tile's first (its windows' bases and the 64 that
 // packed_window's reads run past them), as 2-bit codes b & 3, LSB-first,
 // 16 a word (base i at bits 2 (i % 16) of code[i / 16]), and one bit a
 // base that is invalid (>= 4), 32 a word (bit i % 32 of bad[i / 32]).
 // Bases past the row's end pack as invalid; no window of the row reads
-// them.  K3 and K6 use PackedTile (kTile windows), K1 a larger tile.
+// them.  K3, K4, K6, K8 and K9 use PackedTile (kTile windows), K1 a
+// larger tile.
 template <int kBases>
 struct PackedBases {
   static_assert(kBases % 32 == 0, "a packed tile holds whole bad words");
@@ -184,14 +163,15 @@ __device__ __forceinline__ void pack_tile_wide(PackedBases<kBases>& t, const uin
   __syncthreads();
 }
 
-// canonical_window of the k bases at tile position p < kBases - 64 (it
-// reads three code words and two bad words from p's on) in a constant
-// number of steps: the 64-bit run x of the 32 bases from p (base p + i at
-// pair i) comes from three code words by two funnel shifts; the reverse
-// complement is ~x cut to k pairs, the forward code x with its pairs
-// reversed, shifted down to k pairs; the window is valid when its k bits
-// of the invalid-base mask are 0.  Same values as canonical_window for
-// every window, valid or not, k in [1, 32].
+// The canonical (hi, lo) of the k bases at tile position p < kBases - 64
+// (it reads three code words and two bad words from p's on), and whether
+// the window is valid, in a constant number of steps: the 64-bit run x of
+// the 32 bases from p (base p + i at pair i) comes from three code words
+// by two funnel shifts; the reverse complement is ~x cut to k pairs, the
+// forward code x with its pairs reversed, shifted down to k pairs; the
+// window is valid when its k bits of the invalid-base mask are 0.  Invalid
+// bases pack as b & 3, as the plain version (ops/packing.py) packs them,
+// so the two agree on every window, valid or not, k in [1, 32].
 template <int kBases>
 __device__ __forceinline__ bool packed_window(const PackedBases<kBases>& t, int p, int k, int n_lo,
                                               uint32_t* hi, uint32_t* lo) {
@@ -259,15 +239,6 @@ __device__ __forceinline__ unsigned probe_window(const PackedTile& t, int p,
   const uint32_t* r = rows + static_cast<size_t>(*bucket) * row_width;
   const unsigned m = lanes_equal(r, h);
   return m ? m & lanes_equal(r + kKeysPerBucket, l) : 0u;
-}
-
-// Stage one row's bases [w0, w0 + kTile + k - 1) in shared memory, so the
-// k reads of each window hit shared memory instead of global.
-__device__ __forceinline__ void load_tile(uint8_t* tile, const uint8_t* src,
-                                          int w0, int L, int k) {
-  const int span = min(kTile + k - 1, L - w0);
-  for (int i = threadIdx.x; i < span; i += blockDim.x) tile[i] = src[w0 + i];
-  __syncthreads();
 }
 
 // Index b of a read boundary into a prefix of q + 1 entries, as a JAX gather

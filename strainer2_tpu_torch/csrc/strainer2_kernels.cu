@@ -31,7 +31,7 @@ constexpr uint32_t kInformative = 2;
 // Bound on this card: device-memory bytes. Per window it reads ~1 base and
 //   writes 9 bytes (hi, lo, valid): 0.0031 ms per 256 x 4096 batch. It
 //   takes 0.0055 ms, 0.56-0.57 of that bound, where the k-step loop
-//   of canonical_window, a byte load and 64-bit shifts a step, took 0.0241
+//   of a byte load and 64-bit shifts a step took 0.0241
 //   (H100 80GB HBM3, 700 W; PERF.md). The batch is one wave of blocks, so
 //   the rest is likely the wait for each block's bases before its stores
 //   start (not measured apart).
@@ -503,218 +503,301 @@ cuckoo_hit_accumulate_kernel(unsigned long long* __restrict__ acc,
 }
 
 // ---------------------------------------------------------------------------
+// Tile masks and tile-count scans of K4 and K9: a block of kTile windows
+// keeps two bits a window as 8 words each and their counts; a later launch
+// scans the counts of every tile.
+// ---------------------------------------------------------------------------
+constexpr int kTileWords = kTile / 32;  // mask words a tile
+constexpr int kStatItems = 16;  // tile counts a thread scans in one pass: one pass per 256 x 4096 batch
+constexpr int kScanTiles = kTile * kStatItems;  // tiles a pass of a block-wide scan: 4,096
+
+// Store the block's bits a and b as the 16 words of tile t = blockIdx.y *
+// gridDim.x + blockIdx.x at masks + 16 t (a's 8 words, then b's 8), four
+// 16-byte stores of thread 0 staged in words (2 kTileWords of the
+// caller's shared memory, 16-byte aligned), and their counts, each at most
+// kTile, packed as a << 16 | b at tile_counts[t].
+__device__ __forceinline__ void store_tile_masks(bool a, bool b, uint32_t* words,
+                                                 uint32_t* __restrict__ masks,
+                                                 uint32_t* __restrict__ tile_counts) {
+  const unsigned am = __ballot_sync(0xffffffffu, a);
+  const unsigned bm = __ballot_sync(0xffffffffu, b);
+  if ((threadIdx.x & 31) == 0) {
+    words[threadIdx.x >> 5] = am;
+    words[kTileWords + (threadIdx.x >> 5)] = bm;
+  }
+  const int n_a = __syncthreads_count(a);  // also orders the words above
+  const int n_b = __syncthreads_count(b);
+  if (threadIdx.x == 0) {
+    const int t = blockIdx.y * gridDim.x + blockIdx.x;
+    uint4* m4 = reinterpret_cast<uint4*>(masks + static_cast<size_t>(t) * 2 * kTileWords);
+    const uint4* w4 = reinterpret_cast<const uint4*>(words);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) m4[j] = w4[j];
+    tile_counts[t] = static_cast<uint32_t>(n_a) << 16 | static_cast<uint32_t>(n_b);
+  }
+}
+
+// One pass of a block-wide scan (kTile threads) over the packed counts of
+// tiles [base, base + kScanTiles), 0 from n on, read through the L2
+// (__ldcg: the launch before this one wrote them): thread i holds the
+// counts of tiles base + kStatItems i on in c, their sums in (sa, sb),
+// and the sums of every tile before its own, from tile 0, in (ea, eb);
+// (carry_a, carry_b) advance by the pass's totals, the same in every
+// thread. warp_sums: kTile / 32 entries; sync before the next pass.
+__device__ __forceinline__ void scan_pass(const uint32_t* tile_counts, int n, int base,
+                                          uint32_t (&c)[kStatItems], int2* warp_sums,
+                                          int& carry_a, int& carry_b, int& sa, int& sb, int& ea,
+                                          int& eb) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int i0 = base + threadIdx.x * kStatItems;
+  if (i0 + kStatItems <= n) {
+    const uint4* c4 = reinterpret_cast<const uint4*>(tile_counts + i0);
+#pragma unroll
+    for (int j = 0; j < kStatItems / 4; ++j) {
+      const uint4 q = __ldcg(c4 + j);
+      c[4 * j] = q.x;
+      c[4 * j + 1] = q.y;
+      c[4 * j + 2] = q.z;
+      c[4 * j + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kStatItems; ++j) c[j] = i0 + j < n ? __ldcg(tile_counts + i0 + j) : 0u;
+  }
+  uint32_t packed = 0;  // each half <= kStatItems * kTile: no carry between them
+#pragma unroll
+  for (int j = 0; j < kStatItems; ++j) packed += c[j];
+  sa = packed >> 16;
+  sb = packed & 0xffff;
+  int xa = sa, xb = sb;  // inclusive scan over the warp
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int ya = __shfl_up_sync(0xffffffffu, xa, off);
+    const int yb = __shfl_up_sync(0xffffffffu, xb, off);
+    if (lane >= off) {
+      xa += ya;
+      xb += yb;
+    }
+  }
+  if (lane == 31) warp_sums[warp] = make_int2(xa, xb);
+  __syncthreads();
+  ea = carry_a + xa - sa;  // before this thread's tiles
+  eb = carry_b + xb - sb;
+#pragma unroll
+  for (int w = 0; w < kTile / 32; ++w) {
+    const int2 s = warp_sums[w];
+    if (w < warp) {
+      ea += s.x;
+      eb += s.y;
+    }
+    carry_a += s.x;
+    carry_b += s.y;
+  }
+}
+
+// Launch kernel (kTile threads a block) on st; where pdl, chained to the
+// launch before it by programmatic dependent launch (PDL): it may start
+// once every block of that launch has run griddepcontrol.launch_dependents,
+// and waits in griddepcontrol.wait until that launch has finished and its
+// stores are visible. A refused launch before it is returned first.
+template <class... Params, class... Args>
+int launch_dependent(void (*kernel)(Params...), dim3 grid, cudaStream_t st, bool pdl,
+                     Args... args) {
+  const int rc = launch_status();
+  if (rc != 0) return rc;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kTile);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  const cudaError_t rc2 = cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+  return rc2 != cudaSuccess ? static_cast<int>(rc2) : launch_status();
+}
+
+// ---------------------------------------------------------------------------
 // K4 classify_step
 //
 // Replaces: the XLA program engine._classify_step_bucket
 //   (strainer2_tpu/pipeline/engine.py:353-364): extract, probe, then each
 //   read's (total, informative) hits as differences of a global prefix sum
 //   at the read boundaries.
-// Bound on this card: the probe's random DRAM access. A probe must read
-//   the 16 key_hi lanes of its row (64 bytes); only where one of them
-//   equals the query does it need the 16 key_lo lanes (64 more) and, on a
-//   hit, one meta lane. Real reads are ~1% strain, so nearly every probe
-//   stops at 64 bytes.
-// Design: the JAX formulation, in three launches.
-//   1. classify_masks: K3's shape, a block per 256-window tile of one row,
-//      the bases in shared memory, one thread per window making one
-//      independent probe, hi lanes first; informative where the meta sum
-//      (meta_sum) equals kInformative; hit and informative become bits
-//      by __ballot_sync, 8 words a tile (tiles padded to whole words), and
-//      each tile's two counts come from __syncthreads_count.
-//   2. classify_scan: one block turns the tile counts (4,096 per 256 x 4096
-//      batch) into exclusive prefixes, plus the totals.
-//   3. classify_sums: a thread per read; the prefix at window x (row r,
-//      column c) is the tile prefix of tile (r, c / 256) plus the popcounts
-//      of its mask words below c (one 32-byte sector), and a read's sums
-//      are P(b[r+1]) - P(b[r]). Boundaries are read as the JAX gather reads
-//      them (gather_index), so clamped and reversed spans come out as
-//      there, by construction.
+// Bound on this card: the probe's random DRAM accesses, as K3's: the
+//   bases, a 64-byte key_hi probe a valid window, 64 bytes of key_lo and a
+//   meta lane a hit, the boundaries, 8 bytes a read out. The function needs
+//   no mask words or tile counts (they are this design's scratch).
+// Design: two launches joined by programmatic dependent launch (PDL), as
+//   K9's.
+//   1. classify_masks_kernel, K3's block: the packed tile (pack_tile,
+//      packed_window) and the key_hi-first probe (probe_valid_window);
+//      informative where the meta sum (meta_sum) equals kInformative; the
+//      tile's hit and informative words and counts go out as K9's do
+//      (store_tile_masks: four 16-byte stores and one packed count word a
+//      tile). Each block then lets the sums launch start
+//      (griddepcontrol.launch_dependents after its stores).
+//   2. classify_sums_kernel, a thread a read, launched by launch_dependent:
+//      it reads its two boundaries (gather_index, as the JAX gather reads
+//      them, so clamped and reversed spans come out as there) before
+//      griddepcontrol.wait, since the masks launch does not write them,
+//      then the 16 words of each boundary's tile. Every block scans all n
+//      count words itself (scan_pass, a pass per kScanTiles tiles), leaving
+//      each pass's exclusive prefixes in shared memory (34 KiB with the
+//      padding), and a thread takes its tiles' prefixes in the pass that
+//      holds them. The prefix at window x (row r, column c) is the tile
+//      prefix of tile (r, c / 256) plus the popcounts of its words below c,
+//      and a read's sums are P(b[r + 1]) - P(b[r]). A 256 x 4096 batch is
+//      4,096 tiles, one pass of 16 KiB of count words a block from the L2.
+//   On an H100 80GB HBM3 at 700 W (PERF.md): a `targets` batch 0.0343-0.0344
+//   ms (0.46 of the bound; K3 + 0.0060 on the same batches), a `phase2`
+//   batch 0.0312 (0.32; K3 + 0.0020-0.0021), where the first form, the
+//   k-step byte loop in three plain launches (masks, a one-block scan,
+//   sums), took 0.0417 and 0.0419-0.0420. The masks launch alone takes
+//   K3's time on `targets` batches and less on `phase2` ones (no count
+//   atomics); the sums launch ends 0.005-0.006 ms after it.
+//   Measured beside this form: the trigger at each masks block's start
+//   (the sums blocks then sit resident through the masks launch's last
+//   wave) 0.0012-0.0015 ms more; the sums launch without PDL 0.0000-0.0005
+//   ms less; K9's chain (masks, a one-block scan writing the prefixes,
+//   sums, PDL on both edges) 0.0022-0.0026 ms more than the folded scan
+//   with the early trigger; pack_tile_wide within 0.0004 ms of pack_tile
+//   either way on this 320-base tile, which one of its warps packs alone.
 // ---------------------------------------------------------------------------
-constexpr int kTileWords = kTile / 32;  // mask words a tile
-
 template <class Probe>
 __device__ __forceinline__ void classify_masks_tile(const Probe& probe,
                                                     const uint8_t* __restrict__ bases, int L,
-                                                    int k, uint32_t* __restrict__ hit_mask,
-                                                    uint32_t* __restrict__ inf_mask,
-                                                    int32_t* __restrict__ tile_hits,
-                                                    int32_t* __restrict__ tile_infs) {
-  __shared__ uint8_t tile[kTile + kMaxK];
-  const int W = L - k + 1;
-  const int row = blockIdx.y;
+                                                    int k, uint32_t* __restrict__ masks,
+                                                    uint32_t* __restrict__ tile_counts) {
+  __shared__ PackedTile tile;
+  __shared__ __align__(16) uint32_t words[2 * kTileWords];
   const int w0 = blockIdx.x * kTile;
-  load_tile(tile, bases + static_cast<size_t>(row) * L, w0, L, k);
-  const int w = w0 + threadIdx.x;
-  bool hit = false, informative = false;
-  uint32_t h, l;
-  if (w < W && canonical_window(tile + threadIdx.x, k, min(k, 16), &h, &l)) {
-    uint32_t where;
-    const unsigned m = probe.find(h, l, &where);
-    if (m) {
-      hit = true;
-      informative = probe.meta(where, m) == kInformative;
-    }
-  }
-  const unsigned hm = __ballot_sync(0xffffffffu, hit);
-  const unsigned im = __ballot_sync(0xffffffffu, informative);
-  const size_t t = static_cast<size_t>(row) * gridDim.x + blockIdx.x;
-  if ((threadIdx.x & 31) == 0) {
-    hit_mask[t * kTileWords + (threadIdx.x >> 5)] = hm;
-    inf_mask[t * kTileWords + (threadIdx.x >> 5)] = im;
-  }
-  const int n_hit = __syncthreads_count(hit);
-  const int n_inf = __syncthreads_count(informative);
-  if (threadIdx.x == 0) {
-    tile_hits[t] = n_hit;
-    tile_infs[t] = n_inf;
-  }
+  pack_tile(tile, bases + static_cast<size_t>(blockIdx.y) * L, w0, L);
+  uint32_t where;
+  bool valid;
+  const unsigned m = probe_valid_window(tile, threadIdx.x, probe, w0, L - k + 1, k, &where,
+                                        &valid);
+  const bool informative = m && probe.meta(where, m) == kInformative;
+  store_tile_masks(m != 0, informative, words, masks, tile_counts);
+  asm volatile("griddepcontrol.launch_dependents;");  // after the stores: see K4's note
 }
 
-__global__ void classify_masks_kernel(const uint32_t* __restrict__ rows,
-                                      int row_width, int h_bits, uint32_t salt,
-                                      const uint8_t* __restrict__ bases, int L,
-                                      int k, uint32_t* __restrict__ hit_mask,
-                                      uint32_t* __restrict__ inf_mask,
-                                      int32_t* __restrict__ tile_hits,
-                                      int32_t* __restrict__ tile_infs) {
-  classify_masks_tile(BucketProbe{rows, row_width, h_bits, salt}, bases, L, k, hit_mask,
-                      inf_mask, tile_hits, tile_infs);
+__global__ void __launch_bounds__(kTile)
+classify_masks_kernel(const uint32_t* __restrict__ rows, int row_width, int h_bits, uint32_t salt,
+                      const uint8_t* __restrict__ bases, int L, int k,
+                      uint32_t* __restrict__ masks, uint32_t* __restrict__ tile_counts) {
+  classify_masks_tile(BucketProbe{rows, row_width, h_bits, salt}, bases, L, k, masks,
+                      tile_counts);
 }
 
 // K4's first launch in the cuckoo layout.
 // Replaces: the XLA program engine._classify_step
 //   (strainer2_tpu/pipeline/engine.py:307-320), its probe and meta gather.
-// Bound on this card: the bases, the boundaries, the probe of cuckoo K3,
-//   a meta word a hit, 8 bytes a read out.
-// Design: classify_masks' block with CuckooProbe; informative where the
+// Bound on this card: the bases, the boundaries, the filtered probe of
+//   cuckoo K3 (the fingerprint bytes, a table sector a matched slot), a
+//   meta word a hit, 8 bytes a read out.
+// Design: classify_masks' block with CuckooProbe, launched with the L2
+//   window on the fingerprints (launch_cuckoo); informative where the
 //   separate slot-indexed meta word is kInformative: one word, never a sum
-//   (a key held in both of its slots reads meta[s0]). The scan and sums
-//   launches are K4's.
-__global__ void cuckoo_classify_masks_kernel(const uint2* __restrict__ table,
-                                             const uint8_t* __restrict__ fp,
-                                             const uint32_t* __restrict__ meta, int h_bits,
-                                             uint32_t H, uint32_t salt,
-                                             const uint8_t* __restrict__ bases, int L, int k,
-                                             uint32_t* __restrict__ hit_mask,
-                                             uint32_t* __restrict__ inf_mask,
-                                             int32_t* __restrict__ tile_hits,
-                                             int32_t* __restrict__ tile_infs) {
-  classify_masks_tile(CuckooProbe{table, fp, h_bits, salt, H, meta}, bases, L, k, hit_mask, inf_mask,
-                      tile_hits, tile_infs);
+//   (a key held in both of its slots reads meta[s0]). classify_sums_kernel
+//   follows it unchanged, chained by PDL.
+//   A `targets` batch 0.0220-0.0221 ms (0.25 of the filtered bound;
+//   cuckoo K3 + 0.0061-0.0063), a `phase2` one 0.0233 (0.31; + 0.0033),
+//   where the first form took 0.0384-0.0385 and 0.0392-0.0394 (H100 80GB
+//   HBM3, 700 W; PERF.md). The masks launch alone takes cuckoo K3's time
+//   + 0.0008 ms on `targets` batches.
+__global__ void __launch_bounds__(kTile)
+cuckoo_classify_masks_kernel(const uint2* __restrict__ table, const uint8_t* __restrict__ fp,
+                             const uint32_t* __restrict__ meta, int h_bits, uint32_t H,
+                             uint32_t salt, const uint8_t* __restrict__ bases, int L, int k,
+                             uint32_t* __restrict__ masks, uint32_t* __restrict__ tile_counts) {
+  classify_masks_tile(CuckooProbe{table, fp, h_bits, salt, H, meta}, bases, L, k, masks,
+                      tile_counts);
 }
 
-constexpr int kScanThreads = 1024;
-constexpr int kScanItems = 4;  // tiles per thread and pass: one pass per 256 x 4096 batch
+// Shared index of a pass's tile i in classify_sums' prefixes: a pad entry
+// after every 16, so that a half warp's 8-byte stores, one for each of its
+// threads' 16 consecutive tiles, fall in distinct banks.
+__device__ __forceinline__ int padded(int i) { return i + (i >> 4); }
 
-// Exclusive prefixes of the n tile counts, and the totals at [n]; one
-// block, a pass per kScanThreads * kScanItems tiles.
-__global__ void __launch_bounds__(kScanThreads)
-classify_scan_kernel(const int32_t* __restrict__ c_hit, const int32_t* __restrict__ c_inf,
-                     int n, int32_t* __restrict__ p_hit, int32_t* __restrict__ p_inf) {
-  __shared__ int2 warp_sums[kScanThreads / 32];
-  __shared__ int2 carry;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) carry = make_int2(0, 0);
-  __syncthreads();
-  for (int base = 0; base < n; base += kScanThreads * kScanItems) {
-    const int i0 = base + threadIdx.x * kScanItems;
-    int ch[kScanItems], ci[kScanItems];
-    int sh = 0, si = 0;
-#pragma unroll
-    for (int t = 0; t < kScanItems; ++t) {
-      const int i = i0 + t;
-      ch[t] = i < n ? c_hit[i] : 0;
-      ci[t] = i < n ? c_inf[i] : 0;
-      sh += ch[t];
-      si += ci[t];
-    }
-    int xh = sh, xi = si;  // inclusive scan over the warp
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int yh = __shfl_up_sync(0xffffffffu, xh, off);
-      const int yi = __shfl_up_sync(0xffffffffu, xi, off);
-      if (lane >= off) {
-        xh += yh;
-        xi += yi;
-      }
-    }
-    if (lane == 31) warp_sums[warp] = make_int2(xh, xi);
-    __syncthreads();
-    if (warp == 0) {  // exclusive scan of the warp totals
-      const int2 v = warp_sums[lane];
-      int zh = v.x, zi = v.y;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int yh = __shfl_up_sync(0xffffffffu, zh, off);
-        const int yi = __shfl_up_sync(0xffffffffu, zi, off);
-        if (lane >= off) {
-          zh += yh;
-          zi += yi;
-        }
-      }
-      warp_sums[lane] = make_int2(zh - v.x, zi - v.y);
-    }
-    __syncthreads();
-    int eh = carry.x + warp_sums[warp].x + xh - sh;
-    int ei = carry.y + warp_sums[warp].y + xi - si;
-#pragma unroll
-    for (int t = 0; t < kScanItems; ++t) {
-      const int i = i0 + t;
-      if (i < n) {
-        p_hit[i] = eh;
-        p_inf[i] = ei;
-      }
-      eh += ch[t];
-      ei += ci[t];
-    }
-    __syncthreads();  // every thread has read carry and warp_sums
-    if (threadIdx.x == kScanThreads - 1) carry = make_int2(eh, ei);
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    p_hit[n] = carry.x;
-    p_inf[n] = carry.y;
-  }
-}
-
-// Hits before flat window x (row-major, W windows a row, tpr tiles a row).
-__device__ __forceinline__ int prefix_at(const int32_t* __restrict__ p,
-                                         const uint32_t* __restrict__ mask,
-                                         int x, int W, int tpr) {
-  const int r = x / W;
-  const int c = x - r * W;
-  const int t = r * tpr + (c >> 8);
-  const int within = c & (kTile - 1);
-  int v = __ldg(p + t);
+// (hits, informative) among the windows of tile t below column `within`
+// of the tile, from its 16 words at masks + 16 t (read only where within
+// is not 0).
+__device__ __forceinline__ int2 below_in_tile(const uint32_t* masks, int t, int within) {
+  int2 v = make_int2(0, 0);
   if (within) {
-    const uint4* m4 = reinterpret_cast<const uint4*>(mask + static_cast<size_t>(t) * kTileWords);
-    const uint4 a = __ldg(m4), b = __ldg(m4 + 1);
-    const uint32_t m[kTileWords] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    const uint4* m4 = reinterpret_cast<const uint4*>(masks + static_cast<size_t>(t) * 2 * kTileWords);
+    const uint4 h0 = __ldcg(m4), h1 = __ldcg(m4 + 1), i0 = __ldcg(m4 + 2), i1 = __ldcg(m4 + 3);
+    const uint32_t hw[kTileWords] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+    const uint32_t iw[kTileWords] = {i0.x, i0.y, i0.z, i0.w, i1.x, i1.y, i1.z, i1.w};
     const int word = within >> 5;
     const uint32_t below = (1u << (within & 31)) - 1u;
 #pragma unroll
-    for (int j = 0; j < kTileWords; ++j)
-      v += j < word ? __popc(m[j]) : j == word ? __popc(m[j] & below) : 0;
+    for (int j = 0; j < kTileWords; ++j) {
+      v.x += j < word ? __popc(hw[j]) : j == word ? __popc(hw[j] & below) : 0;
+      v.y += j < word ? __popc(iw[j]) : j == word ? __popc(iw[j] & below) : 0;
+    }
   }
   return v;
 }
 
-__global__ void classify_sums_kernel(const int32_t* __restrict__ p_hit,
-                                     const int32_t* __restrict__ p_inf,
-                                     const uint32_t* __restrict__ hit_mask,
-                                     const uint32_t* __restrict__ inf_mask,
-                                     int n_rows, int W, int tpr,
-                                     const int32_t* __restrict__ bounds,
-                                     int max_reads, int32_t* __restrict__ tot,
-                                     int32_t* __restrict__ inf) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= max_reads) return;
+// (total, informative) of reads [0, max_reads) from the n tiles of the
+// masks launch before it; W windows a row of tpr tiles, n_rows rows.
+__global__ void __launch_bounds__(kTile)
+classify_sums_kernel(const uint32_t* __restrict__ masks, const uint32_t* __restrict__ tile_counts,
+                     int n, int n_rows, int W, int tpr, const int32_t* __restrict__ bounds,
+                     int max_reads, int32_t* __restrict__ tot, int32_t* __restrict__ inf) {
+  __shared__ int2 prefix[kScanTiles + kScanTiles / 16];
+  __shared__ int2 warp_sums[kTile / 32];
+  const int r = blockIdx.x * kTile + threadIdx.x;
+  const bool live = r < max_reads;
   const int q = n_rows * W;
-  const int a = gather_index(bounds[r], q);
-  const int e = gather_index(bounds[r + 1], q);
-  tot[r] = prefix_at(p_hit, hit_mask, e, W, tpr) - prefix_at(p_hit, hit_mask, a, W, tpr);
-  inf[r] = prefix_at(p_inf, inf_mask, e, W, tpr) - prefix_at(p_inf, inf_mask, a, W, tpr);
+  int t[2] = {0, 0}, within[2] = {0, 0};  // each boundary's tile and column in it
+  if (live) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int x = gather_index(__ldg(bounds + r + e), q);
+      const int row = x / W;
+      const int c = x - row * W;
+      t[e] = row * tpr + (c >> 8);
+      within[e] = c & (kTile - 1);
+    }
+  }
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int2 below0 = below_in_tile(masks, t[0], within[0]);
+  const int2 below1 = below_in_tile(masks, t[1], within[1]);
+  int2 p[2] = {make_int2(0, 0), make_int2(0, 0)};
+  int carry_h = 0, carry_i = 0;
+  int base = 0;
+  for (; base < n; base += kScanTiles) {
+    uint32_t c[kStatItems];
+    int sh, si, eh, ei;
+    scan_pass(tile_counts, n, base, c, warp_sums, carry_h, carry_i, sh, si, eh, ei);
+    const int j0 = threadIdx.x * kStatItems;
+#pragma unroll
+    for (int j = 0; j < kStatItems; ++j) {  // past n: the totals
+      prefix[padded(j0 + j)] = make_int2(eh, ei);
+      eh += c[j] >> 16;
+      ei += c[j] & 0xffff;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = t[e] - base;
+      if (i >= 0 && i < kScanTiles) p[e] = prefix[padded(i)];
+    }
+    __syncthreads();  // prefix and warp_sums are written again in the next pass
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {  // t = n at the end of a whole pass: the totals
+    if (t[e] == base) p[e] = make_int2(carry_h, carry_i);
+  }
+  if (live) {
+    tot[r] = p[1].x + below1.x - p[0].x - below0.x;
+    inf[r] = p[1].y + below1.y - p[0].y - below0.y;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -736,15 +819,16 @@ __global__ void classify_sums_kernel(const int32_t* __restrict__ p_hit,
 //   1. hit_stats_kernel, K8's block: K3's packed tile and key_hi-first
 //      probe; hit and valid become bits by __ballot_sync, 8 words a tile
 //      each, and the tile's two counts come from __syncthreads_count.
-//      Thread 0 stores the 16 words and the counts packed in one word.
-//      Each block first lets the dependent launch start
-//      (griddepcontrol.launch_dependents).
+//      Thread 0 stores the 16 words and the counts packed in one word
+//      (store_tile_masks). Each block first lets the dependent launch
+//      start (griddepcontrol.launch_dependents).
 //   2. hit_crossing_kernel, one block, launched with
-//      cudaLaunchAttributeProgrammaticStreamSerialization: it is resident
-//      before the masks launch ends and waits in griddepcontrol.wait, which
-//      returns once that launch has finished and its stores are visible.
-//      It reads every tile's count word, kStatItems a thread held in
-//      registers, and scans their sums over the block; the one thread
+//      cudaLaunchAttributeProgrammaticStreamSerialization (launch_dependent):
+//      it is resident before the masks launch ends and waits in
+//      griddepcontrol.wait, which returns once that launch has finished and
+//      its stores are visible. It reads every tile's count word, kStatItems
+//      a thread held in registers, and scans their sums over the block
+//      (scan_pass); the one thread
 //      whose tiles hold the crossing (p_valid[t] < remaining <= p_valid[t
 //      + 1]) picks the tile from its registers and walks the tile's valid
 //      words by popcount to the window. No prefix array is written; the
@@ -758,8 +842,6 @@ __global__ void classify_sums_kernel(const int32_t* __restrict__ p_hit,
 //   took 0.0028-0.0038 ms more: 4,096 returning atomics that each hold
 //   their block until they return.
 // ---------------------------------------------------------------------------
-constexpr int kStatItems = 16;  // tile counts a thread scans in one pass: one pass per 256 x 4096 batch
-
 // (hits, flat index) of the need-th valid window of tile t (need >= 1),
 // whose hit and valid words are the 16 words at m, hits the hits before
 // the tile; tpr tiles a row of W windows.
@@ -800,53 +882,12 @@ __device__ __forceinline__ void crossing_epilogue(const uint32_t* masks,
                                                   const uint32_t* tile_counts, int n, int W,
                                                   int tpr, int remaining, int32_t* out,
                                                   int2* warp_sums) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   int carry_h = 0, carry_v = 0;  // the same in every thread
-  for (int base = 0; base < n; base += kTile * kStatItems) {
+  for (int base = 0; base < n; base += kScanTiles) {
     const int i0 = base + threadIdx.x * kStatItems;
     uint32_t c[kStatItems];
-    if (i0 + kStatItems <= n) {
-      const uint4* c4 = reinterpret_cast<const uint4*>(tile_counts + i0);
-#pragma unroll
-      for (int j = 0; j < kStatItems / 4; ++j) {
-        const uint4 q = __ldcg(c4 + j);
-        c[4 * j] = q.x;
-        c[4 * j + 1] = q.y;
-        c[4 * j + 2] = q.z;
-        c[4 * j + 3] = q.w;
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < kStatItems; ++j) c[j] = i0 + j < n ? __ldcg(tile_counts + i0 + j) : 0u;
-    }
-    uint32_t packed = 0;  // each half <= kStatItems * kTile: no carry between them
-#pragma unroll
-    for (int j = 0; j < kStatItems; ++j) packed += c[j];
-    const int sh = packed >> 16, sv = packed & 0xffff;
-    int xh = sh, xv = sv;  // inclusive scan over the warp
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int yh = __shfl_up_sync(0xffffffffu, xh, off);
-      const int yv = __shfl_up_sync(0xffffffffu, xv, off);
-      if (lane >= off) {
-        xh += yh;
-        xv += yv;
-      }
-    }
-    if (lane == 31) warp_sums[warp] = make_int2(xh, xv);
-    __syncthreads();
-    int eh = carry_h + xh - sh, ev = carry_v + xv - sv;  // before this thread's tiles
-#pragma unroll
-    for (int w = 0; w < kTile / 32; ++w) {
-      const int2 s = warp_sums[w];
-      if (w < warp) {
-        eh += s.x;
-        ev += s.y;
-      }
-      carry_h += s.x;
-      carry_v += s.y;
-    }
+    int sh, sv, eh, ev;
+    scan_pass(tile_counts, n, base, c, warp_sums, carry_h, carry_v, sh, sv, eh, ev);
     if (ev < remaining && remaining <= ev + sv) {  // the crossing is in this thread's tiles
       int t = -1;
 #pragma unroll
@@ -897,22 +938,7 @@ __device__ __forceinline__ void hit_stats_tile(const Probe& probe,
   bool valid;
   const bool hit = probe_valid_window(tile, threadIdx.x, probe, w0, L - k + 1, k, &where,
                                       &valid) != 0;
-  const unsigned hm = __ballot_sync(0xffffffffu, hit);
-  const unsigned vm = __ballot_sync(0xffffffffu, valid);
-  if ((threadIdx.x & 31) == 0) {
-    words[threadIdx.x >> 5] = hm;
-    words[kTileWords + (threadIdx.x >> 5)] = vm;
-  }
-  const int n_hit = __syncthreads_count(hit);  // also orders the words above
-  const int n_valid = __syncthreads_count(valid);
-  if (threadIdx.x == 0) {
-    const int t = blockIdx.y * gridDim.x + blockIdx.x;
-    uint4* m4 = reinterpret_cast<uint4*>(masks + static_cast<size_t>(t) * 2 * kTileWords);
-    const uint4* w4 = reinterpret_cast<const uint4*>(words);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) m4[j] = w4[j];
-    tile_counts[t] = static_cast<uint32_t>(n_hit) << 16 | static_cast<uint32_t>(n_valid);
-  }
+  store_tile_masks(hit, valid, words, masks, tile_counts);
 }
 
 __global__ void __launch_bounds__(kTile)
@@ -945,41 +971,6 @@ hit_crossing_kernel(const uint32_t* __restrict__ masks, const uint32_t* __restri
   __shared__ int2 warp_sums[kTile / 32];
   asm volatile("griddepcontrol.wait;" ::: "memory");
   crossing_epilogue(masks, tile_counts, n, W, tpr, remaining, out, warp_sums);
-}
-
-// The one-block crossing search after a K9 masks launch on stream st,
-// chained to it by programmatic dependent launch.
-int launch_crossing(cudaStream_t st, const uint32_t* masks, const uint32_t* tile_counts, int n,
-                    int W, int tpr, int remaining, int32_t* out) {
-  const int rc = launch_status();
-  if (rc != 0) return rc;
-  cudaLaunchAttribute pdl[1];
-  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(1);
-  cfg.blockDim = dim3(kTile);
-  cfg.stream = st;
-  cfg.attrs = pdl;
-  cfg.numAttrs = 1;
-  const cudaError_t rc2 = cudaLaunchKernelEx(&cfg, hit_crossing_kernel, masks, tile_counts, n, W,
-                                             tpr, remaining, out);
-  return rc2 != cudaSuccess ? static_cast<int>(rc2) : launch_status();
-}
-
-// K4's scan and sums launches after its masks launch, over the n tiles'
-// counts at c_hit, c_inf and their prefixes at p_hit, p_inf.
-int launch_classify_sums(cudaStream_t st, const int32_t* c_hit, const int32_t* c_inf,
-                         int32_t* p_hit, int32_t* p_inf, const uint32_t* hit_mask,
-                         const uint32_t* inf_mask, int n, int n_rows, int W, int tpr,
-                         const void* bounds, int max_reads, void* tot, void* inf) {
-  classify_scan_kernel<<<1, kScanThreads, 0, st>>>(c_hit, c_inf, n, p_hit, p_inf);
-  const int threads = 256;
-  classify_sums_kernel<<<(max_reads + threads - 1) / threads, threads, 0, st>>>(
-      p_hit, p_inf, hit_mask, inf_mask, n_rows, W, tpr,
-      static_cast<const int32_t*>(bounds), max_reads, static_cast<int32_t*>(tot),
-      static_cast<int32_t*>(inf));
-  return launch_status();
 }
 
 }  // namespace
@@ -1069,12 +1060,15 @@ int s2t_hit_stats(const void* rows, int row_width, int h_bits, uint32_t salt,
   hit_stats_kernel<<<dim3(tpr, n_rows), kTile, 0, st>>>(
       static_cast<const uint32_t*>(rows), row_width, h_bits, salt,
       static_cast<const uint8_t*>(bases), L, k, m, c);
-  return launch_crossing(st, m, c, n_rows * tpr, W, tpr, remaining, static_cast<int32_t*>(out));
+  return launch_dependent(hit_crossing_kernel, dim3(1), st, true, m, c, n_rows * tpr, W, tpr,
+                          remaining, static_cast<int32_t*>(out));
 }
 
-// masks: 2 x n_tiles x 8 uint32 scratch (hit, then informative), 32-byte
-// aligned; counts: 2 x n_tiles + 2 x (n_tiles + 1) int32 scratch (tile
-// counts, then their prefixes); n_tiles = n_rows x ceil(W / 256).
+// masks: n_tiles x 16 uint32 scratch (a tile's hit words, then its
+// informative words), 16-byte aligned; counts: n_tiles uint32 scratch (a
+// tile's hits << 16 | informative), 16-byte aligned; n_tiles = n_rows x
+// ceil(W / 256); max_reads >= 1. The sums launch follows the masks launch
+// by PDL (a plain launch where n_rows is 0 and there is no masks launch).
 int s2t_classify_step(const void* rows, int row_width, int h_bits,
                       uint32_t salt, const void* bases, int n_rows, int L,
                       int k, const void* bounds, int max_reads, void* masks,
@@ -1082,20 +1076,17 @@ int s2t_classify_step(const void* rows, int row_width, int h_bits,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int W = L - k + 1;
   const int tpr = (W + kTile - 1) / kTile;
-  const int n = n_rows * tpr;
-  uint32_t* hit_mask = static_cast<uint32_t*>(masks);
-  uint32_t* inf_mask = hit_mask + static_cast<size_t>(n) * kTileWords;
-  int32_t* c_hit = static_cast<int32_t*>(counts);
-  int32_t* c_inf = c_hit + n;
-  int32_t* p_hit = c_inf + n;
-  int32_t* p_inf = p_hit + n + 1;
+  uint32_t* m = static_cast<uint32_t*>(masks);
+  uint32_t* c = static_cast<uint32_t*>(counts);
   if (n_rows) {
     classify_masks_kernel<<<dim3(tpr, n_rows), kTile, 0, st>>>(
         static_cast<const uint32_t*>(rows), row_width, h_bits, salt,
-        static_cast<const uint8_t*>(bases), L, k, hit_mask, inf_mask, c_hit, c_inf);
+        static_cast<const uint8_t*>(bases), L, k, m, c);
   }
-  return launch_classify_sums(st, c_hit, c_inf, p_hit, p_inf, hit_mask, inf_mask, n, n_rows, W,
-                              tpr, bounds, max_reads, tot, inf);
+  return launch_dependent(classify_sums_kernel, dim3((max_reads + kTile - 1) / kTile), st,
+                          n_rows > 0, m, c, n_rows * tpr, n_rows, W, tpr,
+                          static_cast<const int32_t*>(bounds), max_reads,
+                          static_cast<int32_t*>(tot), static_cast<int32_t*>(inf));
 }
 
 // ---- the cuckoo layout: table is 2H (hi, lo) uint32 pairs, 8-byte aligned;
@@ -1189,9 +1180,11 @@ int s2t_cuckoo_hit_stats(const void* table, const void* fp, int h_bits, int H, u
                                h_bits, static_cast<uint32_t>(H), salt,
                                static_cast<const uint8_t*>(bases), L, k, m, c);
   if (rc != 0) return rc;
-  return launch_crossing(st, m, c, n_rows * tpr, W, tpr, remaining, static_cast<int32_t*>(out));
+  return launch_dependent(hit_crossing_kernel, dim3(1), st, true, m, c, n_rows * tpr, W, tpr,
+                          remaining, static_cast<int32_t*>(out));
 }
 
+// masks, counts and max_reads as s2t_classify_step's.
 int s2t_cuckoo_classify_step(const void* table, const void* fp, const void* meta, int h_bits,
                              int H, uint32_t salt, const void* bases, int n_rows, int L, int k,
                              const void* bounds, int max_reads, void* masks, void* counts,
@@ -1199,24 +1192,21 @@ int s2t_cuckoo_classify_step(const void* table, const void* fp, const void* meta
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int W = L - k + 1;
   const int tpr = (W + kTile - 1) / kTile;
-  const int n = n_rows * tpr;
-  uint32_t* hit_mask = static_cast<uint32_t*>(masks);
-  uint32_t* inf_mask = hit_mask + static_cast<size_t>(n) * kTileWords;
-  int32_t* c_hit = static_cast<int32_t*>(counts);
-  int32_t* c_inf = c_hit + n;
-  int32_t* p_hit = c_inf + n;
-  int32_t* p_inf = p_hit + n + 1;
+  uint32_t* m = static_cast<uint32_t*>(masks);
+  uint32_t* c = static_cast<uint32_t*>(counts);
   if (n_rows) {
     const int rc = launch_cuckoo(
         cuckoo_classify_masks_kernel, dim3(tpr, n_rows), dim3(kTile), st,
         static_cast<const uint8_t*>(fp), static_cast<uint32_t>(H),
         static_cast<const uint2*>(table), static_cast<const uint8_t*>(fp),
         static_cast<const uint32_t*>(meta), h_bits, static_cast<uint32_t>(H), salt,
-        static_cast<const uint8_t*>(bases), L, k, hit_mask, inf_mask, c_hit, c_inf);
+        static_cast<const uint8_t*>(bases), L, k, m, c);
     if (rc != 0) return rc;
   }
-  return launch_classify_sums(st, c_hit, c_inf, p_hit, p_inf, hit_mask, inf_mask, n, n_rows, W,
-                              tpr, bounds, max_reads, tot, inf);
+  return launch_dependent(classify_sums_kernel, dim3((max_reads + kTile - 1) / kTile), st,
+                          n_rows > 0, m, c, n_rows * tpr, n_rows, W, tpr,
+                          static_cast<const int32_t*>(bounds), max_reads,
+                          static_cast<int32_t*>(tot), static_cast<int32_t*>(inf));
 }
 
 }  // extern "C"

@@ -547,9 +547,11 @@ def classify_step(rows, bases, boundaries, h_bits: int, salt: int, k: int):
     boundaries (max_reads + 1,) int32: each read's first flat window index
     (row * width + col), padded with the batch's window count.
     Returns (total, informative) int32, shape (max_reads,).  The kernel
-    runs in three launches (probe to hit masks and tile counts, prefix
-    scan, per-read differences) over scratch of 16 mask words and 4 counts
-    a 256-window tile."""
+    runs in two launches that one call issues together, over scratch of 16
+    mask words and one count word a 256-window tile: the probe to hit and
+    informative words and counts, then a thread a read that scans the
+    tiles' counts and takes the differences at its boundaries, chained to
+    the probe launch by programmatic dependent launch."""
     if not _on_cuda("classify_step", rows, bases, boundaries):
         return classify_step_plain(rows, bases, boundaries, h_bits, salt, k)
     _check_rows(rows, h_bits)
@@ -565,8 +567,8 @@ def classify_step(rows, bases, boundaries, h_bits: int, salt: int, k: int):
     tot = torch.empty(max_reads, dtype=torch.int32, device=bases.device)
     inf = torch.empty_like(tot)
     if max_reads:
-        masks = torch.empty(2 * 8 * tiles, dtype=torch.int32, device=bases.device)
-        counts = torch.empty(4 * tiles + 2, dtype=torch.int32, device=bases.device)
+        masks = torch.empty(16 * tiles, dtype=torch.int32, device=bases.device)
+        counts = torch.empty(tiles, dtype=torch.int32, device=bases.device)
         _build.call(
             "classify_step", bases.device, rows.data_ptr(), rows.shape[1], h_bits,
             salt, bases.data_ptr(), n_rows, length, k, boundaries.data_ptr(), max_reads,
@@ -849,7 +851,8 @@ def cuckoo_classify_step(table, meta, bases, boundaries, h_bits: int, salt: int,
     tensors.
 
     meta (2H,) uint32, the slot-indexed k-mer class; boundaries as in
-    ``classify_step``.  Returns (total, informative) int32, (max_reads,)."""
+    ``classify_step``.  Returns (total, informative) int32, (max_reads,),
+    in ``classify_step``'s two launches."""
     if not _on_cuda("cuckoo_classify_step", table, meta, bases, boundaries):
         return cuckoo_classify_step_plain(table, meta, bases, boundaries, h_bits, salt, k)
     _check_cuckoo_table(table, h_bits)
@@ -866,8 +869,8 @@ def cuckoo_classify_step(table, meta, bases, boundaries, h_bits: int, salt: int,
     tot = torch.empty(max_reads, dtype=torch.int32, device=bases.device)
     inf = torch.empty_like(tot)
     if max_reads:
-        masks = torch.empty(2 * 8 * tiles, dtype=torch.int32, device=bases.device)
-        counts = torch.empty(4 * tiles + 2, dtype=torch.int32, device=bases.device)
+        masks = torch.empty(16 * tiles, dtype=torch.int32, device=bases.device)
+        counts = torch.empty(tiles, dtype=torch.int32, device=bases.device)
         _build.call(
             "cuckoo_classify_step", bases.device, table.data_ptr(), fp.data_ptr(),
             meta.data_ptr(), h_bits,

@@ -33,13 +33,15 @@ chip_smoke.py phase 2 runs it) on the window codes of the ``count`` batches
 (every window, valid or not, ~25% found: the query set of chip_smoke.py
 phase 2), and on ``main`` sets, MAIN_QUERIES keys of the table each, all
 present, as an ``-a`` file's k-mers are; K3 on ``count`` and
-``targets``, K4 on ``phase2`` and ``targets``, K6 and K7 on ``phase2`` and
-``targets`` at S = 16, 32, 96 and 256 strains (K7 on K6's words), over
-rows widened with seeded meta words; K8, K9 and K3 with its valid count on
-all three kinds at k = 20 (genome_compare's default, a table of the same
-genome at k = 20) and k = 31, K9 with ``remaining`` at half the batch's
-valid windows, K3 with its valid count per batch into a tally kept across
-the stream, and the tally's once-a-stream total (``valid_tally_total``,
+``targets``, K4 on ``phase2`` and ``targets`` (beside K3 on the same
+batches: ``over_k3``, K4 - K3, the measure of a K4 form), K6 and K7 on
+``phase2`` and ``targets`` at S = 16, 32, 96 and 256 strains (K7 on K6's
+words), over rows widened with seeded meta words; K8, K9 and K3 with its
+valid count on all three kinds at k = 20 (genome_compare's default, a
+table of the same genome at k = 20) and k = 31, K9 with ``remaining`` at
+half the batch's valid windows (``over_k8``, K9 - K8 on the same
+batches), K3 with its valid count per batch into a tally kept across the
+stream, and the tally's once-a-stream total (``valid_tally_total``,
 "K3V_TOTAL") timed on its own.  The cuckoo table holds the same keys
 (index/cuckoo.py's default size, (2H, 2) uint32) and, for K4, the same
 classes in a slot-indexed array.
@@ -490,6 +492,9 @@ def bench(seed: int, label: str, layout: str = "both") -> dict:
             more = (f", unfiltered {extra['unfiltered_ms']:.4f} ms "
                     f"(share {extra['unfiltered_ms'] / ms:.3f}), false match "
                     f"{extra['false_match']:.5f}")
+        for over in ("over_k3", "over_k8"):
+            if over in extra:
+                more += f", {over} {extra[over]:.4f} ms"
         print(f"[{label}] {kernel.upper()} {key}: {ms:.4f} ms, bound {bound:.4f} ms "
               f"(share {bound / ms:.3f}){more}", flush=True)
 
@@ -534,12 +539,13 @@ def bucket_kernels(rows, h_bits, salt, bases, batches, stats, codes, main_q, rep
         valid, _, hits = stats[kind]
         ms = graph_ms(lambda i: L.count_step(counts, rows, bs[i], h_bits, salt, K))
         report("k3", kind, ms, bound_ms(k3_bytes(bs[0], valid, hits)), valid=valid, hits=hits)
-    del counts
     for kind, bs in batches.items():
         valid, _, hits = stats[kind]
+        ms3 = graph_ms(lambda i: L.count_step(counts, rows, bs[i][0], h_bits, salt, K))
         ms = graph_ms(lambda i: L.classify_step(rows, bs[i][0], bs[i][1], h_bits, salt, K))
         report("k4", kind, ms, bound_ms(k4_bytes(bs[0][0], bs[0][1], valid, hits)),
-               valid=valid, hits=hits)
+               over_k3=ms - ms3, valid=valid, hits=hits)
+    del counts
     for n_strains in S_SWEEP:
         n_words = G.words_for_strains(n_strains)
         mrows = multi_rows(rows, n_words, seed=n_strains)
@@ -623,10 +629,13 @@ def cuckoo_kernels(genome, keys, key_kinds, bases, batches, stats, codes, main_q
     for kind, bs in batches.items():
         valid, _, hits = stats[kind]
         st = fstats[kind]
+        ms3 = graph_ms(lambda i: L.cuckoo_count_step(counts, table, bs[i][0], h_bits, salt, K,
+                                                     **fp))
         ms = graph_ms(lambda i: L.cuckoo_classify_step(table, meta, bs[i][0], bs[i][1], h_bits,
                                                        salt, K, **fp))
         filtered("k4_cuckoo", kind, ms, k4_bytes(bs[0][0], bs[0][1], st, hits),
-                 k4_bytes(bs[0][0], bs[0][1], valid, hits, "cuckoo"), st, valid=valid, hits=hits)
+                 k4_bytes(bs[0][0], bs[0][1], valid, hits, "cuckoo"), st, over_k3=ms - ms3,
+                 valid=valid, hits=hits)
     del table, meta, counts, fp
     for k in COMPARE_KS:
         table, h_bits, salt, _ = cuckoo_table_k(_keys_k(genome, k), k, dev)

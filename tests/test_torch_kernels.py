@@ -168,11 +168,11 @@ def test_strain_sums_kernel_edge_boundaries(dev):
     assert _equal(out, G.boundary_strain_sums_plain(words, bounds, 20))
 
 
-def _edge_batch(strain, n_rows, row_len):
+def _edge_batch(strain, n_rows, row_len, n_reads=400):
     """Reads of 100-1000 bases crossing rows and tiles, then the edge spans."""
     rng, genome, _, table, rows = strain
-    reads = [genome[s : s + n].copy() for s, n in zip(rng.integers(0, genome.size - 1000, 400),
-                                                       rng.integers(100, 1000, 400))]
+    reads = [genome[s : s + n].copy() for s, n in zip(rng.integers(0, genome.size - 1000, n_reads),
+                                                       rng.integers(100, 1000, n_reads))]
     batch = next(pack_stream(iter(reads), K, n_rows, row_len, with_read_ids=True))
     width = row_len - K + 1
     bounds = np.concatenate([batch.window_starts, edge_bounds(n_rows * width, width)]).astype(np.int32)
@@ -807,6 +807,70 @@ def test_cuckoo_hit_stats_kernel_cuda_graph(strain):
         graph.replay()
         torch.cuda.synchronize()
         assert [o.tolist() for o in outs] == want
+
+
+def _k4_pair(strain, layout):
+    """K4 in ``layout`` (the strain's classes; cuckoo: its keys in a cuckoo
+    table with _cuckoo_k's classes, fingerprints made here) and its plain
+    version, each a function of (bases, bounds)."""
+    _, genome, _, table, rows = strain
+    if layout == "bucket":
+        return (lambda b, bd: L.classify_step(rows, b, bd, table.h_bits, table.salt, K),
+                lambda b, bd: L.classify_step_plain(rows, b, bd, table.h_bits, table.salt, K))
+    ct, t, meta = _cuckoo_k(genome, K, rows.device)
+    fp = L.cuckoo_fingerprints(ct)
+    return (lambda b, bd: L.cuckoo_classify_step(ct, meta, b, bd, t.h_bits, t.salt, K, fp=fp),
+            lambda b, bd: L.cuckoo_classify_step_plain(ct, meta, b, bd, t.h_bits, t.salt, K))
+
+
+# batches of more than 4,096 tiles (two a row), so that K4's sums launch
+# scans the tile counts in two passes; rows of an odd length, so that tiles
+# start off 16-byte alignment; a 64 x 4096 batch
+K4_SHAPES = {"two_scan_passes": (2100, 287, 1200), "odd_row_len": (40, 1001, 400),
+             "main_rows": (64, 4096, 400)}
+
+
+@pytest.mark.parametrize("shape", ["two_scan_passes", "odd_row_len"])
+@pytest.mark.parametrize("layout", ["bucket", "cuckoo"])
+def test_classify_step_kernels_scan_passes_and_odd_rows(strain, layout, shape):
+    """K4 and cuckoo K4 against their plain versions on a filled batch of
+    reads crossing rows and tiles, then the edge spans (``_edge_batch``)."""
+    n_rows, row_len, n_reads = K4_SHAPES[shape]
+    kern, plain = _k4_pair(strain, layout)
+    batch, bd = _edge_batch(strain, n_rows, row_len, n_reads)
+    if shape == "two_scan_passes":
+        assert L.n_tiles(n_rows, row_len, K) > 4096
+        assert int(batch.window_starts[-1]) >= 2048 * (row_len - K + 1)  # reads in pass two's tiles
+    b = torch.from_numpy(batch.bases).to(bd.device)
+    out = kern(b, bd)
+    assert _equal(out, plain(b, bd))
+    assert int((out[0] < 0).sum()) > 0 and int(out[1].sum()) > 0
+
+
+@pytest.mark.parametrize("layout", ["bucket", "cuckoo"])
+def test_classify_step_kernels_cuda_graph(strain, layout):
+    """K4 and cuckoo K4 captured in a CUDA graph (a call on each of the
+    K4_SHAPES batches: the programmatic edge between the masks and sums
+    launches is captured) and replayed twice equal their plain versions
+    after each replay."""
+    kern, plain = _k4_pair(strain, layout)
+    cases = []
+    for n_rows, row_len, n_reads in K4_SHAPES.values():
+        batch, bd = _edge_batch(strain, n_rows, row_len, n_reads)
+        cases.append((torch.from_numpy(batch.bases).to(bd.device), bd))
+    want = [plain(b, bd) for b, bd in cases]
+    kern(*cases[0])  # builds the kernels off the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [kern(b, bd) for b, bd in cases]
+    for _ in range(2):
+        for out in outs:
+            for o in out:
+                o.fill_(-9)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(_equal(o, w) for o, w in zip(outs, want))
 
 
 def test_cuckoo_wrappers_refuse_mismatched_buffers(strain):

@@ -1,7 +1,8 @@
 """Plain torch lookup, count and classify steps (the CPU side of kernels
 K2-K4) vs the JAX package: jnp bucket_lookup and the Pallas gridmap kernel
-(interpret mode), engine._count_step_bucket and _classify_step_bucket, and
-the detection pass gate.  All values are integers: compared exactly."""
+(interpret mode), engine._count_step_bucket, _classify_step_bucket and (the
+cuckoo K4) _classify_step, and the detection pass gate.  All values are
+integers: compared exactly."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,15 +10,17 @@ import pytest
 import torch
 
 from strainer2_tpu.index.bucket import build_bucket_table
+from strainer2_tpu.index.cuckoo import build_cuckoo
 from strainer2_tpu.io.batches import pack_stream
 from strainer2_tpu.ops.lookup import bucket_lookup as jnp_bucket_lookup
 from strainer2_tpu.ops.lookup import bucket_lookup_words as jnp_bucket_lookup_words
 from strainer2_tpu.ops.packing_np import canonical_codes_np, split_code64_np
 from strainer2_tpu.ops.pallas_lookup import bucket_lookup_pallas_gridmap
 from strainer2_tpu.pipeline.detect import _passing_any_1d
-from strainer2_tpu.pipeline.engine import _classify_step_bucket, _count_step_bucket
+from strainer2_tpu.pipeline.engine import _classify_step, _classify_step_bucket, _count_step_bucket
 from strainer2_tpu_torch.ops.lookup import (
-    bucket_lookup, bucket_lookup_words_plain, classify_step, count_step, passing_any,
+    bucket_lookup, bucket_lookup_words_plain, classify_step, count_step, cuckoo_classify_step,
+    passing_any,
 )
 from tests.oracle import random_dna, seq_to_base_codes
 from tests.test_torch_kernels import (
@@ -302,3 +305,42 @@ def test_plain_classify_step_edge_spans_match_engine(strain):
     np.testing.assert_array_equal(tot.numpy(), r_tot)
     np.testing.assert_array_equal(inf.numpy(), r_inf)
     assert (r_tot < 0).any() and r_tot.max() > 100 and r_inf.sum() > 0
+
+
+@pytest.mark.parametrize("layout", ["bucket", "cuckoo"])
+def test_plain_classify_step_two_scan_passes_match_engine(strain, layout):
+    """The plain K4 in either layout against _classify_step_bucket or
+    _classify_step on a filled batch of more than 4,096 256-window tiles
+    (2,100 rows of 287 bases, two tiles a row: the kernel's sums launch
+    scans the tile counts in two passes there), then the edge spans of
+    ``edge_bounds``."""
+    genome, codes, table, rows = strain
+    rng = np.random.default_rng(43)
+    n_rows, row_len = 2100, 287
+    width = row_len - K + 1
+    batch = next(pack_stream(iter(_reads(rng, genome, 4000)), K, n_rows, row_len,
+                             with_read_ids=True))
+    assert n_rows * -(-width // 256) > 4096
+    assert int(batch.window_starts[-1]) >= 2048 * width  # reads in the second pass's tiles
+    bounds = np.concatenate([batch.window_starts, edge_bounds(n_rows * width, width)])
+    bounds = bounds.astype(np.int32)
+    kw = dict(k=K, max_reads=bounds.size - 1)
+    bases, bounds_t = torch.from_numpy(batch.bases), torch.from_numpy(bounds)
+    if layout == "bucket":
+        ref = _classify_step_bucket(jnp.asarray(rows), batch.bases, jnp.asarray(bounds),
+                                    h_bits=table.h_bits, salt=table.salt, **kw)
+        got = classify_step(torch.from_numpy(rows), bases, bounds_t, table.h_bits, table.salt, K)
+    else:
+        ct = build_cuckoo(codes, K)
+        meta = np.zeros(ct.num_slots, dtype=np.uint32)
+        meta[ct.slot_of_key] = np.where(rng.random(codes.size) < 0.3, 2, 1)
+        ref = _classify_step(jnp.asarray(np.ascontiguousarray(ct.table[:, 0])),
+                             jnp.asarray(np.ascontiguousarray(ct.table[:, 1])), jnp.asarray(meta),
+                             batch.bases, jnp.asarray(bounds), h_bits=ct.h_bits, salt=ct.salt,
+                             **kw)
+        got = cuckoo_classify_step(torch.from_numpy(ct.table), torch.from_numpy(meta), bases,
+                                   bounds_t, ct.h_bits, ct.salt, K)
+    for g, x in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(x))
+    r_tot, r_inf = (np.asarray(x) for x in ref)
+    assert (r_tot < 0).any() and r_tot.max() > 1000 and r_inf.sum() > 0
