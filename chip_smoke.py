@@ -107,9 +107,22 @@ Phases; any failure exits non-zero and no result line is printed:
    it, strain_detect --index-cache reuses the npz unwritten (bytes and
    mtime), each byte-identical to phase 4; genome_compare fullmap and -S
    with layout="cuckoo" through the stage API, byte-identical to phase 9;
-   walls and windows/s (idle share with --profile).
+   walls and windows/s (idle share with --profile);
+11. two ranks on the one card (parallel/distributed.py over gloo, both on
+   cuda:0), launched with JAX_COORDINATOR_ADDRESS on a free localhost
+   port, JAX_NUM_PROCESSES and JAX_PROCESS_ID, each rank's CLI ``main``
+   in a short ``python -c`` wrapper of this script that writes the rank's
+   kernel launches: ``kmer_scrub_count`` (rank 0's table equal to phase
+   4's), ``strain_detect -B`` (payload and rank 0's stdout equal to phase
+   4's), ``pipeline`` (every artifact equal to phase 7's) and
+   ``pipeline-multi`` on the first 4 strains of phase 8 (each strain's
+   artifacts equal to phase 8's), every rank given the same output paths;
+   the other rank's stdout empty; K1 and the run's K3, K4, K6 and K7 launched
+   on both ranks, each rank's memory on card 0 alone (card rank % count:
+   chip_ranks.py checks a host of several cards); neither rank imports
+   jax or the JAX package; the walls beside phases 4, 7 and 8.
 
-Phases run in the order 1, 2, 2b, 3, 4, 7, 6, 8, 9, 10, 5.
+Phases run in the order 1, 2, 2b, 3, 4, 7, 6, 8, 11, 9, 10, 5.
 """
 
 from __future__ import annotations
@@ -1951,6 +1964,172 @@ def real_size_cuckoo(d: str, data: dict) -> dict:
     return launches
 
 
+# ---- phase 11: two ranks on the one card --------------------------------------
+
+# One rank of a phase-11 run: the CLI's main in a fresh interpreter, then
+# as JSON into argv[2] the rank's kernel launches (counted from 0, the
+# process's start), its wall from the wrapper's first line (imports
+# included) and main's alone, its stage timers, each card's peak memory in
+# MiB, and the modules of jax or the JAX package it imported; exits with
+# main's code.
+RANK_WRAPPER = """
+import time
+t_start = time.perf_counter()
+import importlib, json, sys
+from strainer2_tpu_torch.ops import _build
+from strainer2_tpu_torch.utils import observability
+module, out_json, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+main = importlib.import_module("strainer2_tpu_torch.cli." + module).main
+t0 = time.perf_counter()
+rc = 1
+try:
+    rc = main(argv) or 0
+finally:
+    import torch
+    cards = []
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        cards = [torch.cuda.max_memory_allocated(i) / 2**20 for i in range(torch.cuda.device_count())]
+    t1 = time.perf_counter()
+    with open(out_json, "w") as f:
+        json.dump({"rc": rc, "wall": t1 - t_start, "main": t1 - t0, "card_peak_mib": cards,
+                   "launches": dict(_build.launches), "timers": dict(observability._totals),
+                   "jax_side": sorted(m for m in sys.modules
+                                      if m.split(".")[0] in ("jax", "jaxlib", "strainer2_tpu"))}, f)
+sys.exit(rc)
+"""
+RANKS = 2
+RANK_TIMEOUT_S = 300
+
+
+def own_card(record: dict, rank: int) -> bool:
+    """Whether a rank's device memory sat on card rank % the card count
+    alone (a bare cuda device's card in a multi-process run)."""
+    cards = record["card_peak_mib"]
+    return bool(cards) and [i for i, m in enumerate(cards) if m > 0] == [rank % len(cards)]
+
+
+def two_ranks(d: str, label: str, module: str, argv: list[str]) -> dict:
+    """Run ``module``'s CLI as RANKS processes under the launch contract
+    (JAX_COORDINATOR_ADDRESS on a free localhost port, JAX_NUM_PROCESSES,
+    JAX_PROCESS_ID) from the current directory, each through RANK_WRAPPER
+    with its stdout and stderr in files under d.  Fails unless every rank
+    exits 0 without jax or the JAX package and, on a CUDA device, ran on
+    card rank % the card count alone (all on this card where there is
+    one); returns the wall of the whole run and each rank's record."""
+    import socket
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    base = dict(os.environ, STRAINER2_COLLECTIVE_TIMEOUT=str(RANK_TIMEOUT_S),
+                PYTHONPATH=os.pathsep.join(x for x in (repo, os.environ.get("PYTHONPATH")) if x))
+    path = lambda r, ext: os.path.join(d, f"{label}_{r}.{ext}")  # noqa: E731
+    procs, files = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(RANKS):
+            env = dict(base, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       JAX_NUM_PROCESSES=str(RANKS), JAX_PROCESS_ID=str(r))
+            out, err = open(path(r, "stdout"), "w"), open(path(r, "stderr"), "w")
+            files += [out, err]
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", RANK_WRAPPER, module, path(r, "json"), *argv,
+                 "--device", DEVICE], stdout=out, stderr=err, env=env))
+        for proc in procs:
+            try:
+                proc.wait(timeout=max(RANK_TIMEOUT_S - (time.perf_counter() - t0), 1))
+            except subprocess.TimeoutExpired:
+                fail(f"{label}: no end after {RANK_TIMEOUT_S} s")
+        wall = time.perf_counter() - t0
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in files:
+            f.close()
+    ranks = []
+    for r, proc in enumerate(procs):
+        if proc.returncode != 0:
+            with open(path(r, "stderr")) as f:
+                print(f.read()[-3000:], flush=True)
+            fail(f"{label}: rank {r} exited {proc.returncode}")
+        with open(path(r, "json")) as f:
+            ranks.append(json.load(f))
+        if ranks[-1]["jax_side"]:
+            fail(f"{label}: rank {r} imported jax or the JAX package: {ranks[-1]['jax_side'][:5]}")
+    print(f"stage {label} ({RANKS} ranks): wall {wall:.3f} s; in-process (main() alone; "
+          f"peak MiB a card) " + ", ".join(
+              f"rank {r} {x['wall']:.3f} s ({x['main']:.3f} s; "
+              + "/".join(f"{m:.0f}" for m in x["card_peak_mib"]) + ")"
+              for r, x in enumerate(ranks)), flush=True)
+    for r, x in enumerate(ranks):
+        print(f"{label} rank {r} timers: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in sorted(x["timers"].items())), flush=True)
+        if DEVICE.startswith("cuda") and not own_card(x, r):
+            fail(f"{label}: rank {r} did not run on card {r} % {len(x['card_peak_mib'])} alone")
+    return {"wall": wall, "ranks": ranks}
+
+
+def two_rank_runs(d: str, strains: list[str]) -> dict:
+    """Phase 11: kmer_scrub_count, strain_detect, pipeline and pipeline-multi
+    (the first 4 strains of phase 8) on phase 4's data as two ranks on this
+    card, every rank given the same output paths: rank 0's stdout and
+    every artifact equal the one-process phases' (4, 7 and 8), the other
+    rank's stdout is empty, and each kernel of a run's path launched on
+    every rank.  Returns the runs."""
+    from strainer2_tpu_torch.pipeline.fused import _stem
+
+    p = lambda name: os.path.join(d, name)  # noqa: E731
+    multi = strains[:4]
+    with open(p("p11_strains.txt"), "w") as f:
+        f.write("".join(r + "\n" for r in multi))
+    runs = {
+        "kmer_scrub_count": two_ranks(d, "p11_scrub", "kmer_scrub_count", [
+            "-r", p("strain.fna"), "-A", p("genomes.txt"), "-B", p("metagenomes.txt")]),
+        "strain_detect": two_ranks(d, "p11_detect", "strain_detect", [
+            "-r", p("strain.fna"), "-a", p("informative.txt"), "-B", p("targets.txt"),
+            "-o", p("p11_hits.gz")]),
+        "pipeline": two_ranks(d, "p11_pipeline", "strainer2_tools", [
+            "pipeline", "-r", p("strain.fna"), "-A", p("genomes.txt"), "-B", p("metagenomes.txt"),
+            "-T", p("targets.txt"), "-m", str(MIN_FRACTION), "-o", p("p11_p")]),
+        "pipeline-multi": two_ranks(d, "p11_multi", "strainer2_tools", [
+            "pipeline-multi", "-R", p("p11_strains.txt"), "-A", p("genomes.txt"),
+            "-B", p("metagenomes.txt"), "-T", p("targets.txt"), "-m", str(MIN_FRACTION),
+            "-o", p("p11_m")]),
+    }
+    quiet = all(os.path.getsize(p(f"p11_{label}_{r}.stdout")) == 0
+                for label in ("scrub", "detect", "pipeline", "multi") for r in range(1, RANKS))
+    ok = {
+        "scrub table": same_bytes(p("p11_scrub_0.stdout"), p("counts.tsv")),
+        "detect payload": same_payloads(p("p11_hits.gz"), p("hits.gz")),
+        "detect stdout": same_bytes(p("p11_detect_0.stdout"), p("detect_stdout.txt")),
+        "pipeline artifacts": fused_artifacts(p("p11_p"), "strain") == fused_artifacts(
+            p("p7a"), "strain"),
+        "pipeline stdout": same_bytes(p("p11_pipeline_0.stdout"), p("p7a_stdout.txt")),
+        "pipeline-multi artifacts": all(
+            fused_artifacts(p("p11_m"), _stem(r)) == fused_artifacts(p("p8"), _stem(r))
+            for r in multi),
+        "other ranks' stdout empty": quiet,
+    }
+    print(f"phase 11 (two ranks) against phases 4, 7 and 8: {ok}", flush=True)
+    if not all(ok.values()):
+        fail("a two-rank run differs from its one-process phase")
+    need = {"kmer_scrub_count": ("canonical_windows", "count_step"),
+            "strain_detect": ("canonical_windows", "classify_step"),
+            "pipeline": ("canonical_windows", "count_step", "classify_step"),
+            "pipeline-multi": ("canonical_windows", "count_step", "multi_hit_words", "strain_sums")}
+    for run, names in need.items():
+        for r, rank in enumerate(runs[run]["ranks"]):
+            counts = {name: rank["launches"][name] for name in names}
+            print(f"launches during {run} (phase 11, rank {r}): {counts}", flush=True)
+            if not all(counts.values()):
+                fail(f"phase 11 {run}: rank {r} did not launch all of {names}")
+    return runs
+
+
 def profiled(out_dir: str, label: str, fn):
     """Run fn under torch.profiler: print device busy time against wall
     time, and write key_averages() sorted by device time to out_dir."""
@@ -2092,6 +2271,19 @@ def main() -> int:
         check_fused_multi(d, data, fused_multi, want)
         print(f"phase 7 wall {fused['wall']:.3f} s against phase 4's four CLIs "
               f"{sum(walls.values()):.3f} s; phase 8 wall {fused_multi['wall']:.3f} s", flush=True)
+
+        # ---- phase 11: two ranks on the one card; launches counted in each rank
+        phase("11")
+        torch.cuda.empty_cache()  # the ranks share this card with this process
+        two = two_rank_runs(d, fused_multi["strains"])
+        print(f"phase 11 walls (2 processes, start-up included) against one process in this "
+              f"interpreter: kmer_scrub_count {two['kmer_scrub_count']['wall']:.3f} s "
+              f"(phase 4 {walls['kmer_scrub_count']:.3f}), strain_detect "
+              f"{two['strain_detect']['wall']:.3f} s (phase 4 {walls['strain_detect']:.3f}), "
+              f"pipeline {two['pipeline']['wall']:.3f} s (phase 7 {fused['wall']:.3f}), "
+              f"pipeline-multi on 4 strains {two['pipeline-multi']['wall']:.3f} s (phase 8 on "
+              f"{FUSED_STRAINS}: {fused_multi['wall']:.3f}); idle share not measured (child "
+              f"processes)", flush=True)
 
         # ---- phase 9: genome_compare and strain-track at real size; launches counted
         phase("9")

@@ -4,12 +4,18 @@ Each CLI carries a copy of ``build_parser()`` of its twin in
 ``strainer2_tpu.cli`` (pinned by tests/test_torch_cli.py), adds
 ``--device`` and refuses the options this port does not carry yet, instead
 of ignoring them.
+
+Under the multi-process launch contract (JAX_COORDINATOR_ADDRESS,
+JAX_NUM_PROCESSES, JAX_PROCESS_ID; parallel/distributed.py) each CLI does
+what its JAX twin does: ``kmer_scrub_count``, ``strain_detect`` and
+``strainer2_tools pipeline`` / ``pipeline-multi`` bring the process group
+up and split their work across the ranks; the others run whole in each
+process.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 
 __all__ = ["add_device", "check_args"]
@@ -33,13 +39,6 @@ def check_args(parser: argparse.ArgumentParser, args) -> int:
     for dest, what in _UNPORTED.items():
         if getattr(args, dest, None):
             parser.error(f"{what} is not supported by the torch port yet")
-    if os.environ.get("JAX_COORDINATOR_ADDRESS"):
-        print(
-            "multi-process runs (JAX_COORDINATOR_ADDRESS) are not supported by the "
-            "torch port yet: run one process",
-            file=sys.stderr,
-        )
-        return 1
     from strainer2_tpu_torch.pipeline.engine import resolve_device
 
     try:

@@ -39,8 +39,12 @@ def main(argv: list[str] | None = None) -> int:
     if rc:
         return rc
 
+    from strainer2_tpu_torch.parallel.distributed import initialize
     from strainer2_tpu_torch.pipeline.scrub_count import ScrubCountConfig, run_scrub_count
 
+    # a multi-process run brings its group up before sys.stdout is taken
+    # as the table's stream: the bring-up rebinds sys.stdout
+    initialize()
     cfg = ScrubCountConfig(device=args.device, reference_order=not args.no_reference_order)
     if args.rows:
         cfg.rows = args.rows

@@ -17,7 +17,11 @@ Emission, summary lines and diagnostics are the JAX package's host code,
 copied, so the output bytes are the same.  Samples run one after another.
 With a checkpoint directory each finished sample's payload is saved
 (pipeline/progress.py) and a restarted run replays it instead of scoring
-it again.  There is no device mesh and no multi-process run.
+it again.  In a multi-process run (parallel/distributed.py) the
+background panel and the target samples are split across processes by
+size; the counts are summed and the payloads gathered, and process 0
+writes the output, byte-identical to one process.  There is no device
+mesh.
 """
 
 from __future__ import annotations
@@ -52,6 +56,15 @@ from strainer2_tpu_torch.ops.packing_np import (
     canonical_codes_np,
     decode_codes_np,
     encode_ascii_np,
+)
+from strainer2_tpu_torch.parallel.distributed import (
+    gather_blobs,
+    host_file_partition,
+    initialize,
+    merge_across_hosts,
+    partition_by_size,
+    process_count,
+    process_index,
 )
 from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
 from strainer2_tpu_torch.pipeline.scrub_count import count_panel_file, read_list_file
@@ -184,43 +197,159 @@ def _parse_batch_entries(batch_list: str) -> list:
     return entries
 
 
-def _staged_quantify(entries, run_one, new_sink, payload_of, emit, stdout,
-                     checkpoint_dir: str) -> None:
-    """Sample-granular resumable scoring, the single-process form of
-    ``strainer2_tpu.pipeline.detect._staged_quantify``.
+def _sample_sizes(samples) -> list[int]:
+    """Bytes on disk of each (f1, f2, type) sample (0 where unreadable)."""
+    import os
 
-    Entries are taken in batch-list order: a stdout message is written
-    where it stands; a sample whose payload the checkpoint holds (same
-    ordinal, same (f1, f2, type) key) is replayed without scoring; any
-    other is scored by ``run_one(args, sink)`` into a fresh in-memory
-    ``sink``, its payloads (``payload_of(sink)``, one text per output
-    stream) are recorded and then emitted.  Output bytes, stdout warning
-    interleaving and failure position are those of the streaming loop: a
-    failing sample's partial payload is emitted, nothing after it is, and
-    its exception (or exit) propagates unrecorded."""
+    sizes = []
+    for f1, f2, _ftype in samples:
+        n = 0
+        for path in (f1, f2):
+            if path:
+                try:
+                    n += os.path.getsize(path)
+                except OSError:
+                    pass
+        sizes.append(n)
+    return sizes
+
+
+def _pack_results(results: dict) -> bytes:
+    """One rank's scored samples as a blob: a json header (ordinals,
+    tokens, payload lengths), a NUL, then every payload, zlib-compressed."""
+    import json
+    import zlib
+
+    ordinals = sorted(results)
+    raws, lengths, tokens = [], [], []
+    for o in ordinals:
+        payloads, token = results[o]
+        rs = [p.encode("utf-8") for p in payloads]
+        raws.extend(rs)
+        lengths.append([len(r) for r in rs])
+        tokens.append(list(token))
+    header = json.dumps({"o": ordinals, "t": tokens, "l": lengths}).encode()
+    return header + b"\0" + zlib.compress(b"".join(raws), 1)
+
+
+def _unpack_results(blobs: list[bytes]) -> dict:
+    """Every rank's scored samples, ordinal -> (payloads, token)."""
+    import json
+    import zlib
+
+    merged: dict = {}
+    for blob in blobs:
+        head, _, comp = blob.partition(b"\0")
+        h = json.loads(head.decode())
+        raw = zlib.decompress(comp)
+        off = 0
+        for o, tok, lens in zip(h["o"], h["t"], h["l"]):
+            ps = []
+            for n in lens:
+                ps.append(raw[off : off + n].decode("utf-8"))
+                off += n
+            merged[o] = (ps, tuple(tok))
+    return merged
+
+
+def _staged_quantify(entries, run_one, new_sink, payload_of, emit, stdout,
+                     checkpoint_dir: str | None = None) -> None:
+    """Sample-granular staged scoring: multi-process detection and detect
+    resume, the form of ``strainer2_tpu.pipeline.detect._staged_quantify``.
+
+    Each sample is scored by ``run_one(args, sink)`` into a fresh in-memory
+    ``sink``; ``payload_of(sink)`` is its payloads, one text per output
+    stream.  In a multi-process run each rank scores a size-balanced share
+    of the samples (partition_by_size over the target files' sizes), one
+    after another; the payloads are gathered (gather_blobs) and replayed in
+    batch-list order, and rank 0 alone writes stdout messages and payloads.
+    In one process a sample's payload is written as soon as it is scored.
+
+    Output bytes, stdout message order and failure position are those of
+    the streaming loop: a failing sample's partial payload is emitted,
+    nothing after it is, and every rank exits non-zero (the real exception
+    on the rank that scored the sample, SystemExit elsewhere).
+
+    With ``checkpoint_dir`` each finished sample's payload is saved
+    (DetectCheckpoint; under checkpoint_dir/rank<i> in a multi-process
+    run, so that shares cannot interleave) and a resumed run replays a
+    stored payload (same ordinal, same (f1, f2, type) key) instead of
+    scoring it."""
+    import os
+
     from strainer2_tpu_torch.pipeline.progress import DetectCheckpoint
 
-    ckpt = DetectCheckpoint(checkpoint_dir)
-    ordinal = 0
-    with stage("detect.score_samples"):
-        for kind, val in entries:
-            if kind == "msg":
+    pidx, pcount = process_index(), process_count()
+    samples = [val for kind, val in entries if kind == "sample"]
+    mine = (partition_by_size(_sample_sizes(samples), pidx, pcount) if pcount > 1
+            else range(len(samples)))
+    ckpt = None
+    if checkpoint_dir:
+        ckpt = DetectCheckpoint(
+            os.path.join(checkpoint_dir, f"rank{pidx}") if pcount > 1 else checkpoint_dir
+        )
+
+    results: dict[int, tuple[list, tuple]] = {}
+    local_exc: dict[int, BaseException] = {}
+    cursor = [0, 0]  # next entry to replay, its sample ordinal
+
+    def replay() -> None:
+        """Write the entries in batch-list order up to the first sample not
+        scored yet; raise at a failed sample."""
+        pos, si = cursor
+        while pos < len(entries):
+            kind, val = entries[pos]
+            if kind == "sample":
+                if si not in results:
+                    break
+                payloads, token = results.pop(si)
+                if pidx == 0:
+                    emit(payloads)
+                if token[0] != "ok":
+                    exc = local_exc.get(si)
+                    if exc is not None:
+                        raise exc  # this rank scored it: the real exception
+                    raise SystemExit(token[1])
+                si += 1
+            elif pidx == 0:
                 stdout.write(val)
+            pos += 1
+            cursor[:] = pos, si
+
+    with stage("detect.score_samples"):
+        for o in mine:
+            if pcount == 1:
+                replay()
+            key = DetectCheckpoint.sample_key(*samples[o]) if ckpt else None
+            stored = ckpt.get(o, key) if ckpt else None
+            if stored is not None:
+                results[o] = (stored, ("ok",))
                 continue
-            key = DetectCheckpoint.sample_key(*val)
-            payloads = ckpt.get(ordinal, key)
-            if payloads is None:
-                sink = new_sink()
-                try:
-                    run_one(val, sink)
-                except BaseException:
-                    # the streaming loop has written these rows when it raises
-                    emit(payload_of(sink))
-                    raise
-                payloads = payload_of(sink)
-                ckpt.record(ordinal, key, payloads)
-            emit(payloads)
-            ordinal += 1
+            sink = new_sink()
+            token = ("ok",)
+            try:
+                run_one(samples[o], sink)
+            except SystemExit as e:
+                code = e.code if e.code is not None else 0
+                token = ("exit", code if isinstance(code, int) else 1)
+            except BaseException as e:  # raised again at its batch position
+                local_exc[o] = e
+                token = ("exc", 1)
+            # the payload even of a failure: the streaming loop has written
+            # the failing sample's rows when it raises
+            results[o] = (payload_of(sink), token)
+            if token != ("ok",):
+                break  # later samples are never replayed
+            if ckpt is not None:
+                ckpt.record(o, key, results[o][0])
+    if pcount > 1:
+        with stage("detect.gather_payloads"):
+            results = _unpack_results(gather_blobs(_pack_results(results)))
+    replay()
+    if cursor[0] < len(entries):
+        # every sample before the first failure is there by construction
+        # (a rank stops scoring only after its own failure)
+        raise RuntimeError(f"staged detection: sample {cursor[1]} missing from the results")
 
 
 def _cached_index(index_cache, k: int):
@@ -268,7 +397,7 @@ class StrainDetector:
             with stage("detect.index_build"):
                 index = StrainIndex.from_fasta(r_file, self.engine, self.cfg.rows,
                                                self.cfg.row_len)
-                if index_cache:
+                if index_cache and process_index() == 0:  # one writer of a shared path
                     index.save(index_cache)
         self.index = index
         # per-key k-mer class; genome k-mers start NON_INFORMATIVE
@@ -347,12 +476,17 @@ class StrainDetector:
         """Demote informative k-mers frequent in background metagenomes
         (reference src/strain_detect.c:160-240; stats lines go to stdout).
         The background panel is counted on the device with the count
-        kernel."""
+        kernel; in a multi-process run each rank counts its size-balanced
+        share and the per-key counts are summed, so that every rank demotes
+        the same k-mers."""
         cfg = self.cfg
+        paths = host_file_partition(read_list_file(background_list), process_index(),
+                                    process_count())
         counts = self.engine.init_counts(self.index)
-        for path in read_list_file(background_list):
+        for path in paths:
             counts = count_panel_file(self.engine, self.index, counts, path, cfg.rows, cfg.row_len)
-        bg_counts = self.index.key_values(self.engine.finalize_counts(counts)).astype(np.int64)
+        bg_counts = merge_across_hosts(self.index.key_values(self.engine.finalize_counts(counts)))
+        bg_counts = bg_counts.astype(np.int64)
         background_demote(
             self.kmer_type, bg_counts, self.num_informative_marked,
             cfg.fraction_background_to_remove, background_list, self.stdout,
@@ -389,23 +523,36 @@ class StrainDetector:
         """Process all target samples and write the hits file (gzip, or
         plain TSV with gzip_output=False; the row bytes are the same).
         checkpoint_dir makes a -B batch run resumable at sample
-        granularity (DetectCheckpoint)."""
+        granularity (DetectCheckpoint).  In a multi-process run the -B
+        samples are scored across ranks and rank 0 alone opens and writes
+        ``out_path`` (ranks share it; a second open would truncate it); a
+        single -b sample is rank 0's alone."""
         import gzip
         import io
 
+        def open_hits():
+            return gzip.open(out_path, "wt", compresslevel=9) if gzip_output else open(out_path, "w")
+
         self._finalize_meta()
-        out = gzip.open(out_path, "wt", compresslevel=9) if gzip_output else open(out_path, "w")
-        if batch_list is not None and checkpoint_dir:
-            with out:
+        pidx, pcount = process_index(), process_count()
+        if batch_list is not None and (pcount > 1 or checkpoint_dir):
+            out = open_hits() if pidx == 0 else None
+            try:
                 _staged_quantify(
                     _parse_batch_entries(batch_list),
                     lambda args, sink: self._quantify_sample(*args, sink),
                     io.StringIO, lambda sink: [sink.getvalue()],
-                    lambda payloads: out.write(payloads[0]),
+                    (lambda payloads: out.write(payloads[0])) if out is not None
+                    else (lambda payloads: None),
                     self.stdout, checkpoint_dir,
                 )
+            finally:
+                if out is not None:
+                    out.close()
             return
-        with out, stage("detect.score_samples"):
+        if pidx != 0:
+            return  # single-sample mode: rank 0 owns the only sample
+        with open_hits() as out, stage("detect.score_samples"):
             if batch_list is None:
                 self._quantify_sample(b_file, b_file2, file_type, out)
                 return
@@ -637,7 +784,18 @@ def run_detect(r_file: str, a_file: str, out_path: str, batch_list: str | None =
                index_cache: str | None = None, checkpoint_dir: str | None = None,
                gzip_output: bool = True) -> StrainDetector:
     """Full strain_detect stage; checkpoint_dir makes the batch run
-    resumable at sample granularity."""
+    resumable at sample granularity.
+
+    Multi-process (the JAX_COORDINATOR_ADDRESS launch contract, one process
+    per card): every rank builds the same detector, the background panel
+    and the -B samples are split across ranks, and rank 0 writes the
+    output and stdout, byte-identical to one process."""
+    pidx, pcount = initialize()
+    if pcount > 1 and pidx != 0:
+        # rank 0 owns the observable streams (stats lines print once)
+        from strainer2_tpu_torch.pipeline.fused import _NullTextSink
+
+        stdout = _NullTextSink()
     det = StrainDetector(r_file, a_file, cfg, stdout=stdout, index_cache=index_cache)
     if background_list:
         det.background_filter(background_list)

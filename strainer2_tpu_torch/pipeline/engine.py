@@ -60,12 +60,16 @@ from strainer2_tpu_torch.ops.lookup import (
 from strainer2_tpu_torch.ops.packing import canonical_windows
 from strainer2_tpu_torch.ops.packing_np import merge_code64_np
 from strainer2_tpu_torch.ops.segsum import boundary_strain_sums, multi_hit_words, words_for_strains
+from strainer2_tpu_torch.parallel.distributed import launch_rank
 
 __all__ = ["TorchKmerEngine", "resolve_device"]
 
 
 def resolve_device(device) -> torch.device:
-    """torch.device for ``device``; raises when CUDA is asked for and absent."""
+    """torch.device for ``device``; raises when CUDA is asked for and absent.
+    In a multi-process run (parallel/distributed.py) a bare ``cuda`` is card
+    ``rank % torch.cuda.device_count()``, so the ranks of a host spread over
+    its cards; ``cuda:N`` is kept as given."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -74,6 +78,9 @@ def resolve_device(device) -> torch.device:
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}: use cuda or cpu")
+    rank = launch_rank()
+    if dev.type == "cuda" and dev.index is None and rank is not None:
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
     return dev
 
 

@@ -19,8 +19,12 @@ The fused runner keeps everything in memory instead:
 
 Output files land in ``out_dir`` with the reference workflow's names:
 <stem>.scrub_kmer_counts.gz, <stem>.scrubbed_kmers.gz, <stem>.kmer_hits.gz,
-<stem>.coverage_depth.  One process, one device: there is no
-multi-process branch.
+<stem>.coverage_depth.
+
+In a multi-process run (parallel/distributed.py, one process per card)
+the ranks count their shares of the panels and merge the columns, so every
+rank derives the same filter result and detector, and score their shares
+of the target samples; rank 0 alone writes the artifacts and stdout.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from strainer2_tpu_torch.index.refhash_order import reference_row_order
+from strainer2_tpu_torch.parallel.distributed import initialize, merge_across_hosts
 from strainer2_tpu_torch.utils.observability import stage
 
 __all__ = ["FusedConfig", "run_pipeline", "run_multi_pipeline"]
@@ -65,7 +70,8 @@ def _stem(path: str) -> str:
 
 
 class _NullTextSink:
-    """Text sink that discards writes (write_scrubbed=False path)."""
+    """Text sink that discards writes (write_scrubbed=False; the stdout and
+    stderr of ranks other than 0)."""
 
     def write(self, s):
         return len(s)
@@ -130,6 +136,14 @@ def _background_counts_writer(path, index, col_pan, col_meta, col_drug, order,
     return w
 
 
+def _silent(fcfg: FusedConfig) -> FusedConfig:
+    """``fcfg`` for a rank other than 0: it takes part in the scans but
+    writes no artifact."""
+    from dataclasses import replace
+
+    return replace(fcfg, write_counts=False, write_scrubbed=False)
+
+
 def run_pipeline(r_file: str, a_list: str, b_list: str, target_list: str, out_dir: str,
                  c_list: str | None = None, background_list: str | None = None,
                  fused_cfg: FusedConfig | None = None, progress=None, err=None,
@@ -140,7 +154,9 @@ def run_pipeline(r_file: str, a_list: str, b_list: str, target_list: str, out_di
     an uninterrupted run: panel counting per file (<dir>/scrub, keyed to
     the strain's k-mer set so a stale checkpoint cannot mix in) and
     detection per sample (<dir>/detect).  The filter and coverage
-    recompute: they are seconds next to the scans they sit between."""
+    recompute: they are seconds next to the scans they sit between.
+    In a multi-process run the panel checkpoint of rank i is
+    <dir>/scrub/rank<i>, its detect checkpoint <dir>/detect/rank<i>."""
     from strainer2_tpu_torch.constants import COL_DRUG, COL_METAGENOME, COL_PANGENOME
     from strainer2_tpu_torch.index.build import StrainIndex
     from strainer2_tpu_torch.pipeline.coverage import run_coverage_depth
@@ -155,6 +171,8 @@ def run_pipeline(r_file: str, a_list: str, b_list: str, target_list: str, out_di
     fcfg = fused_cfg or FusedConfig()
     err = err if err is not None else sys.stderr
     os.makedirs(out_dir, exist_ok=True)
+    pidx, pcount = initialize()
+    partition = (pidx, pcount) if pcount > 1 else None
     stem = _stem(r_file)
     paths = {
         "counts": os.path.join(out_dir, stem + ".scrub_kmer_counts.gz"),
@@ -187,21 +205,31 @@ def run_pipeline(r_file: str, a_list: str, b_list: str, target_list: str, out_di
         from strainer2_tpu_torch.pipeline.multi_scrub import union_checkpoint_key
         from strainer2_tpu_torch.pipeline.progress import ScrubCheckpoint
 
-        ckpt = ScrubCheckpoint(os.path.join(checkpoint_dir, "scrub"),
-                               key=union_checkpoint_key(index.codes, cfg.k))
+        scrub_dir = os.path.join(checkpoint_dir, "scrub")
+        if pcount > 1:
+            scrub_dir = os.path.join(scrub_dir, f"rank{pidx}")
+        ckpt = ScrubCheckpoint(scrub_dir, key=union_checkpoint_key(index.codes, cfg.k))
         # stored counts set the layout of the scan and of detection
         engine, index = resume_layout(engine, index, ckpt)
     with stage("fused.scrub"):
         col_pan = _count_panel(engine, index, a_list, cfg, progress,
-                               column=COL_PANGENOME, checkpoint=ckpt)
+                               column=COL_PANGENOME, checkpoint=ckpt, partition=partition)
         col_meta = _count_panel(engine, index, b_list, cfg, progress,
-                                column=COL_METAGENOME, checkpoint=ckpt)
+                                column=COL_METAGENOME, checkpoint=ckpt, partition=partition)
         col_drug = (
             _count_panel(engine, index, c_list, cfg, progress, skip_path=r_file,
-                         column=COL_DRUG, checkpoint=ckpt)
+                         column=COL_DRUG, checkpoint=ckpt, partition=partition)
             if c_list
             else None
         )
+    # every rank gets the same columns, hence the same filter result and
+    # detector; the detection scan is split across ranks too
+    col_pan = merge_across_hosts(col_pan)
+    col_meta = merge_across_hosts(col_meta)
+    if col_drug is not None:
+        col_drug = merge_across_hosts(col_drug)
+    if pidx != 0:
+        fcfg, err, stdout = _silent(fcfg), _NullTextSink(), _NullTextSink()
 
     order_thread.join()
     if isinstance(order_box[0], BaseException):
@@ -238,6 +266,8 @@ def run_pipeline(r_file: str, a_list: str, b_list: str, target_list: str, out_di
             checkpoint_dir=os.path.join(checkpoint_dir, "detect") if checkpoint_dir else None,
         )
 
+    if pidx != 0:
+        return paths  # rank 0 owns the remaining artifacts
     with stage("fused.coverage"), open(paths["coverage"], "w") as f:
         run_coverage_depth(
             paths["hits"], min_kmer_hits=fcfg.min_kmer_hits,
@@ -269,7 +299,10 @@ def run_multi_pipeline(r_files: list, a_list: str, b_list: str, target_list: str
     to a content hash of the union k-mer set) and each detection pass per
     sample (<dir>/detect_<pass>_<identity hash>, the hash covering the
     pass's strains, their informative sets and the filter and background
-    configuration).  Index builds, filters and coverage recompute."""
+    configuration).  Index builds, filters and coverage recompute.  In a
+    multi-process run the panel scan and each detection pass are split
+    across ranks (checkpoints under rank<i> subdirectories) and rank 0
+    alone writes."""
     from concurrent.futures import ThreadPoolExecutor
 
     from strainer2_tpu_torch.pipeline.coverage import run_coverage_depth
@@ -285,6 +318,9 @@ def run_multi_pipeline(r_files: list, a_list: str, b_list: str, target_list: str
     fcfg = fused_cfg or FusedConfig()
     err = err if err is not None else sys.stderr
     os.makedirs(out_dir, exist_ok=True)
+    pidx, _ = initialize()
+    if pidx != 0:
+        fcfg, err, stdout = _silent(fcfg), _NullTextSink(), _NullTextSink()
     cfg = ScrubCountConfig(device=fcfg.device, layout=fcfg.layout)
 
     stems = [_stem(r) for r in r_files]
@@ -404,6 +440,8 @@ def run_multi_pipeline(r_files: list, a_list: str, b_list: str, target_list: str
             )
             del det
 
+    if pidx != 0:
+        return all_paths  # rank 0 owns the remaining artifacts
     with stage("fused.coverage"):
         for paths in all_paths:
             with open(paths["coverage"], "w") as f:

@@ -11,10 +11,12 @@ read or pair passes for some strain do the passing rows cross to the host,
 where they are re-scanned to emit each strain's rows.  The per-strain files
 are byte-identical to single-strain ``strain_detect`` runs.
 
-With a checkpoint directory, samples run through the single-strain
-detector's resumable staged loop (``detect._staged_quantify``), one
-payload per strain per sample.  One device per process; --mesh and
-multi-process runs are not carried (the CLI refuses them).  The JAX
+With a checkpoint directory, or in a multi-process run
+(parallel/distributed.py), samples run through the single-strain
+detector's staged loop (``detect._staged_quantify``), one payload per
+strain per sample: split across ranks by size, gathered, and written by
+rank 0; the shared background panel is split and its counts summed.  One
+device per process; --mesh is not carried (the CLI refuses it).  The JAX
 package's native CPU classifier route is not taken: classification always
 goes through the engine, as the single-strain ``StrainDetector`` does.
 """
@@ -42,6 +44,12 @@ from strainer2_tpu_torch.io.batches import (
 from strainer2_tpu_torch.ops.lookup import META_LANE
 from strainer2_tpu_torch.ops.packing_np import canonical_codes_np, decode_codes_np
 from strainer2_tpu_torch.ops.segsum import words_for_strains
+from strainer2_tpu_torch.parallel.distributed import (
+    host_file_partition,
+    merge_across_hosts,
+    process_count,
+    process_index,
+)
 from strainer2_tpu_torch.pipeline.detect import (
     DetectConfig,
     StrainDetector,
@@ -473,10 +481,14 @@ class MultiStrainDetector:
         cfg = self.cfg
         eng = TorchKmerEngine(cfg.k, device=cfg.device)
         view = _UnionIndexView(self.table, cfg.k)
+        # each rank counts its share; the sum gives every rank the same
+        # demotions
+        paths = host_file_partition(read_list_file(background_list), process_index(),
+                                    process_count())
         counts = eng.init_counts(view)
-        for path in read_list_file(background_list):
+        for path in paths:
             counts = count_panel_file(eng, view, counts, path, cfg.rows, cfg.row_len)
-        per_slot = eng.finalize_counts(counts)
+        per_slot = merge_across_hosts(eng.finalize_counts(counts))
         bg_union = per_slot[self.table.slot_of_key].astype(np.int64)  # union order
         for st, sk, pos in zip(self.states, keys, pos_sorted):
             bg = np.empty(sk.order.shape[0], dtype=np.int64)
@@ -491,10 +503,12 @@ class MultiStrainDetector:
         """One pass over every sample in the batch file; writes one
         kmer_hits gz file per strain.  checkpoint_dir makes the pass
         resumable at sample granularity, one payload per strain per
-        sample."""
-        outs = [gzip.open(p, "wt", compresslevel=9) for p in out_paths]
+        sample.  In a multi-process run the samples are scored across
+        ranks and rank 0 alone opens and writes the files."""
+        pidx, pcount = process_index(), process_count()
+        outs = [gzip.open(p, "wt", compresslevel=9) for p in out_paths] if pidx == 0 else []
         try:
-            if checkpoint_dir:
+            if checkpoint_dir or pcount > 1:
                 n_strains = len(self.states)
 
                 def emit(payloads):

@@ -15,6 +15,11 @@ contribution, counted once per distinct own file.
 Only the union's table is built and uploaded (bucket, or the layout of
 a checkpoint's stored counts); the per-strain indexes keep their codes
 and genome counts and never build a table.
+
+In a multi-process run (parallel/distributed.py) each rank counts a
+size-balanced share of every panel list (checkpointed under
+checkpoint_dir/rank<i>) and the union counts are summed across ranks, so
+every rank projects the same columns.
 """
 
 from __future__ import annotations
@@ -24,6 +29,12 @@ from typing import IO
 import numpy as np
 
 from strainer2_tpu_torch.index.build import StrainIndex
+from strainer2_tpu_torch.parallel.distributed import (
+    host_file_partition,
+    merge_across_hosts,
+    process_count,
+    process_index,
+)
 from strainer2_tpu_torch.pipeline.detect import strain_threads
 from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
 from strainer2_tpu_torch.pipeline.multi_detect import union_sorted_many
@@ -102,19 +113,28 @@ def multi_scrub_counts(r_files: list[str], a_list: str, b_list: str, c_list: str
     del orders
     union = StrainIndex.from_unique_codes(union_codes, k=cfg.k, layout=cfg.layout)
 
+    pidx, pcount = process_index(), process_count()
     ckpt = None
     if checkpoint_dir:
+        import os
+
         from strainer2_tpu_torch.pipeline.progress import ScrubCheckpoint
 
+        if pcount > 1:
+            # each rank checkpoints ITS share's running counts
+            checkpoint_dir = os.path.join(checkpoint_dir, f"rank{pidx}")
         ckpt = ScrubCheckpoint(checkpoint_dir, key=union_checkpoint_key(union_codes, cfg.k))
         engine, union = resume_layout(engine, union, ckpt)
 
     def count_list(paths: list[str], column: int) -> np.ndarray:
+        paths = host_file_partition(paths, pidx, pcount)
         for path in paths:
             _progress_line(progress, path)
         counts, todo = _resume_counts(engine, union, paths, column, ckpt)
         counts = _count_files(engine, union, counts, todo, cfg, column, ckpt)
-        return union.key_values(engine.finalize_counts(counts)).astype(np.uint32)
+        # per-key union counts: the sum does not depend on the layout each
+        # rank's checkpoint resumed in
+        return merge_across_hosts(union.key_values(engine.finalize_counts(counts)).astype(np.uint32))
 
     pan_union = count_list(read_list_file(a_list), COL_PANGENOME)
     meta_union = count_list(read_list_file(b_list), COL_METAGENOME)

@@ -13,8 +13,11 @@ checkpoint directory, files count one after another and the count buffer
 is saved after each (pipeline/progress.py), so a restarted run skips the
 finished files; a run that finds stored counts counts in the table
 layout they were counted in (``resume_layout``), so that it resumes the
-cuckoo checkpoints the JAX CLIs write off the TPU.  There is no device
-mesh and no multi-process partitioning; the CLI refuses those.
+cuckoo checkpoints the JAX CLIs write off the TPU.  In a multi-process run
+(parallel/distributed.py) every process builds the same index, counts its
+size-balanced share of each panel list, and the columns are summed across
+processes, bit-identical to one process; process 0 writes the table.
+There is no device mesh; the CLI refuses --mesh.
 """
 
 from __future__ import annotations
@@ -31,6 +34,11 @@ from strainer2_tpu_torch.constants import DEFAULT_K
 from strainer2_tpu_torch.index.build import StrainIndex, layout_of_counts
 from strainer2_tpu_torch.index.refhash_order import reference_row_order
 from strainer2_tpu_torch.io.batches import DEFAULT_ROW_LEN, DEFAULT_ROWS
+from strainer2_tpu_torch.parallel.distributed import (
+    host_file_partition,
+    initialize,
+    merge_across_hosts,
+)
 from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
 from strainer2_tpu_torch.utils.observability import _items, stage
 from strainer2_tpu_torch.utils.prefetch import prefetch
@@ -241,10 +249,12 @@ def _count_files(engine: TorchKmerEngine, index, counts, todo: list[str],
 def _count_panel(engine: TorchKmerEngine, index: StrainIndex, list_path: str | None,
                  cfg: ScrubCountConfig, progress: IO | None,
                  skip_path: str | None = None, column: int = 0,
-                 checkpoint=None) -> np.ndarray:
+                 checkpoint=None, partition: tuple[int, int] | None = None) -> np.ndarray:
     """Count every file of one panel list into a fresh device column (or
     the checkpoint's stored one); returns per-key counts in
-    first-encounter order."""
+    first-encounter order.  partition=(process_index, process_count)
+    counts only this process's size-balanced share of the list (the caller
+    merges the columns with merge_across_hosts)."""
     todo: list[str] = []
     if list_path is not None:
         try:
@@ -252,12 +262,21 @@ def _count_panel(engine: TorchKmerEngine, index: StrainIndex, list_path: str | N
         except OSError:
             # reference src/genome_compare.c:125,159
             _exit_could_not_read(f"could not read file {list_path} in GEN_all_kmer_counts()")
+        multiprocess = partition is not None and partition[1] > 1
         for path in listed:
-            _progress_line(progress, path)
+            if not multiprocess:
+                _progress_line(progress, path)
             if skip_path is not None and path == skip_path:
                 print(f"skipping {path} (identical match)", file=sys.stderr)
                 continue
             todo.append(path)
+        if multiprocess:
+            # the FULL list is partitioned (the same on every rank, resumed
+            # or not); a checkpoint's finished files are skipped within the
+            # share afterwards, so a resume cannot shift the assignment
+            todo = host_file_partition(todo, *partition)
+            for path in todo:  # this process's progress covers its share
+                _progress_line(progress, path)
     counts, todo = _resume_counts(engine, index, todo, column, checkpoint)
     counts = _count_files(engine, index, counts, todo, cfg, column, checkpoint)
     return index.key_values(engine.finalize_counts(counts))
@@ -270,11 +289,20 @@ def run_scrub_count(r_file: str, a_list: str, b_list: str, c_list: str | None = 
                     checkpoint_dir: str | None = None) -> StrainIndex:
     """Full kmer_scrub_count stage; writes the count table to ``out`` and
     returns the strain index.  checkpoint_dir makes counting restartable
-    at panel-file granularity (bit-identical to an uninterrupted run)."""
+    at panel-file granularity (bit-identical to an uninterrupted run).
+
+    Multi-process (the JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES and
+    JAX_PROCESS_ID launch contract, one process per card): every process
+    builds the same index, counts its share of each list and checkpoints
+    it under checkpoint_dir/rank<i>; the columns are merged and process 0
+    alone writes the table."""
+    import os
     import threading
 
     from strainer2_tpu_torch.constants import COL_DRUG, COL_METAGENOME, COL_PANGENOME
 
+    pidx, pcount = initialize()
+    partition = (pidx, pcount) if pcount > 1 else None
     cfg = cfg or ScrubCountConfig()
     out = out if out is not None else sys.stdout
     engine = TorchKmerEngine(cfg.k, device=cfg.device,
@@ -284,6 +312,11 @@ def run_scrub_count(r_file: str, a_list: str, b_list: str, c_list: str | None = 
     if checkpoint_dir:
         from strainer2_tpu_torch.pipeline.progress import ScrubCheckpoint
 
+        if pcount > 1:
+            # each rank checkpoints ITS share's running counts: a shared
+            # directory would interleave partial counts, and a resume
+            # would merge the restored baseline once per rank
+            checkpoint_dir = os.path.join(checkpoint_dir, f"rank{pidx}")
         ckpt = ScrubCheckpoint(checkpoint_dir)
 
     if index is None:
@@ -302,7 +335,7 @@ def run_scrub_count(r_file: str, a_list: str, b_list: str, c_list: str | None = 
     # panel scans
     order_box: list = []
     order_thread = None
-    if cfg.reference_order:
+    if cfg.reference_order and pidx == 0:
         def _order_bg():
             try:
                 order_box.append(reference_row_order(index.codes, index.k))
@@ -313,15 +346,23 @@ def run_scrub_count(r_file: str, a_list: str, b_list: str, c_list: str | None = 
         order_thread.start()
 
     col_pan = _count_panel(engine, index, a_list, cfg, progress,
-                           column=COL_PANGENOME, checkpoint=ckpt)
+                           column=COL_PANGENOME, checkpoint=ckpt, partition=partition)
     col_meta = _count_panel(engine, index, b_list, cfg, progress,
-                            column=COL_METAGENOME, checkpoint=ckpt)
+                            column=COL_METAGENOME, checkpoint=ckpt, partition=partition)
     col_drug = (
         _count_panel(engine, index, c_list, cfg, progress, skip_path=r_file,
-                     column=COL_DRUG, checkpoint=ckpt)
+                     column=COL_DRUG, checkpoint=ckpt, partition=partition)
         if c_list
         else None
     )
+    # per-key columns: the sum does not depend on the layout each rank's
+    # checkpoint resumed in (one process: the columns as they are)
+    col_pan = merge_across_hosts(col_pan)
+    col_meta = merge_across_hosts(col_meta)
+    if col_drug is not None:
+        col_drug = merge_across_hosts(col_drug)
+    if pidx != 0:
+        return index
 
     order = None
     if order_thread is not None:

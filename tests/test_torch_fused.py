@@ -339,13 +339,27 @@ def test_staged_cli_checkpoint_to_golden(tmp_path, cli, argv, golden):
     assert os.listdir(ck)
 
 
-def test_pipeline_cli_refuses_multi_process_runs(tmp_path, capsys, monkeypatch):
+def test_detect_multi_cli_runs_whole_under_launch_env(tmp_path, monkeypatch):
+    """detect-multi never brings a process group up, in either package:
+    under the launch variables (rank 1 of 2, a coordinator nobody serves)
+    it runs whole in this process, as the JAX CLI does under the same
+    variables, and both write the golden hits."""
+    from strainer2_tpu.cli.strainer2_tools import main as jax_main
     from strainer2_tpu_torch.cli.strainer2_tools import main
+    from strainer2_tpu_torch.parallel.distributed import process_count
 
-    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1234")
-    assert main(["pipeline", "-r", "x", "-A", "x", "-B", "x", "-T", "x", "-o", str(tmp_path),
-                 "--device", "cpu"]) == 1
-    assert "multi-process" in capsys.readouterr().err
+    for var, value in (("JAX_COORDINATOR_ADDRESS", "127.0.0.1:9"), ("JAX_NUM_PROCESSES", "2"),
+                       ("JAX_PROCESS_ID", "1")):
+        monkeypatch.setenv(var, value)
+    strains = tmp_path / "strains.tsv"
+    strains.write_text("data/strainA.fna.gz\texpected/scrubbed_m05.txt\n")
+    for name, run, extra in (("port", main, ["--device", "cpu"]), ("jax", jax_main, [])):
+        rc, err = _tools(run, ["detect-multi", "-S", str(strains), "-B", "data/targets.txt",
+                               "-o", str(tmp_path / name), *extra], str(tmp_path / f"{name}.out"))
+        assert rc in (0, None), err
+        assert _read(tmp_path / name / "strainA.kmer_hits.gz", gz=True) == expected("kmer_hits.txt")
+        assert _read(tmp_path / f"{name}.out") == expected("detect_stdout.txt")
+    assert process_count() == 1
 
 
 def test_pipeline_multi_cli_empty_strain_list(tmp_path, capsys):

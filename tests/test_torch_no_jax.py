@@ -1,6 +1,7 @@
 """strainer2_tpu_torch imports neither jax nor the JAX package
 (strainer2_tpu), directly or through the modules it uses: a fresh
-interpreter with both blocked imports each module of the package, runs one
+interpreter with both blocked imports each module of the package
+(parallel/distributed.py, the multi-process helpers, included), runs one
 CPU count step, and runs kmer_scrub_count on the mini data to its golden
 bytes; another imports the multi-strain modules and runs detect-multi and
 the lookup A/B tool on the CPU; a third runs pipeline-multi (shared panel
@@ -42,6 +43,7 @@ _SCRIPT = _BLOCK + textwrap.dedent(
     import strainer2_tpu_torch
 
     names = [m.name for m in pkgutil.walk_packages(strainer2_tpu_torch.__path__, "strainer2_tpu_torch.")]
+    assert "strainer2_tpu_torch.parallel.distributed" in names
     for name in names:
         importlib.import_module(name)
 

@@ -1,6 +1,7 @@
 """The port's four stages on the CPU (plain torch versions of the kernels)
 reproduce the mini goldens byte for byte, and match the JAX package's own
-run; its CLIs refuse what this slice does not carry."""
+run; its CLIs refuse what this slice does not carry; its partition of
+files and samples across processes is the JAX package's."""
 
 import contextlib
 import gzip
@@ -142,11 +143,31 @@ def test_cli_refuses_unported_flags(tmp_path, capsys, module, argv):
     assert "not supported by the torch port" in capsys.readouterr().err
 
 
-def test_cli_refuses_multi_process_runs(tmp_path, capsys, monkeypatch):
-    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1234")
-    rc = _cli("kmer_scrub_count", ["-r", "x", "-A", "x", "-B", "x"], str(tmp_path / "out"))
-    assert rc == 1
-    assert "multi-process" in capsys.readouterr().err
+@pytest.mark.parametrize("seed,n,ranks", [(0, 13, 4), (1, 7, 2), (2, 3, 4), (3, 40, 3)])
+def test_partition_matches_jax(tmp_path, seed, n, ranks):
+    """The port's partition_by_size and host_file_partition are the JAX
+    package's (strainer2_tpu/parallel/distributed.py:155-188) on seeded
+    sizes with zeros and duplicates, and on files (a duplicate path, a
+    missing one, an empty one): every rank gets the same share from both."""
+    import numpy as np
+
+    from strainer2_tpu.parallel import distributed as jax_dist
+    from strainer2_tpu_torch.parallel import distributed as port_dist
+
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(0, 5, size=n) * rng.integers(1, 1000, size=n)  # zeros
+    sizes[rng.integers(0, n, size=max(1, n // 4))] = int(sizes.max())  # duplicates
+    paths = []
+    for i, size in enumerate(sizes.tolist()):
+        p = tmp_path / f"f{i}.fa"
+        p.write_bytes(b"x" * size)
+        paths.append(str(p))
+    paths += [paths[0], str(tmp_path / "missing.fa")]
+    for r in range(ranks):
+        assert port_dist.partition_by_size(sizes.tolist(), r, ranks) == \
+            jax_dist.partition_by_size(sizes.tolist(), r, ranks)
+        assert port_dist.host_file_partition(paths, r, ranks) == \
+            jax_dist.host_file_partition(paths, r, ranks)
 
 
 @pytest.mark.parametrize("module", ["kmer_scrub_count", "strain_detect"])
