@@ -55,12 +55,21 @@ Phases; any failure exits non-zero and no result line is printed:
    cuckoo lookup and to K2's found keys, M lookups/s of each; then K6 and K7 at S = 16, 32, 96 and 256 strains on phase 2's key set
    with seeded meta words and its detection batches, each exactly equal to
    its plain version;
-5. launch counts of the eighteen kernels on their paths (phase 4 for K1,
+2c. the shard-window kernels of ``--mesh DxI`` (parallel/sharding.py) on
+   phase 2's ``targets`` batches and tables split into I = 2 and 4 index
+   shards on this card: K3s and K4s of every shard in both layouts, R over
+   the shards' K4 scratch and K4's sums launch on R's output (the per-read
+   sums equal to the one-device plain K4 too), K6s at S = 32 and 256 and R
+   adding its words (equal to the one-device plain K6), each exactly equal
+   to its plain version; device ms of shard 0, of R and of the sums, and of
+   a data shard's whole classify program, R's beside one torch sum;
+5. launch counts of the twenty-five kernels on their paths (phase 4 for K1,
    K3 and K4, the A/B tool for K2, K5 and K10, phase 6 for K6 and K7,
    phase 9 for K8, K9 and K3 with its valid count and its tally total,
    phase 10 for the fingerprint kernel and the cuckoo K3, K4, K8 and K9,
    phase 3's cuckoo
-   strain-track for the cuckoo K3 with its valid count; each must be >
+   strain-track for the cuckoo K3 with its valid count, phase 12 for the
+   seven shard-window kernels; each must be >
    0; no CLI path
    probes a key set with K2 since the -a file's k-mers are marked by a
    host search), a check that neither jax nor the JAX package
@@ -120,9 +129,19 @@ Phases; any failure exits non-zero and no result line is printed:
    the other rank's stdout empty; K1 and the run's K3, K4, K6 and K7 launched
    on both ranks, each rank's memory on card 0 alone (card rank % count:
    chip_ranks.py checks a host of several cards); neither rank imports
-   jax or the JAX package; the walls beside phases 4, 7 and 8.
+   jax or the JAX package; the walls beside phases 4, 7 and 8;
+12. ``--mesh DxI`` at real size, every shard on cuda:0 (``--device
+   cuda:0``): kmer_scrub_count 2x2 (bucket K3s) and 2x2 resuming a cuckoo
+   checkpoint (cuckoo K3s), tables equal to phase 4's; strain_detect 2x2
+   (K4s, R, sums) equal to phase 4, and on phase 10's cuckoo
+   --index-cache equal to phase 10; detect-multi 1x4 on phase 6's 32
+   strains (K6s, R, K7) equal to phase 6; strain_detect --mesh 1x1 on a
+   bare cuda equal to phase 4; --mesh 2x2 on a bare cuda in a child
+   process exits 1 with JAX's "mesh 2x2 != 1 devices" on a one-card host;
+   the torch dryrun_multichip(4) on cuda:0; each wall, the shard kernels'
+   launches (each must be > 0) and the phase's wall.
 
-Phases run in the order 1, 2, 2b, 3, 4, 7, 6, 8, 11, 9, 10, 5.
+Phases run in the order 1, 2, 2b, 2c, 3, 4, 7, 6, 8, 11, 9, 10, 12, 5.
 """
 
 from __future__ import annotations
@@ -193,6 +212,13 @@ SOURCES = {
     "cuckoo_classify_step": _CU + "strainer2_kernels.cu",
     "cuckoo_hit_accumulate": _CU + "strainer2_kernels.cu",
     "cuckoo_hit_stats": _CU + "strainer2_kernels.cu",
+    "shard_count_step": _CU + "strainer2_kernels.cu",
+    "shard_cuckoo_count_step": _CU + "strainer2_kernels.cu",
+    "shard_classify_masks": _CU + "strainer2_kernels.cu",
+    "shard_cuckoo_classify_masks": _CU + "strainer2_kernels.cu",
+    "shard_multi_hit_words": _CU + "strainer2_multi.cu",
+    "shard_reduce": _CU + "strainer2_kernels.cu",
+    "classify_sums": _CU + "strainer2_kernels.cu",
 }
 REPLACES = {
     "canonical_windows": "strainer2_tpu/ops/pallas_kernels.py:127",
@@ -217,6 +243,16 @@ REPLACES = {
     "cuckoo_classify_step": "strainer2_tpu/pipeline/engine.py:307",
     "cuckoo_hit_accumulate": "strainer2_tpu/pipeline/engine.py:279",
     "cuckoo_hit_stats": "strainer2_tpu/pipeline/engine.py:284",
+    # the shard_map programs of --mesh DxI (ShardedKmerEngine)
+    "shard_count_step": "strainer2_tpu/parallel/sharding.py:304",
+    "shard_cuckoo_count_step": "strainer2_tpu/parallel/sharding.py:167",
+    "shard_classify_masks": "strainer2_tpu/parallel/sharding.py:317",
+    "shard_cuckoo_classify_masks": "strainer2_tpu/parallel/sharding.py:179",
+    "shard_multi_hit_words": "strainer2_tpu/parallel/sharding.py:265",
+    # the psum over the index axis (also :191-192 and :285-291)
+    "shard_reduce": "strainer2_tpu/parallel/sharding.py:328",
+    # K4's sums launch on a data shard's clipped boundaries
+    "classify_sums": "strainer2_tpu/parallel/sharding.py:333",
 }
 DEVICE = "cuda"
 _ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -877,6 +913,251 @@ def lookup_ab() -> dict:
     }
 
 
+# ---- phase 2c: the shard-window kernels of a (data, index) mesh -----------------
+
+SHARDS = (2, 4)  # index shards I in phase 2c
+SHARD_STRAINS = (32, 256)  # K6s's S in phase 2c
+
+
+def shard_stats(layout: str, table, h: int, salt: int, lo: int, n: int, bases, fp=None) -> tuple:
+    """What one index shard's probes of a batch read: (probes, hits,
+    matched) over the valid windows whose bucket (cuckoo: slot, each of a
+    window's two counted) lies in [lo, lo + n); hits are the windows whose
+    key the shard holds, matched (cuckoo) the in-shard slots whose
+    fingerprint is the window's."""
+    import torch
+
+    from strainer2_tpu_torch.index.hashing import cuckoo_slots_torch
+    from strainer2_tpu_torch.ops import lookup as L
+    from strainer2_tpu_torch.ops.packing import canonical_windows_plain
+
+    hi, lo_, valid = canonical_windows_plain(bases, K)
+    m = valid.reshape(-1)
+    qh, ql = (x.view(torch.int32).reshape(-1)[m].to(torch.int64) & 0xFFFFFFFF for x in (hi, lo_))
+    shi = qh ^ salt
+    if layout == "bucket":
+        b = cuckoo_slots_torch(shi, ql, h, 0) - lo
+        found = L.bucket_lookup_words_plain(table, h, salt, qh, ql, 1, lo)[0]
+        return int(((b >= 0) & (b < n)).sum()), int(found.sum()), 0
+    f = L.cuckoo_fingerprint_plain(qh, ql)
+    probes = matched = 0
+    fps = fp.to(torch.int64)
+    for s in (cuckoo_slots_torch(shi, ql, h, 0) - lo, cuckoo_slots_torch(shi, ql, h, 1) + (1 << h) - lo):
+        mine = (s >= 0) & (s < n)
+        probes += int(mine.sum())
+        matched += int((mine & (fps[torch.where(mine, s, 0)] == f)).sum())
+    found = L.shard_cuckoo_lookup_plain(table, h, salt, lo, qh, ql)[0]
+    return probes, int(found.sum()), matched
+
+
+def shard_probe_bytes(layout: str, stats: tuple, n: int) -> float:
+    """Key bytes of a shard's probes: bucket rows as ``probe_bytes``, the
+    filtered cuckoo probe as ``fp_bytes`` over the shard's n slots."""
+    from strainer2_tpu_torch.tools.bench_kernels import FilterStats, fp_bytes, probe_bytes
+
+    probes, hits, matched = stats
+    if layout == "bucket":
+        return probe_bytes(probes, hits)
+    return fp_bytes(FilterStats(probes / 2, hits, matched, n))
+
+
+def check_shard_kernels(ctx: dict, dev) -> dict:
+    """Phase 2c: the shard-window kernels against their plain versions on
+    phase 2's ``targets`` batches (K4s on ``phase2`` ones too) and tables,
+    split into I = 2 and 4 index shards (views of the one-device tables,
+    every shard on this card): K3s (count) and K4s (K4's scratch) of each
+    shard in both layouts, R over the shards' scratch and K4's sums launch
+    on R's output, the composed per-read sums equal to the one-device
+    plain classify; K6s at S = 32 and 256 on each shard of the union rows
+    and R adding the shards' words, equal to the one-device plain K6.
+    Every output exactly equal; device ms and bounds of shard 0 (the
+    shard-local program), of R and of the sums launch, and of the whole
+    program of a data shard (I shards, R, sums: ``program_ms``); R's
+    library column is one torch sum over the stacked words."""
+    import torch
+
+    from strainer2_tpu_torch.ops import lookup as L
+    from strainer2_tpu_torch.ops import segsum as G
+    from strainer2_tpu_torch.parallel.sharding import shard_table
+    from strainer2_tpu_torch.tools.bench_kernels import bound_ms, graph_ms, multi_rows
+
+    t = ctx["index"].table
+    rows, (ctable, cmeta, _, ch, csalt) = ctx["rows"], ctx["cuckoo_k4"]
+    layouts = {"bucket": (rows, None, t.h_bits, t.salt), "cuckoo": (ctable, cmeta, ch, csalt)}
+    targets = ctx["detect"]["targets"]
+    by: dict = {}  # name -> {label: results}
+
+    def record(name, label, res):
+        by.setdefault(name, {})[label] = res
+
+    for n_index in SHARDS:
+        for layout, (table, meta, h, salt) in layouts.items():
+            shards = shard_table(table, layout, n_index, meta)
+            per = shards[0].table.shape[0]
+            fps = [L.cuckoo_fingerprints(sh.table) if layout == "cuckoo" else None for sh in shards]
+            cells = per * (16 if layout == "bucket" else 1)
+            k3, k4 = (("shard_count_step", "shard_classify_masks") if layout == "bucket" else
+                      ("shard_cuckoo_count_step", "shard_cuckoo_classify_masks"))
+            st = [[shard_stats(layout, sh.table, h, salt, sh.lo, per, b, fp) for b, _, _ in targets]
+                  for sh, fp in zip(shards, fps)]
+            mean0 = tuple(sum(x) / N_BATCHES for x in zip(*st[0]))
+            if not all(sum(s[1] for s in per_shard) for per_shard in st):
+                fail(f"{layout} I={n_index}: a shard holds no key of the targets batches")
+
+            def count(sh, fp, c, plain=False):
+                if plain:  # the one-device plain version over the shard's window
+                    fn = L.count_step_plain if layout == "bucket" else L.cuckoo_count_step_plain
+                    return lambda i: (fn(c, sh.table, targets[i][0], h, salt, K, sh.lo),)
+                fn = L.shard_count_step if layout == "bucket" else L.shard_cuckoo_count_step
+                kw = {} if layout == "bucket" else {"fp": fp}
+                return lambda i: (fn(c, sh.table, sh.lo, targets[i][0], h, salt, K, **kw),)
+
+            def masks(sh, fp, bs, plain=False):
+                if layout == "bucket":
+                    fn = L.shard_classify_masks_plain if plain else L.shard_classify_masks
+                    return lambda i: fn(sh.table, sh.lo, bs[i][0], h, salt, K)
+                if plain:
+                    return lambda i: L.shard_cuckoo_classify_masks_plain(sh.table, sh.meta, sh.lo,
+                                                                         bs[i][0], h, salt, K)
+                return lambda i: L.shard_cuckoo_classify_masks(sh.table, sh.meta, sh.lo, bs[i][0],
+                                                               h, salt, K, fp=fp)
+
+            # K3s: every shard checked; shard 0 timed (its counts start at zero, as its plain twin's)
+            err = 0
+            for j, (sh, fp) in enumerate(zip(shards, fps)):
+                c, cp = (torch.zeros(cells, dtype=torch.uint32, device=dev) for _ in range(2))
+                err = max(err, checked(f"{k3} targets I={n_index} shard {j}", count(sh, fp, c),
+                                       count(sh, fp, cp, True)))
+                if not int(c.view(torch.int32).ne(0).sum()):
+                    fail(f"{k3} I={n_index} shard {j}: no hit counted")
+            c, cp = (torch.zeros(cells, dtype=torch.uint32, device=dev) for _ in range(2))
+            n_bytes = targets[0][0].numel() + shard_probe_bytes(layout, mean0, per) + (
+                8 * mean0[1] if layout == "bucket" else 32 * mean0[1])
+            label = f"targets I={n_index}"
+            record(k3, label, dict(timed(f"{k3} {label}", count(shards[0], fps[0], c),
+                                         count(shards[0], fps[0], cp, True), bound_ms(n_bytes),
+                                         f"; shard 0: {mean0[0]:.0f} probes, {mean0[1]:.0f} hits a "
+                                         "batch"), max_abs_err=err))
+            # K4s on every shard, R over their scratch, the sums launch; the
+            # composed per-read sums against the one-device plain classify
+            r_err = s_err = m_err = 0
+            for kind, bs in ctx["detect"].items():
+                for j, (sh, fp) in enumerate(zip(shards, fps)):
+                    m_err = max(m_err, checked(f"{k4} {kind} I={n_index} shard {j}",
+                                               masks(sh, fp, bs), masks(sh, fp, bs, True)))
+                parts = [torch.stack([masks(sh, fp, bs)(i)[0].view(torch.int32)
+                                      for sh, fp in zip(shards, fps)]).view(torch.uint32)
+                         for i in range(N_BATCHES)]
+                r_err = max(r_err, checked(f"shard_reduce masks {kind} I={n_index}",
+                                           lambda i: L.shard_reduce(parts[i], masks=True),
+                                           lambda i: L.shard_reduce_plain(parts[i], masks=True)))
+                red = [L.shard_reduce(p, masks=True) for p in parts]
+                sums = lambda i: L.classify_sums(*red[i], tuple(bs[i][0].shape), K, bs[i][1])  # noqa: E731
+                s_err = max(s_err, checked(f"classify_sums {kind} I={n_index}", sums,
+                                           lambda i: L.classify_sums_plain(*red[i], *bs[i][0].shape,
+                                                                           K, bs[i][1])))
+                one = ((lambda i: L.classify_step_plain(table, bs[i][0], bs[i][1], h, salt, K))
+                       if layout == "bucket" else
+                       (lambda i: L.cuckoo_classify_step_plain(table, meta, bs[i][0], bs[i][1], h,
+                                                               salt, K)))
+                s_err = max(s_err, checked(f"{k4} + shard_reduce + classify_sums {kind} "
+                                           f"I={n_index} against one-device K4", sums, one))
+                if kind != "targets":
+                    continue
+                tiles = parts[0].shape[1] // 16
+                reads = bs[0][1].numel() - 1
+                n_bytes = (bs[0][0].numel() + shard_probe_bytes(layout, mean0, per) + 4 * mean0[1]
+                           + 68 * tiles)
+                res = dict(timed(f"{k4} {label}", masks(shards[0], fps[0], bs),
+                                 masks(shards[0], fps[0], bs, True), bound_ms(n_bytes)),
+                           max_abs_err=m_err)
+
+                def program(i, bs=bs):  # a data shard's classify: I K4s launches, R, the sums launch
+                    ms = [masks(sh, fp, bs)(i)[0].view(torch.int32) for sh, fp in zip(shards, fps)]
+                    return L.classify_sums(*L.shard_reduce(torch.stack(ms).view(torch.uint32),
+                                                           masks=True),
+                                           tuple(bs[i][0].shape), K, bs[i][1])
+                res["program_ms"] = graph_ms(program)
+                print(f"time {layout} classify program (I={n_index} K4s launches, R, sums) targets: "
+                      f"device {res['program_ms']:.4f} ms a data-shard batch", flush=True)
+                record(k4, label, res)
+                record("shard_reduce", f"masks {layout} {label}", dict(
+                    timed(f"shard_reduce masks {layout} {label}",
+                          lambda i: L.shard_reduce(parts[i], masks=True),
+                          lambda i: L.shard_reduce_plain(parts[i], masks=True),
+                          bound_ms(4 * (n_index + 1) * parts[0].shape[1] + 4 * tiles)),
+                    max_abs_err=r_err))
+                record("classify_sums", f"{layout} {label}", dict(
+                    timed(f"classify_sums {layout} {label}", sums,
+                          lambda i: L.classify_sums_plain(*red[i], *bs[i][0].shape, K, bs[i][1]),
+                          bound_ms(4 * tiles + 4 * (reads + 1) + 64 * (reads + 1) + 8 * reads)),
+                    max_abs_err=s_err))
+            del fps, shards
+        # K6s on the union rows at S strains, R adding the shards' words
+        for n_strains in SHARD_STRAINS:
+            n_words = G.words_for_strains(n_strains)
+            wide = multi_rows(rows, n_words, seed=n_strains)
+            shards = shard_table(wide, "bucket", n_index)
+            per = shards[0].table.shape[0]
+            label = f"targets S={n_strains} I={n_index}"
+            err = 0
+            for j, sh in enumerate(shards):
+                err = max(err, checked(
+                    f"shard_multi_hit_words {label} shard {j}",
+                    lambda i, sh=sh: (G.shard_multi_hit_words(sh.table, sh.lo, targets[i][0], t.h_bits,
+                                                              t.salt, K, n_words),),
+                    lambda i, sh=sh: (G.multi_hit_words_plain(sh.table, targets[i][0], t.h_bits,
+                                                              t.salt, K, n_words, sh.lo),)))
+            parts = [torch.stack([G.shard_multi_hit_words(sh.table, sh.lo, targets[i][0], t.h_bits,
+                                                          t.salt, K, n_words).reshape(-1)
+                                  .view(torch.int32) for sh in shards]).view(torch.uint32)
+                     for i in range(N_BATCHES)]
+            r_err = checked(f"shard_reduce words {label}",
+                            lambda i: (L.shard_reduce(parts[i], masks=False),),
+                            lambda i: (L.shard_reduce_plain(parts[i], masks=False),))
+            r_err = max(r_err, checked(
+                f"shard_multi_hit_words + shard_reduce {label} against one-device K6",
+                lambda i: (L.shard_reduce(parts[i], masks=False),),
+                lambda i: (G.multi_hit_words_plain(wide, targets[i][0], t.h_bits, t.salt, K,
+                                                   n_words).reshape(-1),)))
+            st0 = [shard_stats("bucket", wide, t.h_bits, t.salt, 0, per, b) for b, _, _ in targets]
+            probes, hits, _ = (sum(x) / N_BATCHES for x in zip(*st0))
+            n_win = parts[0].shape[1] // n_words
+            n_bytes = (targets[0][0].numel() + shard_probe_bytes("bucket", (probes, hits, 0), per)
+                       + 4 * n_words * (hits + n_win))
+            sh0 = shards[0]
+            record("shard_multi_hit_words", label, dict(
+                timed(f"shard_multi_hit_words {label}",
+                      lambda i: G.shard_multi_hit_words(sh0.table, sh0.lo, targets[i][0], t.h_bits,
+                                                        t.salt, K, n_words),
+                      lambda i: G.multi_hit_words_plain(sh0.table, targets[i][0], t.h_bits,
+                                                        t.salt, K, n_words, sh0.lo),
+                      bound_ms(n_bytes)), max_abs_err=err))
+            res = dict(timed(f"shard_reduce words {label}",
+                             lambda i: L.shard_reduce(parts[i], masks=False),
+                             lambda i: L.shard_reduce_plain(parts[i], masks=False),
+                             bound_ms(4 * (n_index + 1) * parts[0].shape[1])), max_abs_err=r_err)
+            res["library_ms"] = graph_ms(
+                lambda i: parts[i].view(torch.int32).sum(dim=0, dtype=torch.int32))
+            print(f"time shard_reduce words {label}: torch sum of the stacked words "
+                  f"{res['library_ms']:.4f} ms", flush=True)
+            record("shard_reduce", f"words {label}", res)
+            del wide, shards, parts
+            torch.cuda.empty_cache()
+    # each entry: its headline's numbers, the other labels beside them; R's
+    # headline is the psum of K6s's words, its form with a one-call torch twin
+    i0, s0 = SHARDS[0], SHARD_STRAINS[0]
+    headline = {"shard_count_step": f"targets I={i0}", "shard_cuckoo_count_step": f"targets I={i0}",
+                "shard_classify_masks": f"targets I={i0}",
+                "shard_cuckoo_classify_masks": f"targets I={i0}",
+                "shard_multi_hit_words": f"targets S={s0} I={i0}",
+                "shard_reduce": f"words targets S={s0} I={i0}",
+                "classify_sums": f"bucket targets I={i0}"}
+    return {name: dict(by[name][head], max_abs_err=max(r["max_abs_err"] for r in by[name].values()),
+                       **{label: r for label, r in by[name].items() if label != head})
+            for name, head in headline.items()}
+
+
 def check_multi_kernels(ctx: dict) -> dict:
     """Phase 2b: K6 and K7 against their plain versions at S strains per
     pass, on phase 2's key set (rows widened on the device to
@@ -921,9 +1202,10 @@ def check_multi_kernels(ctx: dict) -> dict:
 
 # ---- phases 3 and 4: the CLIs -------------------------------------------------
 
-def run_cli(module: str, argv: list[str], stdout_path: str) -> float:
+def run_cli(module: str, argv: list[str], stdout_path: str, device: str | None = None) -> float:
     """Run one port CLI in this process (so its kernel launches are
-    counted), stdout to a file; returns its wall time in seconds."""
+    counted) with --device ``device`` (DEVICE by default), stdout to a
+    file; returns its wall time in seconds."""
     import importlib
 
     import torch
@@ -931,7 +1213,7 @@ def run_cli(module: str, argv: list[str], stdout_path: str) -> float:
     main = importlib.import_module(f"strainer2_tpu_torch.cli.{module}").main
     t0 = time.perf_counter()
     with open(stdout_path, "w") as f, contextlib.redirect_stdout(f):
-        rc = main(argv + ["--device", DEVICE])
+        rc = main(argv + ["--device", device or DEVICE])
     torch.cuda.synchronize()
     if rc:
         fail(f"{module} {' '.join(argv)} exited {rc}")
@@ -1964,6 +2246,120 @@ def real_size_cuckoo(d: str, data: dict) -> dict:
     return launches
 
 
+# ---- phase 12: --mesh DxI at real size on the one card ----------------------------
+
+MESH_DEVICE = "cuda:0"  # one explicit device: it holds every shard of phase 12's meshes
+# the shard-window kernels, each of which phase 12's CLI runs must launch
+MESH_KERNELS = ("shard_count_step", "shard_cuckoo_count_step", "shard_classify_masks",
+                "shard_cuckoo_classify_masks", "shard_multi_hit_words", "shard_reduce",
+                "classify_sums")
+
+
+def mesh_real(d: str, repo: str) -> dict:
+    """Phase 12: the CLIs with --mesh DxI at real size, every shard on
+    cuda:0 (one explicit device holds every shard), launches counted from
+    0 over the CLI runs: kmer_scrub_count 2x2 on phase 4's data (bucket
+    K3s) and resuming a cuckoo checkpoint of the first background genome
+    (cuckoo K3s), both tables equal to phase 4's; strain_detect 2x2 (K4s,
+    R, sums) equal to phase 4's payload and stdout; strain_detect 2x2 on
+    phase 10's cuckoo --index-cache equal to phase 10's; detect-multi 1x4
+    on phase 6's 32 strains (K6s, R, K7) equal to phase 6's files and
+    stdout; strain_detect 1x1 on a bare cuda equal to phase 4's; then
+    --mesh 2x2 on a bare cuda in a child process, which on a one-card host
+    exits 1 with JAX's "mesh 2x2 != 1 devices", and the torch
+    dryrun_multichip(4) on cuda:0.  Every kernel of MESH_KERNELS must have
+    launched on the CLI runs."""
+    import shutil
+
+    import torch
+
+    from strainer2_tpu_torch.ops import _build
+    from strainer2_tpu_torch.parallel.dryrun import dryrun_multichip
+    from strainer2_tpu_torch.pipeline.scrub_count import ScrubCountConfig, run_scrub_count
+
+    p = lambda name: os.path.join(d, name)  # noqa: E731
+    t_phase = time.perf_counter()
+    # a cuckoo checkpoint of the first background genome, as phase 10 leaves one
+    ck = p("p12_checkpoint")
+    shutil.rmtree(ck, ignore_errors=True)
+    run_scrub_count(p("strain.fna"), p("p10_first.txt"), p("p10_none.txt"), out=io.StringIO(),
+                    cfg=ScrubCountConfig(device=DEVICE, layout="cuckoo"), checkpoint_dir=ck)
+    scrub = ["-r", p("strain.fna"), "-A", p("genomes.txt"), "-B", p("metagenomes.txt")]
+    detect = ["-r", p("strain.fna"), "-a", p("informative.txt"), "-B", p("targets.txt")]
+    runs = {  # label: (module, argv, stdout, device)
+        "kmer_scrub_count 2x2": ("kmer_scrub_count", scrub + ["--mesh", "2x2"], "p12_counts.tsv",
+                                 MESH_DEVICE),
+        "kmer_scrub_count 2x2 --checkpoint (cuckoo)": (
+            "kmer_scrub_count", scrub + ["--mesh", "2x2", "--checkpoint", ck],
+            "p12_counts_cuckoo.tsv", MESH_DEVICE),
+        "strain_detect 2x2": ("strain_detect", detect + ["-o", p("p12_hits.gz"), "--mesh", "2x2"],
+                              "p12_detect_stdout.txt", MESH_DEVICE),
+        "strain_detect 2x2 --index-cache (cuckoo)": (
+            "strain_detect", detect + ["-o", p("p12_hits_cuckoo.gz"), "--mesh", "2x2",
+                                       "--index-cache", p("cuckoo_index.npz")],
+            "p12_detect_cuckoo_stdout.txt", MESH_DEVICE),
+        "detect-multi 1x4": ("strainer2_tools", ["detect-multi", "-S", p("strains.tsv"), "-B",
+                                                 p("targets.txt"), "-o", p("p12_multi"), "--mesh",
+                                                 "1x4"], "p12_multi_stdout.txt", MESH_DEVICE),
+        "strain_detect 1x1 (bare cuda)": ("strain_detect", detect + ["-o", p("p12_hits_1x1.gz"),
+                                                                     "--mesh", "1x1"],
+                                          "p12_detect_1x1_stdout.txt", DEVICE),
+    }
+    walls = {}
+    _build.reset_launches()
+    for label, (module, argv, stdout, device) in runs.items():
+        walls[label] = run_cli(module, argv, p(stdout), device=device)
+        print(f"stage {label} (phase 12): wall {walls[label]:.3f} s", flush=True)
+    launches = dict(_build.launches)
+    ok = {
+        "scrub 2x2 table": same_bytes(p("p12_counts.tsv"), p("counts.tsv")),
+        "scrub 2x2 cuckoo resume table": same_bytes(p("p12_counts_cuckoo.tsv"), p("counts.tsv")),
+        "detect 2x2 hits": same_payloads(p("p12_hits.gz"), p("hits.gz")),
+        "detect 2x2 stdout": same_bytes(p("p12_detect_stdout.txt"), p("detect_stdout.txt")),
+        "detect 2x2 cuckoo hits": same_payloads(p("p12_hits_cuckoo.gz"), p("p10_hits.gz")),
+        "detect 2x2 cuckoo stdout": same_bytes(p("p12_detect_cuckoo_stdout.txt"),
+                                               p("p10_detect_stdout.txt")),
+        "detect-multi 1x4 stdout": same_bytes(p("p12_multi_stdout.txt"), p("multi_stdout.txt")),
+        "detect 1x1 hits": same_payloads(p("p12_hits_1x1.gz"), p("hits.gz")),
+    }
+    files = sorted(os.listdir(p("multi")))
+    ok["detect-multi 1x4 files"] = (files == sorted(os.listdir(p("p12_multi"))) and len(files) ==
+                                    MULTI_STRAINS and all(same_payloads(
+                                        os.path.join(p("p12_multi"), f), os.path.join(p("multi"), f))
+                                        for f in files))
+    # a bare cuda with D x I not the visible cards: JAX's make_mesh error
+    mini = os.path.join(repo, "tests", "golden", "mini")
+    argv = [sys.executable, "-m", "strainer2_tpu_torch.cli.strain_detect", "-r",
+            "data/strainA.fna.gz", "-a", "expected/scrubbed_m05.txt", "-B", "data/targets.txt",
+            "-o", p("p12_refused.gz"), "--mesh", "2x2"]
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=mini, env=env, capture_output=True, text=True, timeout=300)
+    n_cards = torch.cuda.device_count()
+    want = f"mesh 2x2 != {n_cards} devices"
+    refused = n_cards == 4 or (proc.returncode == 1 and want in proc.stderr)
+    print(f"phase 12 --mesh 2x2 on a bare cuda ({n_cards} card(s)): exit {proc.returncode}, "
+          f"{proc.stderr.strip().splitlines()[-1] if proc.stderr.strip() else 'no stderr'} "
+          f"({time.perf_counter() - t0:.3f} s)", flush=True)
+    ok["bare cuda 2x2 refused as JAX"] = refused
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4, devices=MESH_DEVICE)
+    print(f"phase 12 dryrun_multichip(4) on {MESH_DEVICE}: {dry} ({time.perf_counter() - t0:.3f} s)",
+          flush=True)
+    print(f"phase 12 against phases 4, 6 and 10: {ok}", flush=True)
+    if not all(ok.values()):
+        fail("a --mesh run differs from its one-device phase")
+    mesh_launches = {name: launches[name] for name in MESH_KERNELS}
+    print(f"launches during phase 12 (the --mesh CLI runs): {mesh_launches}; all: {launches}",
+          flush=True)
+    if not all(mesh_launches.values()):
+        fail(f"a shard-window kernel was not launched on phase 12's paths: {mesh_launches}")
+    wall = time.perf_counter() - t_phase
+    print(f"phase 12 wall {wall:.3f} s (walls of phase 4: detect and scrub, phase 6 and 10 above)",
+          flush=True)
+    return {"launches": launches, "walls": walls, "wall": wall}
+
+
 # ---- phase 11: two ranks on the one card --------------------------------------
 
 # One rank of a phase-11 run: the CLI's main in a fresh interpreter, then
@@ -2214,6 +2610,10 @@ def main() -> int:
         phase("2b")
         ab = lookup_ab()
         multi_k = check_multi_kernels(ctx)
+
+        # ---- phase 2c: the shard-window kernels of --mesh DxI
+        phase("2c")
+        shard_k = check_shard_kernels(ctx, torch.device(DEVICE))
         del ctx
         torch.cuda.empty_cache()
 
@@ -2304,6 +2704,11 @@ def main() -> int:
             cuckoo_launches = real_size_cuckoo(d, data)
             print("phase 10 idle share: not measured (run with --profile)", flush=True)
 
+        # ---- phase 12: --mesh DxI at real size on the one card; launches counted
+        phase("12")
+        torch.cuda.empty_cache()
+        mesh = mesh_real(d, repo)
+
     # ---- phase 5
     phase("5")
     paths = {
@@ -2312,6 +2717,7 @@ def main() -> int:
         "detect-multi (phase 6)": multi_launches,
         "genome_compare and strain-track (phase 9)": compare_launches,
         "cuckoo CLI and stage runs (phase 10)": cuckoo_launches,
+        "--mesh CLI runs (phase 12)": mesh["launches"],
     }
     for path, counts in paths.items():
         print(f"launches during {path}: {counts}", flush=True)
@@ -2343,7 +2749,9 @@ def main() -> int:
                                ("cuckoo_hit_stats", "genome_compare -S, cuckoo (phase 10)",
                                 cuckoo_launches),
                                ("cuckoo_count_valid_step", "strain-track, cuckoo (phase 3)",
-                                mini_cuckoo_launches)):
+                                mini_cuckoo_launches),
+                               *((name, "--mesh CLI runs (phase 12)", mesh["launches"])
+                                 for name in MESH_KERNELS)):
         launches[name] = counts[name]
         launched_by[name] = path
     if not all(launches[name] > 0 for name in REPLACES):
@@ -2352,6 +2760,7 @@ def main() -> int:
     ring.update(max_abs_err=max(ring["max_abs_err"], ab["max_abs_err"]),
                 ab_ms_per_4m=ab["ms"], ab_plain_ms_per_4m=ab["plain_ms"])
     results.update(cuckoo_k)
+    results.update(shard_k)
     k10 = results["cuckoo_lookup"]
     k10.update(max_abs_err=max(k10["max_abs_err"], ab["k10_max_abs_err"]), ab_ms_per_4m=ab["k10_ms"],
                ab_k2_ms_per_4m=ab["k2_ms"])

@@ -1,9 +1,12 @@
 """Shared flag handling of the port's CLIs.
 
 Each CLI carries a copy of ``build_parser()`` of its twin in
-``strainer2_tpu.cli`` (pinned by tests/test_torch_cli.py), adds
-``--device`` and refuses the options this port does not carry yet, instead
-of ignoring them.
+``strainer2_tpu.cli`` (pinned by tests/test_torch_cli.py) and adds
+``--device``.  ``--mesh DxI`` (kmer_scrub_count, strain_detect,
+strainer2_tools detect-multi) lays a (data, index) device mesh over
+``--device`` (parallel/sharding.py make_mesh): a bare ``cuda`` is every
+visible card and must number D x I, one explicit device (``cuda:N``,
+``cpu``) holds every shard.
 
 Under the multi-process launch contract (JAX_COORDINATOR_ADDRESS,
 JAX_NUM_PROCESSES, JAX_PROCESS_ID; parallel/distributed.py) each CLI does
@@ -18,11 +21,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-__all__ = ["add_device", "check_args"]
-
-_UNPORTED = {
-    "mesh": "--mesh (device-mesh sharding)",
-}
+__all__ = ["add_device", "check_args", "mesh_shape"]
 
 
 def add_device(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -36,9 +35,6 @@ def add_device(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
 
 def check_args(parser: argparse.ArgumentParser, args) -> int:
     """0 when the run can go ahead; else prints why and returns the exit code."""
-    for dest, what in _UNPORTED.items():
-        if getattr(args, dest, None):
-            parser.error(f"{what} is not supported by the torch port yet")
     from strainer2_tpu_torch.pipeline.engine import resolve_device
 
     try:
@@ -47,3 +43,12 @@ def check_args(parser: argparse.ArgumentParser, args) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 1
     return 0
+
+
+def mesh_shape(spec: str | None) -> tuple[int, int] | None:
+    """``DxI`` as the JAX CLIs parse it (strainer2_tpu/cli/strain_detect.py:
+    79-81): (D, I), or None without --mesh."""
+    if not spec:
+        return None
+    d, i = spec.lower().split("x")
+    return int(d), int(i)

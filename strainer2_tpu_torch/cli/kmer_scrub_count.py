@@ -7,7 +7,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from strainer2_tpu_torch.cli._common import add_device, check_args
+from strainer2_tpu_torch.cli._common import add_device, check_args, mesh_shape
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -45,7 +45,8 @@ def main(argv: list[str] | None = None) -> int:
     # a multi-process run brings its group up before sys.stdout is taken
     # as the table's stream: the bring-up rebinds sys.stdout
     initialize()
-    cfg = ScrubCountConfig(device=args.device, reference_order=not args.no_reference_order)
+    cfg = ScrubCountConfig(device=args.device, reference_order=not args.no_reference_order,
+                           mesh=mesh_shape(args.mesh))
     if args.rows:
         cfg.rows = args.rows
     if args.row_len:

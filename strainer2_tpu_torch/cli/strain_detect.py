@@ -7,7 +7,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from strainer2_tpu_torch.cli._common import add_device, check_args
+from strainer2_tpu_torch.cli._common import add_device, check_args, mesh_shape
 from strainer2_tpu_torch.constants import IS_PAIRED_END, NOT_PAIRED_END
 
 
@@ -74,7 +74,7 @@ def main(argv: list[str] | None = None) -> int:
               file=sys.stdout)
         return 1
 
-    cfg = DetectConfig(device=args.device)
+    cfg = DetectConfig(device=args.device, mesh=mesh_shape(args.mesh))
     if args.rows:
         cfg.rows = args.rows
     if args.row_len:

@@ -7,7 +7,9 @@ strains against shared target samples in one stream pass per planned pass
 of strains; ``scrub-multi`` counts many strains' panels in one shared
 scan; ``pipeline`` and ``pipeline-multi`` run scrub -> filter -> detect ->
 coverage in one process for one or many strains (``--checkpoint`` makes
-the long stages resumable).  ``--mesh`` is refused.
+the long stages resumable).  ``detect-multi --mesh DxI`` splits the union
+table over a (data, index) device mesh on ``--device`` (parallel/
+sharding.py), the budget of its pass planner times the index shards.
 
     python -m strainer2_tpu_torch.cli.strainer2_tools pipeline \\
         -r strain.fna -A genomes.txt -B metagenomes.txt -T targets.txt -o out_dir \\
@@ -20,7 +22,7 @@ import argparse
 import os
 import sys
 
-from strainer2_tpu_torch.cli._common import add_device, check_args
+from strainer2_tpu_torch.cli._common import add_device, check_args, mesh_shape
 from strainer2_tpu_torch.pipeline.fused import _stem
 
 
@@ -168,21 +170,25 @@ def detect_multi(args) -> None:
 
     from strainer2_tpu_torch.utils.observability import stage
     from strainer2_tpu_torch.index.build import StrainIndex, scan_file_codes
+    from strainer2_tpu_torch.parallel.sharding import make_mesh
     from strainer2_tpu_torch.pipeline.detect import DetectConfig, strain_threads
     from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
     from strainer2_tpu_torch.pipeline.multi_detect import (
         MAX_STRAINS_PER_PASS,
         MultiStrainDetector,
         device_mem_budget,
+        mesh_mem_budget,
         projected_rows_bytes,
         union_sorted,
     )
 
     strains = _read_strain_list(args.strain_list)
     os.makedirs(args.out_dir, exist_ok=True)
-    cfg = DetectConfig(device=args.device)
+    cfg = DetectConfig(device=args.device, mesh=mesh_shape(args.mesh))
     eng = TorchKmerEngine(cfg.k, device=args.device)
-    budget = device_mem_budget(args.device)
+    # the union splits over the index shards, on as many cards as the mesh gives them
+    mesh = make_mesh(*cfg.mesh, devices=args.device) if cfg.mesh is not None else None
+    budget = mesh_mem_budget(device_mem_budget(args.device), mesh)
 
     def scan(r):
         ix = StrainIndex.from_scan_codes(scan_file_codes(r, eng), k=cfg.k)

@@ -15,7 +15,10 @@
 //   (strainer2_tpu/ops/lookup.py:133-136; meta_sum);
 // - a cuckoo table is 2H slots of (hi, lo) uint32 pairs
 //   (strainer2_tpu/index/cuckoo.py); a key's slots are cuckoo_slot(hi ^ salt,
-//   lo, h_bits, 0) and cuckoo_slot(hi ^ salt, lo, h_bits, 1) + H.
+//   lo, h_bits, 0) and cuckoo_slot(hi ^ salt, lo, h_bits, 1) + H;
+// - an index shard (strainer2_tpu/parallel/sharding.py) is a contiguous
+//   block of whole buckets or of slots; a key is the shard's where its
+//   bucket (or slot) lies in the block.
 #pragma once
 
 #include <cstdint>
@@ -224,21 +227,76 @@ __device__ __forceinline__ uint32_t meta_sum(const uint32_t* p, unsigned m) {
   return v;
 }
 
-// The probe of window w0 + p of a packed tile (K3, K6): the 16-bit mask of
-// the cells of its bucket whose key equals the window's, 0 for a window at
-// or past W, an invalid window or a miss; the bucket in *bucket where the
-// mask is not 0.  The 16 key_lo lanes are read only where a key_hi lane
-// matches, so a miss usually costs 64 bytes, not 128.
-__device__ __forceinline__ unsigned probe_window(const PackedTile& t, int p,
-                                                 const uint32_t* rows, int row_width,
-                                                 int h_bits, uint32_t salt, int w0,
-                                                 int W, int k, uint32_t* bucket) {
+// ---------------------------------------------------------------------------
+// Probe policies of K3, K4, K6, K8 and K9 (and their shard-window forms):
+// find() returns nonzero where the table holds the key (hi, lo) and sets
+// *where; slot() is the count index of a hit, meta() its detection class,
+// row() (bucket policies) the row that holds it.  The cuckoo policies are
+// in strainer2_kernels.cu.
+// ---------------------------------------------------------------------------
+// The bucket rows (K2's probe): where = the bucket, the mask its equal cells.
+struct BucketProbe {
+  const uint32_t* rows;
+  int row_width;
+  int h_bits;
+  uint32_t salt;
+
+  __device__ __forceinline__ unsigned find(uint32_t h, uint32_t l, uint32_t* where) const {
+    *where = bucket_of(h, l, h_bits, salt);
+    return match_mask(rows + static_cast<size_t>(*where) * row_width, h, l);
+  }
+  __device__ __forceinline__ const uint32_t* row(uint32_t where) const {
+    return rows + static_cast<size_t>(where) * row_width;
+  }
+  __device__ __forceinline__ size_t slot(uint32_t where, unsigned m) const {
+    return static_cast<size_t>(where) * kKeysPerBucket + (__ffs(m) - 1);
+  }
+  __device__ __forceinline__ uint32_t meta(uint32_t where, unsigned m) const {
+    return meta_sum(row(where) + kMetaLane, m);
+  }
+};
+
+// One index shard of the bucket rows (the sharded twin of JAX's
+// _bucket_local_lookup, strainer2_tpu/parallel/sharding.py:209): rows holds
+// the n buckets [lo, lo + n) of the table; a key whose bucket lies outside
+// them is a miss with no memory read.  where = the local bucket, so slot()
+// is the shard's own count index (local bucket * 16 + the first equal cell).
+struct ShardBucketProbe {
+  const uint32_t* rows;  // the shard's n rows
+  int row_width;
+  int h_bits;
+  uint32_t salt;
+  uint32_t lo;  // the shard's first bucket
+  uint32_t n;   // its buckets
+
+  __device__ __forceinline__ unsigned find(uint32_t h, uint32_t l, uint32_t* where) const {
+    const uint32_t b = bucket_of(h, l, h_bits, salt) - lo;  // wraps below lo
+    if (b >= n) return 0u;
+    *where = b;
+    return match_mask(rows + static_cast<size_t>(b) * row_width, h, l);
+  }
+  __device__ __forceinline__ const uint32_t* row(uint32_t where) const {
+    return rows + static_cast<size_t>(where) * row_width;
+  }
+  __device__ __forceinline__ size_t slot(uint32_t where, unsigned m) const {
+    return static_cast<size_t>(where) * kKeysPerBucket + (__ffs(m) - 1);
+  }
+  __device__ __forceinline__ uint32_t meta(uint32_t where, unsigned m) const {
+    return meta_sum(row(where) + kMetaLane, m);
+  }
+};
+
+// The probe of window w0 + p of a packed tile (K3, K4, K6, K8, K9): nonzero
+// where the window is valid and its key is in the table (*where as the
+// probe sets it); *valid says whether the window is valid.
+template <class Probe>
+__device__ __forceinline__ unsigned probe_valid_window(const PackedTile& t, int p,
+                                                       const Probe& probe, int w0, int W, int k,
+                                                       uint32_t* where, bool* valid) {
   uint32_t h, l;
-  if (w0 + p >= W || !packed_window(t, p, k, min(k, 16), &h, &l)) return 0u;
-  *bucket = bucket_of(h, l, h_bits, salt);
-  const uint32_t* r = rows + static_cast<size_t>(*bucket) * row_width;
-  const unsigned m = lanes_equal(r, h);
-  return m ? m & lanes_equal(r + kKeysPerBucket, l) : 0u;
+  *valid = w0 + p < W && packed_window(t, p, k, min(k, 16), &h, &l);
+  if (!*valid) return 0u;
+  return probe.find(h, l, where);
 }
 
 // Index b of a read boundary into a prefix of q + 1 entries, as a JAX gather

@@ -113,29 +113,8 @@ __global__ void bucket_lookup_kernel(const uint32_t* __restrict__ rows,
   meta[q] = m ? meta_sum(row + kMetaLane, m) : 0u;
 }
 
-// ---------------------------------------------------------------------------
-// Probe policies of K3, K4, K8 and K9: find() returns nonzero where the
-// table holds the key (hi, lo) and sets *where; slot() is the count index of
-// a hit, meta() its detection class.
-// ---------------------------------------------------------------------------
-// The bucket rows (K2's probe): where = the bucket, the mask its equal cells.
-struct BucketProbe {
-  const uint32_t* rows;
-  int row_width;
-  int h_bits;
-  uint32_t salt;
-
-  __device__ __forceinline__ unsigned find(uint32_t h, uint32_t l, uint32_t* where) const {
-    *where = bucket_of(h, l, h_bits, salt);
-    return match_mask(rows + static_cast<size_t>(*where) * row_width, h, l);
-  }
-  __device__ __forceinline__ size_t slot(uint32_t where, unsigned m) const {
-    return static_cast<size_t>(where) * kKeysPerBucket + (__ffs(m) - 1);
-  }
-  __device__ __forceinline__ uint32_t meta(uint32_t where, unsigned m) const {
-    return meta_sum(rows + static_cast<size_t>(where) * row_width + kMetaLane, m);
-  }
-};
+// The probe policies of the bucket layout (BucketProbe, ShardBucketProbe) and
+// probe_valid_window are in kmer_device.cuh; the cuckoo ones follow.
 
 // The slot fingerprint of the cuckoo layout: 8 bits of a hash of the
 // unsalted key, with multipliers and a finalizer of its own, so that it
@@ -189,6 +168,47 @@ struct CuckooProbe {
   }
 };
 
+// One index shard of the cuckoo table (the sharded twin of JAX's
+// _local_lookup, strainer2_tpu/parallel/sharding.py:53-78): table and fp hold
+// the n slots [lo, lo + n) and their fingerprints, meta_words their classes;
+// a slot of the key outside them is not probed and reads nothing.  where =
+// the local slot of the match: s1's where the shard holds the key in both
+// of its slots, as JAX's loop lets an s1 match overwrite an s0 one
+// (CuckooProbe picks s0; neither package's builder places a key twice, so
+// the two agree on every table they build).
+struct ShardCuckooProbe {
+  const uint2* table;  // the shard's n (hi, lo) slots
+  const uint8_t* fp;   // their fingerprints
+  int h_bits;
+  uint32_t salt;
+  uint32_t H;
+  uint32_t lo;  // the shard's first slot
+  uint32_t n;   // its slots
+  const uint32_t* meta_words;  // its n classes (K4s only)
+
+  __device__ __forceinline__ unsigned find(uint32_t h, uint32_t l, uint32_t* where) const {
+    const uint32_t sh = h ^ salt;
+    const uint32_t s0 = cuckoo_slot(sh, l, h_bits, 0) - lo;  // local; wraps below lo
+    const uint32_t s1 = cuckoo_slot(sh, l, h_bits, 1) + H - lo;
+    uint32_t f0 = 0x100u, f1 = 0x100u;  // no fingerprint's value
+    if (s0 < n) f0 = __ldg(fp + s0);
+    if (s1 < n) f1 = __ldg(fp + s1);
+    const uint32_t f = cuckoo_fingerprint(h, l);
+    const bool m0 = f0 == f, m1 = f1 == f;
+    uint2 a = make_uint2(0u, 0u), b = make_uint2(0u, 0u);
+    if (m0) a = __ldg(table + s0);
+    if (m1) b = __ldg(table + s1);
+    const bool hit0 = m0 & (a.x == h) & (a.y == l);
+    const bool hit1 = m1 & (b.x == h) & (b.y == l);
+    *where = hit1 ? s1 : s0;
+    return hit0 | hit1;
+  }
+  __device__ __forceinline__ size_t slot(uint32_t where, unsigned) const { return where; }
+  __device__ __forceinline__ uint32_t meta(uint32_t where, unsigned) const {
+    return __ldg(meta_words + where);
+  }
+};
+
 // ---------------------------------------------------------------------------
 // cuckoo_fingerprints: fp[s] = cuckoo_fingerprint(table[s]) over the 2H
 // slots, once an index (TorchKmerEngine.table_for).
@@ -234,12 +254,14 @@ cudaAccessPolicyWindow fp_window(const uint8_t* fp, size_t n) {
 // Without the window a `count` batch of cuckoo K3 took 0.0273 ms, with it
 // 0.0240; `targets` batches the same either way (H100 80GB HBM3, 700 W;
 // PERF.md).
+// launch_windowed puts the window on n_fp bytes from fp (an index shard's
+// fingerprints); launch_cuckoo on a whole table's 2H.
 template <class... Params, class... Args>
-int launch_cuckoo(void (*kernel)(Params...), dim3 grid, dim3 block, cudaStream_t st,
-                  const uint8_t* fp, uint32_t H, Args... args) {
+int launch_windowed(void (*kernel)(Params...), dim3 grid, dim3 block, cudaStream_t st,
+                    const uint8_t* fp, size_t n_fp, Args... args) {
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeAccessPolicyWindow;
-  attr[0].val.accessPolicyWindow = fp_window(fp, 2 * static_cast<size_t>(H));
+  attr[0].val.accessPolicyWindow = fp_window(fp, n_fp);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = block;
@@ -248,6 +270,12 @@ int launch_cuckoo(void (*kernel)(Params...), dim3 grid, dim3 block, cudaStream_t
   cfg.numAttrs = 1;
   const cudaError_t rc = cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
   return rc != cudaSuccess ? static_cast<int>(rc) : launch_status();
+}
+
+template <class... Params, class... Args>
+int launch_cuckoo(void (*kernel)(Params...), dim3 grid, dim3 block, cudaStream_t st,
+                  const uint8_t* fp, uint32_t H, Args... args) {
+  return launch_windowed(kernel, grid, block, st, fp, 2 * static_cast<size_t>(H), args...);
 }
 
 // ---------------------------------------------------------------------------
@@ -299,26 +327,13 @@ __global__ void cuckoo_lookup_kernel(const uint2* __restrict__ table,
 //   constant number of instructions (packed_window): the k-step byte loop
 //   took 0.024 ms a batch on its own, as long as the probes of a `targets`
 //   batch; packed, 0.0076. Then one probe a thread, key_hi lanes first
-//   (probe_window), so a miss reads 64 bytes, not 128. Two or four
+//   (BucketProbe), so a miss reads 64 bytes, not 128. Two or four
 //   windows a thread, more probes in flight, were slower: the rate of
 //   random accesses is the limit, not their latency. A hit is one
 //   atomicAdd on uint32, which wraps like the JAX scatter-add; integer
 //   adds commute, so the count bytes do not depend on the order the
 //   atomics land in.
 // ---------------------------------------------------------------------------
-// The probe of window w0 + p of a packed tile (K3, K8, K9): nonzero where
-// the window is valid and its key is in the table (*where as the probe sets
-// it); *valid says whether the window is valid.
-template <class Probe>
-__device__ __forceinline__ unsigned probe_valid_window(const PackedTile& t, int p,
-                                                       const Probe& probe, int w0, int W, int k,
-                                                       uint32_t* where, bool* valid) {
-  uint32_t h, l;
-  *valid = w0 + p < W && packed_window(t, p, k, min(k, 16), &h, &l);
-  if (!*valid) return 0u;
-  return probe.find(h, l, where);
-}
-
 // One block of K3. kCountValid adds the tile's valid windows into its own
 // slot of the caller's int64 tally (strain-track).
 template <bool kCountValid, class Probe>
@@ -973,6 +988,114 @@ hit_crossing_kernel(const uint32_t* __restrict__ masks, const uint32_t* __restri
   crossing_epilogue(masks, tile_counts, n, W, tpr, remaining, out, warp_sums);
 }
 
+
+// ---------------------------------------------------------------------------
+// The shard-window kernels of --mesh DxI (strainer2_tpu/parallel/sharding.py).
+//
+// Replaces: the shard_map bodies of ShardedKmerEngine: _count_body
+//   (sharding.py:167) and _count_body_bucket (:304), K3s; the probe and
+//   class planes of _classify_body (:179) and _classify_body_bucket (:317),
+//   K4s; and the psum over the index axis of both (:191-192, :328-329), R.
+// Bound on this card: a shard reads its data shard's bases and probes only
+//   the windows whose bucket (or slot) it holds, about 1/I of the valid
+//   windows (the rest are settled by the hash alone, no read); K3s adds into
+//   the shard's private counts, K4s writes K4's 16 mask words and a count
+//   word a tile. R reads I copies of the masks and writes one. Shard 0 of
+//   a `targets` batch at I = 2 / 4: K3s 0.0157 / 0.0128 ms (0.51 / 0.33 of
+//   its bound; K3 0.0285), cuckoo K3s 0.0109 / 0.0100, K4s 0.0169 /
+//   0.0145, cuckoo K4s 0.0128 / 0.0118; R 0.0016-0.0020; the sums launch
+//   0.0047; a data shard's I K4s, R and sums 0.0450 / 0.0677 on one card
+//   (H100 80GB HBM3, 700 W; PERF.md): a shard probes 1/I of the windows
+//   but packs the whole batch.
+// Design: K3's and K4's blocks with the window policies (ShardBucketProbe,
+//   ShardCuckooProbe): a key outside the shard's block is a miss with no
+//   memory read, and slot() is the shard's local count index, so
+//   count_step_tile and classify_masks_tile run unchanged. A key lives in
+//   one shard, so the OR of the shards' hit bits is the psum's hit_g > 0,
+//   and the OR of their informative bits its class_g == 2 (the two differ
+//   only for a key held twice, which no builder makes); R ORs the shards'
+//   words on the data shard's first device and recounts each tile's packed
+//   count word from them by popcount (a sum of the shards' count words
+//   would count a window twice if two shards set its bit), then K4's
+//   classify_sums_kernel runs unchanged on the data shard's boundaries,
+//   clipped to its window range (sharding.py:333-340).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kTile)
+shard_count_step_kernel(uint32_t* __restrict__ counts, const uint32_t* __restrict__ rows,
+                        int row_width, int h_bits, uint32_t salt, uint32_t lo, uint32_t n,
+                        const uint8_t* __restrict__ bases, int L, int k) {
+  count_step_tile<false>(counts, ShardBucketProbe{rows, row_width, h_bits, salt, lo, n}, bases,
+                         L, k, nullptr);
+}
+
+__global__ void __launch_bounds__(kTile)
+shard_cuckoo_count_step_kernel(uint32_t* __restrict__ counts, const uint2* __restrict__ table,
+                               const uint8_t* __restrict__ fp, int h_bits, uint32_t H,
+                               uint32_t salt, uint32_t lo, uint32_t n,
+                               const uint8_t* __restrict__ bases, int L, int k) {
+  count_step_tile<false>(counts, ShardCuckooProbe{table, fp, h_bits, salt, H, lo, n, nullptr},
+                         bases, L, k, nullptr);
+}
+
+__global__ void __launch_bounds__(kTile)
+shard_classify_masks_kernel(const uint32_t* __restrict__ rows, int row_width, int h_bits,
+                            uint32_t salt, uint32_t lo, uint32_t n,
+                            const uint8_t* __restrict__ bases, int L, int k,
+                            uint32_t* __restrict__ masks, uint32_t* __restrict__ tile_counts) {
+  classify_masks_tile(ShardBucketProbe{rows, row_width, h_bits, salt, lo, n}, bases, L, k, masks,
+                      tile_counts);
+}
+
+__global__ void __launch_bounds__(kTile)
+shard_cuckoo_classify_masks_kernel(const uint2* __restrict__ table,
+                                   const uint8_t* __restrict__ fp,
+                                   const uint32_t* __restrict__ meta, int h_bits, uint32_t H,
+                                   uint32_t salt, uint32_t lo, uint32_t n,
+                                   const uint8_t* __restrict__ bases, int L, int k,
+                                   uint32_t* __restrict__ masks,
+                                   uint32_t* __restrict__ tile_counts) {
+  classify_masks_tile(ShardCuckooProbe{table, fp, h_bits, salt, H, lo, n, meta}, bases, L, k,
+                      masks, tile_counts);
+}
+
+// R: out[j] = OR (kMasks) or uint32-wrapping sum of parts[p * n + j] over the
+// n_parts shards' buffers, a thread a word, so a warp's loads of each part
+// are 128 consecutive bytes. In the masks form n is 16 words a tile (K4's
+// layout: 8 hit words, 8 informative words), so a half warp holds a tile:
+// three shuffles sum each eight lanes' popcounts, and the half warp's first
+// lane writes the tile's count word hits << 16 | informative, as
+// store_tile_masks packs it. The sum form is the psum of K6s's meta words
+// (sharding.py:285-291): a key lives in one shard, so it adds one nonzero
+// word to zeros. At S = 256, I = 4 the sum form took 0.1325 ms (0.75 of its
+// bound) where torch's sum of the stacked words took 0.1106 (H100 80GB
+// HBM3, 700 W; PERF.md): each thread reads the parts one after another.
+constexpr int kReduceThreads = 256;
+
+template <bool kMasks>
+__global__ void __launch_bounds__(kReduceThreads)
+shard_reduce_kernel(const uint32_t* __restrict__ parts, int n_parts, long long n,
+                    uint32_t* __restrict__ out, uint32_t* __restrict__ tile_counts) {
+  const long long i = blockIdx.x * static_cast<long long>(kReduceThreads) + threadIdx.x;
+  uint32_t v = 0;
+  if (i < n) {
+    v = __ldg(parts + i);
+    for (int p = 1; p < n_parts; ++p) {
+      const uint32_t x = __ldg(parts + p * n + i);
+      v = kMasks ? v | x : v + x;
+    }
+    out[i] = v;
+  }
+  if constexpr (kMasks) {
+    int c = __popc(v);  // past n: 0, and whole half warps
+#pragma unroll
+    for (int m = 1; m < 8; m <<= 1) c += __shfl_xor_sync(0xffffffffu, c, m);
+    const int inf = __shfl_down_sync(0xffffffffu, c, 8);  // lanes 8-15's sum, at lane 0
+    if (i < n && (threadIdx.x & 15) == 0)
+      tile_counts[i >> 4] = static_cast<uint32_t>(c) << 16 | static_cast<uint32_t>(inf);
+    asm volatile("griddepcontrol.launch_dependents;");  // the sums launch follows by PDL
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1205,6 +1328,98 @@ int s2t_cuckoo_classify_step(const void* table, const void* fp, const void* meta
   }
   return launch_dependent(classify_sums_kernel, dim3((max_reads + kTile - 1) / kTile), st,
                           n_rows > 0, m, c, n_rows * tpr, n_rows, W, tpr,
+                          static_cast<const int32_t*>(bounds), max_reads,
+                          static_cast<int32_t*>(tot), static_cast<int32_t*>(inf));
+}
+
+
+// ---- the shard-window kernels: lo and n are the shard's first bucket (or
+// slot) and its count; rows, table, fp, meta and counts hold the shard's own
+// n buckets or slots.
+
+int s2t_shard_count_step(void* counts, const void* rows, int row_width, int h_bits,
+                         uint32_t salt, int lo, int n, const void* bases, int n_rows, int L,
+                         int k, void* stream) {
+  const int W = L - k + 1;
+  const dim3 grid((W + kTile - 1) / kTile, n_rows);
+  shard_count_step_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(counts), static_cast<const uint32_t*>(rows), row_width, h_bits, salt,
+      static_cast<uint32_t>(lo), static_cast<uint32_t>(n), static_cast<const uint8_t*>(bases), L,
+      k);
+  return launch_status();
+}
+
+int s2t_shard_cuckoo_count_step(void* counts, const void* table, const void* fp, int h_bits,
+                                int H, uint32_t salt, int lo, int n, const void* bases,
+                                int n_rows, int L, int k, void* stream) {
+  const int W = L - k + 1;
+  const dim3 grid((W + kTile - 1) / kTile, n_rows);
+  return launch_windowed(shard_cuckoo_count_step_kernel, grid, dim3(kTile),
+                         static_cast<cudaStream_t>(stream), static_cast<const uint8_t*>(fp),
+                         static_cast<size_t>(n), static_cast<uint32_t*>(counts),
+                         static_cast<const uint2*>(table), static_cast<const uint8_t*>(fp), h_bits,
+                         static_cast<uint32_t>(H), salt, static_cast<uint32_t>(lo),
+                         static_cast<uint32_t>(n), static_cast<const uint8_t*>(bases), L, k);
+}
+
+// masks and counts as s2t_classify_step's scratch: n_rows x ceil(W / 256)
+// tiles of 16 mask words and a count word.
+int s2t_shard_classify_masks(const void* rows, int row_width, int h_bits, uint32_t salt, int lo,
+                             int n, const void* bases, int n_rows, int L, int k, void* masks,
+                             void* counts, void* stream) {
+  const int W = L - k + 1;
+  const dim3 grid((W + kTile - 1) / kTile, n_rows);
+  shard_classify_masks_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(rows), row_width, h_bits, salt, static_cast<uint32_t>(lo),
+      static_cast<uint32_t>(n), static_cast<const uint8_t*>(bases), L, k,
+      static_cast<uint32_t*>(masks), static_cast<uint32_t*>(counts));
+  return launch_status();
+}
+
+int s2t_shard_cuckoo_classify_masks(const void* table, const void* fp, const void* meta,
+                                    int h_bits, int H, uint32_t salt, int lo, int n,
+                                    const void* bases, int n_rows, int L, int k, void* masks,
+                                    void* counts, void* stream) {
+  const int W = L - k + 1;
+  const dim3 grid((W + kTile - 1) / kTile, n_rows);
+  return launch_windowed(shard_cuckoo_classify_masks_kernel, grid, dim3(kTile),
+                         static_cast<cudaStream_t>(stream), static_cast<const uint8_t*>(fp),
+                         static_cast<size_t>(n), static_cast<const uint2*>(table),
+                         static_cast<const uint8_t*>(fp), static_cast<const uint32_t*>(meta),
+                         h_bits, static_cast<uint32_t>(H), salt, static_cast<uint32_t>(lo),
+                         static_cast<uint32_t>(n), static_cast<const uint8_t*>(bases), L, k,
+                         static_cast<uint32_t*>(masks), static_cast<uint32_t*>(counts));
+}
+
+// R over n_parts contiguous buffers of n words each (parts: n_parts x n):
+// masks != 0 ORs K4s's masks (n = 16 x tiles) and writes each tile's count
+// word into tile_counts; masks == 0 adds K6s's words (tile_counts unused).
+int s2t_shard_reduce(const void* parts, int n_parts, long long n, int masks, void* out,
+                     void* tile_counts, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = static_cast<unsigned>((n + kReduceThreads - 1) / kReduceThreads);
+  if (masks) {
+    shard_reduce_kernel<true><<<blocks, kReduceThreads, 0, st>>>(
+        static_cast<const uint32_t*>(parts), n_parts, n, static_cast<uint32_t*>(out),
+        static_cast<uint32_t*>(tile_counts));
+  } else {
+    shard_reduce_kernel<false><<<blocks, kReduceThreads, 0, st>>>(
+        static_cast<const uint32_t*>(parts), n_parts, n, static_cast<uint32_t*>(out), nullptr);
+  }
+  return launch_status();
+}
+
+// K4's second launch on its own: per-read (total, informative) of reads
+// [0, max_reads) from the n_rows x ceil(W / 256) tiles of masks and counts
+// (a K4s launch's, or R's), chained by PDL to the launch before it.
+int s2t_classify_sums(const void* masks, const void* counts, int n_rows, int L, int k,
+                      const void* bounds, int max_reads, void* tot, void* inf, void* stream) {
+  const int W = L - k + 1;
+  const int tpr = (W + kTile - 1) / kTile;
+  return launch_dependent(classify_sums_kernel, dim3((max_reads + kTile - 1) / kTile),
+                          static_cast<cudaStream_t>(stream), n_rows > 0,
+                          static_cast<const uint32_t*>(masks),
+                          static_cast<const uint32_t*>(counts), n_rows * tpr, n_rows, W, tpr,
                           static_cast<const int32_t*>(bounds), max_reads,
                           static_cast<int32_t*>(tot), static_cast<int32_t*>(inf));
 }

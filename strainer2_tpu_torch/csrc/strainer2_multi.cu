@@ -178,8 +178,9 @@ bucket_lookup_ring_kernel(const uint32_t* __restrict__ rows, int row_width, int 
 //   batch at 256 strains), written once. On target-like batches (1% hits)
 //   the probes and the stores set the time; where half the valid windows
 //   hit, a hit's n_words random meta reads do (PERF.md).
-// Design: K3's packed tile and probe (pack_tile, probe_window: window codes
-//   in constant time, key_hi lanes first); word j of a hit, j < n_words,
+// Design: K3's packed tile and probe (pack_tile, and BucketProbe through
+//   probe_valid_window: window codes in constant time, key_hi lanes first,
+//   the probe policy of K3, K4, K8 and K9); word j of a hit, j < n_words,
 //   is lane 32 + 16 j + cell of its one equal cell, or where a row holds
 //   the key twice the sum over its equal cells (meta_sum) on a path of its
 //   own: a sum inside the one-cell loop cost up to 40% at 256 strains
@@ -195,10 +196,11 @@ bucket_lookup_ring_kernel(const uint32_t* __restrict__ rows, int row_width, int 
 //   the write bound. Lane 32 is the first word for every S, as the jnp
 //   bucket_lookup branch at S <= 16 reads it.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kTile)
-multi_hit_words_kernel(const uint32_t* __restrict__ rows, int row_width, int h_bits,
-                       uint32_t salt, const uint8_t* __restrict__ bases, int L, int k,
-                       int n_words, uint32_t* __restrict__ words) {
+template <class Probe>
+__device__ __forceinline__ void multi_hit_words_tile(const Probe& probe,
+                                                     const uint8_t* __restrict__ bases, int L,
+                                                     int k, int n_words,
+                                                     uint32_t* __restrict__ words) {
   __shared__ PackedTile tile;
   extern __shared__ uint4 stage4[];  // the run, from the 16-byte chunk it starts in
   uint32_t* stage = reinterpret_cast<uint32_t*>(stage4);
@@ -211,9 +213,10 @@ multi_hit_words_kernel(const uint32_t* __restrict__ rows, int row_width, int h_b
   for (int c = threadIdx.x; c < chunks; c += kTile) stage4[c] = make_uint4(0u, 0u, 0u, 0u);
   pack_tile(tile, bases + static_cast<size_t>(blockIdx.y) * L, w0, L);  // syncs the zeros too
   uint32_t b;
-  const unsigned m = probe_window(tile, threadIdx.x, rows, row_width, h_bits, salt, w0, W, k, &b);
+  bool valid;
+  const unsigned m = probe_valid_window(tile, threadIdx.x, probe, w0, W, k, &b, &valid);
   if (m) {
-    const uint32_t* block = rows + static_cast<size_t>(b) * row_width + kMetaLane;
+    const uint32_t* block = probe.row(b) + kMetaLane;
     uint32_t* dst = stage + off + threadIdx.x * n_words;
     if (m & (m - 1)) {  // a key held twice in its row: no built table holds one
       for (int j = 0; j < n_words; ++j) dst[j] = meta_sum(block + kKeysPerBucket * j, m);
@@ -233,6 +236,34 @@ multi_hit_words_kernel(const uint32_t* __restrict__ rows, int row_width, int h_b
       for (int i = max(i0, off); i < min(i0 + 4, end); ++i) out[i] = stage[i];
     }
   }
+}
+
+__global__ void __launch_bounds__(kTile)
+multi_hit_words_kernel(const uint32_t* __restrict__ rows, int row_width, int h_bits,
+                       uint32_t salt, const uint8_t* __restrict__ bases, int L, int k,
+                       int n_words, uint32_t* __restrict__ words) {
+  multi_hit_words_tile(BucketProbe{rows, row_width, h_bits, salt}, bases, L, k, n_words, words);
+}
+
+// K6s: K6 over one index shard of the union rows.
+// Replaces: the probe and masked meta words of
+//   ShardedKmerEngine._classify_multi_body_bucket
+//   (strainer2_tpu/parallel/sharding.py:265-291), before its psum.
+// Bound on this card: K6's, with a probe only for the valid windows whose
+//   bucket the shard holds (about 1/I of them); its n_words x 4 bytes a
+//   window are written for every window of the data shard. Shard 0 of a
+//   `targets` batch at I = 2 / 4: S = 32 0.0201 / 0.0159 ms, S = 256
+//   0.0564 / 0.0494 (K6 0.0327, 0.0565; H100 80GB HBM3, 700 W; PERF.md).
+// Design: K6's block with ShardBucketProbe: every word is 0 where the key's
+//   bucket is not the shard's. R adds the I shards' words on the data
+//   shard's first device (the psum), then K7 runs unchanged on them.
+__global__ void __launch_bounds__(kTile)
+shard_multi_hit_words_kernel(const uint32_t* __restrict__ rows, int row_width, int h_bits,
+                             uint32_t salt, uint32_t lo, uint32_t n,
+                             const uint8_t* __restrict__ bases, int L, int k, int n_words,
+                             uint32_t* __restrict__ words) {
+  multi_hit_words_tile(ShardBucketProbe{rows, row_width, h_bits, salt, lo, n}, bases, L, k,
+                       n_words, words);
 }
 
 // ---------------------------------------------------------------------------
@@ -450,6 +481,20 @@ int s2t_multi_hit_words(const void* rows, int row_width, int h_bits,
   multi_hit_words_kernel<<<grid, kTile, stage, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(rows), row_width, h_bits, salt,
       static_cast<const uint8_t*>(bases), L, k, n_words,
+      static_cast<uint32_t*>(words));
+  return launch_status();
+}
+
+// K6s: rows the shard's n union rows, lo its first bucket.
+int s2t_shard_multi_hit_words(const void* rows, int row_width, int h_bits, uint32_t salt, int lo,
+                              int n, const void* bases, int n_rows, int L, int k, int n_words,
+                              void* words, void* stream) {
+  const int W = L - k + 1;
+  const dim3 grid((W + kTile - 1) / kTile, n_rows);
+  const size_t stage = (static_cast<size_t>(kTile) * n_words + 4) * sizeof(uint32_t);
+  shard_multi_hit_words_kernel<<<grid, kTile, stage, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(rows), row_width, h_bits, salt, static_cast<uint32_t>(lo),
+      static_cast<uint32_t>(n), static_cast<const uint8_t*>(bases), L, k, n_words,
       static_cast<uint32_t*>(words));
   return launch_status();
 }

@@ -57,6 +57,15 @@ _SIGNATURES = {
     "s2t_cuckoo_hit_stats": [_P, _P, _I, _I, _U32, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "s2t_cuckoo_classify_step": [_P, _P, _P, _I, _I, _U32, _P, _I, _I, _I, _P, _I, _P, _P, _P,
                                  _P, _P],
+    # the shard-window kernels of a (data, index) mesh (parallel/sharding.py)
+    "s2t_shard_count_step": [_P, _P, _I, _I, _U32, _I, _I, _P, _I, _I, _I, _P],
+    "s2t_shard_cuckoo_count_step": [_P, _P, _P, _I, _I, _U32, _I, _I, _P, _I, _I, _I, _P],
+    "s2t_shard_classify_masks": [_P, _I, _I, _U32, _I, _I, _P, _I, _I, _I, _P, _P, _P],
+    "s2t_shard_cuckoo_classify_masks": [_P, _P, _P, _I, _I, _U32, _I, _I, _P, _I, _I, _I, _P,
+                                        _P, _P],
+    "s2t_shard_multi_hit_words": [_P, _I, _I, _U32, _I, _I, _P, _I, _I, _I, _I, _P, _P],
+    "s2t_shard_reduce": [_P, _I, _LL, _I, _P, _P, _P],
+    "s2t_classify_sums": [_P, _P, _I, _I, _I, _P, _I, _P, _P, _P],
 }
 
 # Kernel launches per wrapper; each wrapper adds one where it launches.

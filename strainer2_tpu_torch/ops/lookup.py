@@ -59,6 +59,21 @@ of the table only where its fingerprint is the query's
 is a function of the key, so the filter loses no hit: the results are
 those of the unfiltered probe, and the plain versions are that probe.
 
+Index shards of a (data, index) mesh (parallel/sharding.py): a shard holds
+a contiguous block of whole buckets, or of slots, of the table, and its
+shard-window kernels (K3s, K4s) probe only the keys whose bucket or slot
+lies in it, as JAX's ``_bucket_local_lookup`` and ``_local_lookup``
+(strainer2_tpu/parallel/sharding.py:53-78, :209-233) do:
+
+- ``shard_count_step`` (K3s), ``shard_cuckoo_count_step``: K3 into the
+  shard's private counts, indexed by local slot;
+- ``shard_classify_masks`` (K4s), ``shard_cuckoo_classify_masks``: K4's
+  probe launch, its scratch (mask and count words a tile) out;
+- ``shard_reduce`` (R): the shards' scratch ORed (and recounted), or K6s's
+  words added, on the data shard's first device: the psum over the index
+  axis;
+- ``classify_sums``: K4's second launch on such scratch.
+
 Each kernel wrapper launches its CUDA kernel on a CUDA tensor and runs the
 plain version on a CPU tensor; nothing else takes the plain path.
 """
@@ -108,6 +123,17 @@ __all__ = [
     "cuckoo_hit_accumulate_plain",
     "cuckoo_hit_stats",
     "cuckoo_hit_stats_plain",
+    "shard_cuckoo_lookup_plain",
+    "shard_count_step",
+    "shard_cuckoo_count_step",
+    "shard_classify_masks",
+    "shard_classify_masks_plain",
+    "shard_cuckoo_classify_masks",
+    "shard_cuckoo_classify_masks_plain",
+    "shard_reduce",
+    "shard_reduce_plain",
+    "classify_sums",
+    "classify_sums_plain",
 ]
 
 KEYS_PER_BUCKET = 16
@@ -126,11 +152,17 @@ def n_tiles(n_rows: int, length: int, k: int) -> int:
 # ---- plain versions -------------------------------------------------------
 
 def bucket_lookup_words_plain(rows: torch.Tensor, h_bits: int, salt: int,
-                              qhi: torch.Tensor, qlo: torch.Tensor, n_words: int):
+                              qhi: torch.Tensor, qlo: torch.Tensor, n_words: int, lo: int = 0):
     """(found bool, slot int32, [meta word 0 .. n_words-1] uint32), shapes
     of qhi: the JAX ``bucket_lookup_words`` (strainer2_tpu/ops/lookup.py:181).
     Word j of a found key is the uint32-wrapping sum of lane 32 + 16 j + cell
-    over its equal cells; 0 where not found."""
+    over its equal cells; 0 where not found.
+
+    With ``lo``, rows are an index shard: buckets [lo, lo + len(rows)) of
+    the table, as JAX's ``_bucket_local_lookup(_words)``
+    (strainer2_tpu/parallel/sharding.py:209-262) reads them: a key whose
+    bucket lies outside them is not found, and slot is the shard's local
+    slot (local bucket * 16 + cell) where found."""
     blocks = (rows.shape[1] - META_LANE) // KEYS_PER_BUCKET
     if n_words > blocks:
         raise ValueError(f"{n_words} meta words > {blocks} blocks in a {rows.shape[1]}-lane row")
@@ -147,10 +179,13 @@ def bucket_lookup_words_plain(rows: torch.Tensor, h_bits: int, salt: int,
     step = max(1, _GATHER_ELEMS // lanes)
     for s in range(0, n, step):
         h, l = qh[s : s + step], ql[s : s + step]
-        bucket = cuckoo_slots_torch(h ^ salt, l, h_bits, 0)
+        bucket = cuckoo_slots_torch(h ^ salt, l, h_bits, 0) - lo
+        mine = (bucket >= 0) & (bucket < rows.shape[0])
+        bucket = torch.where(mine, bucket, 0)
         row = rows32[bucket]  # the one random access
         keys = row[:, : 2 * KEYS_PER_BUCKET].to(torch.int64) & _MASK32
         eq = (keys[:, :KEYS_PER_BUCKET] == h[:, None]) & (keys[:, KEYS_PER_BUCKET:] == l[:, None])
+        eq &= mine[:, None]
         hit = eq.any(dim=1)
         cell = torch.argmax(eq.to(torch.int32), dim=1)  # first maximal cell
         found[s : s + step] = hit
@@ -184,19 +219,25 @@ def _window_queries(bases, k):
     return idx, qhi, qlo, valid.numel()
 
 
-def valid_hits_plain(rows, bases, h_bits, salt, k, n_words: int = 1):
+def valid_hits_plain(rows, bases, h_bits, salt, k, n_words: int = 1, lo: int = 0):
     """Flat indices of valid windows, their bucket lookups (found, slot,
-    [meta words]) and the window count."""
+    [meta words]; in the index shard from bucket ``lo`` where ``rows`` is
+    one) and the window count."""
     idx, qhi, qlo, n = _window_queries(bases, k)
-    found, slot, words = bucket_lookup_words_plain(rows, h_bits, salt, qhi, qlo, n_words)
+    found, slot, words = bucket_lookup_words_plain(rows, h_bits, salt, qhi, qlo, n_words, lo)
     return idx, found, slot, words, n
 
 
-def cuckoo_valid_hits_plain(table, bases, h_bits, salt, k, meta=None):
+def cuckoo_valid_hits_plain(table, bases, h_bits, salt, k, meta=None, lo=None):
     """valid_hits_plain in the cuckoo layout: the meta word is meta[slot]
-    (0 where not found), and there is none without ``meta``."""
+    (0 where not found), and there is none without ``meta``; with ``lo``,
+    ``table`` and ``meta`` are the index shard from slot lo
+    (shard_cuckoo_lookup_plain)."""
     idx, qhi, qlo, n = _window_queries(bases, k)
-    found, slot = cuckoo_lookup_plain(table, h_bits, salt, qhi, qlo)
+    if lo is None:
+        found, slot = cuckoo_lookup_plain(table, h_bits, salt, qhi, qlo)
+    else:
+        found, slot = shard_cuckoo_lookup_plain(table, h_bits, salt, lo, qhi, qlo)
     words = []
     if meta is not None:
         m = meta.view(torch.int32)[slot.to(torch.int64)]
@@ -252,9 +293,12 @@ def _classify_plain(lookups, boundaries, dev):
     return cum_hit[b1] - cum_hit[b0], cum_inf[b1] - cum_inf[b0]
 
 
-def count_step_plain(counts, rows, bases, h_bits: int, salt: int, k: int):
-    """counts[slot] += 1 for every valid hit window, in place."""
-    return _count_plain(counts, None, valid_hits_plain(rows, bases, h_bits, salt, k))
+def count_step_plain(counts, rows, bases, h_bits: int, salt: int, k: int, lo: int = 0):
+    """counts[slot] += 1 for every valid hit window, in place.  With ``lo``,
+    ``rows`` is the index shard of buckets from lo and counts its private
+    (len(rows) * 16,) cells: the JAX ``_count_body_bucket``
+    (strainer2_tpu/parallel/sharding.py:304-314)."""
+    return _count_plain(counts, None, valid_hits_plain(rows, bases, h_bits, salt, k, lo=lo))
 
 
 def count_valid_step_plain(counts, tally, rows, bases, h_bits: int, salt: int, k: int):
@@ -324,6 +368,33 @@ def cuckoo_lookup_plain(table, h_bits: int, salt: int, qhi, qlo):
     return (hit0 | hit1).reshape(shape), slot.to(torch.int32).reshape(shape)
 
 
+def shard_cuckoo_lookup_plain(table, h_bits: int, salt: int, lo: int, qhi, qlo):
+    """(found bool, local slot int32), shapes of qhi: the JAX
+    ``_local_lookup`` (strainer2_tpu/parallel/sharding.py:53-78) of the
+    index shard ``table``, slots [lo, lo + len(table)) of a (2H, 2) table,
+    H = 2**h_bits.  Found where one of the key's slots inside the shard
+    holds it; the slot is s1's where both do (JAX's loop lets an s1 match
+    overwrite an s0 one; ``cuckoo_lookup_plain`` picks s0), 0 where
+    neither does."""
+    shape = qhi.shape
+    qh = qhi.reshape(-1).to(torch.int64) & _MASK32
+    ql = qlo.reshape(-1).to(torch.int64) & _MASK32
+    n = table.shape[0]
+    t = table.view(torch.int32)
+    shi = qh ^ salt if salt else qh
+    hit = torch.zeros(qh.shape, dtype=torch.bool, device=qh.device)
+    slot = torch.zeros(qh.shape, dtype=torch.int64, device=qh.device)
+    for s in (cuckoo_slots_torch(shi, ql, h_bits, 0) - lo,
+              cuckoo_slots_torch(shi, ql, h_bits, 1) + (1 << h_bits) - lo):
+        mine = (s >= 0) & (s < n)
+        safe = torch.where(mine, s, 0)
+        r = t[safe].to(torch.int64) & _MASK32
+        match = mine & (r[:, 0] == qh) & (r[:, 1] == ql)
+        hit |= match
+        slot = torch.where(match, safe, slot)
+    return hit.reshape(shape), slot.to(torch.int32).reshape(shape)
+
+
 def cuckoo_fingerprint_plain(hi, lo):
     """The 8-bit slot fingerprint of keys (hi, lo), int64 tensors holding
     uint32 values: the top byte of a hash of the unsalted key with
@@ -372,10 +443,14 @@ def cuckoo_lookup_filtered_plain(table, fp, h_bits: int, salt: int, qhi, qlo):
     return (hit0 | hit1).reshape(shape), slot.to(torch.int32).reshape(shape), r0 + r1
 
 
-def cuckoo_count_step_plain(counts, table, bases, h_bits: int, salt: int, k: int):
+def cuckoo_count_step_plain(counts, table, bases, h_bits: int, salt: int, k: int, lo=None):
     """The JAX ``_count_step`` + ``accumulate_counts``
-    (strainer2_tpu/pipeline/engine.py:301): counts (2H,) uint32, in place."""
-    return _count_plain(counts, None, cuckoo_valid_hits_plain(table, bases, h_bits, salt, k))
+    (strainer2_tpu/pipeline/engine.py:301): counts (2H,) uint32, in place.
+    With ``lo``, ``table`` is the index shard of slots from lo and counts
+    its (len(table),) cells: the JAX ``_count_body``
+    (strainer2_tpu/parallel/sharding.py:167-176)."""
+    return _count_plain(counts, None, cuckoo_valid_hits_plain(table, bases, h_bits, salt, k,
+                                                              lo=lo))
 
 
 def cuckoo_count_valid_step_plain(counts, tally, table, bases, h_bits: int, salt: int, k: int):
@@ -403,6 +478,100 @@ def cuckoo_classify_step_plain(table, meta, bases, boundaries, h_bits: int, salt
     per-read (total, informative) hits, informative where meta[slot] == 2."""
     return _classify_plain(cuckoo_valid_hits_plain(table, bases, h_bits, salt, k, meta),
                            boundaries, bases.device)
+
+
+# ---- plain versions, index shards of a (data, index) mesh -------------------
+#
+# A shard holds buckets [lo, lo + len(rows)) of the bucket rows, or slots
+# [lo, lo + len(table)) of the cuckoo table (parallel/sharding.py); its
+# count buffer has a cell per local slot.  K4s writes K4's scratch, 16 mask
+# words (8 of hit bits, 8 of informative bits, a bit a window of a
+# 256-window tile) and a count word (hits << 16 | informative) a tile; R
+# reduces I shards' scratch (or K6s's words) on the data shard's first
+# device, and classify_sums is K4's second launch on such scratch.
+
+def _pack_bits(plane):
+    """(tiles, 256) bool -> (tiles, 8) uint32 words, window j of a tile at
+    bit j % 32 of word j // 32 (as __ballot_sync packs a warp's)."""
+    bits = plane.reshape(plane.shape[0], TILE // 32, 32).to(torch.int64)
+    w = (bits << torch.arange(32, device=plane.device)).sum(dim=2)
+    return (((w + 2**31) & _MASK32) - 2**31).to(torch.int32).view(torch.uint32)
+
+
+def _tile_masks(lookups, bases, k: int):
+    """K4's scratch of a batch from its valid-window lookups: (16 * tiles,)
+    mask words and (tiles,) count words, uint32."""
+    idx, found, _, (meta,), n_windows = lookups
+    n_rows, length = bases.shape
+    w = length - k + 1
+    tpr = -(-w // TILE)
+    planes = []
+    for bit in (found, found & (meta.to(torch.int64) == INFORMATIVE_KMER)):
+        flat = torch.zeros(n_windows, dtype=torch.bool, device=bases.device)
+        flat[idx] = bit
+        tiled = torch.zeros((n_rows, tpr * TILE), dtype=torch.bool, device=bases.device)
+        tiled[:, :w] = flat.reshape(n_rows, w)
+        planes.append(tiled.reshape(-1, TILE))
+    masks = torch.cat([_pack_bits(p) for p in planes], dim=1).reshape(-1)
+    return masks, _tile_counts(masks)
+
+
+def _tile_counts(masks):
+    """(tiles,) uint32 count words hits << 16 | informative of K4's mask
+    words, by popcount."""
+    w = masks.view(torch.int32).to(torch.int64).reshape(-1, 2, TILE // 32) & _MASK32
+    pop = torch.zeros_like(w)
+    for b in range(32):
+        pop += (w >> b) & 1
+    n = pop.sum(dim=2)
+    return ((n[:, 0] << 16) | n[:, 1]).to(torch.int32).view(torch.uint32)
+
+
+def shard_classify_masks_plain(rows, lo: int, bases, h_bits: int, salt: int, k: int):
+    """The probe and class planes of the JAX ``_classify_body_bucket``
+    (strainer2_tpu/parallel/sharding.py:317-326) of the shard of with-meta
+    rows from bucket ``lo``, as K4's scratch: (masks, counts)."""
+    return _tile_masks(valid_hits_plain(rows, bases, h_bits, salt, k, lo=lo), bases, k)
+
+
+def shard_cuckoo_classify_masks_plain(table, meta, lo: int, bases, h_bits: int, salt: int,
+                                      k: int):
+    """The probe and class planes of the JAX ``_classify_body``
+    (strainer2_tpu/parallel/sharding.py:179-190) of the shard of slots from
+    ``lo`` with its classes ``meta``, as K4's scratch: (masks, counts)."""
+    return _tile_masks(cuckoo_valid_hits_plain(table, bases, h_bits, salt, k, meta, lo=lo),
+                       bases, k)
+
+
+def shard_reduce_plain(parts, *, masks: bool):
+    """R: the (n_parts, n) uint32 shard buffers reduced over the index axis.
+    Masks: their OR and its count words, (masks, counts); else the uint32-
+    wrapping sum of K6s's words, (n,)."""
+    p64 = parts.view(torch.int32).to(torch.int64) & _MASK32
+    if masks:
+        out = p64[0]
+        for x in p64[1:]:
+            out = out | x
+        out = (((out + 2**31) & _MASK32) - 2**31).to(torch.int32).view(torch.uint32)
+        return out, _tile_counts(out)
+    total = p64.sum(dim=0)
+    return (((total + 2**31) & _MASK32) - 2**31).to(torch.int32).view(torch.uint32)
+
+
+def classify_sums_plain(masks, counts, n_rows: int, length: int, k: int, boundaries):
+    """K4's per-read (total, informative) int32 from its scratch of an
+    (n_rows, length) batch: differences of the hit and informative prefixes
+    at ``boundaries`` (read as a JAX gather reads them); ``counts`` are the
+    masks' own and not read."""
+    w = length - k + 1
+    tpr = -(-w // TILE)
+    m = masks.view(torch.int32).to(torch.int64).reshape(n_rows * tpr, 2, TILE // 32, 1) & _MASK32
+    bits = ((m >> torch.arange(32, device=masks.device)) & 1).reshape(n_rows, tpr, 2, TILE)
+    planes = bits.permute(2, 0, 1, 3).reshape(2, n_rows, tpr * TILE)[:, :, :w].reshape(2, -1)
+    cum = torch.nn.functional.pad(torch.cumsum(planes, dim=1), (1, 0))
+    b = gather_index(boundaries, n_rows * w)
+    d = (cum[:, b[1:]] - cum[:, b[:-1]]).to(torch.int32)
+    return d[0], d[1]
 
 
 def passing_any(tot, inf, *, paired: bool, min_t: int, min_i: int):
@@ -878,4 +1047,171 @@ def cuckoo_classify_step(table, meta, bases, boundaries, h_bits: int, salt: int,
             boundaries.data_ptr(), max_reads, masks.data_ptr(), counts.data_ptr(),
             tot.data_ptr(), inf.data_ptr(),
         )
+    return tot, inf
+
+
+# ---- kernel wrappers, index shards --------------------------------------------
+
+def _check_shard_rows(rows: torch.Tensor, lo: int, h_bits: int) -> None:
+    """An index shard of bucket rows: whole buckets [lo, lo + len(rows)) of a
+    table of 2**h_bits."""
+    if rows.dtype != torch.uint32 or rows.dim() != 2 or not rows.is_contiguous():
+        raise ValueError("rows must be a contiguous (shard buckets, row_width) uint32 tensor")
+    width = rows.shape[1]
+    if width < 48 or width % KEYS_PER_BUCKET:
+        raise ValueError(f"row width {width} is not a multiple of 16 holding a meta block")
+    if h_bits > 27:
+        raise ValueError(f"h_bits {h_bits} > 27: slot ids would overflow int32")
+    if not 0 <= lo or lo + rows.shape[0] > 1 << h_bits:
+        raise ValueError(f"shard buckets [{lo}, {lo + rows.shape[0]}) outside the table's "
+                         f"{1 << h_bits}")
+    if rows.data_ptr() % 16:
+        raise ValueError("rows must be 16-byte aligned")
+
+
+def _check_shard_table(table: torch.Tensor, lo: int, h_bits: int) -> None:
+    """An index shard of a cuckoo table: slots [lo, lo + len(table)) of 2H,
+    H = 2**h_bits."""
+    if (table.dtype != torch.uint32 or table.dim() != 2 or table.shape[1] != 2
+            or not table.is_contiguous()):
+        raise ValueError("table must be a contiguous (shard slots, 2) uint32 cuckoo shard")
+    if h_bits > 29 or not 0 <= lo or lo + table.shape[0] > 2 << h_bits:
+        raise ValueError(f"shard slots [{lo}, {lo + table.shape[0]}) outside the table's "
+                         f"{2 << h_bits}")
+    if table.data_ptr() % 8:
+        raise ValueError("table must be 8-byte aligned")
+
+
+def shard_count_step(counts, rows, lo: int, bases, h_bits: int, salt: int, k: int):
+    """K3s on CUDA tensors, the plain version on CPU tensors: K3 over the
+    index shard ``rows`` (buckets from ``lo``).  counts (len(rows) * 16,)
+    uint32, the shard's private cells, is updated in place and returned."""
+    if not _on_cuda("shard_count_step", counts, rows, bases):
+        return count_step_plain(counts, rows, bases, h_bits, salt, k, lo)
+    _check_shard_rows(rows, lo, h_bits)
+    _check_bases(bases, k)
+    _check_counts(counts, rows)
+    if bases.shape[0]:
+        _build.call(
+            "shard_count_step", bases.device, counts.data_ptr(), rows.data_ptr(),
+            rows.shape[1], h_bits, salt, lo, rows.shape[0], bases.data_ptr(), bases.shape[0],
+            bases.shape[1], k,
+        )
+    return counts
+
+
+def shard_cuckoo_count_step(counts, table, lo: int, bases, h_bits: int, salt: int, k: int, *,
+                            fp=None):
+    """K3s in the cuckoo layout on CUDA tensors (``fp`` the shard's slot
+    fingerprints), the plain version on CPU tensors: counts (len(table),)
+    uint32, in place."""
+    if not _on_cuda("shard_cuckoo_count_step", counts, table, bases):
+        return cuckoo_count_step_plain(counts, table, bases, h_bits, salt, k, lo)
+    _check_shard_table(table, lo, h_bits)
+    _check_fp(fp, table)
+    _check_bases(bases, k)
+    _check_slot_array("counts", counts, table)
+    if bases.shape[0]:
+        _build.call(
+            "shard_cuckoo_count_step", bases.device, counts.data_ptr(), table.data_ptr(),
+            fp.data_ptr(), h_bits, 1 << h_bits, salt, lo, table.shape[0], bases.data_ptr(),
+            bases.shape[0], bases.shape[1], k,
+        )
+    return counts
+
+
+def _scratch(bases, k: int):
+    """K4's mask and count words for a batch, uint32 on its device."""
+    tiles = n_tiles(*bases.shape, k)
+    return (torch.empty(16 * tiles, dtype=torch.uint32, device=bases.device),
+            torch.empty(tiles, dtype=torch.uint32, device=bases.device))
+
+
+def shard_classify_masks(rows, lo: int, bases, h_bits: int, salt: int, k: int):
+    """K4s on CUDA tensors, the plain version on CPU tensors: K4's probe
+    launch over the index shard of with-meta ``rows`` (buckets from
+    ``lo``).  Returns K4's scratch of the batch, (masks (16 * tiles,),
+    counts (tiles,)) uint32: a window's hit and informative bits are set
+    only where the shard holds its key."""
+    if not _on_cuda("shard_classify_masks", rows, bases):
+        return shard_classify_masks_plain(rows, lo, bases, h_bits, salt, k)
+    _check_shard_rows(rows, lo, h_bits)
+    _check_bases(bases, k)
+    _check_windows(bases, k)
+    masks, counts = _scratch(bases, k)
+    if bases.shape[0]:
+        _build.call(
+            "shard_classify_masks", bases.device, rows.data_ptr(), rows.shape[1], h_bits, salt,
+            lo, rows.shape[0], bases.data_ptr(), bases.shape[0], bases.shape[1], k,
+            masks.data_ptr(), counts.data_ptr(),
+        )
+    return masks, counts
+
+
+def shard_cuckoo_classify_masks(table, meta, lo: int, bases, h_bits: int, salt: int, k: int, *,
+                                fp=None):
+    """K4s in the cuckoo layout on CUDA tensors (``fp`` the shard's slot
+    fingerprints, ``meta`` its (len(table),) uint32 classes), the plain
+    version on CPU tensors: K4's scratch as ``shard_classify_masks``."""
+    if not _on_cuda("shard_cuckoo_classify_masks", table, meta, bases):
+        return shard_cuckoo_classify_masks_plain(table, meta, lo, bases, h_bits, salt, k)
+    _check_shard_table(table, lo, h_bits)
+    _check_fp(fp, table)
+    _check_slot_array("meta", meta, table)
+    _check_bases(bases, k)
+    _check_windows(bases, k)
+    masks, counts = _scratch(bases, k)
+    if bases.shape[0]:
+        _build.call(
+            "shard_cuckoo_classify_masks", bases.device, table.data_ptr(), fp.data_ptr(),
+            meta.data_ptr(), h_bits, 1 << h_bits, salt, lo, table.shape[0], bases.data_ptr(),
+            bases.shape[0], bases.shape[1], k, masks.data_ptr(), counts.data_ptr(),
+        )
+    return masks, counts
+
+
+def shard_reduce(parts, *, masks: bool):
+    """Kernel R on a CUDA tensor, the plain version on a CPU one: the
+    reduction over the index axis of the I shards' buffers, ``parts`` a
+    contiguous (I, n) uint32 tensor on the data shard's first device.
+    masks=True: K4s's mask words ORed and their tiles' count words
+    recounted, (masks (n,), counts (n / 16,)); masks=False: K6s's words
+    added in uint32, (n,)."""
+    if parts.dtype != torch.uint32 or parts.dim() != 2 or not parts.is_contiguous():
+        raise ValueError("parts must be a contiguous (shards, n) uint32 tensor")
+    if masks and parts.shape[1] % 16:
+        raise ValueError(f"{parts.shape[1]} mask words are not whole 16-word tiles")
+    if not _on_cuda("shard_reduce", parts):
+        return shard_reduce_plain(parts, masks=masks)
+    n = parts.shape[1]
+    out = torch.empty(n, dtype=torch.uint32, device=parts.device)
+    counts = torch.empty(n // 16 if masks else 0, dtype=torch.uint32, device=parts.device)
+    if n:
+        _build.call("shard_reduce", parts.device, parts.data_ptr(), parts.shape[0], n,
+                    int(masks), out.data_ptr(), counts.data_ptr())
+    return (out, counts) if masks else out
+
+
+def classify_sums(masks, counts, bases_shape: tuple, k: int, boundaries):
+    """K4's second launch (``classify_sums_kernel``) on CUDA tensors, the
+    plain version on CPU tensors: per-read (total, informative) int32,
+    (len(boundaries) - 1,), from K4's scratch (masks, counts) of an (n_rows,
+    length) batch, chained by PDL to the launch before it on the stream."""
+    n_rows, length = bases_shape
+    if boundaries.dtype != torch.int32 or boundaries.dim() != 1 or not boundaries.is_contiguous():
+        raise ValueError("boundaries must be a contiguous 1-D int32 tensor")
+    if boundaries.shape[0] < 1:
+        raise ValueError("boundaries must hold max_reads + 1 entries")
+    tiles = n_tiles(n_rows, length, k)
+    if masks.shape != (16 * tiles,) or counts.shape != (tiles,):
+        raise ValueError(f"scratch of {tuple(masks.shape)} masks and {tuple(counts.shape)} counts "
+                         f"for {tiles} tiles")
+    if not _on_cuda("classify_sums", masks, counts, boundaries):
+        return classify_sums_plain(masks, counts, n_rows, length, k, boundaries)
+    max_reads = boundaries.shape[0] - 1
+    tot = torch.empty(max_reads, dtype=torch.int32, device=masks.device)
+    inf = torch.empty_like(tot)
+    if max_reads:
+        _build.call("classify_sums", masks.device, masks.data_ptr(), counts.data_ptr(), n_rows,
+                    length, k, boundaries.data_ptr(), max_reads, tot.data_ptr(), inf.data_ptr())
     return tot, inf

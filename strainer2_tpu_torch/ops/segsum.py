@@ -10,6 +10,9 @@ probe per window answers every strain of the pass:
   window; (Q, n_words) uint32, window-major.  This is the JAX
   ``multi_detect._classify_multi`` up to its segment sum (canonical
   windows, ``bucket_lookup_words`` / ``bucket_lookup``, hit mask).
+- ``shard_multi_hit_words`` (K6s): K6 over an index shard of the union
+  rows of a (data, index) mesh (parallel/sharding.py): the words of the
+  windows whose key the shard holds, 0 elsewhere, for R to add.
 - ``boundary_strain_sums`` (K7): per read r = window span [b[r], b[r+1])
   and strain s, the windows with the present bit set (tot) and with the
   informative bit set (inf); two (R, S) int32 matrices, exactly the JAX
@@ -31,6 +34,7 @@ from strainer2_tpu_torch.ops.lookup import (
     META_LANE,
     _check_bases,
     _check_rows,
+    _check_shard_rows,
     _on_cuda,
     gather_index,
     valid_hits_plain,
@@ -39,6 +43,7 @@ from strainer2_tpu_torch.ops.lookup import (
 __all__ = [
     "multi_hit_words",
     "multi_hit_words_plain",
+    "shard_multi_hit_words",
     "boundary_strain_sums",
     "boundary_strain_sums_plain",
     "words_for_strains",
@@ -53,9 +58,14 @@ def words_for_strains(n_strains: int) -> int:
 
 # ---- plain versions -------------------------------------------------------
 
-def multi_hit_words_plain(rows, bases, h_bits: int, salt: int, k: int, n_words: int):
-    """(Q, n_words) uint32 masked meta words, Q = rows * (L - k + 1)."""
-    idx, found, _, words, n_windows = valid_hits_plain(rows, bases, h_bits, salt, k, n_words)
+def multi_hit_words_plain(rows, bases, h_bits: int, salt: int, k: int, n_words: int,
+                          lo: int = 0):
+    """(Q, n_words) uint32 masked meta words, Q = rows * (L - k + 1).  With
+    ``lo``, ``rows`` is the index shard of union rows from bucket lo, and a
+    word is 0 where the shard does not hold the key: the JAX
+    ``_bucket_local_lookup_words`` in ``_classify_multi_body_bucket``
+    (strainer2_tpu/parallel/sharding.py:236-291) before its psum."""
+    idx, found, _, words, n_windows = valid_hits_plain(rows, bases, h_bits, salt, k, n_words, lo)
     out = torch.zeros((n_windows, n_words), dtype=torch.int32, device=bases.device)
     if idx.numel():
         # int32 views: CUDA torch indexes no uint32 tensor (same bits)
@@ -109,6 +119,28 @@ def multi_hit_words(rows, bases, h_bits: int, salt: int, k: int, n_words: int):
         _build.call(
             "multi_hit_words", bases.device, rows.data_ptr(), rows.shape[1], h_bits, salt,
             bases.data_ptr(), n_rows, length, k, n_words, words.data_ptr(),
+        )
+    return words
+
+
+def shard_multi_hit_words(rows, lo: int, bases, h_bits: int, salt: int, k: int, n_words: int):
+    """Kernel K6s on CUDA tensors, the plain version on CPU tensors: K6 over
+    the index shard ``rows`` of the union rows (buckets from ``lo``).
+    Returns (Q, n_words) uint32, 0 where the shard does not hold a
+    window's key; R adds the shards' words (``lookup.shard_reduce``)."""
+    blocks = (rows.shape[1] - META_LANE) // KEYS_PER_BUCKET
+    if not 1 <= n_words <= blocks:
+        raise ValueError(f"n_words {n_words} outside [1, {blocks}] for a {rows.shape[1]}-lane row")
+    if not _on_cuda("shard_multi_hit_words", rows, bases):
+        return multi_hit_words_plain(rows, bases, h_bits, salt, k, n_words, lo)
+    _check_shard_rows(rows, lo, h_bits)
+    _check_bases(bases, k)
+    n_rows, length = bases.shape
+    words = torch.empty((n_rows * (length - k + 1), n_words), dtype=torch.uint32, device=bases.device)
+    if n_rows:
+        _build.call(
+            "shard_multi_hit_words", bases.device, rows.data_ptr(), rows.shape[1], h_bits, salt,
+            lo, rows.shape[0], bases.data_ptr(), n_rows, length, k, n_words, words.data_ptr(),
         )
     return words
 

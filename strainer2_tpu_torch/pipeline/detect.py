@@ -20,8 +20,11 @@ With a checkpoint directory each finished sample's payload is saved
 it again.  In a multi-process run (parallel/distributed.py) the
 background panel and the target samples are split across processes by
 size; the counts are summed and the payloads gathered, and process 0
-writes the output, byte-identical to one process.  There is no device
-mesh.
+writes the output, byte-identical to one process.  With ``mesh=(D, I)``
+one process classifies over a (data, index) device mesh
+(parallel/sharding.py: the shard-window kernels K4s, then R and K4's sums
+launch on each data shard), byte-identical to one device; a mesh and a
+multi-process run cannot combine, as in the JAX stage.
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ from strainer2_tpu_torch.parallel.distributed import (
     process_count,
     process_index,
 )
+from strainer2_tpu_torch.parallel.sharding import pad_rows
 from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
 from strainer2_tpu_torch.pipeline.scrub_count import count_panel_file, read_list_file
 from strainer2_tpu_torch.utils.observability import stage
@@ -91,6 +95,9 @@ class DetectConfig:
     fraction_background_to_remove: float = BACKGROUND_FRACTION_TO_REMOVE
     device: str = "cuda"
     layout: str = "bucket"  # table layout of the index the detector builds
+    # (data, index) device mesh for sharded classification over ``device``
+    # (parallel/sharding.py make_mesh); None = one device
+    mesh: tuple[int, int] | None = None
 
 
 def get_file_type(token: str) -> int:
@@ -501,6 +508,14 @@ class StrainDetector:
         strainer2_tpu/pipeline/detect.py:675-677 keeps it."""
         t = self.index.table
         eng = self.engine
+        self._sharded = None
+        self.total_genome_kmers = self.index.num_kmers
+        self.total_genome_informative = int(
+            np.count_nonzero(self.kmer_type == INFORMATIVE_KMER)
+        )
+        if self.cfg.mesh is not None:
+            self._finalize_meta_sharded()
+            return
         meta = torch.zeros(t.num_slots, dtype=torch.int32, device=eng.device)
         meta[eng.to_device(t.slot_of_key.astype(np.int64))] = eng.to_device(
             self.kmer_type.astype(np.int32)
@@ -511,10 +526,26 @@ class StrainDetector:
             self._classify_table, self._meta_dev = rows, None
         else:
             self._classify_table, self._meta_dev = eng.table_for(self.index), meta.view(torch.uint32)
-        self.total_genome_kmers = self.index.num_kmers
-        self.total_genome_informative = int(
-            np.count_nonzero(self.kmer_type == INFORMATIVE_KMER)
+
+    def _finalize_meta_sharded(self):
+        """The classification table over the (data, index) mesh (JAX
+        detect.py:685-720): the with-meta bucket rows, or the cuckoo slots
+        and their slot-indexed classes, split along the index axis; the
+        per-read partials of the data shards are summed on the host."""
+        from strainer2_tpu_torch.parallel.sharding import ShardedKmerEngine, make_mesh
+
+        d, i = self.cfg.mesh
+        t = self.index.table
+        self._sharded = ShardedKmerEngine(
+            self.cfg.k, make_mesh(d, i, devices=self.cfg.device), t.h_bits, t.salt, t.num_slots,
+            layout=self.index.layout,
         )
+        meta = self.index.slot_values(self.kmer_type)
+        if self.index.layout == "bucket":
+            self._classify_table = self._sharded.put_table(t.with_meta(meta))
+        else:
+            self._classify_table = self._sharded.put_table(t.table, meta)
+        self._meta_dev = None
 
     def quantify_all(self, out_path: str, batch_list: str | None = None,
                      b_file: str | None = None, b_file2: str | None = None,
@@ -533,8 +564,17 @@ class StrainDetector:
         def open_hits():
             return gzip.open(out_path, "wt", compresslevel=9) if gzip_output else open(out_path, "w")
 
-        self._finalize_meta()
         pidx, pcount = process_index(), process_count()
+        if pcount > 1 and self.cfg.mesh is not None:
+            # the JAX stage's refusal (strainer2_tpu/pipeline/detect.py:760-769)
+            print(
+                "mesh sharding and multi-process sample partitioning cannot "
+                "combine: run either one process with a device mesh, or one "
+                "process per host (the default here)",
+                file=sys.stderr,
+            )
+            raise SystemExit(1)
+        self._finalize_meta()
         if batch_list is not None and (pcount > 1 or checkpoint_dir):
             out = open_hits() if pidx == 0 else None
             try:
@@ -639,6 +679,22 @@ class StrainDetector:
             n = batch.n_reads
             boundaries = np.full(max_reads + 1, n_windows, dtype=np.int32)
             boundaries[:n] = batch.window_starts
+            lens = batch.read_lengths
+            if n % 2 and paired and ftype == IS_PAIRED_END_INTERLEAVE:
+                odd_interleave = True
+            ke, re_, _ = _evaluated_totals(lens, paired, k)
+            total_kmers_evaluated += ke
+            total_reads_evaluated += re_
+            if self._sharded is not None:
+                # rows padded to the data axis (JAX detect.py:1022-1041); the
+                # data shards' partials summed here
+                tot_p, inf_p = self._sharded.classify_batch(
+                    self._classify_table, pad_rows(batch.bases, self._sharded.n_data, 4),
+                    boundaries,
+                )
+                self._emit_sums(out, f1, batch, lens, paired, tot_p.sum(axis=0)[:n],
+                                inf_p.sum(axis=0)[:n])
+                continue
             tot_d, inf_d = self.engine.classify_batch(
                 self._classify_table, t.h_bits, t.salt, batch.bases, boundaries,
                 meta=self._meta_dev,
@@ -652,35 +708,10 @@ class StrainDetector:
                 min_t=cfg.min_hits_for_good_match,
                 min_i=cfg.min_hits_for_informative_read,
             )
-            lens = batch.read_lengths
-            if n % 2 and paired and ftype == IS_PAIRED_END_INTERLEAVE:
-                odd_interleave = True
             if not bool(any_d[:n_pairs].any()):
-                ke, re_, _ = _evaluated_totals(lens, paired, k)
-                total_kmers_evaluated += ke
-                total_reads_evaluated += re_
                 continue
-            tot = tot_d[:n].cpu().numpy()
-            inf = inf_d[:n].cpu().numpy()
-            ke, re_, pe1, t1, i1, t2, i2 = _aggregate_classify_chunk(lens, tot, inf, paired, k)
-            total_kmers_evaluated += ke
-            total_reads_evaluated += re_
-
-            passing = ((t1 + t2) >= cfg.min_hits_for_good_match) & (
-                (i1 + i2) >= cfg.min_hits_for_informative_read
-            )
-            pass_idx = np.flatnonzero(passing)
-            grouping = batch_read_grouping(batch) if pass_idx.size else None
-            emit_items = []
-            for j in pass_idx:
-                r1 = int(pe1[j])
-                prefix = f"{f1}\t{t1[j]}\t{i1[j]}\t{t2[j]}\t{i2[j]}\t"
-                emit_items.append((prefix, read_codes_from_batch(batch, r1, k, grouping)))
-                if paired:
-                    emit_items.append(
-                        (prefix, read_codes_from_batch(batch, r1 + 1, k, grouping))
-                    )
-            self._emit_rows_batch(out, emit_items)
+            self._emit_sums(out, f1, batch, lens, paired, tot_d[:n].cpu().numpy(),
+                            inf_d[:n].cpu().numpy())
 
         if odd_interleave:
             print(
@@ -697,6 +728,28 @@ class StrainDetector:
         out.write(
             "#%s\ttotal_genome_informative_kmers\t%d\n" % (f1, self.total_genome_informative)
         )
+
+    def _emit_sums(self, out: IO, f1: str, batch, lens, paired: bool, tot, inf) -> None:
+        """The rows of a batch's passing reads or pairs from its per-read
+        (total, informative) hits."""
+        cfg = self.cfg
+        k = cfg.k
+        _, _, pe1, t1, i1, t2, i2 = _aggregate_classify_chunk(lens, tot, inf, paired, k)
+        passing = ((t1 + t2) >= cfg.min_hits_for_good_match) & (
+            (i1 + i2) >= cfg.min_hits_for_informative_read
+        )
+        pass_idx = np.flatnonzero(passing)
+        if not pass_idx.size:
+            return
+        grouping = batch_read_grouping(batch)
+        emit_items = []
+        for j in pass_idx:
+            r1 = int(pe1[j])
+            prefix = f"{f1}\t{t1[j]}\t{i1[j]}\t{t2[j]}\t{i2[j]}\t"
+            emit_items.append((prefix, read_codes_from_batch(batch, r1, k, grouping)))
+            if paired:
+                emit_items.append((prefix, read_codes_from_batch(batch, r1 + 1, k, grouping)))
+        self._emit_rows_batch(out, emit_items)
 
     _EMIT_WINDOW_BUDGET = 1 << 21  # bounds transient memory per lookup
 

@@ -15,10 +15,15 @@ With a checkpoint directory, or in a multi-process run
 (parallel/distributed.py), samples run through the single-strain
 detector's staged loop (``detect._staged_quantify``), one payload per
 strain per sample: split across ranks by size, gathered, and written by
-rank 0; the shared background panel is split and its counts summed.  One
-device per process; --mesh is not carried (the CLI refuses it).  The JAX
-package's native CPU classifier route is not taken: classification always
-goes through the engine, as the single-strain ``StrainDetector`` does.
+rank 0; the shared background panel is split and its counts summed.  With
+``DetectConfig.mesh = (D, I)`` one process classifies over a (data, index)
+device mesh (parallel/sharding.py): the union rows split along the index
+axis, K6s on each shard, R adding the shards' words on each data shard's
+first device, K7 on them; the device budget then multiplies by I where
+each shard has a card of its own, as in the JAX detector, so a union that
+outgrows one card runs over a host's cards (``mesh_mem_budget``).  A mesh and a multi-process run cannot combine.  The JAX package's
+native CPU classifier route is not taken: classification always goes
+through the engine, as the single-strain ``StrainDetector`` does.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from strainer2_tpu_torch.parallel.distributed import (
     process_count,
     process_index,
 )
+from strainer2_tpu_torch.parallel.sharding import pad_rows
 from strainer2_tpu_torch.pipeline.detect import (
     DetectConfig,
     StrainDetector,
@@ -72,6 +78,7 @@ __all__ = [
     "plan_strain_passes_from_codes",
     "projected_rows_bytes",
     "device_mem_budget",
+    "mesh_mem_budget",
     "estimate_genome_kmers",
     "union_sorted",
     "union_sorted_many",
@@ -112,6 +119,23 @@ def device_mem_budget(device="cuda") -> int | None:
     if dev.type == "cpu":
         return None
     return int(torch.cuda.mem_get_info(dev)[1] * 0.75)
+
+
+def mesh_mem_budget(budget: int | None, mesh) -> int | None:
+    """A card's ``budget`` for the union rows spread over ``mesh`` (None:
+    one device).  Index shard i holds 1/I of the rows and a card holds
+    every cell of the grid that names it, so the rows may reach budget *
+    I / (cells on the busiest card): JAX's I where each cell has a card of
+    its own (JAX multi_detect.py:405-445), budget / D where one card holds
+    all D x I.  A CPU mesh keeps the factor I: its cells stand for XLA's
+    virtual host devices, each with the STRAINER2_DEVICE_MEM_BUDGET bytes."""
+    if budget is None or mesh is None:
+        return budget
+    n_index = mesh.shape["index"]
+    if all(dev.type == "cpu" for dev in mesh.devices):
+        return budget * n_index
+    busiest = max(mesh.devices.count(dev) for dev in set(mesh.devices))
+    return budget * n_index // busiest
 
 
 _UNSET = object()
@@ -420,16 +444,24 @@ class MultiStrainDetector:
             pos_sorted = list(ex.map(lambda sk: np.searchsorted(union, sk.codes_sorted), keys))
         self._n_words = max(2, -(-n_strains // 16))
 
-        budget = device_mem_budget(self.cfg.device)
+        mesh = None
+        if self.cfg.mesh is not None:
+            from strainer2_tpu_torch.parallel.sharding import make_mesh
+
+            mesh = make_mesh(*self.cfg.mesh, devices=self.cfg.device)
+        # the table shards over the mesh's index axis, on as many cards as
+        # the mesh gives them
+        budget = mesh_mem_budget(device_mem_budget(self.cfg.device), mesh)
+        of = f" over the {self.cfg.mesh[0]}x{self.cfg.mesh[1]} mesh" if mesh else ""
         if budget is not None:
             needed = projected_rows_bytes(union.shape[0], n_strains)
             if needed > budget:
                 raise RuntimeError(
                     f"multi-strain union row table needs {needed / 2**30:.2f} GiB "
                     f"({union.shape[0]:,} union keys, {n_strains} strains) but the device "
-                    f"memory budget is {budget / 2**30:.2f} GiB; run fewer strains per pass "
-                    "(plan_strain_passes sizes passes from per-strain k-mer counts) or raise "
-                    f"{DEVICE_MEM_BUDGET_ENV}"
+                    f"memory budget is {budget / 2**30:.2f} GiB{of}; run fewer strains per pass "
+                    "(plan_strain_passes sizes passes from per-strain k-mer counts), shard the "
+                    f"index over a larger mesh (--mesh DxI), or raise {DEVICE_MEM_BUDGET_ENV}"
                 )
         self.table = build_bucket_table(union, k, row_width=32 + 16 * self._n_words)
         if budget is not None:
@@ -441,8 +473,9 @@ class MultiStrainDetector:
                     f"multi-strain union row table BUILT to {actual / 2**30:.2f} GiB "
                     f"(2**{self.table.h_bits} buckets x {self.table.table.shape[1]} lanes; the "
                     "build grew the bucket space beyond the pre-build projection for this key "
-                    f"distribution) but the device memory budget is {budget / 2**30:.2f} GiB; "
-                    f"run fewer strains per pass or raise {DEVICE_MEM_BUDGET_ENV}"
+                    f"distribution) but the device memory budget is {budget / 2**30:.2f} GiB{of}; "
+                    "run fewer strains per pass, shard the index over a larger mesh (--mesh "
+                    f"DxI), or raise {DEVICE_MEM_BUDGET_ENV}"
                 )
 
         if background_list:
@@ -460,6 +493,19 @@ class MultiStrainDetector:
             meta_words[w, pos] |= np.uint32(1) << sh
             inf = sk.kmer_type[sk.order] == INFORMATIVE_KMER
             meta_words[w, pos[inf]] |= np.uint32(1) << (sh + np.uint32(1))
+        self._sharded = None
+        if mesh is not None:
+            # the union rows built on the host and split along the index axis
+            # (JAX multi_detect.py:500-518): no card holds the whole table
+            from strainer2_tpu_torch.parallel.sharding import ShardedKmerEngine
+
+            t = self.table
+            self._sharded = ShardedKmerEngine(k, mesh, t.h_bits, t.salt, t.num_slots,
+                                              layout="bucket")
+            slot_words = np.zeros((meta_words.shape[0], t.num_slots), dtype=np.uint32)
+            slot_words[:, t.slot_of_key] = meta_words
+            self._rows_dev = self._sharded.put_table(t.with_meta_words(list(slot_words)))
+            return
         self._rows_dev = self._device_rows(meta_words)
 
     def _device_rows(self, meta_words: np.ndarray) -> torch.Tensor:
@@ -506,6 +552,16 @@ class MultiStrainDetector:
         sample.  In a multi-process run the samples are scored across
         ranks and rank 0 alone opens and writes the files."""
         pidx, pcount = process_index(), process_count()
+        if pcount > 1 and self.cfg.mesh is not None:
+            # the JAX detector's refusal (strainer2_tpu/pipeline/multi_detect.py:
+            # 710-732): ranks partition samples, a mesh needs every batch
+            print(
+                "mesh sharding and multi-process sample partitioning cannot "
+                "combine: run either one process with a device mesh, or one "
+                "process per host (the default here)",
+                file=sys.stderr,
+            )
+            raise SystemExit(1)
         outs = [gzip.open(p, "wt", compresslevel=9) for p in out_paths] if pidx == 0 else []
         try:
             if checkpoint_dir or pcount > 1:
@@ -569,14 +625,17 @@ class MultiStrainDetector:
             boundaries = np.empty(self.max_reads + 1, dtype=np.int32)
             boundaries[:n] = batch.window_starts
             boundaries[n:] = batch.window_starts[n - 1] + max(0, int(batch.read_lengths[n - 1]) - k + 1)
-            words_d = self.engine.hit_words_batch(self._rows_dev, t.h_bits, t.salt, batch.bases,
-                                                  n_strains)
-            tot_d, inf_d = self.engine.strain_sums(words_d, boundaries, n_strains)
             if n % 2 and paired and ftype == IS_PAIRED_END_INTERLEAVE:
                 odd_interleave = True
             ke, re_, pe1 = _evaluated_totals(batch.read_lengths, paired, k)
             total_kmers_evaluated += ke
             total_reads_evaluated += re_
+            if self._sharded is not None:
+                self._sharded_batch(outs, f1, batch, boundaries, paired, pe1)
+                continue
+            words_d = self.engine.hit_words_batch(self._rows_dev, t.h_bits, t.salt, batch.bases,
+                                                  n_strains)
+            tot_d, inf_d = self.engine.strain_sums(words_d, boundaries, n_strains)
             # D2H gate: a (pairs,) bool crosses back per batch; only the
             # passing pairs' rows follow it
             n_pairs = (n - (n % 2)) // 2 if paired else n
@@ -596,7 +655,9 @@ class MultiStrainDetector:
             passing = ((t1 + t2) >= cfg.min_hits_for_good_match) & (
                 (i1 + i2) >= cfg.min_hits_for_informative_read
             )  # (passing pairs, S); row j is pair sel[j]
-            self._emit_batch(outs, f1, batch, pe1[sel], paired, passing, (t1, i1, t2, i2), words_d)
+            self._emit_batch(outs, f1, batch, pe1[sel], paired, passing, (t1, i1, t2, i2),
+                             lambda idx: words_d.view(torch.int32)[idx.to(words_d.device)]
+                             .cpu().numpy().view(np.uint32))
 
         if odd_interleave:
             print(
@@ -611,15 +672,54 @@ class MultiStrainDetector:
             outs[s].write("#%s\ttotal_genome_kmers\t%d\n" % (f1, st.total_kmers))
             outs[s].write("#%s\ttotal_genome_informative_kmers\t%d\n" % (f1, st.total_informative))
 
+    def _sharded_batch(self, outs: list[IO], f1: str, batch, boundaries, paired: bool,
+                       pe1: np.ndarray) -> None:
+        """One batch over the mesh: the data shards' per-read partials summed
+        on the host (the JAX full-matrix route, multi_detect.py:863-872),
+        then the passing pairs' rows, their words read from the data shard
+        that holds each window."""
+        cfg = self.cfg
+        n = batch.n_reads
+        bases = pad_rows(batch.bases, self._sharded.n_data, 4)
+        tot_p, inf_p, words = self._sharded.classify_multi_batch(
+            self._rows_dev, bases, boundaries, len(self.states), with_words=True)
+        tot, inf = tot_p.sum(axis=0)[:n], inf_p.sum(axis=0)[:n]
+        if paired:
+            t1, i1, t2, i2 = tot[pe1], inf[pe1], tot[pe1 + 1], inf[pe1 + 1]
+        else:
+            t1, i1 = tot, inf
+            t2, i2 = np.zeros_like(t1), np.zeros_like(i1)
+        passing = ((t1 + t2) >= cfg.min_hits_for_good_match) & (
+            (i1 + i2) >= cfg.min_hits_for_informative_read
+        )
+        sel = np.flatnonzero(passing.any(axis=1))
+        if not sel.size:
+            return
+        n_local = words[0].shape[0]
+
+        def words_at(idx):
+            out = np.empty((idx.shape[0], words[0].shape[1]), dtype=np.uint32)
+            shard = (idx // n_local).numpy()
+            for d in np.unique(shard):
+                w = words[d].view(torch.int32)
+                at = np.flatnonzero(shard == d)
+                out[at] = w[(idx[torch.from_numpy(at)] - d * n_local).to(w.device)].cpu().numpy().view(
+                    np.uint32)
+            return out
+
+        self._emit_batch(outs, f1, batch, pe1[sel], paired, passing[sel],
+                         (t1[sel], i1[sel], t2[sel], i2[sel]), words_at)
+
     def _emit_batch(self, outs: list[IO], f1: str, batch, first_reads: np.ndarray, paired: bool,
-                    passing: np.ndarray, sums, words_d: torch.Tensor) -> None:
+                    passing: np.ndarray, sums, words_at) -> None:
         """Rows of the passing pairs of one batch, for every strain, in
         (pair, read, window) order.  A read's windows are the flat span
         [window_start, window_start + len - k + 1) of the batch, whose K6
         words already say, per strain s, whether the window's k-mer is a
         valid informative k-mer of s (bit 2 (s % 16) + 1 of word s // 16):
         the rows need no per-strain lookup, only the k-mer strings of the
-        re-scanned reads."""
+        re-scanned reads.  ``words_at`` maps int64 flat window indices (a
+        CPU tensor) to their (len, n_words) uint32 words."""
         k = self.cfg.k
         grouping = batch_read_grouping(batch)
         codes, spans, owner = [], [], []
@@ -632,8 +732,7 @@ class MultiStrainDetector:
                 owner.append(np.full(ccodes.size, j))
         codes = np.concatenate(codes)
         owner = np.concatenate(owner)
-        idx = torch.from_numpy(np.concatenate(spans)).to(words_d.device)
-        words = words_d.view(torch.int32)[idx].cpu().numpy().view(np.uint32)
+        words = words_at(torch.from_numpy(np.concatenate(spans)))
         t1, i1, t2, i2 = sums
         for s in np.flatnonzero(passing.any(axis=0)):
             informative = (words[:, s // 16] >> np.uint32(2 * (s % 16) + 1)) & np.uint32(1)

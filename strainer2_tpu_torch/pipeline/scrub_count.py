@@ -17,7 +17,10 @@ cuckoo checkpoints the JAX CLIs write off the TPU.  In a multi-process run
 (parallel/distributed.py) every process builds the same index, counts its
 size-balanced share of each panel list, and the columns are summed across
 processes, bit-identical to one process; process 0 writes the table.
-There is no device mesh; the CLI refuses --mesh.
+With ``mesh=(D, I)`` one process counts over a (data, index) device mesh
+(parallel/sharding.py ShardedPanelEngine, the shard-window count kernel
+K3s), bit-identical to one device; a mesh and a multi-process run cannot
+combine, as in the JAX stage.
 """
 
 from __future__ import annotations
@@ -63,6 +66,9 @@ class ScrubCountConfig:
     reference_order: bool = True
     device: str = "cuda"
     layout: str = "bucket"  # table layout of the index the stage builds
+    # (data, index) device mesh for sharded panel counting over ``device``
+    # (parallel/sharding.py make_mesh); None = one device
+    mesh: tuple[int, int] | None = None
 
 
 def read_list_file(path: str) -> list[str]:
@@ -304,6 +310,15 @@ def run_scrub_count(r_file: str, a_list: str, b_list: str, c_list: str | None = 
     pidx, pcount = initialize()
     partition = (pidx, pcount) if pcount > 1 else None
     cfg = cfg or ScrubCountConfig()
+    if partition is not None and cfg.mesh is not None:
+        # the JAX stage's refusal (strainer2_tpu/pipeline/scrub_count.py:461-470)
+        print(
+            "--mesh and multi-process panel partitioning cannot combine: "
+            "run either one process with a device mesh, or one process per "
+            "host with per-host partitioning (the default here)",
+            file=sys.stderr,
+        )
+        raise SystemExit(1)
     out = out if out is not None else sys.stdout
     engine = TorchKmerEngine(cfg.k, device=cfg.device,
                              layout=index.layout if index is not None else cfg.layout)
@@ -330,6 +345,10 @@ def run_scrub_count(r_file: str, a_list: str, b_list: str, c_list: str | None = 
                 )
             engine, index = resume_layout(engine, index, ckpt)
             index.table
+    if cfg.mesh is not None:
+        from strainer2_tpu_torch.parallel.sharding import ShardedPanelEngine
+
+        engine = ShardedPanelEngine(index, cfg.mesh[0], cfg.mesh[1], devices=cfg.device)
 
     # the djb2 row-order replay needs only the index: overlap it with the
     # panel scans

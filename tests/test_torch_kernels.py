@@ -908,3 +908,101 @@ def test_cuckoo_fingerprints_kernel(strain, salted):
     for table_np in (t.table, rng.integers(0, 2**32, (4098, 2), dtype=np.uint64).astype(np.uint32)):
         table = torch.from_numpy(table_np).to(rows.device)
         assert _equal((L.cuckoo_fingerprints(table),), (L.cuckoo_fingerprints_plain(table),))
+
+
+# ---- the shard-window kernels of a (data, index) mesh (parallel/sharding.py) ----
+
+def _shard_setup(strain, layout, n_index):
+    """The strain's table (with classes) on the card and its index shards."""
+    from strainer2_tpu_torch.parallel.sharding import shard_table
+
+    rng, genome, _, table, rows = strain
+    if layout == "bucket":
+        return table, rows, None, shard_table(rows, "bucket", n_index)
+    t_dev, t, meta = _cuckoo_k(genome, K, rows.device)
+    return t, t_dev, meta, shard_table(t_dev, "cuckoo", n_index, meta)
+
+
+@pytest.mark.parametrize("n_index", [2, 4])
+@pytest.mark.parametrize("layout", ["bucket", "cuckoo"])
+def test_shard_count_and_classify_kernels(strain, layout, n_index):
+    """K3s and K4s on every shard against their plain versions (counts
+    that wrap, K4's scratch), R over the shards' scratch against its plain
+    version, and K4's sums launch on R's output against its plain version
+    and the one-device K4, on a batch with the edge spans."""
+    t, table, meta, shards = _shard_setup(strain, layout, n_index)
+    batch, bd = _edge_batch(strain, 64, 4096)
+    b = torch.from_numpy(batch.bases).to(table.device)
+    h, salt = t.h_bits, t.salt
+    per = t.num_slots // n_index
+    masks = []
+    for sh in shards:
+        start = torch.zeros(per, dtype=torch.int32, device=b.device)
+        start[::7] = -1  # 0xFFFFFFFF: wraps on a hit
+        c1, c2 = (start.clone().view(torch.uint32) for _ in range(2))
+        if layout == "bucket":
+            L.shard_count_step(c1, sh.table, sh.lo, b, h, salt, K)
+            L.count_step_plain(c2, sh.table, b, h, salt, K, sh.lo)
+            m = L.shard_classify_masks(sh.table, sh.lo, b, h, salt, K)
+            ref = L.shard_classify_masks_plain(sh.table, sh.lo, b, h, salt, K)
+        else:
+            fp = L.cuckoo_fingerprints(sh.table)
+            L.shard_cuckoo_count_step(c1, sh.table, sh.lo, b, h, salt, K, fp=fp)
+            L.cuckoo_count_step_plain(c2, sh.table, b, h, salt, K, sh.lo)
+            m = L.shard_cuckoo_classify_masks(sh.table, sh.meta, sh.lo, b, h, salt, K, fp=fp)
+            ref = L.shard_cuckoo_classify_masks_plain(sh.table, sh.meta, sh.lo, b, h, salt, K)
+        assert _equal((c1,), (c2,)) and int((c1.view(torch.int32) != start).sum()) > 0
+        assert _equal(m, ref)
+        masks.append(m[0].view(torch.int32))
+    parts = torch.stack(masks).view(torch.uint32)
+    reduced = L.shard_reduce(parts, masks=True)
+    assert _equal(reduced, L.shard_reduce_plain(parts, masks=True))
+    out = L.classify_sums(*reduced, tuple(b.shape), K, bd)
+    assert _equal(out, L.classify_sums_plain(*reduced, *b.shape, K, bd))
+    one = (L.classify_step(table, b, bd, h, salt, K) if layout == "bucket" else
+           L.cuckoo_classify_step(table, meta, b, bd, h, salt, K, fp=L.cuckoo_fingerprints(table)))
+    assert _equal(out, one) and int(out[1].sum()) > 0
+
+
+@pytest.mark.parametrize("n_index", [2, 4])
+@pytest.mark.parametrize("n_strains", [3, 32, 256])
+def test_shard_multi_hit_words_and_reduce_kernels(strain, n_strains, n_index):
+    """K6s on every shard of wide union rows against its plain version, and
+    R adding the shards' words against its plain version and the
+    one-device K6."""
+    from strainer2_tpu_torch.parallel.sharding import shard_table
+
+    rng, genome, _, _, rows64 = strain
+    n_words = G.words_for_strains(n_strains)
+    table, rows = _multi_rows(strain, n_words, rows64.device)
+    reads = [genome[s : s + 150] if i % 2 else rng.integers(0, 4, 150, dtype=np.uint8)
+             for i, s in enumerate(rng.integers(0, genome.size - 150, 2000))]
+    batch = next(pack_stream(iter(reads), K, 64, 4096, with_read_ids=True))
+    b = torch.from_numpy(batch.bases).to(rows.device)
+    h, salt = table.h_bits, table.salt
+    parts = []
+    for sh in shard_table(rows, "bucket", n_index):
+        w = G.shard_multi_hit_words(sh.table, sh.lo, b, h, salt, K, n_words)
+        assert _equal((w,), (G.multi_hit_words_plain(sh.table, b, h, salt, K, n_words, sh.lo),))
+        parts.append(w.reshape(-1).view(torch.int32))
+    stacked = torch.stack(parts).view(torch.uint32)
+    summed = L.shard_reduce(stacked, masks=False)
+    assert _equal((summed,), (L.shard_reduce_plain(stacked, masks=False),))
+    one = G.multi_hit_words(rows, b, h, salt, K, n_words)
+    assert _equal((summed,), (one.reshape(-1),)) and int((summed != 0).sum()) > 0
+
+
+@pytest.mark.parametrize("n_parts", [2, 3, 4])
+@pytest.mark.parametrize("n_words", [16, 16 * 4097, 1000 * 16 + 16])
+def test_shard_reduce_kernel_edges(dev, n_parts, n_words):
+    """R on seeded random words, all ones included, at sizes that end
+    inside a block: the OR and recount, and the wrapping sum."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n_parts * n_words)
+    parts = torch.randint(-2**31, 2**31, (n_parts, n_words), dtype=torch.int32, device=dev,
+                          generator=gen)
+    parts[:, :16] = -1
+    parts = parts.view(torch.uint32)
+    assert _equal(L.shard_reduce(parts, masks=True), L.shard_reduce_plain(parts, masks=True))
+    assert _equal((L.shard_reduce(parts, masks=False),),
+                  (L.shard_reduce_plain(parts, masks=False),))

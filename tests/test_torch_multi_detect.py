@@ -2,7 +2,7 @@
 tests/test_multi_detect.py on tests/golden/mini: per-strain outputs and
 stdout byte-identical to the JAX package's MultiStrainDetector and to the
 port's single-strain runs; the CLI through its pass planner, a forced
-two-pass split, the device-memory errors and the refusals; the planner
+two-pass split and the device-memory errors; the planner
 functions and the pass gate pinned to their JAX originals."""
 
 import contextlib
@@ -248,14 +248,6 @@ def test_post_build_budget_recheck_catches_grown_table(monkeypatch):
     monkeypatch.setenv("STRAINER2_DEVICE_MEM_BUDGET", str(md.projected_rows_bytes(idx.num_kmers, 1)))
     with pytest.raises(RuntimeError, match="BUILT"):
         md.MultiStrainDetector([("data/strainA.fna.gz", "expected/scrubbed_m05.txt")], cfg=_torch_cfg())
-
-
-def test_detect_multi_cli_refuses_mesh(tmp_path, capsys):
-    with pytest.raises(SystemExit) as e:
-        _tools(["detect-multi", "-S", "x", "-B", "x", "-o", str(tmp_path), "--mesh", "2x4",
-                "--device", "cpu"])
-    assert e.value.code == 2
-    assert "not supported by the torch port" in capsys.readouterr().err
 
 
 def _outcome(main, argv, capsys):

@@ -1,12 +1,13 @@
 """strainer2_tpu_torch imports neither jax nor the JAX package
 (strainer2_tpu), directly or through the modules it uses: a fresh
 interpreter with both blocked imports each module of the package
-(parallel/distributed.py, the multi-process helpers, included), runs one
-CPU count step, and runs kmer_scrub_count on the mini data to its golden
-bytes; another imports the multi-strain modules and runs detect-multi and
-the lookup A/B tool on the CPU; a third runs pipeline-multi (shared panel
-scan, filters, multi-strain detection, coverage) to the goldens of
-strainA; a fourth runs genome_compare (the string engine and the plain
+(parallel/distributed.py, the multi-process helpers, and parallel/
+sharding.py and dryrun.py, the device mesh, included), runs one CPU count
+step, and runs kmer_scrub_count on the mini data to its golden bytes, on
+one device and over a 2x2 mesh; another imports the multi-strain modules
+and runs detect-multi and the lookup A/B tool on the CPU; a third runs
+pipeline-multi (shared panel scan, filters, multi-strain detection,
+coverage) to the goldens of strainA; a fourth runs genome_compare (the string engine and the plain
 K8/K9 path) and strain-track to their goldens; a fifth builds a cuckoo
 index (index/cuckoo.py) and runs strain_detect in the cuckoo layout to
 its golden.  With the JAX package unimportable, no
@@ -44,6 +45,7 @@ _SCRIPT = _BLOCK + textwrap.dedent(
 
     names = [m.name for m in pkgutil.walk_packages(strainer2_tpu_torch.__path__, "strainer2_tpu_torch.")]
     assert "strainer2_tpu_torch.parallel.distributed" in names
+    assert {"strainer2_tpu_torch.parallel.sharding", "strainer2_tpu_torch.parallel.dryrun"} <= set(names)
     for name in names:
         importlib.import_module(name)
 
@@ -67,7 +69,14 @@ _SCRIPT = _BLOCK + textwrap.dedent(
         assert main(["-r", "data/strainA.fna.gz", "-A", "data/genomes.txt",
                      "-B", "data/metagenomes.txt", "--device", "cpu"]) == 0
     with open("expected/scrub_counts.tsv") as f:
-        assert out.getvalue() == f.read()
+        golden = f.read()
+    assert out.getvalue() == golden
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):  # over a (data, index) mesh, in small batches
+        assert main(["-r", "data/strainA.fna.gz", "-A", "data/genomes.txt",
+                     "-B", "data/metagenomes.txt", "--device", "cpu", "--mesh", "2x2",
+                     "--rows", "8", "--row-len", "1024"]) == 0
+    assert out.getvalue() == golden
     assert not [m for m in sys.modules if blocked(m)]
     print("modules", len(names))
     """

@@ -1,7 +1,7 @@
 """The port's four stages on the CPU (plain torch versions of the kernels)
 reproduce the mini goldens byte for byte, and match the JAX package's own
-run; its CLIs refuse what this slice does not carry; its partition of
-files and samples across processes is the JAX package's."""
+run; its partition of files and samples across processes is the JAX
+package's."""
 
 import contextlib
 import gzip
@@ -127,20 +127,6 @@ def test_cli_chain_reproduces_goldens(tmp_path):
     assert _read(t("detect_stdout.txt")) == expected("detect_stdout.txt")
     assert _cli("coverage_depth", ["-k", t("strainA_x.kmer_hits.gz")], t("coverage.tsv")) == 0
     assert _read(t("coverage.tsv")) == expected("coverage_depth.tsv")
-
-
-@pytest.mark.parametrize(
-    "module,argv",
-    [
-        ("kmer_scrub_count", ["-r", "x", "-A", "x", "-B", "x", "--mesh", "2x1"]),
-        ("strain_detect", ["-r", "x", "-a", "x", "-b", "x", "-o", "o", "--mesh", "2x1"]),
-    ],
-)
-def test_cli_refuses_unported_flags(tmp_path, capsys, module, argv):
-    with pytest.raises(SystemExit) as e:
-        _cli(module, argv, str(tmp_path / "out"))
-    assert e.value.code == 2
-    assert "not supported by the torch port" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("seed,n,ranks", [(0, 13, 4), (1, 7, 2), (2, 3, 4), (3, 40, 3)])
