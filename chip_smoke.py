@@ -961,6 +961,15 @@ def shard_probe_bytes(layout: str, stats: tuple, n: int) -> float:
     return fp_bytes(FilterStats(probes / 2, hits, matched, n))
 
 
+def stacked(parts: list):
+    """The (I, n) uint32 stack of R's parts: the copy the mesh's reduce
+    made before R read the parts in place, and the input of torch's
+    one-call sum."""
+    import torch
+
+    return torch.stack([p.view(torch.int32) for p in parts]).view(torch.uint32)
+
+
 def check_shard_kernels(ctx: dict, dev) -> dict:
     """Phase 2c: the shard-window kernels against their plain versions on
     phase 2's ``targets`` batches (K4s on ``phase2`` ones too) and tables,
@@ -970,10 +979,14 @@ def check_shard_kernels(ctx: dict, dev) -> dict:
     on R's output, the composed per-read sums equal to the one-device
     plain classify; K6s at S = 32 and 256 on each shard of the union rows
     and R adding the shards' words, equal to the one-device plain K6.
-    Every output exactly equal; device ms and bounds of shard 0 (the
-    shard-local program), of R and of the sums launch, and of the whole
-    program of a data shard (I shards, R, sums: ``program_ms``); R's
-    library column is one torch sum over the stacked words."""
+    Every output exactly equal; R takes the shards' outputs where they lie,
+    as a list (its stacked form checked too). Device ms and bounds of shard
+    0 (the shard-local program), of R and of the sums launch, and of the
+    whole program of a data shard (I K4s launches, R, sums; I K6s launches,
+    R, K7: ``program_ms``, and the K6s program with the torch.stack that
+    came before R until it read the parts in place: ``program_stacked_ms``);
+    R's library column is one torch sum over the stacked words, its
+    ``stack_ms`` the torch.stack of the same parts alone."""
     import torch
 
     from strainer2_tpu_torch.ops import lookup as L
@@ -1045,12 +1058,15 @@ def check_shard_kernels(ctx: dict, dev) -> dict:
                 for j, (sh, fp) in enumerate(zip(shards, fps)):
                     m_err = max(m_err, checked(f"{k4} {kind} I={n_index} shard {j}",
                                                masks(sh, fp, bs), masks(sh, fp, bs, True)))
-                parts = [torch.stack([masks(sh, fp, bs)(i)[0].view(torch.int32)
-                                      for sh, fp in zip(shards, fps)]).view(torch.uint32)
+                parts = [[masks(sh, fp, bs)(i)[0] for sh, fp in zip(shards, fps)]
                          for i in range(N_BATCHES)]
                 r_err = max(r_err, checked(f"shard_reduce masks {kind} I={n_index}",
                                            lambda i: L.shard_reduce(parts[i], masks=True),
                                            lambda i: L.shard_reduce_plain(parts[i], masks=True)))
+                r_err = max(r_err, checked(
+                    f"shard_reduce masks {kind} I={n_index} on the stacked parts",
+                    lambda i: L.shard_reduce(stacked(parts[i]), masks=True),
+                    lambda i: L.shard_reduce_plain(parts[i], masks=True)))
                 red = [L.shard_reduce(p, masks=True) for p in parts]
                 sums = lambda i: L.classify_sums(*red[i], tuple(bs[i][0].shape), K, bs[i][1])  # noqa: E731
                 s_err = max(s_err, checked(f"classify_sums {kind} I={n_index}", sums,
@@ -1064,7 +1080,7 @@ def check_shard_kernels(ctx: dict, dev) -> dict:
                                            f"I={n_index} against one-device K4", sums, one))
                 if kind != "targets":
                     continue
-                tiles = parts[0].shape[1] // 16
+                tiles = parts[0][0].shape[0] // 16
                 reads = bs[0][1].numel() - 1
                 n_bytes = (bs[0][0].numel() + shard_probe_bytes(layout, mean0, per) + 4 * mean0[1]
                            + 68 * tiles)
@@ -1073,20 +1089,22 @@ def check_shard_kernels(ctx: dict, dev) -> dict:
                            max_abs_err=m_err)
 
                 def program(i, bs=bs):  # a data shard's classify: I K4s launches, R, the sums launch
-                    ms = [masks(sh, fp, bs)(i)[0].view(torch.int32) for sh, fp in zip(shards, fps)]
-                    return L.classify_sums(*L.shard_reduce(torch.stack(ms).view(torch.uint32),
-                                                           masks=True),
+                    ms = [masks(sh, fp, bs)(i)[0] for sh, fp in zip(shards, fps)]
+                    return L.classify_sums(*L.shard_reduce(ms, masks=True),
                                            tuple(bs[i][0].shape), K, bs[i][1])
                 res["program_ms"] = graph_ms(program)
                 print(f"time {layout} classify program (I={n_index} K4s launches, R, sums) targets: "
                       f"device {res['program_ms']:.4f} ms a data-shard batch", flush=True)
                 record(k4, label, res)
-                record("shard_reduce", f"masks {layout} {label}", dict(
-                    timed(f"shard_reduce masks {layout} {label}",
-                          lambda i: L.shard_reduce(parts[i], masks=True),
-                          lambda i: L.shard_reduce_plain(parts[i], masks=True),
-                          bound_ms(4 * (n_index + 1) * parts[0].shape[1] + 4 * tiles)),
-                    max_abs_err=r_err))
+                res = dict(timed(f"shard_reduce masks {layout} {label}",
+                                 lambda i: L.shard_reduce(parts[i], masks=True),
+                                 lambda i: L.shard_reduce_plain(parts[i], masks=True),
+                                 bound_ms(4 * (n_index + 1) * 16 * tiles + 4 * tiles)),
+                           max_abs_err=r_err)
+                res["stack_ms"] = graph_ms(lambda i: stacked(parts[i]))
+                print(f"time shard_reduce masks {layout} {label}: torch.stack of the parts "
+                      f"{res['stack_ms']:.4f} ms", flush=True)
+                record("shard_reduce", f"masks {layout} {label}", res)
                 record("classify_sums", f"{layout} {label}", dict(
                     timed(f"classify_sums {layout} {label}", sums,
                           lambda i: L.classify_sums_plain(*red[i], *bs[i][0].shape, K, bs[i][1]),
@@ -1108,13 +1126,18 @@ def check_shard_kernels(ctx: dict, dev) -> dict:
                                                               t.salt, K, n_words),),
                     lambda i, sh=sh: (G.multi_hit_words_plain(sh.table, targets[i][0], t.h_bits,
                                                               t.salt, K, n_words, sh.lo),)))
-            parts = [torch.stack([G.shard_multi_hit_words(sh.table, sh.lo, targets[i][0], t.h_bits,
-                                                          t.salt, K, n_words).reshape(-1)
-                                  .view(torch.int32) for sh in shards]).view(torch.uint32)
-                     for i in range(N_BATCHES)]
+            def words(i, shards=shards, n_words=n_words):  # the I shards' K6s words, (Q N,) each
+                return [G.shard_multi_hit_words(sh.table, sh.lo, targets[i][0], t.h_bits, t.salt,
+                                                K, n_words).reshape(-1) for sh in shards]
+
+            parts = [words(i) for i in range(N_BATCHES)]
+            stacks = [stacked(p) for p in parts]
             r_err = checked(f"shard_reduce words {label}",
                             lambda i: (L.shard_reduce(parts[i], masks=False),),
                             lambda i: (L.shard_reduce_plain(parts[i], masks=False),))
+            r_err = max(r_err, checked(f"shard_reduce words {label} on the stacked parts",
+                                       lambda i: (L.shard_reduce(stacks[i], masks=False),),
+                                       lambda i: (L.shard_reduce_plain(parts[i], masks=False),)))
             r_err = max(r_err, checked(
                 f"shard_multi_hit_words + shard_reduce {label} against one-device K6",
                 lambda i: (L.shard_reduce(parts[i], masks=False),),
@@ -1122,7 +1145,7 @@ def check_shard_kernels(ctx: dict, dev) -> dict:
                                                    n_words).reshape(-1),)))
             st0 = [shard_stats("bucket", wide, t.h_bits, t.salt, 0, per, b) for b, _, _ in targets]
             probes, hits, _ = (sum(x) / N_BATCHES for x in zip(*st0))
-            n_win = parts[0].shape[1] // n_words
+            n_win = parts[0][0].shape[0] // n_words
             n_bytes = (targets[0][0].numel() + shard_probe_bytes("bucket", (probes, hits, 0), per)
                        + 4 * n_words * (hits + n_win))
             sh0 = shards[0]
@@ -1136,13 +1159,26 @@ def check_shard_kernels(ctx: dict, dev) -> dict:
             res = dict(timed(f"shard_reduce words {label}",
                              lambda i: L.shard_reduce(parts[i], masks=False),
                              lambda i: L.shard_reduce_plain(parts[i], masks=False),
-                             bound_ms(4 * (n_index + 1) * parts[0].shape[1])), max_abs_err=r_err)
+                             bound_ms(4 * (n_index + 1) * n_win * n_words)), max_abs_err=r_err)
             res["library_ms"] = graph_ms(
-                lambda i: parts[i].view(torch.int32).sum(dim=0, dtype=torch.int32))
+                lambda i: stacks[i].view(torch.int32).sum(dim=0, dtype=torch.int32))
+            res["stack_ms"] = graph_ms(lambda i: stacked(parts[i]))
+
+            def program(i, n_strains=n_strains, n_words=n_words, stack=False):
+                # a data shard's multi program: I K6s launches, R, K7 (stack: the old copy first)
+                ws = words(i)
+                w = L.shard_reduce(stacked(ws) if stack else ws, masks=False)
+                return G.boundary_strain_sums(w.reshape(-1, n_words), targets[i][1], n_strains)
+
+            res["program_ms"] = graph_ms(program)
+            res["program_stacked_ms"] = graph_ms(lambda i: program(i, stack=True))
             print(f"time shard_reduce words {label}: torch sum of the stacked words "
-                  f"{res['library_ms']:.4f} ms", flush=True)
+                  f"{res['library_ms']:.4f} ms, torch.stack of the parts {res['stack_ms']:.4f} ms; "
+                  f"multi program (I={n_index} K6s launches, R, K7) device {res['program_ms']:.4f} "
+                  f"ms a data-shard batch, with the stack before R {res['program_stacked_ms']:.4f} "
+                  f"ms", flush=True)
             record("shard_reduce", f"words {label}", res)
-            del wide, shards, parts
+            del wide, shards, parts, stacks
             torch.cuda.empty_cache()
     # each entry: its headline's numbers, the other labels beside them; R's
     # headline is the psum of K6s's words, its form with a one-call torch twin

@@ -12,6 +12,7 @@
 // runs in the bucket layout and, as its cuckoo_ instance, in the cuckoo
 // layout, with K10 (cuckoo_lookup) the cuckoo twin of K2.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -1003,10 +1004,10 @@ hit_crossing_kernel(const uint32_t* __restrict__ masks, const uint32_t* __restri
 //   word a tile. R reads I copies of the masks and writes one. Shard 0 of
 //   a `targets` batch at I = 2 / 4: K3s 0.0157 / 0.0128 ms (0.51 / 0.33 of
 //   its bound; K3 0.0285), cuckoo K3s 0.0109 / 0.0100, K4s 0.0169 /
-//   0.0145, cuckoo K4s 0.0128 / 0.0118; R 0.0016-0.0020; the sums launch
-//   0.0047; a data shard's I K4s, R and sums 0.0450 / 0.0677 on one card
-//   (H100 80GB HBM3, 700 W; PERF.md): a shard probes 1/I of the windows
-//   but packs the whole batch.
+//   0.0145, cuckoo K4s 0.0128 / 0.0118; the sums launch 0.0047; a data
+//   shard's I K4s, R and sums 0.0427 / 0.0657 on one card (H100 80GB
+//   HBM3, 700 W; PERF.md): a shard probes 1/I of the windows but packs
+//   the whole batch.
 // Design: K3's and K4's blocks with the window policies (ShardBucketProbe,
 //   ShardCuckooProbe): a key outside the shard's block is a miss with no
 //   memory read, and slot() is the shard's local count index, so
@@ -1058,41 +1059,114 @@ shard_cuckoo_classify_masks_kernel(const uint2* __restrict__ table,
                       masks, tile_counts);
 }
 
-// R: out[j] = OR (kMasks) or uint32-wrapping sum of parts[p * n + j] over the
-// n_parts shards' buffers, a thread a word, so a warp's loads of each part
-// are 128 consecutive bytes. In the masks form n is 16 words a tile (K4's
-// layout: 8 hit words, 8 informative words), so a half warp holds a tile:
-// three shuffles sum each eight lanes' popcounts, and the half warp's first
-// lane writes the tile's count word hits << 16 | informative, as
-// store_tile_masks packs it. The sum form is the psum of K6s's meta words
-// (sharding.py:285-291): a key lives in one shard, so it adds one nonzero
-// word to zeros. At S = 256, I = 4 the sum form took 0.1325 ms (0.75 of its
-// bound) where torch's sum of the stacked words took 0.1106 (H100 80GB
-// HBM3, 700 W; PERF.md): each thread reads the parts one after another.
+// ---------------------------------------------------------------------------
+// R shard_reduce
+//
+// Replaces: the psum over the index axis of K4s's planes and K6s's words
+//   (strainer2_tpu/parallel/sharding.py:191-192, :285-291, :328-329): out[j]
+//   = OR (kMasks) or uint32-wrapping sum of part p's word j over the I
+//   shards' buffers, each read where it lies. The sum form is the psum of
+//   K6s's meta words: a key lives in one shard, so it adds one nonzero word
+//   to zeros. In the masks form n is 16 words a tile (K4's layout: 8 hit
+//   words, 8 informative words), and each tile's count word hits << 16 |
+//   informative is recounted from the OR, never summed: a bit set on two
+//   shards counts once.
+// Bound on this card: device-memory bytes, I + 1 copies of the words (the
+//   masks form adds a count word a tile). K6s's words of a 256 x 4096
+//   batch at S = 256, I = 4: 0.1079-0.1090 ms, 0.91-0.92 of its bound,
+//   where torch's sum of the stacked words took 0.1091-0.1103 and the
+//   stack alone 0.180-0.222; I = 2 0.0667-0.0687 (0.87-0.89), I = 8
+//   0.194-0.197 (0.91-0.92); S = 32, I = 4 0.0144-0.0148 (0.84-0.86). The
+//   earlier form, a thread a word reading the parts one after another from
+//   the stack, took 0.1344-0.1345 at S = 256, I = 4 (0.74). The masks form
+//   is launch-bound: 0.0018-0.0021 ms at I = 2-8. A grid-stride loop of 8
+//   blocks an SM took 0.1131, two vectors a thread 0.1081, loads that skip
+//   the L1 0.1110 (H100 80GB HBM3, 700 W; bench_kernels.py --reduce and
+//   chip_smoke.py phase 2c; PERF.md).
+// Design: the I part pointers by value (ReduceParts, up to kReduceMaxParts;
+//   a longer list folds in passes, each adding out as its first part); a
+//   thread owns a 16-byte vector of 4 words, loads it from every part
+//   through the read-only path before its first add (kParts is a template
+//   parameter, so the parts loop unrolls), and stores one uint4. A part
+//   that is not 16-byte aligned (a view at an offset) is read by four
+//   4-byte loads, the choice uniform over the grid (bit p of `flags`);
+//   out, read back as part 0 of a later pass, by plain loads (kAcc); the
+//   n % 4 words past the last vector are added by thread 0. In the
+//   masks form a tile is a quad of threads: lanes 0-1 hold its hit words,
+//   2-3 its informative words; two shuffles inside the quad give the
+//   counts and the quad's first lane writes the count word. The
+//   griddepcontrol trigger follows the stores, so K4's sums launch follows
+//   by PDL.
+// ---------------------------------------------------------------------------
 constexpr int kReduceThreads = 256;
+constexpr int kReduceMaxParts = 8;
+
+struct ReduceParts {
+  const uint32_t* p[kReduceMaxParts];
+};
+
+constexpr unsigned kAcc = 1u << kReduceMaxParts;  // flags: part 0 is out, written by this pass
+
+__device__ __forceinline__ uint4 load_words4(const uint32_t* p, bool aligned, bool acc) {
+  if (acc) return *reinterpret_cast<const uint4*>(p);  // out is always aligned
+  if (aligned) return __ldg(reinterpret_cast<const uint4*>(p));
+  return make_uint4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+}
 
 template <bool kMasks>
+__device__ __forceinline__ uint4 reduce4(uint4 a, uint4 b) {
+  return kMasks ? make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w)
+                : make_uint4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+template <bool kMasks, int kParts>
 __global__ void __launch_bounds__(kReduceThreads)
-shard_reduce_kernel(const uint32_t* __restrict__ parts, int n_parts, long long n,
-                    uint32_t* __restrict__ out, uint32_t* __restrict__ tile_counts) {
-  const long long i = blockIdx.x * static_cast<long long>(kReduceThreads) + threadIdx.x;
-  uint32_t v = 0;
-  if (i < n) {
-    v = __ldg(parts + i);
-    for (int p = 1; p < n_parts; ++p) {
-      const uint32_t x = __ldg(parts + p * n + i);
-      v = kMasks ? v | x : v + x;
-    }
-    out[i] = v;
-  }
-  if constexpr (kMasks) {
-    int c = __popc(v);  // past n: 0, and whole half warps
+shard_reduce_kernel(ReduceParts parts, unsigned flags, long long n, uint32_t* out,
+                    uint32_t* __restrict__ tile_counts) {
+  const long long n4 = n >> 2;
+  const long long v = blockIdx.x * static_cast<long long>(kReduceThreads) + threadIdx.x;
+  uint4 r = make_uint4(0, 0, 0, 0);
+  if (v < n4) {
+    uint4 x[kParts];
 #pragma unroll
-    for (int m = 1; m < 8; m <<= 1) c += __shfl_xor_sync(0xffffffffu, c, m);
-    const int inf = __shfl_down_sync(0xffffffffu, c, 8);  // lanes 8-15's sum, at lane 0
-    if (i < n && (threadIdx.x & 15) == 0)
-      tile_counts[i >> 4] = static_cast<uint32_t>(c) << 16 | static_cast<uint32_t>(inf);
+    for (int p = 0; p < kParts; ++p)
+      x[p] = load_words4(parts.p[p] + 4 * v, flags >> p & 1, p == 0 && (flags & kAcc));
+    r = x[0];
+#pragma unroll
+    for (int p = 1; p < kParts; ++p) r = reduce4<kMasks>(r, x[p]);
+    *reinterpret_cast<uint4*>(out + 4 * v) = r;
+  }
+  if constexpr (kMasks) {  // n4 is 4 a tile: a quad is wholly in or past the tiles
+    const unsigned quad = 0xFu << (threadIdx.x & 28);
+    const int c = __popc(r.x) + __popc(r.y) + __popc(r.z) + __popc(r.w);
+    const int s = c + __shfl_xor_sync(quad, c, 1, 4);  // lane 0: hits, lane 2: informative
+    const int inf = __shfl_down_sync(quad, s, 2, 4);
+    if (v < n4 && (threadIdx.x & 3) == 0)
+      tile_counts[v >> 2] = static_cast<uint32_t>(s) << 16 | static_cast<uint32_t>(inf);
     asm volatile("griddepcontrol.launch_dependents;");  // the sums launch follows by PDL
+  } else if (v == 0) {
+    for (long long w = 4 * n4; w < n; ++w) {
+      uint32_t t = 0;
+#pragma unroll
+      for (int p = 0; p < kParts; ++p)
+        t += p == 0 && (flags & kAcc) ? out[w] : __ldg(parts.p[p] + w);
+      out[w] = t;
+    }
+  }
+}
+
+using ReduceKernel = void (*)(ReduceParts, unsigned, long long, uint32_t*, uint32_t*);
+
+template <bool kMasks>
+ReduceKernel reduce_kernel(int n_parts) {
+  switch (n_parts) {
+    case 2: return shard_reduce_kernel<kMasks, 2>;
+    case 3: return shard_reduce_kernel<kMasks, 3>;
+    case 4: return shard_reduce_kernel<kMasks, 4>;
+    case 5: return shard_reduce_kernel<kMasks, 5>;
+    case 6: return shard_reduce_kernel<kMasks, 6>;
+    case 7: return shard_reduce_kernel<kMasks, 7>;
+    default: return shard_reduce_kernel<kMasks, 8>;
   }
 }
 
@@ -1391,22 +1465,37 @@ int s2t_shard_cuckoo_classify_masks(const void* table, const void* fp, const voi
                          static_cast<uint32_t*>(masks), static_cast<uint32_t*>(counts));
 }
 
-// R over n_parts contiguous buffers of n words each (parts: n_parts x n):
-// masks != 0 ORs K4s's masks (n = 16 x tiles) and writes each tile's count
-// word into tile_counts; masks == 0 adds K6s's words (tile_counts unused).
+// R over the n_parts buffers of n words each whose addresses are parts[0..n_parts)
+// (a host array; n_parts >= 2): masks != 0 ORs K4s's masks (n = 16 x tiles)
+// and writes each tile's count word into tile_counts; masks == 0 adds K6s's
+// words (tile_counts unused). out must be 16-byte aligned.
 int s2t_shard_reduce(const void* parts, int n_parts, long long n, int masks, void* out,
                      void* tile_counts, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = static_cast<unsigned>((n + kReduceThreads - 1) / kReduceThreads);
-  if (masks) {
-    shard_reduce_kernel<true><<<blocks, kReduceThreads, 0, st>>>(
-        static_cast<const uint32_t*>(parts), n_parts, n, static_cast<uint32_t*>(out),
-        static_cast<uint32_t*>(tile_counts));
-  } else {
-    shard_reduce_kernel<false><<<blocks, kReduceThreads, 0, st>>>(
-        static_cast<const uint32_t*>(parts), n_parts, n, static_cast<uint32_t*>(out), nullptr);
+  const auto* in = static_cast<const uint32_t* const*>(parts);
+  auto* dst = static_cast<uint32_t*>(out);
+  if (n_parts < 2 || reinterpret_cast<uintptr_t>(dst) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>(
+      std::max<long long>(1, ((n >> 2) + kReduceThreads - 1) / kReduceThreads));
+  // a pass: up to kReduceMaxParts parts, out the first of them after the first pass
+  for (int done = 0; done < n_parts;) {
+    ReduceParts rp{};
+    int k = 0;
+    unsigned flags = 0;
+    if (done > 0) {
+      rp.p[k++] = dst;
+      flags = kAcc;
+    }
+    while (k < kReduceMaxParts && done < n_parts) rp.p[k++] = in[done++];
+    for (int p = 0; p < k; ++p)
+      flags |= (reinterpret_cast<uintptr_t>(rp.p[p]) % 16 == 0 ? 1u : 0u) << p;
+    const ReduceKernel kernel = masks ? reduce_kernel<true>(k) : reduce_kernel<false>(k);
+    kernel<<<blocks, kReduceThreads, 0, st>>>(rp, flags, n, dst,
+                                              masks ? static_cast<uint32_t*>(tile_counts) : nullptr);
+    if (const int rc = launch_status()) return rc;
   }
-  return launch_status();
+  return 0;
 }
 
 // K4's second launch on its own: per-read (total, informative) of reads

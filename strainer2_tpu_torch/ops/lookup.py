@@ -70,8 +70,8 @@ lies in it, as JAX's ``_bucket_local_lookup`` and ``_local_lookup``
 - ``shard_classify_masks`` (K4s), ``shard_cuckoo_classify_masks``: K4's
   probe launch, its scratch (mask and count words a tile) out;
 - ``shard_reduce`` (R): the shards' scratch ORed (and recounted), or K6s's
-  words added, on the data shard's first device: the psum over the index
-  axis;
+  words added, on the data shard's first device, each part read where it
+  lies: the psum over the index axis;
 - ``classify_sums``: K4's second launch on such scratch.
 
 Each kernel wrapper launches its CUDA kernel on a CUDA tensor and runs the
@@ -79,6 +79,8 @@ plain version on a CPU tensor; nothing else takes the plain path.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -543,19 +545,38 @@ def shard_cuckoo_classify_masks_plain(table, meta, lo: int, bases, h_bits: int, 
                        bases, k)
 
 
+def _reduce_parts(parts, masks: bool) -> list:
+    """R's parts as a list of I >= 2 one-dimensional uint32 tensors of one
+    length n, each with unit stride: ``parts`` is such a sequence, or a
+    contiguous (I, n) uint32 tensor whose rows are the parts."""
+    if isinstance(parts, torch.Tensor):
+        if parts.dtype != torch.uint32 or parts.dim() != 2 or not parts.is_contiguous():
+            raise ValueError("parts must be a contiguous (shards, n) uint32 tensor")
+        parts = list(parts.unbind(0))
+    else:
+        parts = list(parts)
+        if any(not isinstance(p, torch.Tensor) or p.dtype != torch.uint32 or p.dim() != 1
+               or p.stride(0) != 1 or p.shape != parts[0].shape for p in parts):
+            raise ValueError("parts must be 1-D uint32 tensors of one length, each with unit "
+                             "stride")
+    if len(parts) < 2:
+        raise ValueError(f"R reduces 2 or more shards' parts, got {len(parts)}")
+    if masks and parts[0].shape[0] % 16:
+        raise ValueError(f"{parts[0].shape[0]} mask words are not whole 16-word tiles")
+    return parts
+
+
 def shard_reduce_plain(parts, *, masks: bool):
-    """R: the (n_parts, n) uint32 shard buffers reduced over the index axis.
-    Masks: their OR and its count words, (masks, counts); else the uint32-
-    wrapping sum of K6s's words, (n,)."""
-    p64 = parts.view(torch.int32).to(torch.int64) & _MASK32
-    if masks:
-        out = p64[0]
-        for x in p64[1:]:
-            out = out | x
-        out = (((out + 2**31) & _MASK32) - 2**31).to(torch.int32).view(torch.uint32)
-        return out, _tile_counts(out)
-    total = p64.sum(dim=0)
-    return (((total + 2**31) & _MASK32) - 2**31).to(torch.int32).view(torch.uint32)
+    """R: the I shards' uint32 buffers (a sequence of 1-D parts, or their
+    (I, n) stack) reduced over the index axis. Masks: their OR and its
+    count words, (masks, counts); else the uint32-wrapping sum of K6s's
+    words, (n,)."""
+    p64 = [p.view(torch.int32).to(torch.int64) & _MASK32 for p in _reduce_parts(parts, masks)]
+    out = p64[0]
+    for x in p64[1:]:
+        out = out | x if masks else out + x
+    out = (((out + 2**31) & _MASK32) - 2**31).to(torch.int32).view(torch.uint32)
+    return (out, _tile_counts(out)) if masks else out
 
 
 def classify_sums_plain(masks, counts, n_rows: int, length: int, k: int, boundaries):
@@ -1171,24 +1192,24 @@ def shard_cuckoo_classify_masks(table, meta, lo: int, bases, h_bits: int, salt: 
 
 
 def shard_reduce(parts, *, masks: bool):
-    """Kernel R on a CUDA tensor, the plain version on a CPU one: the
-    reduction over the index axis of the I shards' buffers, ``parts`` a
-    contiguous (I, n) uint32 tensor on the data shard's first device.
+    """Kernel R on CUDA tensors, the plain version on CPU ones: the
+    reduction over the index axis of the I >= 2 shards' buffers on the data
+    shard's first device, read where they lie: ``parts`` a sequence of 1-D
+    uint32 tensors of one length n (views at any word offset), or a
+    contiguous (I, n) uint32 tensor whose rows are the parts.
     masks=True: K4s's mask words ORed and their tiles' count words
     recounted, (masks (n,), counts (n / 16,)); masks=False: K6s's words
     added in uint32, (n,)."""
-    if parts.dtype != torch.uint32 or parts.dim() != 2 or not parts.is_contiguous():
-        raise ValueError("parts must be a contiguous (shards, n) uint32 tensor")
-    if masks and parts.shape[1] % 16:
-        raise ValueError(f"{parts.shape[1]} mask words are not whole 16-word tiles")
-    if not _on_cuda("shard_reduce", parts):
+    parts = _reduce_parts(parts, masks)
+    if not _on_cuda("shard_reduce", *parts):
         return shard_reduce_plain(parts, masks=masks)
-    n = parts.shape[1]
-    out = torch.empty(n, dtype=torch.uint32, device=parts.device)
-    counts = torch.empty(n // 16 if masks else 0, dtype=torch.uint32, device=parts.device)
+    n, dev = parts[0].shape[0], parts[0].device
+    out = torch.empty(n, dtype=torch.uint32, device=dev)
+    counts = torch.empty(n // 16 if masks else 0, dtype=torch.uint32, device=dev)
     if n:
-        _build.call("shard_reduce", parts.device, parts.data_ptr(), parts.shape[0], n,
-                    int(masks), out.data_ptr(), counts.data_ptr())
+        ptrs = (ctypes.c_void_p * len(parts))(*(p.data_ptr() for p in parts))
+        _build.call("shard_reduce", dev, ctypes.addressof(ptrs), len(parts), n, int(masks),
+                    out.data_ptr(), counts.data_ptr())
     return (out, counts) if masks else out
 
 

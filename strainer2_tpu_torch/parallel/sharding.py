@@ -17,11 +17,13 @@ Every shard-local program is a hand-written kernel with the shard's window
 device's private (slots / I,) count shard with no collective, and the
 counts merge once a run (``merge_counts``, uint32 that wraps, as JAX's
 ``jnp.sum(dtype=uint32)``).  Classification (K4s, K6s) probes each shard,
-then the psum over the index axis is cross-device copies of the shards'
-buffers to the data shard's first device, (d, 0), and one reduce kernel
-(R) there; K4's sums launch or K7 then runs unchanged on the data shard's
-read boundaries clipped to its window range, and the per-read partials come
-back to the host as (n_data, ...) arrays summed over axis 0, as in JAX.
+then the psum over the index axis is one reduce kernel (R) on the data
+shard's first device, (d, 0), which reads each shard's buffer where it lies
+there: (d, 0)'s own, and the others' after a copy to (d, 0) (none where
+they share its device); K4's sums launch or K7 then runs unchanged on the
+data shard's read boundaries clipped to its window range, and the per-read
+partials come back to the host as (n_data, ...) arrays summed over axis 0,
+as in JAX.
 Each launch runs on its shard's device, so the cards work concurrently.
 
 A key lives in one slot of one shard, so the results equal one device's
@@ -281,14 +283,14 @@ class ShardedKmerEngine:
 
     def _reduced(self, parts: list, d: int, masks: bool):
         """The psum over the index axis of the I shards' outputs (K4s's
-        (masks, counts), or K6s's words): their words copied to (d, 0) and
-        reduced there by R; the one shard's own output where I is 1."""
+        (masks, counts), or K6s's words): R on (d, 0) reads part 0 where it
+        lies and the others copied there (no copy where they share its
+        device); the one shard's own output where I is 1."""
         if len(parts) == 1:
             return parts[0]
         dev0 = self.mesh.device(d, 0)
-        stacked = torch.stack([(p[0] if masks else p).reshape(-1).view(torch.int32).to(dev0)
-                               for p in parts])
-        return shard_reduce(stacked.view(torch.uint32), masks=masks)
+        return shard_reduce([(p[0] if masks else p).reshape(-1).view(torch.int32).to(dev0)
+                             .view(torch.uint32) for p in parts], masks=masks)
 
     # ---- programs ----
     def count_batch(self, counts, table: ShardedTable, bases):

@@ -7,7 +7,7 @@ shapes, and the timer, data and bounds that chip_smoke.py uses for every
 kernel.
 
     python strainer2_tpu_torch/tools/bench_kernels.py [--repo DIR] [--seed N] [--label L] \
-        [--layout both|bucket|cuckoo]
+        [--layout both|bucket|cuckoo] [--reduce]
 
 --repo names the checkout whose ``strainer2_tpu_torch`` is timed (default:
 the one holding this file), so that two commits are compared in one call on
@@ -16,7 +16,12 @@ git ignores and run parent, change, change, parent.  Both use this file's
 timer, data and bounds.  ``--layout bucket`` times the bucket kernels only
 (a checkout without the cuckoo kernels), ``cuckoo`` K10 and the cuckoo
 instances only; every cuckoo kernel runs beside its bucket twin on the
-same batches and key set.
+same batches and key set.  ``--reduce`` times R (shard_reduce) alone, at a
+data shard's shapes of 256 x 4096 batches: K6s's words at S = 32 and 256
+and K4s's scratch, over I = 2, 4 and 8 index shards' parts of seeded
+words, each part a buffer of its own; beside R, torch's sum of the stacked
+words and ``torch.stack`` of the parts alone (the copy the mesh made
+before R).  A checkout whose R takes only the stack is timed on it.
 
 A 6.7 Mbp random genome gives the table (6.7 M keys, 64-lane rows, 5% of the
 keys informative).  Three kinds of 256 x 4096 batch, 8 of each:
@@ -465,24 +470,16 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bench(seed: int, label: str, layout: str = "both") -> dict:
+def bench(seed: int, label: str, layout: str = "both", reduce: bool = False) -> dict:
     """Time the kernels of ``layout`` (both, bucket or cuckoo) on one seed's
-    data: the same batches and keys whatever the layout."""
+    data: the same batches and keys whatever the layout; R alone with
+    ``reduce``."""
     import torch
 
     from strainer2_tpu_torch.ops.packing import canonical_windows_plain
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(seed)
-    genome, rows, h_bits, salt, keys, key_kinds = _table(rng, dev)
     card = _card()
-    print(f"[{label}] card: {card}; table {keys.size} keys, rows {tuple(rows.shape)}", flush=True)
-    batches = {kind: detection_batches(rng, genome, kind, dev) for kind in BATCH_KINDS}
-    bases = {"count": count_batches(rng, genome, dev), "targets": [b for b, _, _ in batches["targets"]]}
-    bases.update(phase2=[b for b, _, _ in batches["phase2"]])
-    stats = {kind: [sum(x) / N_BATCHES for x in zip(*(batch_stats(rows, h_bits, salt, b) for b in bs))]
-             for kind, bs in bases.items()}
-    main_q = main_path_queries(rng, keys, dev)
     result = {"label": label, "card": card}
 
     def report(kernel: str, key: str, ms: float, bound: float, **extra) -> None:
@@ -492,12 +489,25 @@ def bench(seed: int, label: str, layout: str = "both") -> dict:
             more = (f", unfiltered {extra['unfiltered_ms']:.4f} ms "
                     f"(share {extra['unfiltered_ms'] / ms:.3f}), false match "
                     f"{extra['false_match']:.5f}")
-        for over in ("over_k3", "over_k8"):
+        for over in ("over_k3", "over_k8", "stacked_ms", "stack_ms", "library_ms"):
             if over in extra:
                 more += f", {over} {extra[over]:.4f} ms"
         print(f"[{label}] {kernel.upper()} {key}: {ms:.4f} ms, bound {bound:.4f} ms "
               f"(share {bound / ms:.3f}){more}", flush=True)
 
+    if reduce:
+        print(f"[{label}] card: {card}", flush=True)
+        reduce_kernels(report, dev, seed)
+        return result
+    rng = np.random.default_rng(seed)
+    genome, rows, h_bits, salt, keys, key_kinds = _table(rng, dev)
+    print(f"[{label}] card: {card}; table {keys.size} keys, rows {tuple(rows.shape)}", flush=True)
+    batches = {kind: detection_batches(rng, genome, kind, dev) for kind in BATCH_KINDS}
+    bases = {"count": count_batches(rng, genome, dev), "targets": [b for b, _, _ in batches["targets"]]}
+    bases.update(phase2=[b for b, _, _ in batches["phase2"]])
+    stats = {kind: [sum(x) / N_BATCHES for x in zip(*(batch_stats(rows, h_bits, salt, b) for b in bs))]
+             for kind, bs in bases.items()}
+    main_q = main_path_queries(rng, keys, dev)
     codes = [canonical_windows_plain(b, K)[:2] for b in bases["count"]]
     if layout != "cuckoo":
         bucket_kernels(rows, h_bits, salt, bases, batches, stats, codes, main_q, report)
@@ -560,6 +570,51 @@ def bucket_kernels(rows, h_bits, salt, bases, batches, stats, codes, main_q, rep
             del words
         del mrows
         torch.cuda.empty_cache()
+
+
+REDUCE_SHARDS = (2, 4, 8)  # I in --reduce
+
+
+def reduce_kernels(report, dev, seed: int) -> None:
+    """R at a data shard's shapes (--reduce): K6s's words at S = 32 and
+    256, K4s's scratch (16 words and a count word a tile), over I parts of
+    seeded words; N_BATCHES sets, so that no set sits in the L2."""
+    import torch
+
+    from strainer2_tpu_torch.ops import lookup as L
+    from strainer2_tpu_torch.ops.segsum import words_for_strains
+
+    n_win = ROWS * (ROW_LEN - K + 1)
+    tiles = ROWS * -(-(ROW_LEN - K + 1) // 256)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    shapes = [(f"words S={s}", n_win * words_for_strains(s), False) for s in (32, 256)]
+    for name, n, masks in shapes + [("masks", 16 * tiles, True)]:
+        for n_index in REDUCE_SHARDS:
+            parts = [[torch.randint(-2**31, 2**31, (n,), dtype=torch.int32, device=dev,
+                                    generator=gen).view(torch.uint32) for _ in range(n_index)]
+                     for _ in range(N_BATCHES)]
+            stacks = [torch.stack([p.view(torch.int32) for p in ps]).view(torch.uint32)
+                      for ps in parts]
+            try:
+                L.shard_reduce(parts[0], masks=masks)
+                inputs = parts
+            except (AttributeError, ValueError):  # an R that takes the stack alone
+                inputs = stacks
+            n_bytes = 4 * (n_index + 1) * n + (4 * tiles if masks else 0)
+            extra = {
+                "stacked_ms": graph_ms(lambda i: L.shard_reduce(stacks[i], masks=masks)),
+                "stack_ms": graph_ms(lambda i: torch.stack([p.view(torch.int32)
+                                                            for p in parts[i]])),
+            }
+            if not masks:
+                extra["library_ms"] = graph_ms(
+                    lambda i: stacks[i].view(torch.int32).sum(dim=0, dtype=torch.int32))
+            ms = graph_ms(lambda i: L.shard_reduce(inputs[i], masks=masks))
+            report("r", f"{name} I={n_index}", ms, bound_ms(n_bytes),
+                   on="list" if inputs is parts else "stack", **extra)
+            del parts, stacks, inputs
+            torch.cuda.empty_cache()
 
 
 def compare_kernels(genome, bases: dict, report, dev) -> None:
@@ -672,6 +727,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--layout", default="both", choices=("both", "bucket", "cuckoo"),
                     help="the kernels to time: bucket (K1-K9), cuckoo (K10 and the cuckoo "
                          "instances) or both")
+    ap.add_argument("--reduce", action="store_true",
+                    help="time R (shard_reduce) alone, at I = 2, 4 and 8")
     args = ap.parse_args(argv)
     import torch
 
@@ -686,7 +743,7 @@ def main(argv: list[str] | None = None) -> int:
     if not strainer2_tpu_torch.__file__.startswith(repo + os.sep):
         print(f"FAIL: imported {strainer2_tpu_torch.__file__}, not the package under {repo}")
         return 1
-    print(json.dumps(bench(args.seed, args.label or repo, args.layout)), flush=True)
+    print(json.dumps(bench(args.seed, args.label or repo, args.layout, args.reduce)), flush=True)
     return 0
 
 

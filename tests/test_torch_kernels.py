@@ -957,6 +957,7 @@ def test_shard_count_and_classify_kernels(strain, layout, n_index):
     parts = torch.stack(masks).view(torch.uint32)
     reduced = L.shard_reduce(parts, masks=True)
     assert _equal(reduced, L.shard_reduce_plain(parts, masks=True))
+    assert _equal(reduced, L.shard_reduce([m.view(torch.uint32) for m in masks], masks=True))
     out = L.classify_sums(*reduced, tuple(b.shape), K, bd)
     assert _equal(out, L.classify_sums_plain(*reduced, *b.shape, K, bd))
     one = (L.classify_step(table, b, bd, h, salt, K) if layout == "bucket" else
@@ -988,21 +989,40 @@ def test_shard_multi_hit_words_and_reduce_kernels(strain, n_strains, n_index):
     stacked = torch.stack(parts).view(torch.uint32)
     summed = L.shard_reduce(stacked, masks=False)
     assert _equal((summed,), (L.shard_reduce_plain(stacked, masks=False),))
+    assert _equal((summed,), (L.shard_reduce([p.view(torch.uint32) for p in parts], masks=False),))
     one = G.multi_hit_words(rows, b, h, salt, K, n_words)
     assert _equal((summed,), (one.reshape(-1),)) and int((summed != 0).sum()) > 0
 
 
-@pytest.mark.parametrize("n_parts", [2, 3, 4])
-@pytest.mark.parametrize("n_words", [16, 16 * 4097, 1000 * 16 + 16])
+@pytest.mark.parametrize("n_parts", [2, 3, 4, 5, 8, 9])
+@pytest.mark.parametrize("n_words", [1, 3, 16, 16 * 4097 + 4, 1000 * 16 + 16])
 def test_shard_reduce_kernel_edges(dev, n_parts, n_words):
     """R on seeded random words, all ones included, at sizes that end
-    inside a block: the OR and recount, and the wrapping sum."""
+    inside a block or inside a 16-byte vector, up to more parts than one
+    pass takes (8): the parts stacked, as a list, and as views 4 bytes
+    into their buffers (a mix of aligned and unaligned parts); the wrapping
+    sum at every size, the OR and recount where the words are whole tiles."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(n_parts * n_words)
-    parts = torch.randint(-2**31, 2**31, (n_parts, n_words), dtype=torch.int32, device=dev,
-                          generator=gen)
-    parts[:, :16] = -1
-    parts = parts.view(torch.uint32)
-    assert _equal(L.shard_reduce(parts, masks=True), L.shard_reduce_plain(parts, masks=True))
-    assert _equal((L.shard_reduce(parts, masks=False),),
-                  (L.shard_reduce_plain(parts, masks=False),))
+    bufs = torch.randint(-2**31, 2**31, (n_parts, n_words + 1), dtype=torch.int32, device=dev,
+                         generator=gen)
+    bufs[:, 1:17] = -1
+    stacked = bufs[:, 1:].contiguous().view(torch.uint32)
+    forms = {"stacked": stacked, "list": list(stacked.unbind(0)),
+             "offset": [b[1:].view(torch.uint32) for b in bufs]}
+    assert any(p.data_ptr() % 16 for p in forms["offset"])
+    for masks in (False, True) if n_words % 16 == 0 else (False,):
+        want = L.shard_reduce_plain(stacked, masks=masks)
+        want = want if masks else (want,)
+        for form, parts in forms.items():
+            for fn in (L.shard_reduce, L.shard_reduce_plain):
+                got = fn(parts, masks=masks)
+                assert _equal(got if masks else (got,), want), (form, fn.__name__)
+
+
+def test_shard_reduce_refuses_parts_on_two_devices(dev):
+    """A part on the CPU beside parts on the card is refused, never
+    reduced on either device."""
+    parts = [torch.zeros(64, dtype=torch.int32, device=dev).view(torch.uint32) for _ in range(2)]
+    with pytest.raises(ValueError, match="one CUDA device"):
+        L.shard_reduce(parts + [parts[0].cpu()], masks=False)

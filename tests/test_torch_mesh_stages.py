@@ -92,10 +92,12 @@ def test_scrub_count_mesh_matches_golden_and_jax():
     assert ours.getvalue().encode() == expected("scrub_counts.tsv")
 
 
-@pytest.mark.parametrize("layout,mesh", [("bucket", (4, 2)), ("cuckoo", (2, 4))])
+@pytest.mark.parametrize("layout,mesh", [("bucket", (4, 2)), ("cuckoo", (2, 4)),
+                                         ("bucket", (1, 8)), ("cuckoo", (1, 8))])
 def test_detect_mesh_matches_golden_and_jax(tmp_path, layout, mesh):
     """Bucket K4s at (4, 2) beside the JAX run at (4, 2); the cuckoo K4s at
-    (2, 4) (the JAX stage's own layout off the TPU) beside it too."""
+    (2, 4) (the JAX stage's own layout off the TPU) beside it too; both at
+    (1, 8), R over eight shards' scratch."""
     from strainer2_tpu.pipeline.detect import DetectConfig as JaxCfg
     from strainer2_tpu.pipeline.detect import run_detect as jax_run
     from strainer2_tpu_torch.pipeline.detect import DetectConfig, run_detect
@@ -125,6 +127,17 @@ def test_multi_mesh_matches_one_device_and_jax(tmp_path, inf_dir, n_strains):
     """K6s, R and K7 over the (2, 4) mesh at 1, 2 and 3 meta words: every
     strain's file equal to the port's one-device pass and to the JAX
     package's pass at (2, 4), and the same stdout."""
+    _multi_mesh_case(tmp_path, inf_dir, n_strains, (2, 4))
+
+
+@pytest.mark.parametrize("mesh", [(4, 2), (1, 8)])
+def test_multi_mesh_at_two_and_eight_index_shards(tmp_path, inf_dir, mesh):
+    """The same at 2 meta words over I = 2 and I = 8 index shards (R over
+    two parts, and over eight)."""
+    _multi_mesh_case(tmp_path, inf_dir, 18, mesh)
+
+
+def _multi_mesh_case(tmp_path, inf_dir, n_strains, mesh):
     from strainer2_tpu.pipeline.detect import DetectConfig as JaxCfg
     from strainer2_tpu.pipeline.multi_detect import MultiStrainDetector as JaxMulti
     from strainer2_tpu_torch.pipeline.detect import DetectConfig
@@ -136,15 +149,15 @@ def test_multi_mesh_matches_one_device_and_jax(tmp_path, inf_dir, n_strains):
             ("one", lambda out: MultiStrainDetector(strains, cfg=DetectConfig(device="cpu"),
                                                     stdout=out)),
             ("mesh", lambda out: MultiStrainDetector(
-                strains, cfg=DetectConfig(device="cpu", mesh=(2, 4)), stdout=out)),
-            ("jax", lambda out: JaxMulti(strains, cfg=JaxCfg(mesh=(2, 4)), stdout=out))):
+                strains, cfg=DetectConfig(device="cpu", mesh=mesh), stdout=out)),
+            ("jax", lambda out: JaxMulti(strains, cfg=JaxCfg(mesh=mesh), stdout=out))):
         out = io.StringIO()
         det = make(out)
         paths = [str(tmp_path / f"{label}_{i}.gz") for i in range(n_strains)]
         det.quantify_all(paths, "data/targets.txt")
         runs[label] = ([_read_gz(p) for p in paths], out.getvalue())
         if label == "mesh":
-            assert det._sharded is not None and det._sharded.n_index == 4
+            assert det._sharded is not None and det._sharded.n_index == mesh[1]
     assert runs["mesh"] == runs["one"]
     assert runs["mesh"] == runs["jax"]
     assert sum(b.count(b"\n") for b in runs["mesh"][0]) > 4 * n_strains

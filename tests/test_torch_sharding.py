@@ -7,6 +7,8 @@ versions; the cuckoo key held in both of its slots; zero partials from a
 data shard whose windows lie past every read; make_mesh's device
 resolution and errors.  Every comparison is exact (integers)."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -93,7 +95,7 @@ def test_sharded_counting_matches_jax(setup, mesh_shape):
     assert int(index.key_values(got).sum()) > 0
 
 
-@pytest.mark.parametrize("mesh_shape", [(4, 2), (2, 4)])
+@pytest.mark.parametrize("mesh_shape", [(4, 2), (2, 4), (1, 8)])
 def test_sharded_cuckoo_classify_matches_jax(setup, mesh_shape):
     """JAX's cuckoo program sums over read ids, the port's over boundaries:
     the per-read sums are compared, not the shapes."""
@@ -119,7 +121,7 @@ def test_sharded_cuckoo_classify_matches_jax(setup, mesh_shape):
     assert total > 0
 
 
-@pytest.mark.parametrize("mesh_shape", [(4, 2), (2, 4)])
+@pytest.mark.parametrize("mesh_shape", [(4, 2), (2, 4), (1, 8)])
 def test_sharded_bucket_layout_matches_jax(setup, mesh_shape):
     """Counting and classification on bucket rows, the data shards'
     partials equal to JAX's shard by shard."""
@@ -280,6 +282,65 @@ def test_shard_reduce_plain_words_wrap_and_masks_recount():
     m, c = shard_reduce(masks.view(torch.uint32), masks=True)
     assert m.view(torch.int32)[:9].tolist() == [0b1011] + [0] * 7 + [1]
     assert c.view(torch.int32).tolist() == [3 << 16 | 1]
+
+
+def _offset_parts(n_parts: int, n: int, seed: int, offset: int = 1) -> list:
+    """n_parts seeded uint32 parts of n words, all ones in the first 16,
+    each a view ``offset`` words into a buffer of its own."""
+    gen = torch.Generator().manual_seed(seed)
+    parts = []
+    for _ in range(n_parts):
+        buf = torch.randint(-2**31, 2**31, (n + offset,), dtype=torch.int32, generator=gen)
+        buf[offset : offset + 16] = -1
+        parts.append(buf[offset:].view(torch.uint32))
+    return parts
+
+
+@pytest.mark.parametrize("n_parts", [2, 4, 9])
+@pytest.mark.parametrize("masks", [False, True], ids=["words", "masks"])
+def test_shard_reduce_on_a_list_of_parts_equals_on_their_stack(masks, n_parts):
+    """R and its plain version take the parts as a list (views at a word
+    offset included) or as their (I, n) stack, and give the same arrays,
+    in both forms; more parts than one pass of the kernel takes."""
+    from strainer2_tpu_torch.ops.lookup import shard_reduce, shard_reduce_plain
+
+    parts = _offset_parts(n_parts, 16 * 37, n_parts)
+    stacked = torch.stack([p.view(torch.int32) for p in parts]).view(torch.uint32)
+    outs = [fn(x, masks=masks) for fn in (shard_reduce, shard_reduce_plain)
+            for x in (parts, stacked, [p.clone() for p in parts])]
+    for out in outs[1:]:
+        assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(outs[0] if masks else (outs[0],), out if masks else (out,)))
+    p64 = stacked.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    want = functools.reduce(torch.bitwise_or, p64.unbind(0)) if masks else p64.sum(0) & 0xFFFFFFFF
+    got = (outs[0][0] if masks else outs[0]).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="2 or more"):
+        shard_reduce(parts[:1], masks=masks)
+    with pytest.raises(ValueError, match="one length"):
+        shard_reduce([parts[0], parts[1][:-16]], masks=masks)
+
+
+@pytest.mark.parametrize("masks", [False, True], ids=["words", "masks"])
+def test_reduced_reads_parts_at_a_word_offset(setup, masks):
+    """ShardedKmerEngine._reduced over I = 4 shards' outputs that are views
+    4 bytes into their buffers (K4s's (masks, counts), or K6s's (Q, N)
+    words) gives R of their contiguous copies."""
+    from strainer2_tpu_torch.ops.lookup import shard_reduce_plain
+
+    _, index, _, _ = setup
+    ours = _ours((1, 4), index.table)
+    n = 16 * 24
+    parts = _offset_parts(4, n, 7)
+    if masks:
+        outs = [(p, torch.zeros(n // 16, dtype=torch.uint32)) for p in parts]
+    else:
+        outs = [p.view(n // 4, 4) for p in parts]
+    assert all(p.data_ptr() % 16 for p in parts)
+    got = ours._reduced(outs, 0, masks=masks)
+    want = shard_reduce_plain([p.clone() for p in parts], masks=masks)
+    for a, b in zip(got if masks else (got,), want if masks else (want,)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.parametrize("n_index", [1, 2, 4])
