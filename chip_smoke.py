@@ -919,48 +919,6 @@ SHARDS = (2, 4)  # index shards I in phase 2c
 SHARD_STRAINS = (32, 256)  # K6s's S in phase 2c
 
 
-def shard_stats(layout: str, table, h: int, salt: int, lo: int, n: int, bases, fp=None) -> tuple:
-    """What one index shard's probes of a batch read: (probes, hits,
-    matched) over the valid windows whose bucket (cuckoo: slot, each of a
-    window's two counted) lies in [lo, lo + n); hits are the windows whose
-    key the shard holds, matched (cuckoo) the in-shard slots whose
-    fingerprint is the window's."""
-    import torch
-
-    from strainer2_tpu_torch.index.hashing import cuckoo_slots_torch
-    from strainer2_tpu_torch.ops import lookup as L
-    from strainer2_tpu_torch.ops.packing import canonical_windows_plain
-
-    hi, lo_, valid = canonical_windows_plain(bases, K)
-    m = valid.reshape(-1)
-    qh, ql = (x.view(torch.int32).reshape(-1)[m].to(torch.int64) & 0xFFFFFFFF for x in (hi, lo_))
-    shi = qh ^ salt
-    if layout == "bucket":
-        b = cuckoo_slots_torch(shi, ql, h, 0) - lo
-        found = L.bucket_lookup_words_plain(table, h, salt, qh, ql, 1, lo)[0]
-        return int(((b >= 0) & (b < n)).sum()), int(found.sum()), 0
-    f = L.cuckoo_fingerprint_plain(qh, ql)
-    probes = matched = 0
-    fps = fp.to(torch.int64)
-    for s in (cuckoo_slots_torch(shi, ql, h, 0) - lo, cuckoo_slots_torch(shi, ql, h, 1) + (1 << h) - lo):
-        mine = (s >= 0) & (s < n)
-        probes += int(mine.sum())
-        matched += int((mine & (fps[torch.where(mine, s, 0)] == f)).sum())
-    found = L.shard_cuckoo_lookup_plain(table, h, salt, lo, qh, ql)[0]
-    return probes, int(found.sum()), matched
-
-
-def shard_probe_bytes(layout: str, stats: tuple, n: int) -> float:
-    """Key bytes of a shard's probes: bucket rows as ``probe_bytes``, the
-    filtered cuckoo probe as ``fp_bytes`` over the shard's n slots."""
-    from strainer2_tpu_torch.tools.bench_kernels import FilterStats, fp_bytes, probe_bytes
-
-    probes, hits, matched = stats
-    if layout == "bucket":
-        return probe_bytes(probes, hits)
-    return fp_bytes(FilterStats(probes / 2, hits, matched, n))
-
-
 def stacked(parts: list):
     """The (I, n) uint32 stack of R's parts: the copy the mesh's reduce
     made before R read the parts in place, and the input of torch's
@@ -981,7 +939,9 @@ def check_shard_kernels(ctx: dict, dev) -> dict:
     and R adding the shards' words, equal to the one-device plain K6.
     Every output exactly equal; R takes the shards' outputs where they lie,
     as a list (its stacked form checked too). Device ms and bounds of shard
-    0 (the shard-local program), of R and of the sums launch, and of the
+    0 (the shard-local program), of K4s's no-probe pass (a one-bucket or
+    one-slot shard that no window of the batch probes, all zero:
+    ``no_probe_ms``), of R and of the sums launch, and of the
     whole program of a data shard (I K4s launches, R, sums; I K6s launches,
     R, K7: ``program_ms``, and the K6s program with the torch.stack that
     came before R until it read the parts in place: ``program_stacked_ms``);
@@ -991,8 +951,10 @@ def check_shard_kernels(ctx: dict, dev) -> dict:
 
     from strainer2_tpu_torch.ops import lookup as L
     from strainer2_tpu_torch.ops import segsum as G
-    from strainer2_tpu_torch.parallel.sharding import shard_table
-    from strainer2_tpu_torch.tools.bench_kernels import bound_ms, graph_ms, multi_rows
+    from strainer2_tpu_torch.parallel.sharding import TableShard, shard_table
+    from strainer2_tpu_torch.tools.bench_kernels import (bound_ms, graph_ms, multi_rows,
+                                                         shard_probe_bytes, shard_stats,
+                                                         untouched_shard)
 
     t = ctx["index"].table
     rows, (ctable, cmeta, _, ch, csalt) = ctx["rows"], ctx["cuckoo_k4"]
@@ -1087,6 +1049,23 @@ def check_shard_kernels(ctx: dict, dev) -> dict:
                 res = dict(timed(f"{k4} {label}", masks(shards[0], fps[0], bs),
                                  masks(shards[0], fps[0], bs, True), bound_ms(n_bytes)),
                            max_abs_err=m_err)
+                # the no-probe pass: K4s on a one-bucket (one-slot) shard that no
+                # window of the batch probes, every window settled by its hash
+                free = [TableShard(*untouched_shard(layout, table, meta, h, salt, b))
+                        for b, _, _ in bs]
+                free_fp = [L.cuckoo_fingerprints(f.table) if layout == "cuckoo" else None
+                           for f in free]
+                no_probe = lambda i: masks(free[i], free_fp[i], bs)(i)  # noqa: E731
+                checked(f"{k4} no-probe pass {label}", no_probe,
+                        lambda i: masks(free[i], free_fp[i], bs, True)(i))
+                if any(int(x.view(torch.int32).ne(0).sum()) for i in range(N_BATCHES)
+                       for x in no_probe(i)):
+                    fail(f"{k4} {label}: a window hit in a shard that no window probes")
+                res["no_probe_ms"] = graph_ms(no_probe)
+                res["no_probe_bound_ms"] = bound_ms(bs[0][0].numel() + 68 * tiles)
+                print(f"time {k4} no-probe pass {label}: device {res['no_probe_ms']:.4f} ms, "
+                      f"bound {res['no_probe_bound_ms']:.4f} ms", flush=True)
+                del free, free_fp
 
                 def program(i, bs=bs):  # a data shard's classify: I K4s launches, R, the sums launch
                     ms = [masks(sh, fp, bs)(i)[0] for sh, fp in zip(shards, fps)]

@@ -210,6 +210,27 @@ struct ShardCuckooProbe {
   }
 };
 
+// ShardCuckooProbe on a shard whose n slots all lie on one side of H, as
+// every shard of an even split at I >= 2 does: only a key's s0 (kSide 0,
+// a shard below H) or only its s1 (kSide 1, a shard from H) can be the
+// shard's, so a window takes one hash where ShardCuckooProbe takes two.
+// Found, slot and class are ShardCuckooProbe's on such a shard.
+template <int kSide>
+struct ShardCuckooSideProbe {
+  ShardCuckooProbe p;
+
+  __device__ __forceinline__ unsigned find(uint32_t h, uint32_t l, uint32_t* where) const {
+    const uint32_t s = cuckoo_slot(h ^ p.salt, l, p.h_bits, kSide) + (kSide ? p.H : 0u) - p.lo;
+    if (s >= p.n || __ldg(p.fp + s) != cuckoo_fingerprint(h, l)) return 0u;
+    const uint2 a = __ldg(p.table + s);
+    *where = s;
+    return (a.x == h) & (a.y == l);
+  }
+  __device__ __forceinline__ uint32_t meta(uint32_t where, unsigned m) const {
+    return p.meta(where, m);
+  }
+};
+
 // ---------------------------------------------------------------------------
 // cuckoo_fingerprints: fp[s] = cuckoo_fingerprint(table[s]) over the 2H
 // slots, once an index (TorchKmerEngine.table_for).
@@ -1003,15 +1024,14 @@ hit_crossing_kernel(const uint32_t* __restrict__ masks, const uint32_t* __restri
 //   the shard's private counts, K4s writes K4's 16 mask words and a count
 //   word a tile. R reads I copies of the masks and writes one. Shard 0 of
 //   a `targets` batch at I = 2 / 4: K3s 0.0157 / 0.0128 ms (0.51 / 0.33 of
-//   its bound; K3 0.0285), cuckoo K3s 0.0109 / 0.0100, K4s 0.0169 /
-//   0.0145, cuckoo K4s 0.0128 / 0.0118; the sums launch 0.0047; a data
-//   shard's I K4s, R and sums 0.0427 / 0.0657 on one card (H100 80GB
-//   HBM3, 700 W; PERF.md): a shard probes 1/I of the windows but packs
-//   the whole batch.
-// Design: K3's and K4's blocks with the window policies (ShardBucketProbe,
+//   its bound; K3 0.0285), cuckoo K3s 0.0109 / 0.0100; the sums launch
+//   0.0047 (H100 80GB HBM3, 700 W; PERF.md): a shard probes 1/I of the
+//   windows but packs the whole batch. K4s: its own note below.
+// Design: K3's block with the window policies (ShardBucketProbe,
 //   ShardCuckooProbe): a key outside the shard's block is a miss with no
 //   memory read, and slot() is the shard's local count index, so
-//   count_step_tile and classify_masks_tile run unchanged. A key lives in
+//   count_step_tile runs unchanged; K4s takes four tiles a block (its
+//   own note below). A key lives in
 //   one shard, so the OR of the shards' hit bits is the psum's hit_g > 0,
 //   and the OR of their informative bits its class_g == 2 (the two differ
 //   only for a key held twice, which no builder makes); R ORs the shards'
@@ -1038,16 +1058,122 @@ shard_cuckoo_count_step_kernel(uint32_t* __restrict__ counts, const uint2* __res
                          bases, L, k, nullptr);
 }
 
-__global__ void __launch_bounds__(kTile)
+// ---------------------------------------------------------------------------
+// K4s shard_classify_masks, in both layouts
+//
+// Replaces: the probe and class planes of ShardedKmerEngine._classify_body_bucket
+//   (strainer2_tpu/parallel/sharding.py:317-326, _bucket_local_lookup) and
+//   _classify_body (:179-190, _local_lookup), up to their psum over "index".
+// Bound on this card: the data shard's bases, the shard's probes (about
+//   1/I of the valid windows: a bucket row's 64 bytes of key_hi lanes; in
+//   the cuckoo layout the fingerprint bytes of the slots it holds and a
+//   table sector a matched one), a meta word a hit, and K4's scratch out,
+//   68 bytes a 256-window tile. The windows whose bucket (slot) lies
+//   outside the shard are settled by the hash alone.
+// Design: the per-batch cost that does not shrink with I is cut. The first
+//   form ran K4's block with the window policies: a 256-window tile a
+//   block, 4,096 blocks a 256 x 4096 batch in four waves, each waiting out
+//   a byte-load pack, the probe and two block-wide counts. Its no-probe
+//   pass (a shard that no window probes) took 0.0091 ms, 0.0113 in the
+//   cuckoo layout, 60-95% of a shard's time. Here:
+//   - a block takes kShardTiles tiles of one row (1,024 windows), so a
+//     256 x 4096 batch is 1,024 blocks, one resident wave at 8 blocks an
+//     SM (__launch_bounds__: 32 registers); its 1,088 bases are packed once
+//     by 16-byte loads (pack_tile_wide), 6% halo where a tile packs 25%;
+//   - each thread takes its window of the four tiles in turn, probing it
+//     where its bucket (slot) is the shard's, so that a warp's ALU work
+//     on one tile overlaps other warps' probes; a tile's hit and
+//     informative words are its warps' ballots, kept in shared memory;
+//   - one __syncthreads, then warp 0 stores the block's mask words as
+//     16-byte vectors and the last warp each tile's count word from
+//     popcounts; the PDL trigger follows the stores, as in K4;
+//   - in the cuckoo layout a shard whose slots lie on one side of H (every
+//     shard of an even split at I >= 2) hashes a window once, not twice
+//     (ShardCuckooSideProbe): the no-probe pass 0.0082 to 0.0059 ms.
+//   The output is K4's scratch (16 mask words and a count word
+//   hits << 16 | informative a tile), which R and classify_sums_kernel
+//   read unchanged. Shard 0 of a `targets` batch: I = 2 / 4 0.0151-0.0152
+//   / 0.0116 ms (0.54 / 0.37 of the bound; the first form 0.0166-0.0167 /
+//   0.0142-0.0143 in the same call), cuckoo 0.0100-0.0101 / 0.0075
+//   (0.0127-0.0128 / 0.0120-0.0121); the no-probe pass 0.0058 / 0.0059
+//   (0.0091-0.0092 / 0.0113); I = 1 0.0301-0.0302, 0.0014 ms slower than
+//   the first form (cuckoo 0.0164-0.0165 against 0.0169). The bucket probes
+//   at I = 2 meet the card's random-read rate (~30 G rows/s at 512 MiB).
+//   Measured beside it: the shard's windows compacted into a list by warp
+//   ballots and probed densely after all four tiles are screened, 0.0169
+//   / 0.0104 (cuckoo 0.0147 / 0.0113: the screening runs with no probe in
+//   flight); 2 or 8 tiles a block 0.0155 / 0.0116 and 0.0160 / 0.0126; no
+//   register bound 0.0150 / 0.0116 (H100 80GB HBM3, 700 W;
+//   bench_kernels.py --shard; PERF.md).
+// ---------------------------------------------------------------------------
+constexpr int kShardTiles = 4;  // 256-window tiles a K4s block screens
+constexpr int kShardWindows = kShardTiles * kTile;
+static_assert(kShardTiles <= 8, "a K4s block's mask words are one warp's 16-byte stores");
+
+template <class Probe>
+__device__ __forceinline__ void shard_masks_tiles(const Probe& probe,
+                                                  const uint8_t* __restrict__ bases, int L, int k,
+                                                  uint32_t* __restrict__ masks,
+                                                  uint32_t* __restrict__ tile_counts) {
+  constexpr int kWords = 2 * kTileWords;  // a tile's hit words, then its informative words
+  __shared__ PackedBases<kShardWindows + 64> tile;
+  __shared__ __align__(16) uint32_t words[kShardTiles * kWords];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int w0 = blockIdx.x * kShardWindows;
+  const int W = L - k + 1;
+  const int n_lo = min(k, 16);
+  pack_tile_wide(tile, bases + static_cast<size_t>(blockIdx.y) * L, w0, L);
+  // tile j: window j * kTile + threadIdx.x, so warp w's ballots are word w
+#pragma unroll
+  for (int j = 0; j < kShardTiles; ++j) {
+    const int p = j * kTile + threadIdx.x;
+    uint32_t h, l, where;
+    unsigned m = 0u;
+    if (w0 + p < W && packed_window(tile, p, k, n_lo, &h, &l)) m = probe.find(h, l, &where);
+    const bool informative = m && probe.meta(where, m) == kInformative;
+    const unsigned hit_word = __ballot_sync(0xffffffffu, m != 0);
+    const unsigned inf_word = __ballot_sync(0xffffffffu, informative);
+    if (lane == 0) {
+      words[j * kWords + warp] = hit_word;
+      words[j * kWords + kTileWords + warp] = inf_word;
+    }
+  }
+  __syncthreads();
+  // the block's tiles of its row: warp 0 stores the words, the last warp the count words
+  const int tpr = (W + kTile - 1) / kTile;
+  const int col = blockIdx.x * kShardTiles;
+  const int n_mine = min(kShardTiles, tpr - col);
+  const size_t t0 = static_cast<size_t>(blockIdx.y) * tpr + col;
+  const int c = static_cast<int>(threadIdx.x) - (kTile - 32);
+  if (static_cast<int>(threadIdx.x) < 4 * n_mine) {
+    reinterpret_cast<uint4*>(masks + t0 * kWords)[threadIdx.x] =
+        reinterpret_cast<const uint4*>(words)[threadIdx.x];
+  } else if (c >= 0 && c < n_mine) {
+    const uint4* w4 = reinterpret_cast<const uint4*>(words + c * kWords);
+    int n[2] = {0, 0};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint4 v = w4[q];
+      n[q >> 1] += __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
+    }
+    tile_counts[t0 + c] = static_cast<uint32_t>(n[0]) << 16 | static_cast<uint32_t>(n[1]);
+  }
+  asm volatile("griddepcontrol.launch_dependents;");  // after the stores: see K4's note
+}
+
+__global__ void __launch_bounds__(kTile, 8)
 shard_classify_masks_kernel(const uint32_t* __restrict__ rows, int row_width, int h_bits,
                             uint32_t salt, uint32_t lo, uint32_t n,
                             const uint8_t* __restrict__ bases, int L, int k,
                             uint32_t* __restrict__ masks, uint32_t* __restrict__ tile_counts) {
-  classify_masks_tile(ShardBucketProbe{rows, row_width, h_bits, salt, lo, n}, bases, L, k, masks,
-                      tile_counts);
+  shard_masks_tiles(ShardBucketProbe{rows, row_width, h_bits, salt, lo, n}, bases, L, k, masks,
+                    tile_counts);
 }
 
-__global__ void __launch_bounds__(kTile)
+// kSide -1: a shard across H (ShardCuckooProbe); 0 or 1: ShardCuckooSideProbe.
+template <int kSide>
+__global__ void __launch_bounds__(kTile, 8)
 shard_cuckoo_classify_masks_kernel(const uint2* __restrict__ table,
                                    const uint8_t* __restrict__ fp,
                                    const uint32_t* __restrict__ meta, int h_bits, uint32_t H,
@@ -1055,8 +1181,12 @@ shard_cuckoo_classify_masks_kernel(const uint2* __restrict__ table,
                                    const uint8_t* __restrict__ bases, int L, int k,
                                    uint32_t* __restrict__ masks,
                                    uint32_t* __restrict__ tile_counts) {
-  classify_masks_tile(ShardCuckooProbe{table, fp, h_bits, salt, H, lo, n, meta}, bases, L, k,
-                      masks, tile_counts);
+  const ShardCuckooProbe probe{table, fp, h_bits, salt, H, lo, n, meta};
+  if constexpr (kSide < 0) {
+    shard_masks_tiles(probe, bases, L, k, masks, tile_counts);
+  } else {
+    shard_masks_tiles(ShardCuckooSideProbe<kSide>{probe}, bases, L, k, masks, tile_counts);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1437,12 +1567,13 @@ int s2t_shard_cuckoo_count_step(void* counts, const void* table, const void* fp,
 }
 
 // masks and counts as s2t_classify_step's scratch: n_rows x ceil(W / 256)
-// tiles of 16 mask words and a count word.
+// tiles of 16 mask words and a count word; a block screens kShardTiles
+// tiles of a row.
 int s2t_shard_classify_masks(const void* rows, int row_width, int h_bits, uint32_t salt, int lo,
                              int n, const void* bases, int n_rows, int L, int k, void* masks,
                              void* counts, void* stream) {
   const int W = L - k + 1;
-  const dim3 grid((W + kTile - 1) / kTile, n_rows);
+  const dim3 grid((W + kShardWindows - 1) / kShardWindows, n_rows);
   shard_classify_masks_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(rows), row_width, h_bits, salt, static_cast<uint32_t>(lo),
       static_cast<uint32_t>(n), static_cast<const uint8_t*>(bases), L, k,
@@ -1455,8 +1586,11 @@ int s2t_shard_cuckoo_classify_masks(const void* table, const void* fp, const voi
                                     const void* bases, int n_rows, int L, int k, void* masks,
                                     void* counts, void* stream) {
   const int W = L - k + 1;
-  const dim3 grid((W + kTile - 1) / kTile, n_rows);
-  return launch_windowed(shard_cuckoo_classify_masks_kernel, grid, dim3(kTile),
+  const dim3 grid((W + kShardWindows - 1) / kShardWindows, n_rows);
+  const auto kernel = lo + n <= H ? &shard_cuckoo_classify_masks_kernel<0>
+                      : lo >= H   ? &shard_cuckoo_classify_masks_kernel<1>
+                                  : &shard_cuckoo_classify_masks_kernel<-1>;
+  return launch_windowed(kernel, grid, dim3(kTile),
                          static_cast<cudaStream_t>(stream), static_cast<const uint8_t*>(fp),
                          static_cast<size_t>(n), static_cast<const uint2*>(table),
                          static_cast<const uint8_t*>(fp), static_cast<const uint32_t*>(meta),

@@ -7,7 +7,7 @@ shapes, and the timer, data and bounds that chip_smoke.py uses for every
 kernel.
 
     python strainer2_tpu_torch/tools/bench_kernels.py [--repo DIR] [--seed N] [--label L] \
-        [--layout both|bucket|cuckoo] [--reduce]
+        [--layout both|bucket|cuckoo] [--reduce | --shard]
 
 --repo names the checkout whose ``strainer2_tpu_torch`` is timed (default:
 the one holding this file), so that two commits are compared in one call on
@@ -22,6 +22,12 @@ and K4s's scratch, over I = 2, 4 and 8 index shards' parts of seeded
 words, each part a buffer of its own; beside R, torch's sum of the stacked
 words and ``torch.stack`` of the parts alone (the copy the mesh made
 before R).  A checkout whose R takes only the stack is timed on it.
+``--shard`` times K4s (shard_classify_masks) alone on the ``targets``
+batches, in the layouts of ``--layout``: shard 0 of the table split into
+I = 1, 2 and 4 index shards, its no-probe pass (a one-bucket or one-slot
+shard that no window of the batch probes: ``untouched_shard``) and a data
+shard's classify program (I K4s launches, R, the sums launch), beside
+the one-device K4.
 
 A 6.7 Mbp random genome gives the table (6.7 M keys, 64-lane rows, 5% of the
 keys informative).  Three kinds of 256 x 4096 batch, 8 of each:
@@ -103,7 +109,7 @@ __all__ = [
     "sample_reads", "multi_rows", "probe_bytes", "k1_bytes", "k2_bytes", "k3_bytes", "k4_bytes",
     "k6_bytes", "k7_bytes", "k8_bytes", "k9_bytes", "k3v_bytes", "k10_bytes", "tally_bytes",
     "COMPARE_KS", "cuckoo_table_k", "fingerprints", "filter_stats", "fp_bytes", "fp_kw",
-    "FilterStats",
+    "FilterStats", "shard_stats", "shard_probe_bytes", "untouched_shard",
 ]
 COMPARE_KS = (20, 31)  # genome_compare's default k, and the port's
 
@@ -394,6 +400,72 @@ def mean_stats(stats: list) -> FilterStats:
                          for a in ("probes", "hits", "matched")), stats[0].slots)
 
 
+def shard_stats(layout: str, table, h: int, salt: int, lo: int, n: int, bases, fp=None) -> tuple:
+    """What one index shard's probes of a batch read: (probes, hits,
+    matched) over the valid windows whose bucket (cuckoo: slot, each of a
+    window's two counted) lies in [lo, lo + n); hits are the windows whose
+    key the shard holds, matched (cuckoo) the in-shard slots whose
+    fingerprint is the window's."""
+    import torch
+
+    from strainer2_tpu_torch.index.hashing import cuckoo_slots_torch
+    from strainer2_tpu_torch.ops import lookup as L
+    from strainer2_tpu_torch.ops.packing import canonical_windows_plain
+
+    hi, lo_, valid = canonical_windows_plain(bases, K)
+    m = valid.reshape(-1)
+    qh, ql = (x.view(torch.int32).reshape(-1)[m].to(torch.int64) & 0xFFFFFFFF for x in (hi, lo_))
+    shi = qh ^ salt
+    if layout == "bucket":
+        b = cuckoo_slots_torch(shi, ql, h, 0) - lo
+        found = L.bucket_lookup_words_plain(table, h, salt, qh, ql, 1, lo)[0]
+        return int(((b >= 0) & (b < n)).sum()), int(found.sum()), 0
+    f = L.cuckoo_fingerprint_plain(qh, ql)
+    probes = matched = 0
+    fps = fp.to(torch.int64)
+    for s in (cuckoo_slots_torch(shi, ql, h, 0) - lo,
+              cuckoo_slots_torch(shi, ql, h, 1) + (1 << h) - lo):
+        mine = (s >= 0) & (s < n)
+        probes += int(mine.sum())
+        matched += int((mine & (fps[torch.where(mine, s, 0)] == f)).sum())
+    found = L.shard_cuckoo_lookup_plain(table, h, salt, lo, qh, ql)[0]
+    return probes, int(found.sum()), matched
+
+
+def shard_probe_bytes(layout: str, stats: tuple, n: int) -> float:
+    """Key bytes of a shard's probes: bucket rows as ``probe_bytes``, the
+    filtered cuckoo probe as ``fp_bytes`` over the shard's n slots."""
+    probes, hits, matched = stats
+    if layout == "bucket":
+        return probe_bytes(probes, hits)
+    return fp_bytes(FilterStats(probes / 2, hits, matched, n))
+
+
+def untouched_shard(layout: str, table, meta, h_bits: int, salt: int, bases):
+    """A one-bucket (cuckoo: one-slot) index shard of ``table`` that no
+    valid window of ``bases`` probes: (lo, its rows or slots, its classes
+    or None).  K4s on it is the no-probe pass: every window is settled by
+    its hash alone and nothing of the table is read."""
+    import torch
+
+    from strainer2_tpu_torch.index.hashing import cuckoo_slots_torch
+    from strainer2_tpu_torch.ops.packing import canonical_windows_plain
+
+    hi, lo, valid = canonical_windows_plain(bases, K)
+    m = valid.reshape(-1).bool()
+    qh, ql = (x.view(torch.int32).reshape(-1)[m].to(torch.int64) & 0xFFFFFFFF for x in (hi, lo))
+    sh = qh ^ salt if salt else qh
+    touched = torch.zeros(table.shape[0], dtype=torch.bool, device=bases.device)
+    touched[cuckoo_slots_torch(sh, ql, h_bits, 0)] = True
+    if layout == "cuckoo":
+        touched[cuckoo_slots_torch(sh, ql, h_bits, 1) + (1 << h_bits)] = True
+    free = torch.nonzero(~touched)
+    if not free.numel():
+        raise ValueError("every bucket (slot) of the table is probed by the batch")
+    s = int(free[0, 0])
+    return s, table[s : s + 1], None if meta is None else meta[s : s + 1]
+
+
 def fp_kw(L, table) -> dict:
     """The keyword that gives checkout L's cuckoo kernels the table's
     fingerprints: none where they take none."""
@@ -470,10 +542,11 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bench(seed: int, label: str, layout: str = "both", reduce: bool = False) -> dict:
+def bench(seed: int, label: str, layout: str = "both", reduce: bool = False,
+          shard: bool = False) -> dict:
     """Time the kernels of ``layout`` (both, bucket or cuckoo) on one seed's
     data: the same batches and keys whatever the layout; R alone with
-    ``reduce``."""
+    ``reduce``, K4s alone with ``shard``."""
     import torch
 
     from strainer2_tpu_torch.ops.packing import canonical_windows_plain
@@ -489,7 +562,8 @@ def bench(seed: int, label: str, layout: str = "both", reduce: bool = False) -> 
             more = (f", unfiltered {extra['unfiltered_ms']:.4f} ms "
                     f"(share {extra['unfiltered_ms'] / ms:.3f}), false match "
                     f"{extra['false_match']:.5f}")
-        for over in ("over_k3", "over_k8", "stacked_ms", "stack_ms", "library_ms"):
+        for over in ("over_k3", "over_k8", "stacked_ms", "stack_ms", "library_ms", "no_probe_ms",
+                     "program_ms"):
             if over in extra:
                 more += f", {over} {extra[over]:.4f} ms"
         print(f"[{label}] {kernel.upper()} {key}: {ms:.4f} ms, bound {bound:.4f} ms "
@@ -503,6 +577,15 @@ def bench(seed: int, label: str, layout: str = "both", reduce: bool = False) -> 
     genome, rows, h_bits, salt, keys, key_kinds = _table(rng, dev)
     print(f"[{label}] card: {card}; table {keys.size} keys, rows {tuple(rows.shape)}", flush=True)
     batches = {kind: detection_batches(rng, genome, kind, dev) for kind in BATCH_KINDS}
+    if shard:
+        tables = {}
+        if layout != "cuckoo":
+            tables["bucket"] = (rows, None, h_bits, salt)
+        if layout != "bucket":
+            ctable, ch, csalt, cmeta = cuckoo_table_k(keys, K, dev, key_kinds)
+            tables["cuckoo"] = (ctable, cmeta, ch, csalt)
+        shard_kernels(tables, batches, report)
+        return result
     bases = {"count": count_batches(rng, genome, dev), "targets": [b for b, _, _ in batches["targets"]]}
     bases.update(phase2=[b for b, _, _ in batches["phase2"]])
     stats = {kind: [sum(x) / N_BATCHES for x in zip(*(batch_stats(rows, h_bits, salt, b) for b in bs))]
@@ -617,6 +700,81 @@ def reduce_kernels(report, dev, seed: int) -> None:
             torch.cuda.empty_cache()
 
 
+SHARD_SWEEP = (1, 2, 4)  # I in --shard
+
+
+def shard_kernels(tables: dict, batches: list, report) -> None:
+    """K4s alone (--shard), on the ``targets`` batches, in each layout of
+    ``tables`` (layout -> table, meta, h_bits, salt): the one-device K4,
+    then at each I of SHARD_SWEEP shard 0's K4s, the no-probe pass (K4s on
+    a one-bucket or one-slot shard that no window of the batch probes:
+    ``untouched_shard``) and a data shard's classify program (I K4s
+    launches, R, the sums launch; at I = 1 no R)."""
+    import torch
+
+    from strainer2_tpu_torch.ops import lookup as L
+    from strainer2_tpu_torch.parallel.sharding import shard_table
+
+    bs = batches["targets"]
+    tiles = L.n_tiles(ROWS, ROW_LEN, K)
+    out_bytes = 68 * tiles  # K4's scratch: 16 mask words and a count word a tile
+    for layout, (table, meta, h, salt) in tables.items():
+        cuckoo = layout == "cuckoo"
+        name = "k4s_cuckoo" if cuckoo else "k4s"
+
+        def masks(sh_table, sh_meta, lo, fp):
+            if cuckoo:
+                return lambda i: L.shard_cuckoo_classify_masks(sh_table(i), sh_meta(i), lo(i),
+                                                               bs[i][0], h, salt, K, fp=fp(i))
+            return lambda i: L.shard_classify_masks(sh_table(i), lo(i), bs[i][0], h, salt, K)
+
+        def stats(lo, n, t, fp=None):
+            return [sum(x) / N_BATCHES for x in zip(*(shard_stats(layout, t, h, salt, lo, n, b, fp)
+                                                      for b, _, _ in bs))]
+
+        fp_all = L.cuckoo_fingerprints(table) if cuckoo else None
+        probes, hits, matched = stats(0, table.shape[0], table, fp_all)
+        if cuckoo:
+            one = lambda i: L.cuckoo_classify_step(table, meta, bs[i][0], bs[i][1], h, salt, K,  # noqa: E731
+                                                   fp=fp_all)
+        else:
+            one = lambda i: L.classify_step(table, bs[i][0], bs[i][1], h, salt, K)  # noqa: E731
+        n_bytes = (bs[0][0].numel() + 4 * bs[0][1].numel()
+                   + shard_probe_bytes(layout, (probes, hits, matched), table.shape[0]) + 4 * hits
+                   + 8 * (bs[0][1].numel() - 1))
+        report("k4_cuckoo" if cuckoo else "k4", "targets", graph_ms(one), bound_ms(n_bytes))
+        free = [untouched_shard(layout, table, meta, h, salt, b) for b, _, _ in bs]
+        free_fp = [L.cuckoo_fingerprints(t) if cuckoo else None for _, t, _ in free]
+        no_probe = masks(lambda i: free[i][1], lambda i: free[i][2], lambda i: free[i][0],
+                         lambda i: free_fp[i])
+        for i in range(N_BATCHES):
+            if any(int(x.view(torch.int32).ne(0).sum()) for x in no_probe(i)):
+                raise AssertionError(f"{name}: a window hit in a shard that holds no probed key")
+        no_probe_ms = graph_ms(no_probe)
+        no_probe_bound = bound_ms(bs[0][0].numel() + out_bytes)
+        for n_index in SHARD_SWEEP:
+            shards = shard_table(table, layout, n_index, meta)
+            fps = [L.cuckoo_fingerprints(sh.table) if cuckoo else None for sh in shards]
+            per = shards[0].table.shape[0]
+            probes, hits, matched = stats(0, per, shards[0].table, fps[0])
+            ks = [masks(lambda i, sh=sh: sh.table, lambda i, sh=sh: sh.meta,
+                        lambda i, sh=sh: sh.lo, lambda i, fp=fp: fp) for sh, fp in zip(shards, fps)]
+
+            def program(i, ks=ks):  # a data shard's classify: I K4s launches, R, the sums launch
+                ms = [k4s(i) for k4s in ks]
+                scratch = ms[0] if len(ms) == 1 else L.shard_reduce([m for m, _ in ms], masks=True)
+                return L.classify_sums(*scratch, (ROWS, ROW_LEN), K, bs[i][1])
+
+            n_bytes = (bs[0][0].numel() + shard_probe_bytes(layout, (probes, hits, matched), per)
+                       + 4 * hits + out_bytes)
+            report(name, f"targets I={n_index}", graph_ms(ks[0]), bound_ms(n_bytes),
+                   no_probe_ms=no_probe_ms, no_probe_bound_ms=no_probe_bound,
+                   program_ms=graph_ms(program), probes=probes, hits=hits)
+            del shards, fps, ks
+            torch.cuda.empty_cache()
+        del free, free_fp, fp_all
+
+
 def compare_kernels(genome, bases: dict, report, dev) -> None:
     """K3 with its valid count (per batch, then the tally's total), K8 and
     K9 on every batch kind at COMPARE_KS, each on a table of the genome at
@@ -729,6 +887,9 @@ def main(argv: list[str] | None = None) -> int:
                          "instances) or both")
     ap.add_argument("--reduce", action="store_true",
                     help="time R (shard_reduce) alone, at I = 2, 4 and 8")
+    ap.add_argument("--shard", action="store_true",
+                    help="time K4s (shard_classify_masks) alone on targets batches, at I = 1, 2 "
+                         "and 4, with its no-probe pass and a data shard's classify program")
     args = ap.parse_args(argv)
     import torch
 
@@ -743,7 +904,8 @@ def main(argv: list[str] | None = None) -> int:
     if not strainer2_tpu_torch.__file__.startswith(repo + os.sep):
         print(f"FAIL: imported {strainer2_tpu_torch.__file__}, not the package under {repo}")
         return 1
-    print(json.dumps(bench(args.seed, args.label or repo, args.layout, args.reduce)), flush=True)
+    print(json.dumps(bench(args.seed, args.label or repo, args.layout, args.reduce, args.shard)),
+          flush=True)
     return 0
 
 

@@ -1026,3 +1026,118 @@ def test_shard_reduce_refuses_parts_on_two_devices(dev):
     parts = [torch.zeros(64, dtype=torch.int32, device=dev).view(torch.uint32) for _ in range(2)]
     with pytest.raises(ValueError, match="one CUDA device"):
         L.shard_reduce(parts + [parts[0].cpu()], masks=False)
+
+
+# ---- K4s: a block screens four tiles of a row by hash and probes the shard's
+# windows densely (shard_masks_tiles) -----------------------------------------
+
+K4S_BATCHES = ["main_rows", "ends_in_tile", "one_row", "dense_invalid"]
+
+
+def _k4s_table(strain, layout, k):
+    """The strain's genome at k in ``layout`` on the card, with a class 2
+    for every third key: (h_bits, salt, the table, its slot-indexed classes
+    (cuckoo) or None (bucket rows carry theirs))."""
+    _, genome, _, _, rows = strain
+    if layout == "cuckoo":
+        ct, t, meta = _cuckoo_k(genome, k, rows.device)
+        return t.h_bits, t.salt, ct, meta
+    t = _table_k(genome, k)
+    kinds = np.zeros(t.num_slots, dtype=np.uint32)
+    kinds[t.slot_of_key] = np.where(np.arange(t.slot_of_key.size) % 3 == 0, 2, 1)
+    return t.h_bits, t.salt, torch.from_numpy(t.with_meta(kinds)).to(rows.device), None
+
+
+def _window_shards(table, meta, n_index):
+    """Index shards of ``table`` cut at round(i n / I): of unequal sizes
+    where I does not divide the table (the kernel takes any window)."""
+    from strainer2_tpu_torch.parallel.sharding import TableShard
+
+    n = table.shape[0]
+    cuts = [round(i * n / n_index) for i in range(n_index + 1)]
+    return [TableShard(a, table[a:b], None if meta is None else meta[a:b])
+            for a, b in zip(cuts, cuts[1:])]
+
+
+def _k4s_pair(layout, sh, h, salt, k):
+    """K4s of shard ``sh`` and its plain version, each a function of the bases."""
+    if layout == "bucket":
+        return (lambda b: L.shard_classify_masks(sh.table, sh.lo, b, h, salt, k),
+                lambda b: L.shard_classify_masks_plain(sh.table, sh.lo, b, h, salt, k))
+    fp = L.cuckoo_fingerprints(sh.table)
+    return (lambda b: L.shard_cuckoo_classify_masks(sh.table, sh.meta, sh.lo, b, h, salt, k, fp=fp),
+            lambda b: L.shard_cuckoo_classify_masks_plain(sh.table, sh.meta, sh.lo, b, h, salt, k))
+
+
+def _k4s_bases(rng, genome, kind):
+    """64 edge rows of 4,096 bases; 6 of 1,000 (the last tile and the
+    last 1,024-window block end inside the row); one genome row of 4,096
+    with 1% N; 6 edge rows with 30% N."""
+    if kind == "main_rows":
+        return edge_rows(rng, genome, 4096, 64)
+    if kind == "ends_in_tile":
+        return edge_rows(rng, genome, 1000)
+    if kind == "one_row":
+        s = int(rng.integers(0, genome.size - 4096))
+        row = genome[None, s : s + 4096].copy()
+        row[rng.random(row.shape) < 0.01] = 4
+        return row
+    bases = edge_rows(rng, genome, 4096)
+    bases[rng.random(bases.shape) < 0.3] = 4
+    return bases
+
+
+@pytest.mark.parametrize("kind", K4S_BATCHES)
+@pytest.mark.parametrize("k", [20, 31, 32])
+@pytest.mark.parametrize("n_index", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("layout", ["bucket", "cuckoo"])
+def test_shard_classify_masks_kernels_edges(strain, layout, n_index, k, kind):
+    """K4s on every shard equal to its plain version (K4's scratch), and R
+    of the shards' scratch (I = 1: the one shard's, no R) through K4's
+    sums launch equal to the one-device plain K4, at k = 20, 31, 32, on
+    rows that end inside a tile, a one-row batch and rows dense with
+    invalid bases; I = 3 cuts shards of unequal sizes."""
+    rng, genome = strain[0], strain[1]
+    h, salt, table, meta = _k4s_table(strain, layout, k)
+    bases = _k4s_bases(rng, genome, kind)
+    b = torch.from_numpy(bases).to(table.device)
+    width = bases.shape[1] - k + 1
+    bd = torch.from_numpy(edge_bounds(bases.shape[0] * width, width)).to(b.device)
+    parts = []
+    for sh in _window_shards(table, meta, n_index):
+        kern, plain = _k4s_pair(layout, sh, h, salt, k)
+        got = kern(b)
+        assert _equal(got, plain(b)), sh.lo
+        parts.append(got)
+    scratch = parts[0] if n_index == 1 else L.shard_reduce([m for m, _ in parts], masks=True)
+    out = L.classify_sums(*scratch, tuple(b.shape), k, bd)
+    one = (L.classify_step_plain(table, b, bd, h, salt, k) if layout == "bucket" else
+           L.cuckoo_classify_step_plain(table, meta, b, bd, h, salt, k))
+    assert _equal(out, one)
+    if kind == "main_rows":
+        assert int(out[0].abs().sum()) > 0 and int(out[1].abs().sum()) > 0
+
+
+@pytest.mark.parametrize("n_index", [2, 4])
+@pytest.mark.parametrize("layout", ["bucket", "cuckoo"])
+def test_shard_classify_masks_kernels_shards_without_keys(strain, layout, n_index):
+    """Shard windows that hold no key of the batch: a one-bucket (one-slot)
+    shard that no window of the batch probes (the no-probe pass of
+    bench_kernels.py --shard), and the I shards of the table on rows of
+    random sequence (probed, never found): masks and count words all zero,
+    equal to the plain versions."""
+    from strainer2_tpu_torch.parallel.sharding import TableShard
+    from strainer2_tpu_torch.tools.bench_kernels import untouched_shard
+
+    rng, genome = strain[0], strain[1]
+    h, salt, table, meta = _k4s_table(strain, layout, K)
+    main = torch.from_numpy(edge_rows(rng, genome, 4096, 64)).to(table.device)
+    noise = torch.from_numpy(rng.integers(0, 4, size=(64, 4096), dtype=np.uint8)).to(table.device)
+    lo, t1, m1 = untouched_shard(layout, table, meta, h, salt, main)
+    cases = [(TableShard(lo, t1, m1), main)]
+    cases += [(sh, noise) for sh in _window_shards(table, meta, n_index)]
+    for sh, b in cases:
+        kern, plain = _k4s_pair(layout, sh, h, salt, K)
+        got = kern(b)
+        assert _equal(got, plain(b))
+        assert not any(int(x.view(torch.int32).ne(0).sum()) for x in got), sh.lo

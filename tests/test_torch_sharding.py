@@ -478,3 +478,111 @@ def test_cuckoo_builders_place_each_key_once(setup):
         occupied = table[(table != 0xFFFFFFFF).any(axis=1)]
         assert occupied.shape[0] == index.num_kmers
         assert np.unique(occupied, axis=0).shape[0] == index.num_kmers
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_planes_fn(layout, h_bits, salt, per, n_index):
+    """The jitted shard_map of _jax_shard_planes, one compile a layout and
+    mesh."""
+    from strainer2_tpu.ops.packing import canonical_windows
+    from strainer2_tpu.parallel.sharding import (ShardedKmerEngine, _local_lookup, make_mesh,
+                                                 shard_map)
+
+    mesh = make_mesh(1, n_index, devices=jax.devices()[:n_index])
+
+    def planes(hit, inf):
+        return jnp.stack([hit, inf]).astype(jnp.int32)[None]
+
+    if layout == "bucket":
+        def body(rows_loc, b):
+            win = canonical_windows(b, K)
+            hit, _, m = ShardedKmerEngine._bucket_local_lookup(
+                rows_loc, win.hi.reshape(-1), win.lo.reshape(-1), h_bits, salt, per)
+            hit = (hit & win.valid.reshape(-1)).reshape(win.valid.shape)
+            return planes(hit, hit & (m.reshape(hit.shape) == 2))
+
+        specs = (P("index", None), P())
+    else:
+        def body(t_hi, t_lo, meta_loc, b):
+            win = canonical_windows(b, K)
+            hit, slot = _local_lookup(t_hi, t_lo, win.hi, win.lo, h_bits, salt, per)
+            hit = hit & win.valid
+            cls = jnp.where(hit, meta_loc[jnp.where(hit, slot, 0).reshape(-1)].reshape(hit.shape), 0)
+            return planes(hit, cls == 2)
+
+        specs = (P("index"), P("index"), P("index"), P())
+    return jax.jit(shard_map(body, mesh=mesh, in_specs=specs, out_specs=P("index")))
+
+
+def _jax_shard_planes(layout, table, meta, bases, h_bits, salt, n_index):
+    """Per index shard, the hit and informative planes that JAX's
+    _classify_body (cuckoo: _local_lookup, class == 2) and
+    _classify_body_bucket (_bucket_local_lookup, meta == 2) sum over
+    "index": an (n_index, 2, rows, windows) int array, computed by those
+    lookups inside a shard_map over a (1, n_index) mesh."""
+    per = table.shape[0] // n_index
+    fn = _jax_planes_fn(layout, h_bits, salt, per, n_index)
+    if layout == "bucket":
+        return np.asarray(fn(jnp.asarray(table), jnp.asarray(bases)))
+    return np.asarray(fn(*(jnp.asarray(np.ascontiguousarray(table[:, j])) for j in (0, 1)),
+                         jnp.asarray(meta), jnp.asarray(bases)))
+
+
+def _mask_planes(masks, n_rows, length):
+    """K4's scratch mask words as (2, rows, windows) hit and informative
+    bits."""
+    w = length - K + 1
+    tpr = -(-w // 256)
+    words = masks.view(torch.int32).numpy().view(np.uint32).reshape(n_rows, tpr, 2, 8)
+    bits = (words[..., None] >> np.arange(32, dtype=np.uint32)) & 1
+    return bits.transpose(2, 0, 1, 3, 4).reshape(2, n_rows, tpr * 256)[:, :, :w].astype(np.int32)
+
+
+@pytest.mark.parametrize("batch", ["no_key", "genome"])
+@pytest.mark.parametrize("n_index", [2, 4])
+@pytest.mark.parametrize("layout", ["bucket", "cuckoo"])
+def test_plain_shard_masks_are_jax_psum_planes(setup, layout, n_index, batch):
+    """Each index shard's plain K4s masks against the planes that JAX's
+    _classify_body_bucket and _classify_body psum over "index", shard by
+    shard, and their OR against the psum.  On a batch of random reads the
+    table holds none of the batch's keys: every shard window's masks and
+    count words are zero, as JAX's planes are; on the genome's reads the
+    planes are not."""
+    from strainer2_tpu_torch.ops import lookup as L
+    from strainer2_tpu_torch.parallel.sharding import shard_table
+    from tests.oracle import random_dna
+
+    _, index, tb, batches = setup
+    t = tb if layout == "bucket" else index.table
+    kinds = np.where(np.arange(index.num_kmers) % 3 == 0, 2, 1).astype(np.uint32)
+    meta = np.zeros(t.num_slots, np.uint32)
+    meta[t.slot_of_key] = kinds
+    table = tb.with_meta(meta) if layout == "bucket" else t.table
+    if batch == "genome":
+        bases = batches[0].bases
+    else:
+        from strainer2_tpu_torch.io.batches import pack_stream
+
+        rng = np.random.default_rng(11)
+        reads = [random_dna(rng, int(rng.integers(40, 150)), n_prob=0.02).encode()
+                 for _ in range(100)]
+        bases = next(pack_stream(iter(reads), K, ROWS, ROW_LEN)).bases
+    want = _jax_shard_planes(layout, table, meta, bases, t.h_bits, t.salt, n_index)
+    shards = shard_table(torch.from_numpy(table), layout, n_index,
+                         None if layout == "bucket" else torch.from_numpy(meta))
+    b = torch.from_numpy(bases)
+    got = []
+    for sh in shards:
+        if layout == "bucket":
+            masks, counts = L.shard_classify_masks_plain(sh.table, sh.lo, b, t.h_bits, t.salt, K)
+        else:
+            masks, counts = L.shard_cuckoo_classify_masks_plain(sh.table, sh.meta, sh.lo, b,
+                                                                t.h_bits, t.salt, K)
+        got.append(_mask_planes(masks, *bases.shape))
+        n = counts.view(torch.int32).numpy().astype(np.int64)
+        assert (n >> 16).sum() == got[-1][0].sum() and (n & 0xFFFF).sum() == got[-1][1].sum()
+        if batch == "no_key":
+            assert not masks.view(torch.int32).any() and not counts.view(torch.int32).any()
+    np.testing.assert_array_equal(np.stack(got), want)
+    np.testing.assert_array_equal(np.stack(got).max(0), np.minimum(want.sum(0), 1))
+    assert (int(want.sum()) > 0) == (batch == "genome")
