@@ -930,18 +930,21 @@ def stacked(parts: list):
 
 def check_shard_kernels(ctx: dict, dev) -> dict:
     """Phase 2c: the shard-window kernels against their plain versions on
-    phase 2's ``targets`` batches (K4s on ``phase2`` ones too) and tables,
-    split into I = 2 and 4 index shards (views of the one-device tables,
-    every shard on this card): K3s (count) and K4s (K4's scratch) of each
-    shard in both layouts, R over the shards' scratch and K4's sums launch
-    on R's output, the composed per-read sums equal to the one-device
-    plain classify; K6s at S = 32 and 256 on each shard of the union rows
-    and R adding the shards' words, equal to the one-device plain K6.
-    Every output exactly equal; R takes the shards' outputs where they lie,
-    as a list (its stacked form checked too). Device ms and bounds of shard
-    0 (the shard-local program), of K4s's no-probe pass (a one-bucket or
-    one-slot shard that no window of the batch probes, all zero:
-    ``no_probe_ms``), of R and of the sums launch, and of the
+    phase 2's ``targets`` batches (K4s on ``phase2`` ones too, K3s on
+    ``count`` ones at I = 2) and tables, split into I = 2 and 4 index
+    shards (views of the one-device tables, every shard on this card): K3s
+    (count; also at I = 1, the one shard of the whole table, which K3
+    counts in the bucket layout and a one-tile kernel of its own in the
+    cuckoo layout) and K4s (K4's scratch) of each shard in both layouts,
+    R over the shards' scratch and K4's sums launch on R's output, the composed
+    per-read sums equal to the one-device plain classify; K6s at S = 32
+    and 256 on each shard of the union rows and R adding the shards'
+    words, equal to the one-device plain K6. Every output exactly equal; R
+    takes the shards' outputs where they lie, as a list (its stacked form
+    checked too). Device ms and bounds of shard 0 (the shard-local
+    program), of K3s's and K4s's no-probe passes (a one-bucket or one-slot
+    shard that no window of the batch probes, all zero: ``no_probe_ms``),
+    of R and of the sums launch, and of the
     whole program of a data shard (I K4s launches, R, sums; I K6s launches,
     R, K7: ``program_ms``, and the K6s program with the torch.stack that
     came before R until it read the parts in place: ``program_stacked_ms``);
@@ -965,7 +968,7 @@ def check_shard_kernels(ctx: dict, dev) -> dict:
     def record(name, label, res):
         by.setdefault(name, {})[label] = res
 
-    for n_index in SHARDS:
+    for n_index in (1,) + SHARDS:  # I = 1: K3s alone, on a shard of the whole table
         for layout, (table, meta, h, salt) in layouts.items():
             shards = shard_table(table, layout, n_index, meta)
             per = shards[0].table.shape[0]
@@ -979,13 +982,13 @@ def check_shard_kernels(ctx: dict, dev) -> dict:
             if not all(sum(s[1] for s in per_shard) for per_shard in st):
                 fail(f"{layout} I={n_index}: a shard holds no key of the targets batches")
 
-            def count(sh, fp, c, plain=False):
+            def count(sh, fp, c, bs, plain=False):
                 if plain:  # the one-device plain version over the shard's window
                     fn = L.count_step_plain if layout == "bucket" else L.cuckoo_count_step_plain
-                    return lambda i: (fn(c, sh.table, targets[i][0], h, salt, K, sh.lo),)
+                    return lambda i: (fn(c, sh.table, bs[i], h, salt, K, sh.lo),)
                 fn = L.shard_count_step if layout == "bucket" else L.shard_cuckoo_count_step
                 kw = {} if layout == "bucket" else {"fp": fp}
-                return lambda i: (fn(c, sh.table, sh.lo, targets[i][0], h, salt, K, **kw),)
+                return lambda i: (fn(c, sh.table, sh.lo, bs[i], h, salt, K, **kw),)
 
             def masks(sh, fp, bs, plain=False):
                 if layout == "bucket":
@@ -997,22 +1000,50 @@ def check_shard_kernels(ctx: dict, dev) -> dict:
                 return lambda i: L.shard_cuckoo_classify_masks(sh.table, sh.meta, sh.lo, bs[i][0],
                                                                h, salt, K, fp=fp)
 
-            # K3s: every shard checked; shard 0 timed (its counts start at zero, as its plain twin's)
-            err = 0
-            for j, (sh, fp) in enumerate(zip(shards, fps)):
+            # K3s: every shard checked; shard 0 timed (its counts start at zero, as its
+            # plain twin's) beside its no-probe pass; on the ``count`` batches too at I = 2
+            k3_kinds = {"targets": [b for b, _, _ in targets]}
+            if n_index == SHARDS[0]:
+                k3_kinds["count"] = ctx["count"]
+            for kind, bs in k3_kinds.items():
+                label = f"{kind} I={n_index}"
+                err = 0
+                for j, (sh, fp) in enumerate(zip(shards, fps)):
+                    c, cp = (torch.zeros(cells, dtype=torch.uint32, device=dev) for _ in range(2))
+                    err = max(err, checked(f"{k3} {label} shard {j}", count(sh, fp, c, bs),
+                                           count(sh, fp, cp, bs, True)))
+                    if not int(c.view(torch.int32).ne(0).sum()):
+                        fail(f"{k3} {label} shard {j}: no hit counted")
+                st0 = tuple(sum(x) / N_BATCHES for x in zip(*(
+                    shard_stats(layout, shards[0].table, h, salt, 0, per, b, fps[0]) for b in bs)))
                 c, cp = (torch.zeros(cells, dtype=torch.uint32, device=dev) for _ in range(2))
-                err = max(err, checked(f"{k3} targets I={n_index} shard {j}", count(sh, fp, c),
-                                       count(sh, fp, cp, True)))
-                if not int(c.view(torch.int32).ne(0).sum()):
-                    fail(f"{k3} I={n_index} shard {j}: no hit counted")
-            c, cp = (torch.zeros(cells, dtype=torch.uint32, device=dev) for _ in range(2))
-            n_bytes = targets[0][0].numel() + shard_probe_bytes(layout, mean0, per) + (
-                8 * mean0[1] if layout == "bucket" else 32 * mean0[1])
+                n_bytes = bs[0].numel() + shard_probe_bytes(layout, st0, per) + (
+                    8 * st0[1] if layout == "bucket" else 32 * st0[1])
+                res = dict(timed(f"{k3} {label}", count(shards[0], fps[0], c, bs),
+                                 count(shards[0], fps[0], cp, bs, True), bound_ms(n_bytes),
+                                 f"; shard 0: {st0[0]:.0f} probes, {st0[1]:.0f} hits a batch"),
+                           max_abs_err=err)
+                # the no-probe pass: K3s on a one-bucket (one-slot) shard that no
+                # window of the batch probes; its counts stay zero
+                free = [TableShard(*untouched_shard(layout, table, meta, h, salt, b)) for b in bs]
+                free_fp = [L.cuckoo_fingerprints(f.table) if layout == "cuckoo" else None
+                           for f in free]
+                fc, fcp = (torch.zeros(cells // per, dtype=torch.uint32, device=dev)
+                           for _ in range(2))  # a one-bucket (one-slot) shard's cells
+                no_probe = lambda i: count(free[i], free_fp[i], fc, bs)(i)  # noqa: E731
+                checked(f"{k3} no-probe pass {label}", no_probe,
+                        lambda i: count(free[i], free_fp[i], fcp, bs, True)(i))
+                res["no_probe_ms"] = graph_ms(no_probe)
+                res["no_probe_bound_ms"] = bound_ms(bs[0].numel())
+                if int(fc.view(torch.int32).ne(0).sum()):
+                    fail(f"{k3} {label}: a hit counted in a shard that no window probes")
+                print(f"time {k3} no-probe pass {label}: device {res['no_probe_ms']:.4f} ms, "
+                      f"bound {res['no_probe_bound_ms']:.4f} ms", flush=True)
+                record(k3, label, res)
+                del free, free_fp
+            if n_index == 1:
+                continue
             label = f"targets I={n_index}"
-            record(k3, label, dict(timed(f"{k3} {label}", count(shards[0], fps[0], c),
-                                         count(shards[0], fps[0], cp, True), bound_ms(n_bytes),
-                                         f"; shard 0: {mean0[0]:.0f} probes, {mean0[1]:.0f} hits a "
-                                         "batch"), max_abs_err=err))
             # K4s on every shard, R over their scratch, the sums launch; the
             # composed per-read sums against the one-device plain classify
             r_err = s_err = m_err = 0
@@ -1090,6 +1121,8 @@ def check_shard_kernels(ctx: dict, dev) -> dict:
                           bound_ms(4 * tiles + 4 * (reads + 1) + 64 * (reads + 1) + 8 * reads)),
                     max_abs_err=s_err))
             del fps, shards
+        if n_index == 1:
+            continue
         # K6s on the union rows at S strains, R adding the shards' words
         for n_strains in SHARD_STRAINS:
             n_words = G.words_for_strains(n_strains)

@@ -226,6 +226,9 @@ struct ShardCuckooSideProbe {
     *where = s;
     return (a.x == h) & (a.y == l);
   }
+  __device__ __forceinline__ size_t slot(uint32_t where, unsigned m) const {
+    return p.slot(where, m);
+  }
   __device__ __forceinline__ uint32_t meta(uint32_t where, unsigned m) const {
     return p.meta(where, m);
   }
@@ -1022,16 +1025,13 @@ hit_crossing_kernel(const uint32_t* __restrict__ masks, const uint32_t* __restri
 //   the windows whose bucket (or slot) it holds, about 1/I of the valid
 //   windows (the rest are settled by the hash alone, no read); K3s adds into
 //   the shard's private counts, K4s writes K4's 16 mask words and a count
-//   word a tile. R reads I copies of the masks and writes one. Shard 0 of
-//   a `targets` batch at I = 2 / 4: K3s 0.0157 / 0.0128 ms (0.51 / 0.33 of
-//   its bound; K3 0.0285), cuckoo K3s 0.0109 / 0.0100; the sums launch
-//   0.0047 (H100 80GB HBM3, 700 W; PERF.md): a shard probes 1/I of the
-//   windows but packs the whole batch. K4s: its own note below.
-// Design: K3's block with the window policies (ShardBucketProbe,
-//   ShardCuckooProbe): a key outside the shard's block is a miss with no
-//   memory read, and slot() is the shard's local count index, so
-//   count_step_tile runs unchanged; K4s takes four tiles a block (its
-//   own note below). A key lives in
+//   word a tile. R reads I copies of the masks and writes one.
+// Design: K3s and K4s share one block (shard_tiles, K4s's note below):
+//   four tiles of a row, packed once, each thread taking its window of the
+//   four in turn through a window policy (ShardBucketProbe,
+//   ShardCuckooProbe, ShardCuckooSideProbe): a key outside the shard's
+//   block is a miss with no memory read, and slot() is the shard's local
+//   count index. A key lives in
 //   one shard, so the OR of the shards' hit bits is the psum's hit_g > 0,
 //   and the OR of their informative bits its class_g == 2 (the two differ
 //   only for a key held twice, which no builder makes); R ORs the shards'
@@ -1041,22 +1041,6 @@ hit_crossing_kernel(const uint32_t* __restrict__ masks, const uint32_t* __restri
 //   classify_sums_kernel runs unchanged on the data shard's boundaries,
 //   clipped to its window range (sharding.py:333-340).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kTile)
-shard_count_step_kernel(uint32_t* __restrict__ counts, const uint32_t* __restrict__ rows,
-                        int row_width, int h_bits, uint32_t salt, uint32_t lo, uint32_t n,
-                        const uint8_t* __restrict__ bases, int L, int k) {
-  count_step_tile<false>(counts, ShardBucketProbe{rows, row_width, h_bits, salt, lo, n}, bases,
-                         L, k, nullptr);
-}
-
-__global__ void __launch_bounds__(kTile)
-shard_cuckoo_count_step_kernel(uint32_t* __restrict__ counts, const uint2* __restrict__ table,
-                               const uint8_t* __restrict__ fp, int h_bits, uint32_t H,
-                               uint32_t salt, uint32_t lo, uint32_t n,
-                               const uint8_t* __restrict__ bases, int L, int k) {
-  count_step_tile<false>(counts, ShardCuckooProbe{table, fp, h_bits, salt, H, lo, n, nullptr},
-                         bases, L, k, nullptr);
-}
 
 // ---------------------------------------------------------------------------
 // K4s shard_classify_masks, in both layouts
@@ -1104,11 +1088,40 @@ shard_cuckoo_count_step_kernel(uint32_t* __restrict__ counts, const uint2* __res
 //   / 0.0104 (cuckoo 0.0147 / 0.0113: the screening runs with no probe in
 //   flight); 2 or 8 tiles a block 0.0155 / 0.0116 and 0.0160 / 0.0126; no
 //   register bound 0.0150 / 0.0116 (H100 80GB HBM3, 700 W;
-//   bench_kernels.py --shard; PERF.md).
+//   bench_kernels.py --shard; PERF.md). Its screening loop is K3s's too
+//   (shard_tiles, the per-window action a lambda): against its own loop in
+//   the same call, I = 2 / 4 0.0150-0.0152 / 0.0115 ms against
+//   0.0151-0.0153 / 0.0115, cuckoo 0.0099 / 0.0075 against 0.0100 /
+//   0.0072-0.0075, the no-probe pass 0.0058-0.0059 in both (H100 80GB
+//   HBM3, 700 W).
 // ---------------------------------------------------------------------------
-constexpr int kShardTiles = 4;  // 256-window tiles a K4s block screens
+constexpr int kShardTiles = 4;  // 256-window tiles a K3s or K4s block screens
 constexpr int kShardWindows = kShardTiles * kTile;
 static_assert(kShardTiles <= 8, "a K4s block's mask words are one warp's 16-byte stores");
+
+// The block of K3s and K4s: pack the block's kShardTiles tiles of its row
+// once, then for each tile j, act(j, m, where) on this thread's window
+// j * kTile + threadIdx.x, m the probe's mask (0 where the window is past
+// the row's end, invalid, or its key not the shard's; act takes where by
+// reference and reads it only where m is not 0). Every thread reaches
+// every act, so act may ballot.
+template <class Probe, class Act>
+__device__ __forceinline__ void shard_tiles(const Probe& probe, const uint8_t* __restrict__ bases,
+                                            int L, int k, Act act) {
+  __shared__ PackedBases<kShardWindows + 64> tile;
+  const int w0 = blockIdx.x * kShardWindows;
+  const int W = L - k + 1;
+  const int n_lo = min(k, 16);
+  pack_tile_wide(tile, bases + static_cast<size_t>(blockIdx.y) * L, w0, L);
+#pragma unroll
+  for (int j = 0; j < kShardTiles; ++j) {
+    const int p = j * kTile + threadIdx.x;
+    uint32_t h, l, where;
+    unsigned m = 0u;
+    if (w0 + p < W && packed_window(tile, p, k, n_lo, &h, &l)) m = probe.find(h, l, &where);
+    act(j, m, where);  // by reference: where is set only where m is not 0
+  }
+}
 
 template <class Probe>
 __device__ __forceinline__ void shard_masks_tiles(const Probe& probe,
@@ -1116,21 +1129,11 @@ __device__ __forceinline__ void shard_masks_tiles(const Probe& probe,
                                                   uint32_t* __restrict__ masks,
                                                   uint32_t* __restrict__ tile_counts) {
   constexpr int kWords = 2 * kTileWords;  // a tile's hit words, then its informative words
-  __shared__ PackedBases<kShardWindows + 64> tile;
   __shared__ __align__(16) uint32_t words[kShardTiles * kWords];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int w0 = blockIdx.x * kShardWindows;
-  const int W = L - k + 1;
-  const int n_lo = min(k, 16);
-  pack_tile_wide(tile, bases + static_cast<size_t>(blockIdx.y) * L, w0, L);
   // tile j: window j * kTile + threadIdx.x, so warp w's ballots are word w
-#pragma unroll
-  for (int j = 0; j < kShardTiles; ++j) {
-    const int p = j * kTile + threadIdx.x;
-    uint32_t h, l, where;
-    unsigned m = 0u;
-    if (w0 + p < W && packed_window(tile, p, k, n_lo, &h, &l)) m = probe.find(h, l, &where);
+  shard_tiles(probe, bases, L, k, [&](int j, unsigned m, const uint32_t& where) {
     const bool informative = m && probe.meta(where, m) == kInformative;
     const unsigned hit_word = __ballot_sync(0xffffffffu, m != 0);
     const unsigned inf_word = __ballot_sync(0xffffffffu, informative);
@@ -1138,9 +1141,10 @@ __device__ __forceinline__ void shard_masks_tiles(const Probe& probe,
       words[j * kWords + warp] = hit_word;
       words[j * kWords + kTileWords + warp] = inf_word;
     }
-  }
+  });
   __syncthreads();
   // the block's tiles of its row: warp 0 stores the words, the last warp the count words
+  const int W = L - k + 1;
   const int tpr = (W + kTile - 1) / kTile;
   const int col = blockIdx.x * kShardTiles;
   const int n_mine = min(kShardTiles, tpr - col);
@@ -1187,6 +1191,96 @@ shard_cuckoo_classify_masks_kernel(const uint2* __restrict__ table,
   } else {
     shard_masks_tiles(ShardCuckooSideProbe<kSide>{probe}, bases, L, k, masks, tile_counts);
   }
+}
+
+// ---------------------------------------------------------------------------
+// K3s shard_count_step, in both layouts
+//
+// Replaces: ShardedKmerEngine._count_body_bucket
+//   (strainer2_tpu/parallel/sharding.py:304-315, _bucket_local_lookup) and
+//   _count_body (:167-177, _local_lookup): counts_loc[slot_loc] += 1
+//   (uint32, wrapping) for every valid window whose key the shard holds,
+//   misses dropped.
+// Bound on this card: the data shard's bases, the shard's probes (as
+//   K4s's), and a count read and written a hit (a 32-byte sector in the
+//   cuckoo layout); nothing where no window hits. The no-probe pass (a
+//   shard that no window probes) moves the bases alone.
+// Design: K4s's block (shard_tiles) with one atomicAdd a hit into the
+//   shard's counts: four tiles of a row a block, one resident wave of
+//   1,024 blocks a 256 x 4096 batch at 32 registers, the bases packed once
+//   by 16-byte loads, each thread probing its window of the four tiles in
+//   turn where its bucket (slot) is the shard's. No ballot, barrier, store
+//   or PDL trigger: K3s has no dependent launch. A cuckoo shard on one
+//   side of H takes ShardCuckooSideProbe (one hash a window), chosen on
+//   the host from lo, n and H; a shard across H (I = 3) keeps
+//   ShardCuckooProbe and its s1-over-s0 rule. A shard of the whole table
+//   (I = 1, chosen on the host from lo and n) keeps the first form, K3's
+//   one-tile block (count_step_tile): in the bucket layout that is K3
+//   itself (ShardBucketProbe at lo = 0 over every bucket is BucketProbe),
+//   so the launcher calls s2t_count_step; the cuckoo layout keeps its own
+//   one-tile kernel (shard_cuckoo_count_step_kernel), because CuckooProbe
+//   picks s0 for a key held in both of its slots where the shard's rule
+//   (JAX's _local_lookup) picks s1. The first form: 4,096 blocks a batch
+//   in four waves, a byte-load pack a tile, two hashes a cuckoo window.
+//   Shard 0 of a `targets` batch,
+//   this form against the first in the same call: I = 2 / 4 0.0147 /
+//   0.0104-0.0105 ms (0.55 / 0.40 of the bound) against 0.0155-0.0156 /
+//   0.0123-0.0124; cuckoo 0.0091 / 0.0063 (0.32 / 0.26) against
+//   0.0107-0.0108 / 0.0099-0.0100; the no-probe pass 0.0052 (cuckoo 0.0050)
+//   against 0.0076 (0.0095-0.0096): it was 49-96% of a shard's time. On a
+//   `count` batch (half the valid windows hit) I = 2 0.0199-0.0200 against
+//   0.0198-0.0199 (cuckoo 0.0162 against 0.0159-0.0161): ~200,000 probes and
+//   ~100,000 atomicAdds into 128 MiB meet the card's random-access rates
+//   (~30 G rows/s, ~15.6 G atomics/s), so the pack saved hides; I = 4
+//   0.0128 against 0.0138 (0.0091-0.0095 against 0.0113-0.0115). At I = 1
+//   this block lost: 0.0292-0.0294 against 0.0284-0.0285 (`count`
+//   0.0395-0.0398 against 0.0384; cuckoo `count` 0.0253-0.0255 against
+//   0.0248), since the first form's four waves overlap one wave's pack
+//   with another's probes (H100 80GB HBM3, 700 W; bench_kernels.py
+//   --shard; PERF.md).
+// ---------------------------------------------------------------------------
+template <class Probe>
+__device__ __forceinline__ void shard_count_tiles(uint32_t* __restrict__ counts,
+                                                  const Probe& probe,
+                                                  const uint8_t* __restrict__ bases, int L,
+                                                  int k) {
+  shard_tiles(probe, bases, L, k, [&](int, unsigned m, const uint32_t& where) {
+    if (m) atomicAdd(counts + probe.slot(where, m), 1u);
+  });
+}
+
+__global__ void __launch_bounds__(kTile, 8)
+shard_count_tiles_kernel(uint32_t* __restrict__ counts, const uint32_t* __restrict__ rows,
+                         int row_width, int h_bits, uint32_t salt, uint32_t lo, uint32_t n,
+                         const uint8_t* __restrict__ bases, int L, int k) {
+  shard_count_tiles(counts, ShardBucketProbe{rows, row_width, h_bits, salt, lo, n}, bases, L, k);
+}
+
+// kSide as shard_cuckoo_classify_masks_kernel's.
+template <int kSide>
+__global__ void __launch_bounds__(kTile, 8)
+shard_cuckoo_count_tiles_kernel(uint32_t* __restrict__ counts, const uint2* __restrict__ table,
+                                const uint8_t* __restrict__ fp, int h_bits, uint32_t H,
+                                uint32_t salt, uint32_t lo, uint32_t n,
+                                const uint8_t* __restrict__ bases, int L, int k) {
+  const ShardCuckooProbe probe{table, fp, h_bits, salt, H, lo, n, nullptr};
+  if constexpr (kSide < 0) {
+    shard_count_tiles(counts, probe, bases, L, k);
+  } else {
+    shard_count_tiles(counts, ShardCuckooSideProbe<kSide>{probe}, bases, L, k);
+  }
+}
+
+// Cuckoo K3s on a shard of the whole table (lo = 0, all 2H slots: I = 1):
+// the first form, K3's one-tile block with ShardCuckooProbe (the note
+// above).
+__global__ void __launch_bounds__(kTile)
+shard_cuckoo_count_step_kernel(uint32_t* __restrict__ counts, const uint2* __restrict__ table,
+                               const uint8_t* __restrict__ fp, int h_bits, uint32_t H,
+                               uint32_t salt, uint32_t lo, uint32_t n,
+                               const uint8_t* __restrict__ bases, int L, int k) {
+  count_step_tile<false>(counts, ShardCuckooProbe{table, fp, h_bits, salt, H, lo, n, nullptr},
+                         bases, L, k, nullptr);
 }
 
 // ---------------------------------------------------------------------------
@@ -1541,12 +1635,16 @@ int s2t_cuckoo_classify_step(const void* table, const void* fp, const void* meta
 // slot) and its count; rows, table, fp, meta and counts hold the shard's own
 // n buckets or slots.
 
+// K3s: a block counts kShardTiles tiles of a row (shard_count_tiles_kernel);
+// a shard of the whole table is K3's work, and K3 counts it.
 int s2t_shard_count_step(void* counts, const void* rows, int row_width, int h_bits,
                          uint32_t salt, int lo, int n, const void* bases, int n_rows, int L,
                          int k, void* stream) {
+  if (lo == 0 && static_cast<long long>(n) == 1ll << h_bits)
+    return s2t_count_step(counts, rows, row_width, h_bits, salt, bases, n_rows, L, k, stream);
   const int W = L - k + 1;
-  const dim3 grid((W + kTile - 1) / kTile, n_rows);
-  shard_count_step_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+  shard_count_tiles_kernel<<<dim3((W + kShardWindows - 1) / kShardWindows, n_rows), kTile, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint32_t*>(counts), static_cast<const uint32_t*>(rows), row_width, h_bits, salt,
       static_cast<uint32_t>(lo), static_cast<uint32_t>(n), static_cast<const uint8_t*>(bases), L,
       k);
@@ -1557,8 +1655,13 @@ int s2t_shard_cuckoo_count_step(void* counts, const void* table, const void* fp,
                                 int H, uint32_t salt, int lo, int n, const void* bases,
                                 int n_rows, int L, int k, void* stream) {
   const int W = L - k + 1;
-  const dim3 grid((W + kTile - 1) / kTile, n_rows);
-  return launch_windowed(shard_cuckoo_count_step_kernel, grid, dim3(kTile),
+  const bool whole = lo == 0 && n == 2 * H;
+  const int windows = whole ? kTile : kShardWindows;
+  const auto kernel = whole       ? &shard_cuckoo_count_step_kernel
+                      : lo + n <= H ? &shard_cuckoo_count_tiles_kernel<0>
+                      : lo >= H     ? &shard_cuckoo_count_tiles_kernel<1>
+                                    : &shard_cuckoo_count_tiles_kernel<-1>;
+  return launch_windowed(kernel, dim3((W + windows - 1) / windows, n_rows), dim3(kTile),
                          static_cast<cudaStream_t>(stream), static_cast<const uint8_t*>(fp),
                          static_cast<size_t>(n), static_cast<uint32_t*>(counts),
                          static_cast<const uint2*>(table), static_cast<const uint8_t*>(fp), h_bits,

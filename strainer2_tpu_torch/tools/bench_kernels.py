@@ -22,12 +22,14 @@ and K4s's scratch, over I = 2, 4 and 8 index shards' parts of seeded
 words, each part a buffer of its own; beside R, torch's sum of the stacked
 words and ``torch.stack`` of the parts alone (the copy the mesh made
 before R).  A checkout whose R takes only the stack is timed on it.
-``--shard`` times K4s (shard_classify_masks) alone on the ``targets``
-batches, in the layouts of ``--layout``: shard 0 of the table split into
-I = 1, 2 and 4 index shards, its no-probe pass (a one-bucket or one-slot
-shard that no window of the batch probes: ``untouched_shard``) and a data
-shard's classify program (I K4s launches, R, the sums launch), beside
-the one-device K4.
+``--shard`` times the shard-window kernels alone, in the layouts of
+``--layout``: K4s (shard_classify_masks) on the ``targets`` batches and
+K3s (shard_count_step) on the ``targets`` and ``count`` batches, each as
+shard 0 of the table split into I = 1, 2 and 4 index shards and as its
+no-probe pass (a one-bucket or one-slot shard that no window of the batch
+probes: ``untouched_shard``), K4s also as a data shard's classify
+program (I K4s launches, R, the sums launch), beside the one-device K4
+and K3.
 
 A 6.7 Mbp random genome gives the table (6.7 M keys, 64-lane rows, 5% of the
 keys informative).  Three kinds of 256 x 4096 batch, 8 of each:
@@ -584,7 +586,10 @@ def bench(seed: int, label: str, layout: str = "both", reduce: bool = False,
         if layout != "bucket":
             ctable, ch, csalt, cmeta = cuckoo_table_k(keys, K, dev, key_kinds)
             tables["cuckoo"] = (ctable, cmeta, ch, csalt)
+        count_bases = {"targets": [b for b, _, _ in batches["targets"]],
+                       "count": count_batches(rng, genome, dev)}
         shard_kernels(tables, batches, report)
+        shard_count_kernels(tables, count_bases, report)
         return result
     bases = {"count": count_batches(rng, genome, dev), "targets": [b for b, _, _ in batches["targets"]]}
     bases.update(phase2=[b for b, _, _ in batches["phase2"]])
@@ -775,6 +780,69 @@ def shard_kernels(tables: dict, batches: list, report) -> None:
         del free, free_fp, fp_all
 
 
+def shard_count_kernels(tables: dict, bases: dict, report) -> None:
+    """K3s alone (--shard), on the batches of each kind of ``bases`` (kind
+    -> N_BATCHES device batches), in each layout of ``tables`` as
+    ``shard_kernels`` takes them: the one-device K3, then at each I of
+    SHARD_SWEEP shard 0's K3s into its own counts, beside its no-probe
+    pass (K3s on a one-bucket or one-slot shard that no window of the
+    batch probes: ``untouched_shard``; its counts stay zero)."""
+    import torch
+
+    from strainer2_tpu_torch.ops import lookup as L
+    from strainer2_tpu_torch.parallel.sharding import shard_table
+
+    for layout, (table, meta, h, salt) in tables.items():
+        cuckoo = layout == "cuckoo"
+        cells = 1 if cuckoo else 16  # count cells a bucket (slot) of the table
+
+        def k3s(sh_table, lo, fp, counts, bs):
+            if cuckoo:
+                return lambda i: L.shard_cuckoo_count_step(counts, sh_table(i), lo(i), bs[i], h, salt,
+                                                           K, fp=fp(i))
+            return lambda i: L.shard_count_step(counts, sh_table(i), lo(i), bs[i], h, salt, K)
+
+        def n_bytes(bs, lo, n, t, fp=None):
+            """Bases, the probes of shard [lo, lo + n), a count read and
+            written a hit (a 32-byte sector in the cuckoo layout)."""
+            st = [sum(x) / N_BATCHES for x in zip(*(shard_stats(layout, t, h, salt, lo, n, b, fp)
+                                                    for b in bs))]
+            return bs[0].numel() + shard_probe_bytes(layout, st, n) + (32 if cuckoo else 8) * st[1]
+
+        fp_all = L.cuckoo_fingerprints(table) if cuckoo else None
+        for kind, bs in bases.items():
+            counts = torch.zeros(table.shape[0] * cells, dtype=torch.uint32, device=table.device)
+            if cuckoo:
+                one = lambda i: L.cuckoo_count_step(counts, table, bs[i], h, salt, K, fp=fp_all)  # noqa: E731
+            else:
+                one = lambda i: L.count_step(counts, table, bs[i], h, salt, K)  # noqa: E731
+            report("k3_cuckoo" if cuckoo else "k3", f"{kind} beside K3s", graph_ms(one),
+                   bound_ms(n_bytes(bs, 0, table.shape[0], table, fp_all)))
+            free = [untouched_shard(layout, table, meta, h, salt, b) for b in bs]
+            free_fp = [L.cuckoo_fingerprints(t) if cuckoo else None for _, t, _ in free]
+            zero = torch.zeros(cells, dtype=torch.uint32, device=table.device)
+            no_probe = k3s(lambda i: free[i][1], lambda i: free[i][0], lambda i: free_fp[i], zero, bs)
+            no_probe_ms = graph_ms(no_probe)
+            if int(zero.view(torch.int32).ne(0).sum()):
+                raise AssertionError(f"K3s {layout} {kind}: a hit counted in a shard that holds no "
+                                     "probed key")
+            no_probe_bound = bound_ms(bs[0].numel())
+            for n_index in SHARD_SWEEP:
+                shards = shard_table(table, layout, n_index)
+                sh = shards[0]
+                fp = L.cuckoo_fingerprints(sh.table) if cuckoo else None
+                per = sh.table.shape[0]
+                c = torch.zeros(per * cells, dtype=torch.uint32, device=table.device)
+                ms = graph_ms(k3s(lambda i: sh.table, lambda i: sh.lo, lambda i: fp, c, bs))
+                report("k3s_cuckoo" if cuckoo else "k3s", f"{kind} I={n_index}", ms,
+                       bound_ms(n_bytes(bs, sh.lo, per, sh.table, fp)), no_probe_ms=no_probe_ms,
+                       no_probe_bound_ms=no_probe_bound)
+                del shards, sh, fp, c
+                torch.cuda.empty_cache()
+            del counts, free, free_fp, zero
+        del fp_all
+
+
 def compare_kernels(genome, bases: dict, report, dev) -> None:
     """K3 with its valid count (per batch, then the tally's total), K8 and
     K9 on every batch kind at COMPARE_KS, each on a table of the genome at
@@ -888,8 +956,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--reduce", action="store_true",
                     help="time R (shard_reduce) alone, at I = 2, 4 and 8")
     ap.add_argument("--shard", action="store_true",
-                    help="time K4s (shard_classify_masks) alone on targets batches, at I = 1, 2 "
-                         "and 4, with its no-probe pass and a data shard's classify program")
+                    help="time K4s (shard_classify_masks) on targets batches and K3s "
+                         "(shard_count_step) on targets and count batches, at I = 1, 2 and 4, "
+                         "with their no-probe passes and a data shard's classify program")
     args = ap.parse_args(argv)
     import torch
 

@@ -1141,3 +1141,91 @@ def test_shard_classify_masks_kernels_shards_without_keys(strain, layout, n_inde
         got = kern(b)
         assert _equal(got, plain(b))
         assert not any(int(x.view(torch.int32).ne(0).sum()) for x in got), sh.lo
+
+
+# ---- K3s: K4s's block (shard_tiles) with an atomicAdd a hit ---------------------
+
+def _k3s_pair(layout, sh, h, salt, k):
+    """K3s of shard ``sh`` and its plain version, each a function of
+    (counts, bases) that adds into the shard's counts in place."""
+    if layout == "bucket":
+        return (lambda c, b: L.shard_count_step(c, sh.table, sh.lo, b, h, salt, k),
+                lambda c, b: L.count_step_plain(c, sh.table, b, h, salt, k, sh.lo))
+    fp = L.cuckoo_fingerprints(sh.table)
+    return (lambda c, b: L.shard_cuckoo_count_step(c, sh.table, sh.lo, b, h, salt, k, fp=fp),
+            lambda c, b: L.cuckoo_count_step_plain(c, sh.table, b, h, salt, k, sh.lo))
+
+
+def _wrapping_counts(n, device):
+    """n uint32 counts, 0xFFFFFFFF in every seventh cell (a hit there
+    wraps to 0), 0 elsewhere."""
+    start = torch.zeros(n, dtype=torch.int32, device=device)
+    start[::7] = -1
+    return start.view(torch.uint32)
+
+
+@pytest.mark.parametrize("kind", K4S_BATCHES)
+@pytest.mark.parametrize("k", [20, 31, 32])
+@pytest.mark.parametrize("n_index", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("layout", ["bucket", "cuckoo"])
+def test_shard_count_step_kernels_edges(strain, layout, n_index, k, kind):
+    """K3s on every shard equal to its plain version, from counts of which
+    every seventh cell starts at 0xFFFFFFFF (hits there wrap), and the
+    shards' counts concatenated equal to the one-device plain K3 from the
+    same start, at k = 20, 31, 32, on rows that end inside a tile and
+    inside a block's 1,024 windows, a one-row batch and rows dense with
+    invalid bases; I = 3 cuts shards of unequal sizes (a cuckoo shard
+    across H)."""
+    rng, genome = strain[0], strain[1]
+    h, salt, table, _ = _k4s_table(strain, layout, k)
+    b = torch.from_numpy(_k4s_bases(rng, genome, kind)).to(table.device)
+    cells = 16 if layout == "bucket" else 1
+    start = _wrapping_counts(table.shape[0] * cells, b.device)
+    parts = []
+    for sh in _window_shards(table, None, n_index):
+        kern, plain = _k3s_pair(layout, sh, h, salt, k)
+        mine = start[sh.lo * cells : (sh.lo + sh.table.shape[0]) * cells]
+        got, want = mine.clone(), mine.clone()
+        kern(got, b)
+        plain(want, b)
+        assert _equal((got,), (want,)), sh.lo
+        parts.append(got)
+    one = start.clone()
+    if layout == "bucket":
+        L.count_step_plain(one, table, b, h, salt, k)
+    else:
+        L.cuckoo_count_step_plain(one, table, b, h, salt, k)
+    counts = torch.cat([p.view(torch.int32) for p in parts]).view(torch.uint32)
+    assert _equal((counts,), (one,))
+    if kind == "main_rows":
+        changed = _as_i64(counts) != _as_i64(start)
+        assert int(changed.sum()) > 0
+        assert int((changed & (start.view(torch.int32) == -1)).sum()) > 0  # a hit wrapped
+
+
+@pytest.mark.parametrize("n_index", [2, 4])
+@pytest.mark.parametrize("layout", ["bucket", "cuckoo"])
+def test_shard_count_step_kernels_shards_without_keys(strain, layout, n_index):
+    """Shard windows that hold no key of the batch: a one-bucket (one-slot)
+    shard that no window of the batch probes (the no-probe pass of
+    bench_kernels.py --shard), and the I shards of the table on rows of
+    random sequence (probed, never found): counts unchanged, equal to the
+    plain versions."""
+    from strainer2_tpu_torch.parallel.sharding import TableShard
+    from strainer2_tpu_torch.tools.bench_kernels import untouched_shard
+
+    rng, genome = strain[0], strain[1]
+    h, salt, table, meta = _k4s_table(strain, layout, K)
+    main = torch.from_numpy(edge_rows(rng, genome, 4096, 64)).to(table.device)
+    noise = torch.from_numpy(rng.integers(0, 4, size=(64, 4096), dtype=np.uint8)).to(table.device)
+    lo, t1, m1 = untouched_shard(layout, table, meta, h, salt, main)
+    cases = [(TableShard(lo, t1, m1), main)]
+    cases += [(sh, noise) for sh in _window_shards(table, meta, n_index)]
+    cells = 16 if layout == "bucket" else 1
+    for sh, b in cases:
+        kern, plain = _k3s_pair(layout, sh, h, salt, K)
+        start = _wrapping_counts(sh.table.shape[0] * cells, b.device)
+        got, want = start.clone(), start.clone()
+        kern(got, b)
+        plain(want, b)
+        assert _equal((got,), (want,)) and _equal((got,), (start,)), sh.lo

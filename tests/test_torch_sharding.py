@@ -586,3 +586,94 @@ def test_plain_shard_masks_are_jax_psum_planes(setup, layout, n_index, batch):
     np.testing.assert_array_equal(np.stack(got), want)
     np.testing.assert_array_equal(np.stack(got).max(0), np.minimum(want.sum(0), 1))
     assert (int(want.sum()) > 0) == (batch == "genome")
+
+
+@functools.lru_cache(maxsize=None)
+def _count_tables(k):
+    """The fixture's genome (the same seeded draw) at k: its JAX bucket
+    table and JAX cuckoo table."""
+    from strainer2_tpu.index.bucket import build_bucket_table
+    from strainer2_tpu.index.cuckoo import build_cuckoo
+    from strainer2_tpu.ops.packing_np import canonical_codes_np, encode_ascii_np
+    from tests.oracle import random_dna
+
+    genome = random_dna(np.random.default_rng(42), 4000)
+    codes, valid = canonical_codes_np(encode_ascii_np(np.frombuffer(genome.encode(), np.uint8)), k)
+    keys = np.unique(codes[valid])
+    return build_bucket_table(keys, k), build_cuckoo(keys, k)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_count_fn(layout, k, h_bits, salt, per, n_index):
+    """JAX's _count_body_bucket (per: buckets a shard) or _count_body (per:
+    slots a shard) in a jitted shard_map over a (1, n_index) mesh: each
+    shard adds into its block of the (1, num_slots) counts."""
+    from strainer2_tpu.parallel.sharding import ShardedKmerEngine, make_mesh, shard_map
+
+    mesh = make_mesh(1, n_index, devices=jax.devices()[:n_index])
+    if layout == "bucket":
+        body = functools.partial(ShardedKmerEngine._count_body_bucket, k=k, h_bits=h_bits,
+                                 salt=salt, shard_buckets=per)
+        specs = (P(None, "index"), P("index", None), P())
+    else:
+        body = functools.partial(ShardedKmerEngine._count_body, k=k, h_bits=h_bits, salt=salt,
+                                 shard_rows=per)
+        specs = (P(None, "index"), P("index"), P("index"), P())
+    return jax.jit(shard_map(body, mesh=mesh, in_specs=specs, out_specs=P(None, "index")))
+
+
+@pytest.mark.parametrize("batch", ["no_key", "genome"])
+@pytest.mark.parametrize("k", [20, 31, 32])
+@pytest.mark.parametrize("n_index", [2, 4])
+@pytest.mark.parametrize("layout", ["bucket", "cuckoo"])
+def test_plain_shard_counts_are_jax_count_body(setup, layout, n_index, k, batch):
+    """Each index shard's K3s counts through the port's entry point (its
+    plain version on CPU tensors) against the counts_loc that JAX's
+    _count_body_bucket and _count_body give that shard inside a shard_map,
+    from the same start: on the genome's reads from counts of which every
+    seventh cell is 0xFFFFFFFF (hits there wrap), on random reads from
+    zero, where the table holds none of the batch's keys and every shard's
+    counts stay zero."""
+    from strainer2_tpu_torch.ops import lookup as L
+    from strainer2_tpu_torch.parallel.sharding import shard_table
+    from tests.oracle import random_dna
+
+    _, _, _, batches = setup
+    t = _count_tables(k)[0 if layout == "bucket" else 1]
+    if batch == "genome":
+        bases = batches[0].bases
+    else:
+        from strainer2_tpu_torch.io.batches import pack_stream
+
+        rng = np.random.default_rng(11)
+        reads = [random_dna(rng, int(rng.integers(40, 150)), n_prob=0.02).encode()
+                 for _ in range(100)]
+        bases = next(pack_stream(iter(reads), K, ROWS, ROW_LEN)).bases
+    start = np.zeros(t.num_slots, np.uint32)
+    if batch == "genome":
+        start[::7] = 0xFFFFFFFF
+    per = t.table.shape[0] // n_index  # buckets (bucket) or slots (cuckoo) a shard
+    fn = _jax_count_fn(layout, k, t.h_bits, t.salt, per, n_index)
+    if layout == "bucket":
+        want = fn(jnp.asarray(start[None]), jnp.asarray(t.table), jnp.asarray(bases))
+    else:
+        want = fn(jnp.asarray(start[None]),
+                  *(jnp.asarray(np.ascontiguousarray(t.table[:, j])) for j in (0, 1)),
+                  jnp.asarray(bases))
+    want = np.asarray(want)[0]
+    b = torch.from_numpy(bases)
+    cells = t.num_slots // n_index
+    got = []
+    for i, sh in enumerate(shard_table(torch.from_numpy(t.table), layout, n_index)):
+        c = torch.from_numpy(start[i * cells : (i + 1) * cells].copy())
+        if layout == "bucket":
+            L.shard_count_step(c, sh.table, sh.lo, b, t.h_bits, t.salt, k)
+        else:
+            L.shard_cuckoo_count_step(c, sh.table, sh.lo, b, t.h_bits, t.salt, k)
+        got.append(c.view(torch.int32).numpy().view(np.uint32))
+        np.testing.assert_array_equal(got[-1], want[i * cells : (i + 1) * cells])
+    changed = np.concatenate(got) != start
+    if batch == "no_key":
+        assert not want.any()
+    else:
+        assert (changed & (start == 0xFFFFFFFF)).any() and (changed & (start == 0)).any()
