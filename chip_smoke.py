@@ -939,9 +939,10 @@ def check_shard_kernels(ctx: dict, dev) -> dict:
     R over the shards' scratch and K4's sums launch on R's output, the composed
     per-read sums equal to the one-device plain classify; K6s at S = 32
     and 256 on each shard of the union rows and R adding the shards'
-    words, equal to the one-device plain K6. Every output exactly equal; R
-    takes the shards' outputs where they lie, as a list (its stacked form
-    checked too). Device ms and bounds of shard 0 (the shard-local
+    words, equal to the one-device plain K6 (and K6s at S = 32 on the one
+    shard of the whole table, I = 1, which K6 does). Every output exactly
+    equal; R takes the shards' outputs where they lie, as a list (its
+    stacked form checked too). Device ms and bounds of shard 0 (the shard-local
     program), of K3s's and K4s's no-probe passes (a one-bucket or one-slot
     shard that no window of the batch probes, all zero: ``no_probe_ms``),
     of R and of the sums launch, and of the
@@ -1121,10 +1122,9 @@ def check_shard_kernels(ctx: dict, dev) -> dict:
                           bound_ms(4 * tiles + 4 * (reads + 1) + 64 * (reads + 1) + 8 * reads)),
                     max_abs_err=s_err))
             del fps, shards
-        if n_index == 1:
-            continue
-        # K6s on the union rows at S strains, R adding the shards' words
-        for n_strains in SHARD_STRAINS:
+        # K6s on the union rows at S strains, R adding the shards' words; at
+        # I = 1 K6s on the one shard of the whole table at the first S, no R
+        for n_strains in SHARD_STRAINS[:1] if n_index == 1 else SHARD_STRAINS:
             n_words = G.words_for_strains(n_strains)
             wide = multi_rows(rows, n_words, seed=n_strains)
             shards = shard_table(wide, "bucket", n_index)
@@ -1138,6 +1138,28 @@ def check_shard_kernels(ctx: dict, dev) -> dict:
                                                               t.salt, K, n_words),),
                     lambda i, sh=sh: (G.multi_hit_words_plain(sh.table, targets[i][0], t.h_bits,
                                                               t.salt, K, n_words, sh.lo),)))
+            sh0 = shards[0]
+
+            def k6s_timed(n_bytes):  # shard 0's K6s, timed beside its plain version
+                record("shard_multi_hit_words", label, dict(
+                    timed(f"shard_multi_hit_words {label}",
+                          lambda i: G.shard_multi_hit_words(sh0.table, sh0.lo, targets[i][0],
+                                                            t.h_bits, t.salt, K, n_words),
+                          lambda i: G.multi_hit_words_plain(sh0.table, targets[i][0], t.h_bits,
+                                                            t.salt, K, n_words, sh0.lo),
+                          bound_ms(n_bytes)), max_abs_err=err))
+
+            n_win = targets[0][0].shape[0] * (targets[0][0].shape[1] - K + 1)
+            st0 = [shard_stats("bucket", wide, t.h_bits, t.salt, 0, per, b) for b, _, _ in targets]
+            probes, hits, _ = (sum(x) / N_BATCHES for x in zip(*st0))
+            n_bytes = (targets[0][0].numel() + shard_probe_bytes("bucket", (probes, hits, 0), per)
+                       + 4 * n_words * (hits + n_win))
+            if n_index == 1:  # the shard's words are the one-device K6's: no R
+                k6s_timed(n_bytes)
+                del wide, shards
+                torch.cuda.empty_cache()
+                continue
+
             def words(i, shards=shards, n_words=n_words):  # the I shards' K6s words, (Q N,) each
                 return [G.shard_multi_hit_words(sh.table, sh.lo, targets[i][0], t.h_bits, t.salt,
                                                 K, n_words).reshape(-1) for sh in shards]
@@ -1155,19 +1177,7 @@ def check_shard_kernels(ctx: dict, dev) -> dict:
                 lambda i: (L.shard_reduce(parts[i], masks=False),),
                 lambda i: (G.multi_hit_words_plain(wide, targets[i][0], t.h_bits, t.salt, K,
                                                    n_words).reshape(-1),)))
-            st0 = [shard_stats("bucket", wide, t.h_bits, t.salt, 0, per, b) for b, _, _ in targets]
-            probes, hits, _ = (sum(x) / N_BATCHES for x in zip(*st0))
-            n_win = parts[0][0].shape[0] // n_words
-            n_bytes = (targets[0][0].numel() + shard_probe_bytes("bucket", (probes, hits, 0), per)
-                       + 4 * n_words * (hits + n_win))
-            sh0 = shards[0]
-            record("shard_multi_hit_words", label, dict(
-                timed(f"shard_multi_hit_words {label}",
-                      lambda i: G.shard_multi_hit_words(sh0.table, sh0.lo, targets[i][0], t.h_bits,
-                                                        t.salt, K, n_words),
-                      lambda i: G.multi_hit_words_plain(sh0.table, targets[i][0], t.h_bits,
-                                                        t.salt, K, n_words, sh0.lo),
-                      bound_ms(n_bytes)), max_abs_err=err))
+            k6s_timed(n_bytes)
             res = dict(timed(f"shard_reduce words {label}",
                              lambda i: L.shard_reduce(parts[i], masks=False),
                              lambda i: L.shard_reduce_plain(parts[i], masks=False),

@@ -299,6 +299,35 @@ __device__ __forceinline__ unsigned probe_valid_window(const PackedTile& t, int 
   return probe.find(h, l, where);
 }
 
+// The block of the shard-window kernels K3s, K4s (strainer2_kernels.cu) and
+// K6s (strainer2_multi.cu): kTiles 256-window tiles of one row (block x of
+// row y), packed once by 16-byte loads (pack_tile_wide), then for each
+// tile j, act(j, m, where) on this thread's window j * kTile + threadIdx.x,
+// m the probe's mask (0 where the window is past the row's end, invalid,
+// or its key not the shard's; act takes where by reference and reads it
+// only where m is not 0). Every thread reaches every act, so act may
+// ballot or sync its warp.
+constexpr int kShardTiles = 4;  // 256-window tiles a K3s or K4s block screens
+constexpr int kShardWindows = kShardTiles * kTile;
+
+template <int kTiles = kShardTiles, class Probe, class Act>
+__device__ __forceinline__ void shard_tiles(const Probe& probe, const uint8_t* __restrict__ bases,
+                                            int L, int k, Act act) {
+  __shared__ PackedBases<kTiles * kTile + 64> tile;
+  const int w0 = blockIdx.x * kTiles * kTile;
+  const int W = L - k + 1;
+  const int n_lo = min(k, 16);
+  pack_tile_wide(tile, bases + static_cast<size_t>(blockIdx.y) * L, w0, L);
+#pragma unroll
+  for (int j = 0; j < kTiles; ++j) {
+    const int p = j * kTile + threadIdx.x;
+    uint32_t h, l, where;
+    unsigned m = 0u;
+    if (w0 + p < W && packed_window(tile, p, k, n_lo, &h, &l)) m = probe.find(h, l, &where);
+    act(j, m, where);  // by reference: where is set only where m is not 0
+  }
+}
+
 // Index b of a read boundary into a prefix of q + 1 entries, as a JAX gather
 // reads it: a negative b counts from the end (b + q + 1), then the index is
 // clamped to [0, q].

@@ -1026,13 +1026,13 @@ hit_crossing_kernel(const uint32_t* __restrict__ masks, const uint32_t* __restri
 //   windows (the rest are settled by the hash alone, no read); K3s adds into
 //   the shard's private counts, K4s writes K4's 16 mask words and a count
 //   word a tile. R reads I copies of the masks and writes one.
-// Design: K3s and K4s share one block (shard_tiles, K4s's note below):
-//   four tiles of a row, packed once, each thread taking its window of the
-//   four in turn through a window policy (ShardBucketProbe,
-//   ShardCuckooProbe, ShardCuckooSideProbe): a key outside the shard's
-//   block is a miss with no memory read, and slot() is the shard's local
-//   count index. A key lives in
-//   one shard, so the OR of the shards' hit bits is the psum's hit_g > 0,
+// Design: K3s and K4s share one block with K6s (shard_tiles in
+//   kmer_device.cuh, K4s's note below): four tiles of a row, packed once,
+//   each thread taking its window of the four in turn through a window
+//   policy (ShardBucketProbe, ShardCuckooProbe, ShardCuckooSideProbe): a
+//   key outside the shard's block is a miss with no memory read, and
+//   slot() is the shard's local count index. A key lives in one shard,
+//   so the OR of the shards' hit bits is the psum's hit_g > 0,
 //   and the OR of their informative bits its class_g == 2 (the two differ
 //   only for a key held twice, which no builder makes); R ORs the shards'
 //   words on the data shard's first device and recounts each tile's packed
@@ -1095,33 +1095,7 @@ hit_crossing_kernel(const uint32_t* __restrict__ masks, const uint32_t* __restri
 //   0.0072-0.0075, the no-probe pass 0.0058-0.0059 in both (H100 80GB
 //   HBM3, 700 W).
 // ---------------------------------------------------------------------------
-constexpr int kShardTiles = 4;  // 256-window tiles a K3s or K4s block screens
-constexpr int kShardWindows = kShardTiles * kTile;
 static_assert(kShardTiles <= 8, "a K4s block's mask words are one warp's 16-byte stores");
-
-// The block of K3s and K4s: pack the block's kShardTiles tiles of its row
-// once, then for each tile j, act(j, m, where) on this thread's window
-// j * kTile + threadIdx.x, m the probe's mask (0 where the window is past
-// the row's end, invalid, or its key not the shard's; act takes where by
-// reference and reads it only where m is not 0). Every thread reaches
-// every act, so act may ballot.
-template <class Probe, class Act>
-__device__ __forceinline__ void shard_tiles(const Probe& probe, const uint8_t* __restrict__ bases,
-                                            int L, int k, Act act) {
-  __shared__ PackedBases<kShardWindows + 64> tile;
-  const int w0 = blockIdx.x * kShardWindows;
-  const int W = L - k + 1;
-  const int n_lo = min(k, 16);
-  pack_tile_wide(tile, bases + static_cast<size_t>(blockIdx.y) * L, w0, L);
-#pragma unroll
-  for (int j = 0; j < kShardTiles; ++j) {
-    const int p = j * kTile + threadIdx.x;
-    uint32_t h, l, where;
-    unsigned m = 0u;
-    if (w0 + p < W && packed_window(tile, p, k, n_lo, &h, &l)) m = probe.find(h, l, &where);
-    act(j, m, where);  // by reference: where is set only where m is not 0
-  }
-}
 
 template <class Probe>
 __device__ __forceinline__ void shard_masks_tiles(const Probe& probe,

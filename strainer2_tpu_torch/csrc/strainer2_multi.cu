@@ -245,25 +245,173 @@ multi_hit_words_kernel(const uint32_t* __restrict__ rows, int row_width, int h_b
   multi_hit_words_tile(BucketProbe{rows, row_width, h_bits, salt}, bases, L, k, n_words, words);
 }
 
-// K6s: K6 over one index shard of the union rows.
+// ---------------------------------------------------------------------------
+// K6s shard_multi_hit_words
+//
 // Replaces: the probe and masked meta words of
 //   ShardedKmerEngine._classify_multi_body_bucket
-//   (strainer2_tpu/parallel/sharding.py:265-291), before its psum.
-// Bound on this card: K6's, with a probe only for the valid windows whose
-//   bucket the shard holds (about 1/I of them); its n_words x 4 bytes a
-//   window are written for every window of the data shard. Shard 0 of a
-//   `targets` batch at I = 2 / 4: S = 32 0.0201 / 0.0159 ms, S = 256
-//   0.0564 / 0.0494 (K6 0.0327, 0.0565; H100 80GB HBM3, 700 W; PERF.md).
-// Design: K6's block with ShardBucketProbe: every word is 0 where the key's
-//   bucket is not the shard's. R adds the I shards' words on the data
-//   shard's first device (the psum), then K7 runs unchanged on them.
-__global__ void __launch_bounds__(kTile)
+//   (strainer2_tpu/parallel/sharding.py:265-291, _bucket_local_lookup_words
+//   :236-262), the operand of its psum over "index": per window the first
+//   n_words meta words of its key where the shard holds the key's bucket
+//   and the window is valid, 0 elsewhere; (Q, n_words) uint32, window-major,
+//   K6's layout. R adds the I shards' words on the data shard's first
+//   device (the psum), then K7 runs unchanged on them.
+// Bound on this card: the data shard's bases, the shard's probes (about 1/I
+//   of the valid windows; the rest are settled by the hash alone), a hit's
+//   n_words meta words, and every window's n_words words written, zeros
+//   included: at S = 256 that is 67 MB a 256 x 4096 batch, 0.020 ms at
+//   3.35 TB/s, whatever I.
+// Design: the block of K3s and K4s (shard_tiles, kmer_device.cuh): tiles
+//   of one row packed once by 16-byte loads, each thread taking its window
+//   of each tile in turn and probing it only where its bucket is the
+//   shard's, under __launch_bounds__(256, 8) (32 registers, 8 blocks an
+//   SM). A hit's words are K6's (its one-cell loop, and meta_sum where a
+//   row holds the key twice). The host picks the form from n_words
+//   (WordsStore), each with the tiles a block that won:
+//   - kDirect (n_words 1, 2 or 4: S up to 32, or 49 to 64): four tiles a
+//     block, 1,024 blocks a 256 x 4096 batch in one resident wave, as K3s
+//     and K4s; a window's words from registers as one 4-, 8- or 16-byte
+//     store, so a warp's store is one contiguous run: no shared stage, no
+//     barrier after the pack. This cuts the per-batch cost of the first
+//     form (K6's one-tile block with ShardBucketProbe: 4,096 blocks in
+//     four waves, each a byte-load pack and a zeroed stage): its no-probe
+//     pass 0.0097 to 0.0065-0.0066 ms at S = 32.
+//   - kWarp (any other n_words): one tile a block (four waves): a warp's
+//     32 windows are staged in its own part of shared memory (32 n_words
+//     + 4 words, 16.1 KiB a block at 16 words), zeroed before the pack's
+//     barrier; after the probe a __syncwarp, then the warp writes its run
+//     with consecutive lanes on consecutive 16-byte chunks, evict-first
+//     (__stcs: no kernel reads them before they leave the L2); no block
+//     barrier after the pack. The head and tail chunks, which a run shares
+//     with its neighbours, take 4-byte stores; words stays 16-byte aligned
+//     for R's 16-byte loads. At S = 256 the 67 MB of words and the probes'
+//     random row reads share the DRAM: with four tiles a block in one wave
+//     the shard took 0.0371 ms at I = 4 (0.0394-0.0395 without __stcs),
+//     with two 0.0361, with one 0.0354-0.0355, the first form 0.0356
+//     (one call).
+//   A shard of the whole table (lo = 0, every bucket: I = 1) is K6's work,
+//   and the launcher calls K6: these forms took 0.0586 ms there at S = 256
+//   against K6's 0.0567-0.0570 (four tiles of kWarp 0.0668 against
+//   0.0571), and 0.0325 at S = 32 against 0.0328-0.0329.
+//   Shard 0 of a `targets` batch, the first form in the same call: S = 32,
+//   I = 2 / 4 0.0180-0.0182 / 0.0125-0.0126 ms against 0.0201-0.0202 /
+//   0.0156; S = 256 0.0434-0.0436 / 0.0354 against 0.0430 / 0.0357.
+//   Measured beside them and dropped:
+//   kDirect at 16 words (four 16-byte stores a window at a 64-byte stride:
+//   0.0844 ms at S = 256, I = 4); a tile's 256 windows a stage with two
+//   __syncthreads a tile (S = 32 0.0151, S = 256 0.0394); the block's
+//   1,024 windows a stage, one barrier after the four tiles (S = 32
+//   0.0134; n_words <= 6 only); kWarp at S = 32 (0.0149). After a cuckoo
+//   probe in the same process (its L2 window leaves the fingerprints'
+//   lines persisting) every form at S = 256 took 29-41% longer (H100 80GB
+//   HBM3, 700 W; bench_kernels.py --shard; PERF.md).
+// ---------------------------------------------------------------------------
+enum class WordsStore { kDirect, kWarp };
+
+// K6s's store form for n_words words a window (the note above), and the
+// tiles a block of each form takes.
+WordsStore words_store(int n_words) {
+  return n_words == 1 || n_words == 2 || n_words == 4 ? WordsStore::kDirect : WordsStore::kWarp;
+}
+template <WordsStore kStore>
+constexpr int kWordsTiles = kStore == WordsStore::kDirect ? kShardTiles : 1;
+
+// Dynamic shared memory of a K6s block: kWarp's stages, one a warp.
+size_t words_stage_bytes(WordsStore store, int n_words) {
+  return store == WordsStore::kWarp ? static_cast<size_t>(kTile / 32) * (8 * n_words + 1) * 16 : 0;
+}
+
+// A hit's n_words words into dst, as K6 writes them: word j is lane
+// 32 + 16 j of the key's one equal cell (block = its row's first meta lane,
+// m the mask of its equal cells), or the sum over its cells where a row
+// holds the key twice.
+__device__ __forceinline__ void hit_words(uint32_t* dst, const uint32_t* block, unsigned m,
+                                          int n_words) {
+  if (m & (m - 1)) {  // a key held twice in its row: no built table holds one
+    for (int j = 0; j < n_words; ++j) dst[j] = meta_sum(block + kKeysPerBucket * j, m);
+  } else {
+    const uint32_t* cell = block + (__ffs(m) - 1);
+    for (int j = 0; j < n_words; ++j) dst[j] = __ldg(cell + kKeysPerBucket * j);
+  }
+}
+
+// kDirect: a window's V words (0 where m is 0) as one V-word store.
+template <int V>
+__device__ __forceinline__ void direct_words(uint32_t* dst, const uint32_t* block, unsigned m) {
+  uint32_t v[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) v[j] = 0u;
+  if (m) hit_words(v, block, m, V);
+  if constexpr (V == 4) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(v[0], v[1]);
+  } else {
+    *dst = v[0];
+  }
+}
+
+template <WordsStore kStore, class Probe>
+__device__ __forceinline__ void shard_words_tiles(const Probe& probe,
+                                                  const uint8_t* __restrict__ bases, int L,
+                                                  int k, int n_words,
+                                                  uint32_t* __restrict__ words) {
+  constexpr int kTiles = kWordsTiles<kStore>;
+  const int W = L - k + 1;
+  const int w0 = blockIdx.x * kTiles * kTile;
+  const long long row0 = static_cast<long long>(blockIdx.y) * W;  // the row's first window
+  if constexpr (kStore == WordsStore::kDirect) {
+    shard_tiles<kTiles>(probe, bases, L, k, [&](int j, unsigned m, const uint32_t& where) {
+      const int w = w0 + j * kTile + threadIdx.x;
+      if (w >= W) return;
+      uint32_t* dst = words + (row0 + w) * n_words;
+      const uint32_t* block = m ? probe.row(where) + kMetaLane : nullptr;
+      if (n_words == 4) {
+        direct_words<4>(dst, block, m);
+      } else if (n_words == 2) {
+        direct_words<2>(dst, block, m);
+      } else {
+        direct_words<1>(dst, block, m);
+      }
+    });
+  } else {
+    static_assert(kTiles == 1, "a warp's stage holds its windows of one tile");
+    extern __shared__ uint4 stage4[];
+    const int lane = threadIdx.x & 31;
+    const int span = 8 * n_words + 1;  // chunks a warp's stage: 32 windows' words, 3 more before
+    uint4* st4 = stage4 + (threadIdx.x >> 5) * span;
+    uint32_t* st = reinterpret_cast<uint32_t*>(st4);
+    for (int c = lane; c < span; c += 32) st4[c] = make_uint4(0u, 0u, 0u, 0u);  // before the
+                                                                                 // pack's barrier
+    const int g0 = w0 + (threadIdx.x & ~31);  // the warp's first window
+    const int off = static_cast<int>(((row0 + g0) * n_words) & 3);  // its run's first word
+    shard_tiles<1>(probe, bases, L, k, [&](int, unsigned m, const uint32_t& where) {
+      if (m) hit_words(st + off + lane * n_words, probe.row(where) + kMetaLane, m, n_words);
+    });
+    if (g0 >= W) return;  // uniform over the warp
+    __syncwarp();
+    // the run: words [off, end) of the stage, from the 16-byte chunk of word off
+    const int end = off + min(32, W - g0) * n_words;
+    uint32_t* out = words + (row0 + g0) * n_words - off;  // 16-byte aligned
+    for (int c = lane; 4 * c < end; c += 32) {
+      const int i0 = 4 * c;
+      if (i0 >= off && i0 + 4 <= end) {
+        __stcs(reinterpret_cast<uint4*>(out) + c, st4[c]);  // evict first
+      } else {
+        for (int i = max(i0, off); i < min(i0 + 4, end); ++i) out[i] = st[i];
+      }
+    }
+  }
+}
+
+template <WordsStore kStore>
+__global__ void __launch_bounds__(kTile, 8)
 shard_multi_hit_words_kernel(const uint32_t* __restrict__ rows, int row_width, int h_bits,
                              uint32_t salt, uint32_t lo, uint32_t n,
                              const uint8_t* __restrict__ bases, int L, int k, int n_words,
                              uint32_t* __restrict__ words) {
-  multi_hit_words_tile(ShardBucketProbe{rows, row_width, h_bits, salt, lo, n}, bases, L, k,
-                       n_words, words);
+  shard_words_tiles<kStore>(ShardBucketProbe{rows, row_width, h_bits, salt, lo, n}, bases, L, k,
+                            n_words, words);
 }
 
 // ---------------------------------------------------------------------------
@@ -485,14 +633,24 @@ int s2t_multi_hit_words(const void* rows, int row_width, int h_bits,
   return launch_status();
 }
 
-// K6s: rows the shard's n union rows, lo its first bucket.
+// K6s: rows the shard's n union rows, lo its first bucket; a block takes
+// its store form's tiles of a row. A shard of the whole table (lo = 0,
+// every bucket: I = 1) is K6's work, and K6 does it.
 int s2t_shard_multi_hit_words(const void* rows, int row_width, int h_bits, uint32_t salt, int lo,
                               int n, const void* bases, int n_rows, int L, int k, int n_words,
                               void* words, void* stream) {
+  if (lo == 0 && static_cast<long long>(n) == 1ll << h_bits)
+    return s2t_multi_hit_words(rows, row_width, h_bits, salt, bases, n_rows, L, k, n_words, words,
+                               stream);
   const int W = L - k + 1;
-  const dim3 grid((W + kTile - 1) / kTile, n_rows);
-  const size_t stage = (static_cast<size_t>(kTile) * n_words + 4) * sizeof(uint32_t);
-  shard_multi_hit_words_kernel<<<grid, kTile, stage, static_cast<cudaStream_t>(stream)>>>(
+  const WordsStore store = words_store(n_words);
+  const int windows = kTile * (store == WordsStore::kDirect ? kWordsTiles<WordsStore::kDirect>
+                                                            : kWordsTiles<WordsStore::kWarp>);
+  const dim3 grid((W + windows - 1) / windows, n_rows);
+  const auto kernel = store == WordsStore::kDirect
+                          ? &shard_multi_hit_words_kernel<WordsStore::kDirect>
+                          : &shard_multi_hit_words_kernel<WordsStore::kWarp>;
+  kernel<<<grid, kTile, words_stage_bytes(store, n_words), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(rows), row_width, h_bits, salt, static_cast<uint32_t>(lo),
       static_cast<uint32_t>(n), static_cast<const uint8_t*>(bases), L, k, n_words,
       static_cast<uint32_t*>(words));

@@ -29,7 +29,10 @@ shard 0 of the table split into I = 1, 2 and 4 index shards and as its
 no-probe pass (a one-bucket or one-slot shard that no window of the batch
 probes: ``untouched_shard``), K4s also as a data shard's classify
 program (I K4s launches, R, the sums launch), beside the one-device K4
-and K3.
+and K3; and K6s (shard_multi_hit_words) on the ``targets`` batches at
+S = 32 and 256, bucket layout only, the same way (its no-probe pass all
+zero words) with a data shard's multi program (I K6s launches, R, K7),
+beside the one-device K6.
 
 A 6.7 Mbp random genome gives the table (6.7 M keys, 64-lane rows, 5% of the
 keys informative).  Three kinds of 256 x 4096 batch, 8 of each:
@@ -548,7 +551,7 @@ def bench(seed: int, label: str, layout: str = "both", reduce: bool = False,
           shard: bool = False) -> dict:
     """Time the kernels of ``layout`` (both, bucket or cuckoo) on one seed's
     data: the same batches and keys whatever the layout; R alone with
-    ``reduce``, K4s alone with ``shard``."""
+    ``reduce``, K4s, K3s and K6s alone with ``shard``."""
     import torch
 
     from strainer2_tpu_torch.ops.packing import canonical_windows_plain
@@ -588,6 +591,8 @@ def bench(seed: int, label: str, layout: str = "both", reduce: bool = False,
             tables["cuckoo"] = (ctable, cmeta, ch, csalt)
         count_bases = {"targets": [b for b, _, _ in batches["targets"]],
                        "count": count_batches(rng, genome, dev)}
+        if "bucket" in tables:  # before any cuckoo launch: see shard_words_kernels
+            shard_words_kernels(rows, h_bits, salt, batches, report)
         shard_kernels(tables, batches, report)
         shard_count_kernels(tables, count_bases, report)
         return result
@@ -843,6 +848,78 @@ def shard_count_kernels(tables: dict, bases: dict, report) -> None:
         del fp_all
 
 
+SHARD_STRAINS = (32, 256)  # K6s's S in --shard
+
+
+def shard_words_kernels(rows, h: int, salt: int, batches: dict, report) -> None:
+    """K6s alone (--shard), on the ``targets`` batches over ``rows``
+    widened to S strains of seeded meta words (``multi_rows``), at each S
+    of SHARD_STRAINS: the one-device K6, then at each I of SHARD_SWEEP
+    shard 0's K6s beside its no-probe pass (K6s on a one-bucket shard that
+    no window of the batch probes: ``untouched_shard``; every word zero)
+    and a data shard's multi program (I K6s launches, R, K7; at I = 1 no
+    R).  Bounds as chip_smoke.py phase 2c counts them: the bases, the
+    shard's probes, n_words meta words read a hit and written a window.
+    ``bench`` runs this before any cuckoo kernel: a cuckoo probe's L2
+    window leaves the fingerprint array's lines persisting in the L2 for
+    the rest of the process, and with them there K6 and K6s took 15-41%
+    longer at S = 256 (PERF.md §6)."""
+    import torch
+
+    from strainer2_tpu_torch.ops import lookup as L
+    from strainer2_tpu_torch.ops import segsum as G
+    from strainer2_tpu_torch.parallel.sharding import shard_table
+
+    bs = batches["targets"]
+    n_win = ROWS * (ROW_LEN - K + 1)
+    for n_strains in SHARD_STRAINS:
+        n_words = G.words_for_strains(n_strains)
+        wide = multi_rows(rows, n_words, seed=n_strains)
+
+        def stats(lo, n, t):
+            return [sum(x) / N_BATCHES for x in zip(*(shard_stats("bucket", t, h, salt, lo, n, b)
+                                                      for b, _, _ in bs))]
+
+        def n_bytes(probes, hits, n):
+            return (bs[0][0].numel() + shard_probe_bytes("bucket", (probes, hits, 0), n)
+                    + 4 * n_words * (hits + n_win))
+
+        probes, hits, _ = stats(0, wide.shape[0], wide)
+        report("k6", f"targets S={n_strains} beside K6s",
+               graph_ms(lambda i: G.multi_hit_words(wide, bs[i][0], h, salt, K, n_words)),
+               bound_ms(n_bytes(probes, hits, wide.shape[0])))
+        free = [untouched_shard("bucket", wide, None, h, salt, b) for b, _, _ in bs]
+        no_probe = lambda i: G.shard_multi_hit_words(free[i][1], free[i][0], bs[i][0], h, salt, K,  # noqa: E731
+                                                     n_words)
+        for i in range(N_BATCHES):
+            if int(no_probe(i).view(torch.int32).ne(0).sum()):
+                raise AssertionError(f"K6s S={n_strains}: a word set in a shard that holds no "
+                                     "probed key")
+        no_probe_ms = graph_ms(no_probe)
+        no_probe_bound = bound_ms(bs[0][0].numel() + 4 * n_words * n_win)
+        for n_index in SHARD_SWEEP:
+            shards = shard_table(wide, "bucket", n_index)
+            per = shards[0].table.shape[0]
+            probes, hits, _ = stats(0, per, shards[0].table)
+            ks = [lambda i, sh=sh: G.shard_multi_hit_words(sh.table, sh.lo, bs[i][0], h, salt, K,
+                                                           n_words) for sh in shards]
+
+            def program(i, ks=ks, n_words=n_words, n_strains=n_strains):
+                # a data shard's multi program: I K6s launches, R, K7
+                ws = [k6s(i).reshape(-1) for k6s in ks]
+                w = ws[0] if len(ws) == 1 else L.shard_reduce(ws, masks=False)
+                return G.boundary_strain_sums(w.reshape(-1, n_words), bs[i][1], n_strains)
+
+            report("k6s", f"targets S={n_strains} I={n_index}", graph_ms(ks[0]),
+                   bound_ms(n_bytes(probes, hits, per)), no_probe_ms=no_probe_ms,
+                   no_probe_bound_ms=no_probe_bound, program_ms=graph_ms(program), probes=probes,
+                   hits=hits)
+            del shards, ks
+            torch.cuda.empty_cache()
+        del wide, free
+        torch.cuda.empty_cache()
+
+
 def compare_kernels(genome, bases: dict, report, dev) -> None:
     """K3 with its valid count (per batch, then the tally's total), K8 and
     K9 on every batch kind at COMPARE_KS, each on a table of the genome at
@@ -956,9 +1033,11 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--reduce", action="store_true",
                     help="time R (shard_reduce) alone, at I = 2, 4 and 8")
     ap.add_argument("--shard", action="store_true",
-                    help="time K4s (shard_classify_masks) on targets batches and K3s "
-                         "(shard_count_step) on targets and count batches, at I = 1, 2 and 4, "
-                         "with their no-probe passes and a data shard's classify program")
+                    help="time K4s (shard_classify_masks) on targets batches, K3s "
+                         "(shard_count_step) on targets and count batches and K6s "
+                         "(shard_multi_hit_words) on targets batches at S = 32 and 256, at "
+                         "I = 1, 2 and 4, with their no-probe passes and a data shard's "
+                         "classify and multi programs")
     args = ap.parse_args(argv)
     import torch
 

@@ -965,33 +965,73 @@ def test_shard_count_and_classify_kernels(strain, layout, n_index):
     assert _equal(out, one) and int(out[1].sum()) > 0
 
 
-@pytest.mark.parametrize("n_index", [2, 4])
-@pytest.mark.parametrize("n_strains", [3, 32, 256])
-def test_shard_multi_hit_words_and_reduce_kernels(strain, n_strains, n_index):
+# K6s's batches: 64 x 4,096 rows of 150 bp reads, half from the genome;
+# the K4s batches (_k4s_bases: edge rows with N at tile edges, rows of
+# 1,000 bases whose one block ends inside its fourth tile, a one-row batch,
+# 30% N); rows whose table holds a third of its keys twice; and no_probe:
+# a one-bucket shard that no window probes, then the I shards on rows of
+# random sequence (probed, never found)
+K6S_BATCHES = ["reads", "main_rows", "ends_in_tile", "one_row", "dense_invalid",
+               "duplicate_keys", "no_probe"]
+
+
+@pytest.mark.parametrize("kind", K6S_BATCHES)
+@pytest.mark.parametrize("n_index", [1, 2, 4])
+@pytest.mark.parametrize("n_strains", [3, 32, 64, 96, 200, 256])
+def test_shard_multi_hit_words_and_reduce_kernels(strain, n_strains, n_index, kind):
     """K6s on every shard of wide union rows against its plain version, and
-    R adding the shards' words against its plain version and the
-    one-device K6."""
+    R adding the shards' words (I = 1: the one shard's words) against its
+    plain version and the one-device K6, at 1, 2, 4, 6, 13 and 16 words a
+    window (both store forms), on the K6S_BATCHES kinds: where a row holds a key twice every word is the sum
+    of both cells' words; a shard that holds no probed key writes zeros."""
     from strainer2_tpu_torch.parallel.sharding import shard_table
+    from strainer2_tpu_torch.tools.bench_kernels import untouched_shard
 
     rng, genome, _, _, rows64 = strain
     n_words = G.words_for_strains(n_strains)
     table, rows = _multi_rows(strain, n_words, rows64.device)
-    reads = [genome[s : s + 150] if i % 2 else rng.integers(0, 4, 150, dtype=np.uint8)
-             for i, s in enumerate(rng.integers(0, genome.size - 150, 2000))]
-    batch = next(pack_stream(iter(reads), K, 64, 4096, with_read_ids=True))
-    b = torch.from_numpy(batch.bases).to(rows.device)
     h, salt = table.h_bits, table.salt
+    if kind == "reads":
+        reads = [genome[s : s + 150] if i % 2 else rng.integers(0, 4, 150, dtype=np.uint8)
+                 for i, s in enumerate(rng.integers(0, genome.size - 150, 2000))]
+        bases = next(pack_stream(iter(reads), K, 64, 4096, with_read_ids=True)).bases
+    elif kind in ("duplicate_keys", "no_probe"):
+        bases = edge_rows(rng, genome, 4096, n_rows=16)
+    else:
+        bases = _k4s_bases(rng, genome, kind)
+    b = torch.from_numpy(bases).to(rows.device)
+    if kind == "duplicate_keys":
+        plain_rows = rows
+        rows = torch.from_numpy(duplicate_keys(rows.cpu().numpy(), rng)).to(rows.device)
+    shards = shard_table(rows, "bucket", n_index)
+    if kind == "no_probe":
+        lo, t1, _ = untouched_shard("bucket", rows, None, h, salt, b)
+        w = G.shard_multi_hit_words(t1, lo, b, h, salt, K, n_words)
+        assert _equal((w,), (G.multi_hit_words_plain(t1, b, h, salt, K, n_words, lo),))
+        assert not int((w != 0).sum())
+        b = torch.from_numpy(rng.integers(0, 4, size=(16, 4096), dtype=np.uint8)).to(rows.device)
     parts = []
-    for sh in shard_table(rows, "bucket", n_index):
+    for sh in shards:
         w = G.shard_multi_hit_words(sh.table, sh.lo, b, h, salt, K, n_words)
-        assert _equal((w,), (G.multi_hit_words_plain(sh.table, b, h, salt, K, n_words, sh.lo),))
+        assert _equal((w,), (G.multi_hit_words_plain(sh.table, b, h, salt, K, n_words, sh.lo),)), sh.lo
         parts.append(w.reshape(-1).view(torch.int32))
-    stacked = torch.stack(parts).view(torch.uint32)
-    summed = L.shard_reduce(stacked, masks=False)
-    assert _equal((summed,), (L.shard_reduce_plain(stacked, masks=False),))
-    assert _equal((summed,), (L.shard_reduce([p.view(torch.uint32) for p in parts], masks=False),))
+    if n_index == 1:
+        summed = parts[0].view(torch.uint32)
+    else:
+        stacked = torch.stack(parts).view(torch.uint32)
+        summed = L.shard_reduce(stacked, masks=False)
+        assert _equal((summed,), (L.shard_reduce_plain(stacked, masks=False),))
+        assert _equal((summed,), (L.shard_reduce([p.view(torch.uint32) for p in parts],
+                                                 masks=False),))
     one = G.multi_hit_words(rows, b, h, salt, K, n_words)
-    assert _equal((summed,), (one.reshape(-1),)) and int((summed != 0).sum()) > 0
+    assert _equal((summed,), (one.reshape(-1),))
+    assert _equal((one,), (G.multi_hit_words_plain(rows, b, h, salt, K, n_words),))
+    if kind == "no_probe":
+        assert not int((summed != 0).sum())
+    elif kind != "dense_invalid":
+        assert int((summed != 0).sum()) > 0
+    if kind == "duplicate_keys":
+        assert not _equal((one,), (G.multi_hit_words(plain_rows, b, h, salt, K, n_words),))
 
 
 @pytest.mark.parametrize("n_parts", [2, 3, 4, 5, 8, 9])

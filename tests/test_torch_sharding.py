@@ -677,3 +677,77 @@ def test_plain_shard_counts_are_jax_count_body(setup, layout, n_index, k, batch)
         assert not want.any()
     else:
         assert (changed & (start == 0xFFFFFFFF)).any() and (changed & (start == 0)).any()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_words_fn(h_bits, salt, per, n_index, n_strains):
+    """The operand that JAX's _classify_multi_body_bucket psums over
+    "index" (strainer2_tpu/parallel/sharding.py:278-291), its words stacked
+    as (windows, n_words) columns, in a jitted shard_map over a
+    (1, n_index) mesh: shard i's operand is columns [i n_words, (i + 1)
+    n_words) of the (windows, n_index n_words) result."""
+    from strainer2_tpu.ops.packing import canonical_windows
+    from strainer2_tpu.parallel.sharding import ShardedKmerEngine, make_mesh, shard_map
+
+    mesh = make_mesh(1, n_index, devices=jax.devices()[:n_index])
+
+    def body(rows_loc, b):
+        win = canonical_windows(b, K)
+        qhi, qlo, valid = win.hi.reshape(-1), win.lo.reshape(-1), win.valid.reshape(-1)
+        if n_strains > 16:
+            hit, words = ShardedKmerEngine._bucket_local_lookup_words(
+                rows_loc, qhi, qlo, h_bits, salt, per, -(-n_strains // 16))
+            masked = [jnp.where(hit & valid, w, 0) for w in words]
+        else:
+            hit, _, meta = ShardedKmerEngine._bucket_local_lookup(rows_loc, qhi, qlo, h_bits,
+                                                                  salt, per)
+            masked = [jnp.where(hit & valid, meta, 0)]
+        return jnp.stack(masked, axis=1)
+
+    return jax.jit(shard_map(body, mesh=mesh, in_specs=(P("index", None), P()),
+                             out_specs=P(None, "index")))
+
+
+@pytest.mark.parametrize("batch", ["no_key", "genome"])
+@pytest.mark.parametrize("n_index", [2, 4])
+@pytest.mark.parametrize("n_strains", [3, 20, 100])
+def test_plain_shard_words_are_jax_psum_operand(setup, n_strains, n_index, batch):
+    """Each index shard's K6s words through the port's entry point (its
+    plain version on CPU tensors) against the masked meta words that JAX's
+    _classify_multi_body_bucket gives that shard inside a shard_map before
+    its psum over "index" (1, 2 and 7 words a window), shard by shard, and
+    their sum against the one-device plain K6.  On a batch of random reads
+    the table holds none of the batch's keys: every shard's words are
+    zero, as JAX's are; on the genome's reads they are not."""
+    from strainer2_tpu_torch.ops.segsum import multi_hit_words_plain, shard_multi_hit_words
+    from strainer2_tpu_torch.parallel.sharding import shard_table
+    from tests.oracle import random_dna
+
+    _, index, _, batches = setup
+    tb, rows = _multi_rows(index.codes, n_strains, np.random.default_rng(n_strains))
+    if batch == "genome":
+        bases = batches[0].bases
+    else:
+        from strainer2_tpu_torch.io.batches import pack_stream
+
+        rng = np.random.default_rng(11)
+        reads = [random_dna(rng, int(rng.integers(40, 150)), n_prob=0.02).encode()
+                 for _ in range(100)]
+        bases = next(pack_stream(iter(reads), K, ROWS, ROW_LEN)).bases
+    n_words = -(-n_strains // 16)
+    per = tb.table.shape[0] // n_index  # buckets a shard
+    want = np.asarray(_jax_words_fn(tb.h_bits, tb.salt, per, n_index, n_strains)(
+        jnp.asarray(rows), jnp.asarray(bases)))
+    assert want.shape == (N_WINDOWS, n_index * n_words)
+    b = torch.from_numpy(bases)
+    got = []
+    for i, sh in enumerate(shard_table(torch.from_numpy(rows), "bucket", n_index)):
+        w = shard_multi_hit_words(sh.table, sh.lo, b, tb.h_bits, tb.salt, K, n_words)
+        got.append(w.view(torch.int32).numpy().view(np.uint32))
+        np.testing.assert_array_equal(got[-1], want[:, i * n_words : (i + 1) * n_words])
+    one = multi_hit_words_plain(torch.from_numpy(rows), b, tb.h_bits, tb.salt, K, n_words)
+    np.testing.assert_array_equal(np.sum(got, axis=0, dtype=np.uint32),
+                                  one.view(torch.int32).numpy().view(np.uint32))
+    assert (np.count_nonzero(want) > 0) == (batch == "genome")
+    if batch == "genome":
+        assert sum(np.count_nonzero(g) > 0 for g in got) >= 2  # words in more than one shard
