@@ -139,9 +139,17 @@ Phases; any failure exits non-zero and no result line is printed:
    bare cuda equal to phase 4; --mesh 2x2 on a bare cuda in a child
    process exits 1 with JAX's "mesh 2x2 != 1 devices" on a one-card host;
    the torch dryrun_multichip(4) on cuda:0; each wall, the shard kernels'
-   launches (each must be > 0) and the phase's wall.
+   launches (each must be > 0) and the phase's wall;
+13. the ``--device cpu`` native routes on this card's host (the host
+   library's fused counter and classifiers, the read extractor, the
+   sample pool): kmer_scrub_count on phase 4's panels, strain_detect -B
+   on phase 4's two targets and detect-multi on phase 6's 32 strains, each
+   byte-identical to its card phase, each shown to have called
+   ``NativePanelCounter.count_file`` or a ``NativeClassifier`` stream, no
+   kernel launched; each CPU wall beside the card wall of the same call,
+   with the host's CPU count and model.
 
-Phases run in the order 1, 2, 2b, 2c, 3, 4, 7, 6, 8, 11, 9, 10, 12, 5.
+Phases run in the order 1, 2, 2b, 2c, 3, 4, 7, 6, 8, 11, 9, 10, 12, 13, 5.
 """
 
 from __future__ import annotations
@@ -2615,6 +2623,103 @@ def profiled(out_dir: str, label: str, fn):
     return result
 
 
+# ---- phase 13: the --device cpu native routes on the card's host -----------------
+
+def native_cpu_real(d: str, card_walls: dict) -> dict:
+    """Phase 13: kmer_scrub_count on phase 4's panels, strain_detect -B on
+    phase 4's two targets and detect-multi on phase 6's strains, run with
+    --device cpu on this host: the host library's fused counter and
+    classifiers, the read extractor and the sample pool (the JAX package's
+    CPU routes).  Each output must equal its card phase's byte for byte;
+    each run must have called the native counter (kmer_scrub_count) or the
+    native classifier streams (the detectors), and no run may launch a
+    kernel.  Prints each CPU wall beside the card wall of the same call.
+    No cut: the inputs are phases 4 and 6's own."""
+    import threading
+
+    from strainer2_tpu_torch import native
+    from strainer2_tpu_torch.ops import _build
+
+    if not native.available():
+        fail(f"phase 13 needs the C++ host library: {native.build_error}")
+    os.environ.pop("STRAINER2_NATIVE_COUNT", None)
+    p = lambda name: os.path.join(d, name)  # noqa: E731
+    calls = {"count_file": 0, "stream": 0}
+    lock = threading.Lock()
+    patched = []
+    for cls, name, key in ((native.NativePanelCounter, "count_file", "count_file"),
+                           (native.NativeClassifier, "open_stream", "stream"),
+                           (native.NativeClassifier, "open_multi_stream", "stream")):
+        orig = getattr(cls, name)
+
+        def counted(self, *a, _orig=orig, _key=key, **kw):
+            with lock:
+                calls[_key] += 1
+            return _orig(self, *a, **kw)
+
+        patched.append((cls, name, orig))
+        setattr(cls, name, counted)
+    runs = {  # label: (module, argv, stdout, the native calls it must make)
+        "kmer_scrub_count": ("kmer_scrub_count", ["-r", p("strain.fna"), "-A", p("genomes.txt"),
+                                                  "-B", p("metagenomes.txt")],
+                             "p13_counts.tsv", "count_file"),
+        "strain_detect": ("strain_detect", ["-r", p("strain.fna"), "-a", p("informative.txt"),
+                                            "-B", p("targets.txt"), "-o", p("p13_hits.gz")],
+                          "p13_detect_stdout.txt", "stream"),
+        "detect-multi": ("strainer2_tools", ["detect-multi", "-S", p("strains.tsv"), "-B",
+                                             p("targets.txt"), "-o", p("p13_multi")],
+                         "p13_multi_stdout.txt", "stream"),
+    }
+    t_phase = time.perf_counter()
+    walls, made = {}, {}
+    _build.reset_launches()
+    try:
+        for label, (module, argv, stdout, need) in runs.items():
+            before = dict(calls)
+            walls[label] = run_cli(module, argv, p(stdout), device="cpu")
+            made[label] = {key: calls[key] - before[key] for key in calls}
+            if not made[label][need]:
+                fail(f"phase 13 {label} --device cpu did not take the native route: {made[label]}")
+            print(f"stage {label} --device cpu (phase 13): wall {walls[label]:.3f} s against "
+                  f"{card_walls[label]:.3f} s on the card; native calls {made[label]}", flush=True)
+    finally:
+        for cls, name, orig in patched:
+            setattr(cls, name, orig)
+    launches = {name: n for name, n in _build.launches.items() if n}
+    ok = {
+        "scrub table": same_bytes(p("p13_counts.tsv"), p("counts.tsv")),
+        "detect hits": same_payloads(p("p13_hits.gz"), p("hits.gz")),
+        "detect stdout": same_bytes(p("p13_detect_stdout.txt"), p("detect_stdout.txt")),
+        "detect-multi stdout": same_bytes(p("p13_multi_stdout.txt"), p("multi_stdout.txt")),
+    }
+    files = sorted(os.listdir(p("multi")))
+    ok["detect-multi files"] = (files == sorted(os.listdir(p("p13_multi"))) and len(files) ==
+                                MULTI_STRAINS and all(same_payloads(
+                                    os.path.join(p("p13_multi"), f), os.path.join(p("multi"), f))
+                                    for f in files))
+    ok["no kernel launched"] = not launches
+    print(f"phase 13 against phases 4 and 6: {ok}", flush=True)
+    if not all(ok.values()):
+        fail(f"a --device cpu native run differs from its card phase (launches {launches})")
+    wall = time.perf_counter() - t_phase
+    print(f"phase 13 wall {wall:.3f} s; host: {os.cpu_count()} CPUs, {host_cpu_model()}",
+          flush=True)
+    return {"walls": walls, "calls": made, "wall": wall}
+
+
+def host_cpu_model() -> str:
+    """The host CPU's model name from /proc/cpuinfo ("not known" where it
+    has none)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return "not known"
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2712,10 +2817,10 @@ def main() -> int:
         phase("6")
         multi = make_multi_dataset(d, data, rng)
         if args.profile:
-            _, multi_launches = profiled(args.profile, "phase6",
-                                         lambda: detect_multi_real(d, data, multi))
+            multi_wall, multi_launches = profiled(args.profile, "phase6",
+                                                  lambda: detect_multi_real(d, data, multi))
         else:
-            _, multi_launches = detect_multi_real(d, data, multi)
+            multi_wall, multi_launches = detect_multi_real(d, data, multi)
         check_multi_outputs(d, multi)
 
         # ---- phase 8: the fused multi-strain pipeline at real size
@@ -2766,6 +2871,12 @@ def main() -> int:
         phase("12")
         torch.cuda.empty_cache()
         mesh = mesh_real(d, repo)
+
+        # ---- phase 13: the --device cpu native routes on this host; no launch
+        phase("13")
+        native_cpu_real(d, {"kmer_scrub_count": walls["kmer_scrub_count"],
+                            "strain_detect": walls["strain_detect"],
+                            "detect-multi": multi_wall})
 
     # ---- phase 5
     phase("5")

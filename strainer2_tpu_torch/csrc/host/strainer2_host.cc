@@ -12,7 +12,8 @@
 //   * bucket- and cuckoo-table construction, first-encounter unique, count-table row
 //     formatting and parsing, kmer_hits parsing, the rolling canonical
 //     scanner,
-//   * the CPU panel counter and read classifiers the checks compare with,
+//   * the CPU panel counter, read classifiers and read extractor of the
+//     --device cpu routes (and the oracles the checks compare with),
 //   * genome_compare's string engine (CompareSet: any k, the CPU default).
 // One difference from the original: a counting stream splits a sequence
 // longer than one buffer across as many buffers as it needs (s2_next_batch),
@@ -1583,6 +1584,45 @@ void s2_close_classify(void* h) {
   auto* s = static_cast<ClassifyStream*>(h);
   delete s->r1;
   delete s->r2;
+  delete s;
+}
+
+// ---- forward-only read extraction (emission of passing reads) ---------------
+
+struct ExtractStream {
+  FastxReader* reader = nullptr;
+  long long next_ordinal = 0;
+  std::vector<uint8_t> seq;
+};
+
+void* s2_open_extract(const char* path) {
+  auto* s = new ExtractStream();
+  s->reader = new FastxReader(path);
+  return s;
+}
+
+int s2_extract_ok(void* h) {
+  return static_cast<ExtractStream*>(h)->reader->ok() ? 1 : 0;
+}
+
+// Encoded bases of read #ordinal (0-based, ascending across calls).
+// Returns the read length (truncated to cap), or -1 past end of file.
+long long s2_extract_read(void* h, long long ordinal, uint8_t* out,
+                          long long cap) {
+  auto* s = static_cast<ExtractStream*>(h);
+  while (s->next_ordinal <= ordinal) {
+    if (!s->reader->next(&s->seq)) return -1;
+    ++s->next_ordinal;
+  }
+  long long n = (long long)s->seq.size();
+  if (n > cap) n = cap;
+  memcpy(out, s->seq.data(), (size_t)n);
+  return n;
+}
+
+void s2_close_extract(void* h) {
+  auto* s = static_cast<ExtractStream*>(h);
+  delete s->reader;
   delete s;
 }
 

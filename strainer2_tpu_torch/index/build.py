@@ -20,7 +20,10 @@ slot-indexed counts.
 
 The genome scan runs on the engine: the genome is packed into fixed
 batches and every valid window's canonical code is extracted on the
-device (kernel K1 on CUDA), then the codes come back in scan order.
+device (kernel K1 on CUDA), then the codes come back in scan order.  On
+the CPU the host library's rolling scanner gives the same codes, and
+``native_counter`` the fused panel counter of the ``--device cpu``
+routes.
 """
 
 from __future__ import annotations
@@ -72,12 +75,20 @@ def layout_of_counts(num_kmers: int, n_cells: int) -> str | None:
 
 def scan_file_codes(path: str, engine, rows: int = DEFAULT_ROWS,
                     row_len: int = DEFAULT_ROW_LEN) -> np.ndarray:
-    """All valid canonical codes of a FASTA/FASTQ file in genome-scan order,
-    extracted by ``engine`` from packed batches (the k-1 halo between rows
-    keeps every window exactly once and in order)."""
-    from strainer2_tpu_torch.native import pack_file
+    """All valid canonical codes of a FASTA/FASTQ file in genome-scan order.
 
-    chunks = [engine.extract_codes(b.bases) for b in pack_file(path, engine.k, rows, row_len)]
+    On the ``--device cpu`` route (``scrub_count._use_native_counting``)
+    the host library's rolling scanner makes them, as the JAX package's
+    scan does off the TPU (strainer2_tpu/index/build.py:57-61).  Elsewhere
+    ``engine`` extracts them from packed batches (K1 on CUDA; the k-1 halo
+    between rows keeps every window exactly once and in order)."""
+    from strainer2_tpu_torch import native
+    from strainer2_tpu_torch.pipeline.scrub_count import _use_native_counting
+
+    if _use_native_counting(engine):
+        return native.scan_file_codes_native(path, engine.k)
+    chunks = [engine.extract_codes(b.bases)
+              for b in native.pack_file(path, engine.k, rows, row_len)]
     if not chunks:
         return np.empty(0, dtype=np.uint64)
     return np.concatenate(chunks)
@@ -154,6 +165,19 @@ class StrainIndex:
     @property
     def num_kmers(self) -> int:
         return self.codes.shape[0]
+
+    def native_counter(self):
+        """The host library's fused panel counter over this index's keys and
+        slots (made once, kept); None when the library is unavailable."""
+        if "_native_counter" not in self.__dict__:
+            from strainer2_tpu_torch.native import NativePanelCounter
+
+            try:
+                self._native_counter = NativePanelCounter(self.codes, self.table.slot_of_key,
+                                                          self.k)
+            except (RuntimeError, MemoryError):
+                self._native_counter = None
+        return self._native_counter
 
     def slot_values(self, per_key: np.ndarray, fill=0) -> np.ndarray:
         """Scatter a per-key array into a (num_slots,) slot-indexed array."""

@@ -1,6 +1,6 @@
 """The C++ host data plane (readers, packer, table construction, parsers, the
-CPU counter and classifiers the checks compare with, and genome_compare's
-string engine).
+panel counter, read classifiers and read extractor of the ``--device cpu``
+routes, and genome_compare's string engine).
 
 The library is the port's own copy of the JAX package's host library
 (``csrc/host/strainer2_host.cc``).  It is compiled at first use with
@@ -13,6 +13,10 @@ not collide.
 If the library cannot be built (it needs g++ and zlib's headers),
 ``available()`` is False and callers use the pure-Python readers: a host
 fallback, not a device one; ``build_error`` says why.
+
+``STRAINER2_TORCH_HOST_LIB`` names a library built elsewhere to load
+instead (the ThreadSanitizer build of tools/tsan_stress.sh); nothing is
+compiled then.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ __all__ = [
     "NativeComparer",
     "NativePackStream",
     "NativePanelCounter",
+    "NativeReadExtractor",
     "Pe2EndedEarlyError",
     "available",
     "build_bucket_native",
@@ -40,6 +45,7 @@ __all__ = [
     "parse_hits_native",
     "parse_scrub_table_native",
     "reference_row_order_native",
+    "scan_file_codes_native",
     "unique_encounter_native",
 ]
 
@@ -88,6 +94,14 @@ _SIGNATURES = {
     "s2_classify_multi_next": (_LL, [_P, _P, _P, _P, _LL, _I]),
     "s2_classify_state": (_I, [_P]),
     "s2_close_classify": (None, [_P]),
+    "s2_open_scan": (_P, [_STR, _I]),
+    "s2_scan_ok": (_I, [_P]),
+    "s2_scan_next": (_LL, [_P, _P, _LL]),
+    "s2_close_scan": (None, [_P]),
+    "s2_open_extract": (_P, [_STR]),
+    "s2_extract_ok": (_I, [_P]),
+    "s2_extract_read": (_LL, [_P, _LL, _P, _LL]),
+    "s2_close_extract": (None, [_P]),
     "s2_compare_build": (_P, [_STR, _I]),
     "s2_compare_size": (_LL, [_P]),
     "s2_compare_score": (_I, [_P, _STR, _LL, ctypes.c_double, _P, _P]),
@@ -130,10 +144,12 @@ def _load():
         if _tried:
             return _lib
         _tried = True
-        so = library_path()
+        so = os.environ.get("STRAINER2_TORCH_HOST_LIB")
         try:
-            if not os.path.exists(so):
-                _build(so)
+            if not so:
+                so = library_path()
+                if not os.path.exists(so):
+                    _build(so)
             lib = ctypes.CDLL(so)
         except subprocess.CalledProcessError as e:
             build_error = f"g++ failed ({e.returncode}): {e.stderr[-2000:]}"
@@ -285,6 +301,31 @@ def pack_file(path: str, k: int, rows: int, row_len: int) -> Iterator:
     from strainer2_tpu_torch.io.fastx import read_fastx
 
     return pack_stream((rec.seq for rec in read_fastx(path)), k, rows=rows, row_len=row_len)
+
+
+def scan_file_codes_native(path: str, k: int, chunk: int = 4 << 20) -> np.ndarray | None:
+    """All valid canonical codes of a FASTA/FASTQ file in scan order (the
+    rolling scanner); None if the library is unavailable.  A copy of
+    strainer2_tpu.native.scan_file_codes_native."""
+    lib = _load()
+    if lib is None:
+        return None
+    s = lib.s2_open_scan(path.encode(), k)
+    chunks = []
+    try:
+        if not lib.s2_scan_ok(s):
+            raise OSError(f"could not read file {path}")
+        while True:
+            buf = np.empty(chunk, dtype=np.uint64)
+            n = lib.s2_scan_next(s, buf.ctypes.data, chunk)
+            if n <= 0:
+                break
+            chunks.append(buf[:n].copy())
+    finally:
+        lib.s2_close_scan(s)
+    if not chunks:
+        return np.empty(0, dtype=np.uint64)
+    return np.concatenate(chunks)
 
 
 def unique_encounter_native(codes: np.ndarray):
@@ -551,6 +592,40 @@ class NativeClassifyStream:
     def close(self):
         if getattr(self, "_s", None):
             self._lib.s2_close_classify(self._s)
+            self._s = None
+
+    def __del__(self):
+        self.close()
+
+
+class NativeReadExtractor:
+    """Forward-only access to a file's reads by ordinal: the bases of the
+    passing reads the native classifiers count (a copy of
+    strainer2_tpu.native.NativeReadExtractor)."""
+
+    def __init__(self, path: str):
+        lib = _load()
+        if lib is None:
+            raise RuntimeError(f"native library unavailable: {build_error}")
+        self._lib = lib
+        self._s = lib.s2_open_extract(path.encode())
+        if not lib.s2_extract_ok(self._s):
+            lib.s2_close_extract(self._s)
+            self._s = None
+            raise OSError(f"could not read file {path}")
+
+    def read(self, ordinal: int, length: int) -> np.ndarray:
+        """The encoded bases of read ``ordinal`` (ascending across calls),
+        at most ``length`` of them."""
+        out = np.empty(max(length, 1), dtype=np.uint8)
+        n = self._lib.s2_extract_read(self._s, ordinal, out.ctypes.data, out.shape[0])
+        if n < 0:
+            raise OSError("read ordinal past end of file")
+        return out[:n]
+
+    def close(self):
+        if getattr(self, "_s", None):
+            self._lib.s2_close_extract(self._s)
             self._s = None
 
     def __del__(self):

@@ -15,6 +15,14 @@ Port of ``strainer2_tpu.pipeline.detect`` (reference src/strain_detect.c):
 
 Emission, summary lines and diagnostics are the JAX package's host code,
 copied, so the output bytes are the same.  Samples run one after another.
+On ``--device cpu`` (the plain engine on the CPU, the host library built,
+STRAINER2_NATIVE_COUNT not 0) the JAX package's CPU route is taken
+instead: the background panel is counted by the host library's fused
+counter, each sample is classified by its fused per-read classifier, the
+passing reads are read back by ordinal with its read extractor, and
+several samples are scored at once on a thread pool (up to 8,
+STRAINER2_DETECT_THREADS) whose output is written in list order, byte for
+byte the sequential run's on every stream, failures included.
 With a checkpoint directory each finished sample's payload is saved
 (pipeline/progress.py) and a restarted run replays it instead of scoring
 it again.  In a multi-process run (parallel/distributed.py) the
@@ -71,7 +79,12 @@ from strainer2_tpu_torch.parallel.distributed import (
 )
 from strainer2_tpu_torch.parallel.sharding import pad_rows
 from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
-from strainer2_tpu_torch.pipeline.scrub_count import count_panel_file, read_list_file
+from strainer2_tpu_torch.pipeline.scrub_count import (
+    _use_native_counting,
+    count_files_native_pooled,
+    count_panel_file,
+    read_list_file,
+)
 from strainer2_tpu_torch.utils.observability import stage
 from strainer2_tpu_torch.utils.prefetch import prefetch
 
@@ -259,8 +272,117 @@ def _unpack_results(blobs: list[bytes]) -> dict:
     return merged
 
 
+def _run_sample_pool(entries, threads: int, new_sink, run_one, payload_of,
+                     emit, stdout) -> None:
+    """Samples scored at once on a thread pool, observed as the sequential
+    loop (JAX strainer2_tpu/pipeline/detect.py:187-250).
+
+    ``run_one(sample_args, sink)`` writes a sample into a fresh ``sink``
+    (the classify table it reads is shared and read-only); the main thread
+    takes the entries in list order: stdout messages are written at their
+    place, payloads (``payload_of(sink)``) through ``emit``.  Each worker's
+    stderr is captured per sample, so an error run is exact: a failing
+    sample's partial output and its diagnostics are written after every
+    earlier sample's output, as the sequential loop writes its rows before
+    it raises; nothing after it is written (later messages included), and
+    the run exits 1.
+    """
+    import concurrent.futures
+    from collections import deque
+
+    tee = _ThreadStderrTee(sys.stderr)
+    samples = [val for kind, val in entries if kind == "sample"]
+
+    def work(args):
+        sink = new_sink()
+        ebuf = tee.capture()
+        outcome = None
+        try:
+            run_one(args, sink)
+        except SystemExit as e:
+            outcome = e.code if e.code is not None else 0
+        except BaseException as e:  # raised again in list order below
+            outcome = e
+        finally:
+            tee.uncapture()
+        # the payload even of a failure: the sequential loop has written the
+        # failing sample's rows when it raises
+        return payload_of(sink), ebuf.getvalue(), outcome
+
+    old_stderr = sys.stderr
+    sys.stderr = tee
+    try:
+        with concurrent.futures.ThreadPoolExecutor(threads) as ex:
+            futs: deque = deque()
+            idx = 0
+            try:
+                for kind, val in entries:
+                    if kind == "msg":
+                        stdout.write(val)
+                        continue
+                    while idx < len(samples) and len(futs) < threads + 2:
+                        futs.append(ex.submit(work, samples[idx]))
+                        idx += 1
+                    payload, errtxt, outcome = futs.popleft().result()
+                    emit(payload)
+                    if errtxt:
+                        old_stderr.write(errtxt)
+                    if outcome is not None:
+                        if isinstance(outcome, BaseException):
+                            raise outcome
+                        raise SystemExit(outcome)
+            finally:
+                ex.shutdown(wait=True, cancel_futures=True)
+    finally:
+        sys.stderr = old_stderr
+
+
+def _detect_threads(n_samples: int) -> int:
+    """Worker threads for scoring samples at once (STRAINER2_DETECT_THREADS
+    overrides; default min(cores, 8, samples)).  Each sample in flight
+    holds its uncompressed output: 1 streams."""
+    import os
+
+    env = os.environ.get("STRAINER2_DETECT_THREADS")
+    if env is not None:
+        return max(1, min(int(env), n_samples))
+    return max(1, min(os.cpu_count() or 1, 8, n_samples))
+
+
+class _ThreadStderrTee:
+    """A sys.stderr stand-in that sends each worker thread's writes to a
+    buffer of its own while it is capturing; every other thread (the main
+    thread, a prefetch thread, the stage timers) writes to the real
+    stream."""
+
+    def __init__(self, real):
+        import threading
+
+        self.real = real
+        self._local = threading.local()
+
+    def capture(self):
+        import io
+
+        buf = io.StringIO()
+        self._local.buf = buf
+        return buf
+
+    def uncapture(self):
+        self._local.buf = None
+
+    def write(self, s):
+        buf = getattr(self._local, "buf", None)
+        return (buf if buf is not None else self.real).write(s)
+
+    def flush(self):
+        buf = getattr(self._local, "buf", None)
+        if buf is None:
+            self.real.flush()
+
+
 def _staged_quantify(entries, run_one, new_sink, payload_of, emit, stdout,
-                     checkpoint_dir: str | None = None) -> None:
+                     checkpoint_dir: str | None = None, pool_ok: bool = False) -> None:
     """Sample-granular staged scoring: multi-process detection and detect
     resume, the form of ``strainer2_tpu.pipeline.detect._staged_quantify``.
 
@@ -281,8 +403,15 @@ def _staged_quantify(entries, run_one, new_sink, payload_of, emit, stdout,
     (DetectCheckpoint; under checkpoint_dir/rank<i> in a multi-process
     run, so that shares cannot interleave) and a resumed run replays a
     stored payload (same ordinal, same (f1, f2, type) key) instead of
-    scoring it."""
+    scoring it.
+
+    With ``pool_ok`` (the native classifier of the ``--device cpu`` route)
+    a rank scores its samples on the thread pool of ``_run_sample_pool``:
+    results are taken in order, a worker's stderr is captured and written
+    at its sample's place, and the first failure stops the rank."""
+    import concurrent.futures
     import os
+    from collections import deque
 
     from strainer2_tpu_torch.pipeline.progress import DetectCheckpoint
 
@@ -323,32 +452,63 @@ def _staged_quantify(entries, run_one, new_sink, payload_of, emit, stdout,
             pos += 1
             cursor[:] = pos, si
 
-    with stage("detect.score_samples"):
-        for o in mine:
-            if pcount == 1:
-                replay()
-            key = DetectCheckpoint.sample_key(*samples[o]) if ckpt else None
-            stored = ckpt.get(o, key) if ckpt else None
-            if stored is not None:
-                results[o] = (stored, ("ok",))
-                continue
-            sink = new_sink()
-            token = ("ok",)
-            try:
-                run_one(samples[o], sink)
-            except SystemExit as e:
-                code = e.code if e.code is not None else 0
-                token = ("exit", code if isinstance(code, int) else 1)
-            except BaseException as e:  # raised again at its batch position
-                local_exc[o] = e
-                token = ("exc", 1)
-            # the payload even of a failure: the streaming loop has written
-            # the failing sample's rows when it raises
-            results[o] = (payload_of(sink), token)
-            if token != ("ok",):
-                break  # later samples are never replayed
-            if ckpt is not None:
-                ckpt.record(o, key, results[o][0])
+    keys = {o: DetectCheckpoint.sample_key(*samples[o]) if ckpt else None for o in mine}
+    stored = {o: ckpt.get(o, keys[o]) for o in mine} if ckpt else {}
+    todo = [o for o in mine if stored.get(o) is None]
+    threads = _detect_threads(len(todo)) if pool_ok else 1
+    tee = _ThreadStderrTee(sys.stderr) if threads > 1 and len(todo) > 1 else None
+
+    def work(o):
+        sink = new_sink()
+        token = ("ok",)
+        ebuf = tee.capture() if tee is not None else None
+        try:
+            run_one(samples[o], sink)
+        except SystemExit as e:
+            code = e.code if e.code is not None else 0
+            token = ("exit", code if isinstance(code, int) else 1)
+        except BaseException as e:  # raised again at its batch position
+            local_exc[o] = e  # one key a task: no lock needed
+            token = ("exc", 1)
+        finally:
+            if tee is not None:
+                tee.uncapture()
+        # the payload even of a failure: the streaming loop has written
+        # the failing sample's rows when it raises
+        return payload_of(sink), token, ebuf.getvalue() if ebuf is not None else ""
+
+    old_stderr = sys.stderr
+    ex = concurrent.futures.ThreadPoolExecutor(threads) if tee is not None else None
+    futs: deque = deque()
+    nxt = 0  # next todo entry to submit
+    if tee is not None:
+        sys.stderr = tee
+    try:
+        with stage("detect.score_samples"):
+            for o in mine:
+                if pcount == 1:
+                    replay()
+                if stored.get(o) is not None:
+                    results[o] = (stored[o], ("ok",))
+                    continue
+                if ex is None:
+                    payloads, token, errtxt = work(o)
+                else:
+                    while nxt < len(todo) and len(futs) < threads + 2:
+                        futs.append(ex.submit(work, todo[nxt]))
+                        nxt += 1
+                    payloads, token, errtxt = futs.popleft().result()
+                    if errtxt:
+                        old_stderr.write(errtxt)
+                results[o] = (payloads, token)
+                if token != ("ok",):
+                    break  # later samples are never replayed
+                if ckpt is not None:
+                    ckpt.record(o, keys[o], payloads)
+    finally:
+        if ex is not None:
+            ex.shutdown(wait=True, cancel_futures=True)
+        sys.stderr = old_stderr
     if pcount > 1:
         with stage("detect.gather_payloads"):
             results = _unpack_results(gather_blobs(_pack_results(results)))
@@ -483,16 +643,23 @@ class StrainDetector:
         """Demote informative k-mers frequent in background metagenomes
         (reference src/strain_detect.c:160-240; stats lines go to stdout).
         The background panel is counted on the device with the count
-        kernel; in a multi-process run each rank counts its size-balanced
-        share and the per-key counts are summed, so that every rank demotes
-        the same k-mers."""
+        kernel, or on the ``--device cpu`` route by the host library's
+        fused counter on a thread pool; in a multi-process run each rank
+        counts its size-balanced share and the per-key counts are summed,
+        so that every rank demotes the same k-mers."""
         cfg = self.cfg
         paths = host_file_partition(read_list_file(background_list), process_index(),
                                     process_count())
-        counts = self.engine.init_counts(self.index)
-        for path in paths:
-            counts = count_panel_file(self.engine, self.index, counts, path, cfg.rows, cfg.row_len)
-        bg_counts = merge_across_hosts(self.index.key_values(self.engine.finalize_counts(counts)))
+        nc = (self.index.native_counter()
+              if cfg.mesh is None and _use_native_counting(self.engine) else None)
+        counts_np = count_files_native_pooled(nc, paths, self.index.table.num_slots)
+        if counts_np is None:
+            counts = self.engine.init_counts(self.index)
+            for path in paths:
+                counts = count_panel_file(self.engine, self.index, counts, path, cfg.rows,
+                                          cfg.row_len)
+            counts_np = self.engine.finalize_counts(counts)
+        bg_counts = merge_across_hosts(self.index.key_values(counts_np))
         bg_counts = bg_counts.astype(np.int64)
         background_demote(
             self.kmer_type, bg_counts, self.num_informative_marked,
@@ -575,16 +742,22 @@ class StrainDetector:
             )
             raise SystemExit(1)
         self._finalize_meta()
+        nc = self._native_classifier()
+        if nc is not None:
+            def run_one(args, sink):
+                self._quantify_sample_native(nc, *args, sink)
+        else:
+            def run_one(args, sink):
+                self._quantify_sample(*args, sink)
         if batch_list is not None and (pcount > 1 or checkpoint_dir):
             out = open_hits() if pidx == 0 else None
             try:
                 _staged_quantify(
-                    _parse_batch_entries(batch_list),
-                    lambda args, sink: self._quantify_sample(*args, sink),
+                    _parse_batch_entries(batch_list), run_one,
                     io.StringIO, lambda sink: [sink.getvalue()],
                     (lambda payloads: out.write(payloads[0])) if out is not None
                     else (lambda payloads: None),
-                    self.stdout, checkpoint_dir,
+                    self.stdout, checkpoint_dir, pool_ok=nc is not None,
                 )
             finally:
                 if out is not None:
@@ -596,9 +769,16 @@ class StrainDetector:
             if batch_list is None:
                 self._quantify_sample(b_file, b_file2, file_type, out)
                 return
+            entries = _parse_batch_entries(batch_list)
+            n_samples = sum(1 for kind, _ in entries if kind == "sample")
+            threads = _detect_threads(n_samples)
+            if nc is not None and n_samples > 1 and threads > 1:
+                _run_sample_pool(entries, threads, io.StringIO, run_one,
+                                 lambda sink: sink.getvalue(), out.write, self.stdout)
+                return
             # stdout warnings interleave with samples exactly as the
             # reference's streaming loop emits them
-            for kind, val in _parse_batch_entries(batch_list):
+            for kind, val in entries:
                 if kind == "msg":
                     self.stdout.write(val)
                 else:
@@ -647,7 +827,95 @@ class StrainDetector:
             with_read_ids=True, group_size=group,
         )
 
+    def _native_classifier(self):
+        """The host library's fused per-read classifier over this strain's
+        classes (made once, kept) on the ``--device cpu`` route; None where
+        the engine classifies (a CUDA device, a mesh, or
+        STRAINER2_NATIVE_COUNT=0)."""
+        if "_native_cls" not in self.__dict__:
+            self._native_cls = None
+            if self._sharded is None and _use_native_counting(self.engine):
+                try:
+                    self._native_cls = native.NativeClassifier(self.index.codes, self.kmer_type,
+                                                               self.cfg.k)
+                except (RuntimeError, MemoryError):
+                    self._native_cls = None
+        return self._native_cls
+
+    def _quantify_sample_native(self, nc, f1: str, f2: str | None, ftype: int,
+                                out: IO) -> None:
+        """_quantify_sample on the native classifier (JAX
+        strainer2_tpu/pipeline/detect.py:898-977): the same pair thresholds,
+        summary lines and emission; the per-read rows come from one fused
+        pass, and the passing reads back from the read extractor by their
+        ordinal in the file (a PE sample's mates are read ``r1 // 2`` of
+        each file, a PEI mate the next read of the same file)."""
+        cfg = self.cfg
+        k = cfg.k
+        paired = ftype != NOT_PAIRED_END
+        mode = 1 if ftype == IS_PAIRED_END else 2 if ftype == IS_PAIRED_END_INTERLEAVE else 0
+        try:
+            stream = nc.open_stream(f1, f2, mode)
+        except OSError as e:
+            _exit_unreadable_sample(e, f1, f2)
+
+        total_kmers_evaluated = 0
+        total_reads_evaluated = 0
+        odd_interleave = False
+        base = 0
+        ex1 = ex2 = None
+        for lens, tot, inf in stream:
+            n = lens.size
+            if n % 2 and paired and ftype == IS_PAIRED_END_INTERLEAVE:
+                odd_interleave = True
+            ke, re_, pe1, t1, i1, t2, i2 = _aggregate_classify_chunk(lens, tot, inf, paired, k)
+            total_kmers_evaluated += ke
+            total_reads_evaluated += re_
+            passing = ((t1 + t2) >= cfg.min_hits_for_good_match) & (
+                (i1 + i2) >= cfg.min_hits_for_informative_read
+            )
+            emit_items = []
+            for j in np.flatnonzero(passing):
+                r1 = base + int(pe1[j])
+                prefix = f"{f1}\t{t1[j]}\t{i1[j]}\t{t2[j]}\t{i2[j]}\t"
+                if ex1 is None:
+                    ex1 = native.NativeReadExtractor(f1)
+                    if ftype == IS_PAIRED_END:
+                        ex2 = native.NativeReadExtractor(f2)
+                if ftype == IS_PAIRED_END:
+                    emit_items.append((prefix, ex1.read(r1 // 2, int(lens[pe1[j]]))))
+                    emit_items.append((prefix, ex2.read(r1 // 2, int(lens[pe1[j] + 1]))))
+                else:
+                    emit_items.append((prefix, ex1.read(r1, int(lens[pe1[j]]))))
+                    if paired:  # PEI: the mate is the next read of the same file
+                        emit_items.append((prefix, ex1.read(r1 + 1, int(lens[pe1[j] + 1]))))
+            self._emit_rows_batch(out, emit_items)
+            base += n
+        pe2_early = stream.state == native.NativeClassifyStream.PE2_ENDED_EARLY
+        for h in (ex1, ex2):
+            if h is not None:
+                h.close()
+        stream.close()
+        if pe2_early or odd_interleave:
+            f2_name = f2 if ftype == IS_PAIRED_END else f1
+            print(
+                f"reached end of PE2 ({f2_name}) before end of PE1 ({f1}), "
+                "check that file names are correct",
+                file=sys.stderr,
+            )
+            raise SystemExit(1)
+
+        out.write("#%s\ttotal_kmer_evaluated\t%d\n" % (f1, total_kmers_evaluated))
+        out.write("#%s\ttotal_reads_evaluated\t%d\n" % (f1, total_reads_evaluated))
+        out.write("#%s\ttotal_genome_kmers\t%d\n" % (f1, self.total_genome_kmers))
+        out.write(
+            "#%s\ttotal_genome_informative_kmers\t%d\n" % (f1, self.total_genome_informative)
+        )
+
     def _quantify_sample(self, f1: str, f2: str | None, ftype: int, out: IO) -> None:
+        nc = self._native_classifier()
+        if nc is not None:
+            return self._quantify_sample_native(nc, f1, f2, ftype, out)
         cfg = self.cfg
         k = cfg.k
         paired = ftype != NOT_PAIRED_END

@@ -21,9 +21,17 @@ device mesh (parallel/sharding.py): the union rows split along the index
 axis, K6s on each shard, R adding the shards' words on each data shard's
 first device, K7 on them; the device budget then multiplies by I where
 each shard has a card of its own, as in the JAX detector, so a union that
-outgrows one card runs over a host's cards (``mesh_mem_budget``).  A mesh and a multi-process run cannot combine.  The JAX package's
-native CPU classifier route is not taken: classification always goes
-through the engine, as the single-strain ``StrainDetector`` does.
+outgrows one card runs over a host's cards (``mesh_mem_budget``).  A mesh
+and a multi-process run cannot combine.
+
+On ``--device cpu`` (the single-strain detector's route: the plain engine
+on the CPU, the host library built, STRAINER2_NATIVE_COUNT not 0) the JAX
+package's CPU route is taken: the shared background panel is counted by
+the host library's fused counter over the union, each sample is
+classified by its fused multi-strain classifier over the union's meta
+words, the passing reads are read back with the read extractor and looked
+up in the union, and samples are scored on the single-strain detector's
+thread pool, written in list order.
 """
 
 from __future__ import annotations
@@ -39,7 +47,12 @@ import numpy as np
 import torch
 
 from strainer2_tpu_torch import native
-from strainer2_tpu_torch.constants import INFORMATIVE_KMER, IS_PAIRED_END_INTERLEAVE, NOT_PAIRED_END
+from strainer2_tpu_torch.constants import (
+    INFORMATIVE_KMER,
+    IS_PAIRED_END,
+    IS_PAIRED_END_INTERLEAVE,
+    NOT_PAIRED_END,
+)
 from strainer2_tpu_torch.index.bucket import build_bucket_table
 from strainer2_tpu_torch.io.batches import (
     batch_read_grouping,
@@ -59,15 +72,23 @@ from strainer2_tpu_torch.parallel.sharding import pad_rows
 from strainer2_tpu_torch.pipeline.detect import (
     DetectConfig,
     StrainDetector,
+    _aggregate_classify_chunk,
+    _detect_threads,
     _evaluated_totals,
     _exit_unreadable_sample,
     _parse_batch_entries,
+    _run_sample_pool,
     _staged_quantify,
     background_demote,
     strain_threads,
 )
 from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine, resolve_device
-from strainer2_tpu_torch.pipeline.scrub_count import count_panel_file, read_list_file
+from strainer2_tpu_torch.pipeline.scrub_count import (
+    _use_native_counting,
+    count_files_native_pooled,
+    count_panel_file,
+    read_list_file,
+)
 from strainer2_tpu_torch.utils.observability import stage
 from strainer2_tpu_torch.utils.prefetch import prefetch
 
@@ -436,6 +457,8 @@ class MultiStrainDetector:
 
         k = self.cfg.k
         n_strains = len(self.states)
+        # the --device cpu route: the host library counts and classifies
+        self._native_ok = self.cfg.mesh is None and _use_native_counting(self.engine)
         threads = strain_threads(n_strains)
         union = union_sorted_many([sk.codes_sorted for sk in keys], threads)
         # union position of each strain's sorted codes (sorted needles: a
@@ -481,7 +504,7 @@ class MultiStrainDetector:
         if background_list:
             # one panel scan over the union, then each strain's reference
             # threshold logic (byte-identical to per-strain -g runs)
-            self._background_filter_shared(keys, pos_sorted, background_list)
+            self._background_filter_shared(union, keys, pos_sorted, background_list)
             for st, sk in zip(self.states, keys):
                 st.total_informative = int(np.count_nonzero(sk.kmer_type == INFORMATIVE_KMER))
 
@@ -493,6 +516,10 @@ class MultiStrainDetector:
             meta_words[w, pos] |= np.uint32(1) << sh
             inf = sk.kmer_type[sk.order] == INFORMATIVE_KMER
             meta_words[w, pos[inf]] |= np.uint32(1) << (sh + np.uint32(1))
+        if self._native_ok:
+            # the native classifier's keys and values, and the union the
+            # passing reads are looked up in
+            self._union_codes, self._union_meta_words = union, meta_words
         self._sharded = None
         if mesh is not None:
             # the union rows built on the host and split along the index axis
@@ -522,8 +549,11 @@ class MultiStrainDetector:
             lanes[flat + 16 * j] = eng.to_device(meta_words[j].view(np.int32))
         return rows
 
-    def _background_filter_shared(self, keys: list[_StrainKeys], pos_sorted,
+    def _background_filter_shared(self, union: np.ndarray, keys: list[_StrainKeys], pos_sorted,
                                   background_list: str) -> None:
+        """One background panel scan over the union, then each strain's
+        threshold search; on the --device cpu route the host library's
+        fused counter scans (JAX multi_detect.py:646-671)."""
         cfg = self.cfg
         eng = TorchKmerEngine(cfg.k, device=cfg.device)
         view = _UnionIndexView(self.table, cfg.k)
@@ -531,10 +561,19 @@ class MultiStrainDetector:
         # demotions
         paths = host_file_partition(read_list_file(background_list), process_index(),
                                     process_count())
-        counts = eng.init_counts(view)
-        for path in paths:
-            counts = count_panel_file(eng, view, counts, path, cfg.rows, cfg.row_len)
-        per_slot = merge_across_hosts(eng.finalize_counts(counts))
+        nc = None
+        if self._native_ok:
+            try:
+                nc = native.NativePanelCounter(union, self.table.slot_of_key, cfg.k)
+            except (RuntimeError, MemoryError):
+                nc = None
+        per_slot = count_files_native_pooled(nc, paths, self.table.num_slots)
+        if per_slot is None:
+            counts = eng.init_counts(view)
+            for path in paths:
+                counts = count_panel_file(eng, view, counts, path, cfg.rows, cfg.row_len)
+            per_slot = eng.finalize_counts(counts)
+        per_slot = merge_across_hosts(per_slot)
         bg_union = per_slot[self.table.slot_of_key].astype(np.int64)  # union order
         for st, sk, pos in zip(self.states, keys, pos_sorted):
             bg = np.empty(sk.order.shape[0], dtype=np.int64)
@@ -562,25 +601,42 @@ class MultiStrainDetector:
                 file=sys.stderr,
             )
             raise SystemExit(1)
+        n_strains = len(self.states)
+        nc = self._native_multi_classifier()
+        if nc is not None:
+            def run_one(args, sinks):
+                self._quantify_sample_native(nc, *args, sinks)
+        else:
+            def run_one(args, sinks):
+                self._quantify_sample(*args, sinks)
         outs = [gzip.open(p, "wt", compresslevel=9) for p in out_paths] if pidx == 0 else []
+
+        def emit(payloads):
+            for o, payload in zip(outs, payloads):
+                o.write(payload)
+
+        def new_sinks():
+            return [io.StringIO() for _ in range(n_strains)]
+
         try:
+            entries = _parse_batch_entries(batch_list)
             if checkpoint_dir or pcount > 1:
-                n_strains = len(self.states)
-
-                def emit(payloads):
-                    for o, payload in zip(outs, payloads):
-                        o.write(payload)
-
-                _staged_quantify(
-                    _parse_batch_entries(batch_list),
-                    lambda args, sinks: self._quantify_sample(*args, sinks),
-                    lambda: [io.StringIO() for _ in range(n_strains)],
-                    lambda sinks: [b.getvalue() for b in sinks],
-                    emit, self.stdout, checkpoint_dir,
-                )
+                _staged_quantify(entries, run_one, new_sinks,
+                                 lambda sinks: [b.getvalue() for b in sinks],
+                                 emit, self.stdout, checkpoint_dir, pool_ok=nc is not None)
                 return
+            n_samples = sum(1 for kind, _ in entries if kind == "sample")
+            threads = _detect_threads(n_samples)
             with stage("multi.score_samples"):
-                for kind, val in _parse_batch_entries(batch_list):
+                if nc is not None and n_samples > 1 and threads > 1:
+                    # the single-strain detector's pool: workers fill S
+                    # per-strain buffers, the main thread writes them to
+                    # the S gzip streams in list order
+                    _run_sample_pool(entries, threads, new_sinks, run_one,
+                                     lambda sinks: [b.getvalue() for b in sinks], emit,
+                                     self.stdout)
+                    return
+                for kind, val in entries:
                     if kind == "msg":
                         self.stdout.write(val)
                     else:
@@ -589,7 +645,123 @@ class MultiStrainDetector:
             for o in outs:
                 o.close()
 
+    def _native_multi_classifier(self):
+        """The host library's fused multi-strain classifier over the union
+        and its packed meta words (made once, kept; JAX
+        multi_detect.py:519-546): word 1 goes in as ``values_hi`` above 16
+        strains, words 2 and up as ``extra_words`` above 32.  None where
+        the engine classifies (not the --device cpu route)."""
+        if "_native_cls" not in self.__dict__:
+            self._native_cls = None
+            if self._native_ok:
+                n_strains = len(self.states)
+                words = self._union_meta_words
+                try:
+                    self._native_cls = native.NativeClassifier(
+                        self._union_codes, words[0].view(np.int32), self.cfg.k,
+                        values_hi=words[1].view(np.int32) if n_strains > 16 else None,
+                        extra_words=([w.view(np.int32) for w in words[2:]]
+                                     if n_strains > 32 else None),
+                    )
+                except (RuntimeError, MemoryError):
+                    self._native_cls = None
+        return self._native_cls
+
+    def _quantify_sample_native(self, nc, f1: str, f2: str | None, ftype: int,
+                                outs: list[IO]) -> None:
+        """_quantify_sample on the native classifier (JAX
+        multi_detect.py:549-640): per-read (n, S) rows from one fused pass;
+        the pairing, thresholds, summary lines and diagnostics unchanged.
+        The passing reads come back from the read extractor by ordinal, and
+        each window's k-mer is looked up in the union, whose meta words say
+        per strain whether it is an informative k-mer of that strain."""
+        cfg = self.cfg
+        k = cfg.k
+        paired = ftype != NOT_PAIRED_END
+        mode = 1 if ftype == IS_PAIRED_END else 2 if ftype == IS_PAIRED_END_INTERLEAVE else 0
+        try:
+            stream = nc.open_multi_stream(f1, f2, mode, len(self.states))
+        except OSError as e:
+            _exit_unreadable_sample(e, f1, f2)
+
+        total_kmers_evaluated = 0
+        total_reads_evaluated = 0
+        odd_interleave = False
+        base = 0
+        ex1 = ex2 = None
+        for lens, tot, inf in stream:
+            n = lens.size
+            if n % 2 and paired and ftype == IS_PAIRED_END_INTERLEAVE:
+                odd_interleave = True
+            ke, re_, pe1, t1, i1, t2, i2 = _aggregate_classify_chunk(lens, tot, inf, paired, k)
+            total_kmers_evaluated += ke
+            total_reads_evaluated += re_
+            passing = ((t1 + t2) >= cfg.min_hits_for_good_match) & (
+                (i1 + i2) >= cfg.min_hits_for_informative_read
+            )  # (pairs, S)
+            sel = np.flatnonzero(passing.any(axis=1))
+            if sel.size:
+                if ex1 is None:
+                    ex1 = native.NativeReadExtractor(f1)
+                    if ftype == IS_PAIRED_END:
+                        ex2 = native.NativeReadExtractor(f2)
+                reads = []  # (pair row, bases) in (pair, read) order
+                for j, p in enumerate(pe1[sel]):
+                    r1 = base + int(p)
+                    if ftype == IS_PAIRED_END:
+                        reads.append((j, ex1.read(r1 // 2, int(lens[p]))))
+                        reads.append((j, ex2.read(r1 // 2, int(lens[p + 1]))))
+                    else:
+                        reads.append((j, ex1.read(r1, int(lens[p]))))
+                        if paired:  # PEI: the mate is the next read of the same file
+                            reads.append((j, ex1.read(r1 + 1, int(lens[p + 1]))))
+                self._emit_native(outs, f1, reads, passing[sel],
+                                  (t1[sel], i1[sel], t2[sel], i2[sel]))
+            base += n
+        pe2_early = stream.state == native.NativeClassifyStream.PE2_ENDED_EARLY
+        for h in (ex1, ex2):
+            if h is not None:
+                h.close()
+        stream.close()
+        if pe2_early or odd_interleave:
+            f2_name = f2 if ftype == IS_PAIRED_END else f1
+            print(
+                f"reached end of PE2 ({f2_name}) before end of PE1 ({f1}), "
+                "check that file names are correct",
+                file=sys.stderr,
+            )
+            raise SystemExit(1)
+        for s, st in enumerate(self.states):
+            outs[s].write("#%s\ttotal_kmer_evaluated\t%d\n" % (f1, total_kmers_evaluated))
+            outs[s].write("#%s\ttotal_reads_evaluated\t%d\n" % (f1, total_reads_evaluated))
+            outs[s].write("#%s\ttotal_genome_kmers\t%d\n" % (f1, st.total_kmers))
+            outs[s].write("#%s\ttotal_genome_informative_kmers\t%d\n" % (f1, st.total_informative))
+
+    def _emit_native(self, outs: list[IO], f1: str, reads: list, passing: np.ndarray,
+                     sums) -> None:
+        """Rows of a chunk's passing pairs from their re-read bases
+        (``reads``: (pair row, bases) in (pair, read) order): each window's
+        canonical k-mer is looked up in the union, whose meta words give it
+        the per-strain bits K6 gives the device route."""
+        k = self.cfg.k
+        union = self._union_codes
+        codes, valid, owner = [], [], []
+        for j, bases in reads:
+            ccodes, v = canonical_codes_np(bases, k)
+            codes.append(ccodes)
+            valid.append(v)
+            owner.append(np.full(ccodes.size, j))
+        codes = np.concatenate(codes)
+        owner = np.concatenate(owner)
+        pos = np.minimum(np.searchsorted(union, codes), union.size - 1)
+        found = np.concatenate(valid) & (union[pos] == codes)
+        words = np.where(found[:, None], self._union_meta_words[:, pos].T, np.uint32(0))
+        self._write_rows(outs, f1, codes, owner, words, passing, sums)
+
     def _quantify_sample(self, f1: str, f2: str | None, ftype: int, outs: list[IO]) -> None:
+        nc = self._native_multi_classifier()
+        if nc is not None:
+            return self._quantify_sample_native(nc, f1, f2, ftype, outs)
         cfg = self.cfg
         k = cfg.k
         paired = ftype != NOT_PAIRED_END
@@ -733,6 +905,15 @@ class MultiStrainDetector:
         codes = np.concatenate(codes)
         owner = np.concatenate(owner)
         words = words_at(torch.from_numpy(np.concatenate(spans)))
+        self._write_rows(outs, f1, codes, owner, words, passing, sums)
+
+    def _write_rows(self, outs: list[IO], f1: str, codes: np.ndarray, owner: np.ndarray,
+                    words: np.ndarray, passing: np.ndarray, sums) -> None:
+        """Each strain's rows: the windows (``codes``, of pair row
+        ``owner``, with their (len, n_words) meta ``words``) that are
+        informative k-mers of a strain the pair passes for, in window
+        order."""
+        k = self.cfg.k
         t1, i1, t2, i2 = sums
         for s in np.flatnonzero(passing.any(axis=0)):
             informative = (words[:, s // 16] >> np.uint32(2 * (s % 16) + 1)) & np.uint32(1)

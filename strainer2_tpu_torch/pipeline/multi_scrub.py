@@ -5,7 +5,11 @@ lookup-only: the count of a k-mer in a panel is a property of the k-mer,
 not of the strain asking.  So S strains share ONE scan of the -A/-B/-C
 panels over the union of their k-mer sets, counted on the device by the
 count kernel (K3), and each strain's table is a projection of the union
-counts: byte-identical to S independent ``kmer_scrub_count`` runs.
+counts: byte-identical to S independent ``kmer_scrub_count`` runs.  On
+``--device cpu`` the union is counted by the host library's fused counter
+on its thread pool (the stage's ``--device cpu`` route, through
+``scrub_count._count_files`` and ``count_panel_file``; JAX
+strainer2_tpu/pipeline/multi_scrub.py:169-210).
 
 The -C (co-occurring strain) column differs per strain only in that each
 strain skips its own genome file (reference src/genome_compare.c:115-146):

@@ -5,7 +5,12 @@ src/kmer_scrub_count.c:29-124): build the strain index from -r, stream
 every file of the -A genome panel, the -B metagenome panel and the
 optional -C co-occurring-strain panel through the count kernel (K3)
 into a slot-indexed uint32 count buffer on the device, then write the
-4- or 5-column table in the reference's row order.
+4- or 5-column table in the reference's row order.  On ``--device cpu``
+(the plain engine on the CPU, the host library built, and
+STRAINER2_NATIVE_COUNT not 0) the host library's fused scan+lookup+count
+loop counts each file instead, on a pool of up to 8 threads
+(STRAINER2_COUNT_THREADS) with a count buffer each, as the JAX stage
+does off the TPU; the counts are the same integers.
 
 Counts are integers, so neither the batch order nor the order in which
 the feeder threads' batches reach the device can change a byte.  With a
@@ -48,6 +53,7 @@ from strainer2_tpu_torch.utils.prefetch import prefetch
 
 __all__ = [
     "ScrubCountConfig",
+    "count_files_native_pooled",
     "run_scrub_count",
     "count_panel_file",
     "read_list_file",
@@ -91,10 +97,43 @@ def _exit_could_not_read(msg: str) -> None:
     raise SystemExit(1)
 
 
+def _use_native_counting(engine) -> bool:
+    """The ``--device cpu`` route (JAX
+    strainer2_tpu/pipeline/scrub_count.py:74-90, its CPU backend read as
+    the engine's device): the host library's fused scan+lookup+count and
+    classify loops, where the engine is the plain single-device
+    TorchKmerEngine on the CPU, the library is built and
+    STRAINER2_NATIVE_COUNT is not 0.  A CUDA engine or a mesh keeps the
+    kernels."""
+    import os
+
+    if os.environ.get("STRAINER2_NATIVE_COUNT", "1") == "0":
+        return False
+    if type(engine) is not TorchKmerEngine or engine.device.type != "cpu":
+        return False
+    return native.available()
+
+
+def _native_counter(engine, index):
+    """The index's native panel counter where the ``--device cpu`` route
+    applies and the index carries one (a union view may not), else None."""
+    if not _use_native_counting(engine):
+        return None
+    nc_fn = getattr(index, "native_counter", None)
+    return nc_fn() if nc_fn is not None else None
+
+
 def count_panel_file(engine: TorchKmerEngine, index: StrainIndex, counts,
                      path: str, rows: int, row_len: int):
     """Stream one panel file through the count kernel; packing runs on a
-    prefetch thread so it overlaps the device."""
+    prefetch thread so it overlaps the device.  On the ``--device cpu``
+    route the host library counts the file into ``counts`` in place."""
+    nc = _native_counter(engine, index)
+    if nc is not None:
+        with stage("scrub.panel_lookups"):
+            n = nc.count_file(counts.numpy(), path)
+        _items["scrub.panel_lookups"] += n
+        return counts
     table = engine.table_for(index)
     t = index.table
     windows_per_batch = rows * (row_len - engine.k + 1)
@@ -116,6 +155,69 @@ def _count_threads(n_files: int) -> int:
     if env is not None:
         return max(1, min(int(env), n_files))
     return max(1, min(os.cpu_count() or 1, 8, n_files))
+
+
+def count_files_native_pooled(nc, paths: list, num_slots: int):
+    """Count ``paths`` with a native panel counter, on a thread pool where
+    there are several files and threads, else one after another; returns
+    the per-slot uint32 counts, or None when ``nc`` is None (the caller
+    runs the engine).  The one rule of the background filters and the
+    union counts (JAX strainer2_tpu/pipeline/scrub_count.py:337-357)."""
+    if nc is None:
+        return None
+    counts = np.zeros(num_slots, dtype=np.uint32)
+    n_threads = _count_threads(len(paths))
+    if len(paths) > 1 and n_threads > 1:
+        return _count_files_parallel(nc, counts, paths, n_threads)
+    with stage("scrub.panel_lookups"):
+        total = 0
+        for path in paths:
+            total += nc.count_file(counts, path)
+    _items["scrub.panel_lookups"] += total
+    return counts
+
+
+def _count_files_parallel(nc, counts_np: np.ndarray, paths: list, n_threads: int):
+    """Count panel files at once, one native fused scan a worker thread
+    (the library releases the GIL) into a buffer of the thread's own, then
+    add the buffers into ``counts_np`` in place: integer adds commute, so
+    the counts are the sequential scan's (JAX
+    strainer2_tpu/pipeline/scrub_count.py:360-403).  Each thread holds
+    ``num_slots`` uint32 cells, so ``_count_threads`` caps them at 8.  On
+    unreadable files the error of the earliest file in list order is
+    raised, as the sequential loop raises it."""
+    import concurrent.futures
+    import threading
+
+    local = threading.local()
+    bufs: list[np.ndarray] = []
+    bufs_lock = threading.Lock()
+    outcomes: list = [None] * len(paths)
+
+    def work(i: int, path: str) -> None:
+        buf = getattr(local, "buf", None)
+        if buf is None:
+            buf = np.zeros_like(counts_np)
+            with bufs_lock:
+                bufs.append(buf)
+            local.buf = buf
+        try:
+            outcomes[i] = nc.count_file(buf, path)
+        except BaseException as e:  # the earliest in the list is raised below
+            if isinstance(e, OSError) and not getattr(e, "filename", None):
+                e.filename = path
+            outcomes[i] = e
+
+    with stage("scrub.panel_lookups"):
+        with concurrent.futures.ThreadPoolExecutor(n_threads) as ex:
+            list(ex.map(lambda a: work(*a), enumerate(paths)))
+    for o in outcomes:
+        if isinstance(o, BaseException):
+            raise o
+    for buf in bufs:
+        counts_np += buf
+    _items["scrub.panel_lookups"] += int(sum(outcomes))
+    return counts_np
 
 
 def _count_files_device_parallel(engine, index, counts, todo, n_threads, cfg):
@@ -231,10 +333,17 @@ def _count_files(engine: TorchKmerEngine, index, counts, todo: list[str],
     """Count every file of ``todo`` into the device ``counts``.  With a
     checkpoint, files count one after another and the whole buffer is
     saved after each: only that gives a snapshot that is complete per
-    file, so the device-parallel feeder serves runs without one."""
+    file, so the native thread pool (the ``--device cpu`` route) and the
+    device-parallel feeder serve runs without one."""
     n_threads = _count_threads(len(todo))
     if checkpoint is None and len(todo) > 1 and n_threads > 1:
+        nc = _native_counter(engine, index)
         try:
+            if nc is not None:
+                # in place: on the CPU the tensor and its numpy view share
+                # their cells
+                _count_files_parallel(nc, counts.numpy(), todo, n_threads)
+                return counts
             return _count_files_device_parallel(engine, index, counts, todo, n_threads, cfg)
         except OSError as e:
             _exit_could_not_read(

@@ -76,6 +76,15 @@ ARGV = {
 }
 
 
+@pytest.fixture(autouse=True)
+def _torch_route(monkeypatch):
+    """The torch engine's CPU programs, the CPU check of the card route's
+    logic (STRAINER2_NATIVE_COUNT=0); the JAX runs keep their own route."""
+    from tests._torch_route import torch_route
+
+    torch_route(monkeypatch)
+
+
 def _options(parser: argparse.ArgumentParser) -> list:
     """Every option but --device, with its subcommands' options."""
     out = []

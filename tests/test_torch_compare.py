@@ -27,6 +27,15 @@ MINI = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "mini"
 ROWS, ROW_LEN = 8, 1024
 
 
+@pytest.fixture(autouse=True)
+def _torch_route(monkeypatch):
+    """The torch engine's CPU programs, the CPU check of the card route's
+    logic (STRAINER2_NATIVE_COUNT=0); the JAX runs keep their own route."""
+    from tests._torch_route import torch_route
+
+    torch_route(monkeypatch)
+
+
 def expected(name: str) -> bytes:
     with open(os.path.join(MINI, "expected", name), "rb") as f:
         return f.read()

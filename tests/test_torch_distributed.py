@@ -28,6 +28,15 @@ from tests._torch_dist_worker import MINI, base_env, free_port, launch, run_rank
 PANELS = ["data/panel1.fna.gz", "data/panel2.fna", "data/scrubmeta1.fasta.gz"]
 
 
+@pytest.fixture(autouse=True)
+def _torch_route(monkeypatch):
+    """The torch engine's CPU programs, the CPU check of the card route's
+    logic (STRAINER2_NATIVE_COUNT=0); the JAX runs keep their own route."""
+    from tests._torch_route import torch_route
+
+    torch_route(monkeypatch)
+
+
 def expected(name: str) -> bytes:
     with open(os.path.join(MINI, "expected", name), "rb") as f:
         return f.read()

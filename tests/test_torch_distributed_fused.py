@@ -19,6 +19,15 @@ ARGS = {"r": STRAINS[0], "strains": STRAINS, "a": "data/genomes.txt", "b": "data
 SUFFIXES = (".scrub_kmer_counts.gz", ".scrubbed_kmers.gz", ".kmer_hits.gz", ".coverage_depth")
 
 
+@pytest.fixture(autouse=True)
+def _torch_route(monkeypatch):
+    """The torch engine's CPU programs, the CPU check of the card route's
+    logic (STRAINER2_NATIVE_COUNT=0); the JAX runs keep their own route."""
+    from tests._torch_route import torch_route
+
+    torch_route(monkeypatch)
+
+
 def _payload(path) -> bytes:
     with (gzip.open if str(path).endswith(".gz") else open)(path, "rb") as f:
         return f.read()

@@ -20,6 +20,15 @@ DETECT = {"r": "data/strainA.fna.gz", "scrubbed": "expected/scrubbed_m05.txt",
           "t": "data/targets.txt"}
 
 
+@pytest.fixture(autouse=True)
+def _torch_route(monkeypatch):
+    """The torch engine's CPU programs, the CPU check of the card route's
+    logic (STRAINER2_NATIVE_COUNT=0); the JAX runs keep their own route."""
+    from tests._torch_route import torch_route
+
+    torch_route(monkeypatch)
+
+
 def expected(name: str) -> bytes:
     with open(os.path.join(MINI, "expected", name), "rb") as f:
         return f.read()

@@ -15,6 +15,15 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+@pytest.fixture(autouse=True)
+def _torch_route(monkeypatch):
+    """The torch engine's CPU programs, the CPU check of the card route's
+    logic (STRAINER2_NATIVE_COUNT=0); the JAX runs keep their own route."""
+    from tests._torch_route import torch_route
+
+    torch_route(monkeypatch)
+
+
 def test_entry_matches_jax_entry():
     import __graft_entry__ as g
     from strainer2_tpu_torch.parallel.dryrun import entry

@@ -364,3 +364,50 @@ def test_native_comparer_twin_matches(k):
         ours.score("/nonexistent_q.fa", 0, 0.1)
     with pytest.raises(OSError):
         NativeComparer("/nonexistent_a.fa", k)
+
+
+def _c_functions(path: str, names) -> dict:
+    """The source text of each named C function of a host library file,
+    from its signature to the closing brace at column 0."""
+    with open(path) as f:
+        src = f.read()
+    out = {}
+    for name in names:
+        start = src.index(f" {name}(")
+        start = src.rindex("\n", 0, start) + 1
+        out[name] = src[start : src.index("\n}\n", start) + 3]
+    return out
+
+
+def test_read_extractor_and_scanner_sources_are_copies():
+    """The read extractor (s2_open_extract, s2_extract_ok, s2_extract_read,
+    s2_close_extract, and ExtractStream) and the rolling scanner the
+    --device cpu routes call are the JAX library's source, character for
+    character."""
+    names = ("s2_open_extract", "s2_extract_ok", "s2_extract_read", "s2_close_extract",
+             "s2_open_scan", "s2_scan_ok", "s2_scan_next", "s2_close_scan")
+    jax_src = os.path.join(os.path.dirname(j_native.__file__), "strainer2_host.cc")
+    port_src = t_native._SRC
+    assert _c_functions(port_src, names) == _c_functions(jax_src, names)
+    struct = "struct ExtractStream {"
+    for path in (port_src, jax_src):
+        with open(path) as f:
+            src = f.read()
+        assert src.count(struct) == 1
+    with open(port_src) as f, open(jax_src) as g:
+        a, b = f.read(), g.read()
+    grab = lambda s: s[s.index(struct): s.index("};", s.index(struct))]  # noqa: E731
+    assert grab(a) == grab(b)
+
+
+@pytest.mark.parametrize("name", FASTX_FILES)
+def test_native_scan_twin_matches(name):
+    """scan_file_codes_native of the port's library and the JAX library's,
+    and the port's scan_file_codes on the CPU, which takes it."""
+    from strainer2_tpu_torch.index.build import scan_file_codes
+    from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
+
+    path = os.path.join(DATA, name)
+    want = j_native.scan_file_codes_native(path, K)
+    np.testing.assert_array_equal(t_native.scan_file_codes_native(path, K), want)
+    np.testing.assert_array_equal(scan_file_codes(path, TorchKmerEngine(K, device="cpu")), want)

@@ -20,6 +20,15 @@ GENOMES = ["data/strainA.fna.gz", "data/panel1.fna.gz", "data/panel2.fna"]
 
 
 @pytest.fixture(autouse=True)
+def _torch_route(monkeypatch):
+    """The torch engine's CPU programs, the CPU check of the card route's
+    logic (STRAINER2_NATIVE_COUNT=0); the JAX runs keep their own route."""
+    from tests._torch_route import torch_route
+
+    torch_route(monkeypatch)
+
+
+@pytest.fixture(autouse=True)
 def _chdir(monkeypatch):
     monkeypatch.chdir(MINI)
 

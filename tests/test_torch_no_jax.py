@@ -10,7 +10,8 @@ pipeline-multi (shared panel scan, filters, multi-strain detection,
 coverage) to the goldens of strainA; a fourth runs genome_compare (the string engine and the plain
 K8/K9 path) and strain-track to their goldens; a fifth builds a cuckoo
 index (index/cuckoo.py) and runs strain_detect in the cuckoo layout to
-its golden.  With the JAX package unimportable, no
+its golden; a sixth runs kmer_scrub_count and strain_detect on the
+``--device cpu`` native route.  With the JAX package unimportable, no
 code of it (its native/ build step included) can write under
 strainer2_tpu/."""
 
@@ -18,6 +19,8 @@ import os
 import subprocess
 import sys
 import textwrap
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -176,6 +179,15 @@ _COMPARE_SCRIPT = _BLOCK + textwrap.dedent(
 )
 
 
+@pytest.fixture(autouse=True)
+def _torch_route(monkeypatch):
+    """The torch engine's CPU programs, the CPU check of the card route's
+    logic (STRAINER2_NATIVE_COUNT=0); the JAX runs keep their own route."""
+    from tests._torch_route import torch_route
+
+    torch_route(monkeypatch)
+
+
 def _run(script: str, *args: str):
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
@@ -209,6 +221,45 @@ _CUCKOO_SCRIPT = _BLOCK + textwrap.dedent(
 )
 
 
+_NATIVE_SCRIPT = _BLOCK + textwrap.dedent(
+    """
+    import gzip
+    os.environ.pop("STRAINER2_NATIVE_COUNT", None)
+    from strainer2_tpu_torch import native
+    from strainer2_tpu_torch.cli.kmer_scrub_count import main as scrub_main
+    from strainer2_tpu_torch.cli.strain_detect import main as detect_main
+
+    calls = []
+    for cls, name in ((native.NativePanelCounter, "count_file"),
+                      (native.NativeClassifier, "open_stream")):
+        def counted(self, *a, _orig=getattr(cls, name), _name=name):
+            calls.append(_name)
+            return _orig(self, *a)
+        setattr(cls, name, counted)
+    mini = os.path.join(sys.argv[1], "tests", "golden", "mini")
+    out_dir = sys.argv[2]
+    os.chdir(mini)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert scrub_main(["-r", "data/strainA.fna.gz", "-A", "data/genomes.txt",
+                           "-B", "data/metagenomes.txt", "--device", "cpu"]) == 0
+    with open("expected/scrub_counts.tsv") as f:
+        assert out.getvalue() == f.read()
+    hits = os.path.join(out_dir, "hits.gz")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert detect_main(["-r", "data/strainA.fna.gz", "-a", "expected/scrubbed_m05.txt",
+                            "-B", "data/targets.txt", "-g", "data/background.txt", "-o", hits,
+                            "--device", "cpu"]) == 0
+    with gzip.open(hits, "rb") as f, open("expected/kmer_hits_bg.txt", "rb") as g:
+        assert f.read() == g.read()
+    assert "count_file" in calls and "open_stream" in calls, calls
+    assert not [m for m in sys.modules if blocked(m)]
+    print("ok")
+    """
+)
+
+
 def test_package_imports_and_runs_without_jax():
     assert int(_run(_SCRIPT).split()[-1]) >= 20
 
@@ -227,3 +278,9 @@ def test_genome_compare_and_strain_track_run_without_jax(tmp_path):
 
 def test_cuckoo_detect_runs_without_jax(tmp_path):
     assert _run(_CUCKOO_SCRIPT, str(tmp_path)).split()[-1] == "ok"
+
+
+def test_native_routes_run_without_jax(tmp_path):
+    """kmer_scrub_count and strain_detect on the --device cpu native route
+    (the host library's counter, classifier and read extractor)."""
+    assert _run(_NATIVE_SCRIPT, str(tmp_path)).split()[-1] == "ok"

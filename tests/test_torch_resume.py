@@ -22,6 +22,15 @@ TWO_STRAINS = ["data/strainA.fna.gz", "data/drug1.fna.gz"]
 
 
 @pytest.fixture(autouse=True)
+def _torch_route(monkeypatch):
+    """The torch engine's CPU programs, the CPU check of the card route's
+    logic (STRAINER2_NATIVE_COUNT=0); the JAX runs keep their own route."""
+    from tests._torch_route import torch_route
+
+    torch_route(monkeypatch)
+
+
+@pytest.fixture(autouse=True)
 def _chdir(monkeypatch):
     monkeypatch.chdir(MINI)
 
