@@ -30,6 +30,8 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
+from strainer2_tpu_torch.utils.observability import count, stage
+
 __all__ = [
     "pack_file",
     "NativeClassifier",
@@ -234,42 +236,49 @@ class NativePackStream:
         )
 
     def __iter__(self) -> Iterator:
+        """The batches, each made inside a ``pack.batch`` stage on the
+        iterating thread; ``pack.windows`` counts each buffer's window
+        slots, rows x (row_len - k + 1)."""
         from strainer2_tpu_torch.io.batches import PackedBatch
 
+        windows = self.rows * (self.row_len - self.k + 1)
         try:
             while True:
-                bases = np.empty((self.rows, self.row_len), dtype=np.uint8)
-                ids = (
-                    np.empty((self.rows, self.row_len), dtype=np.int32)
-                    if self.with_read_ids
-                    else np.empty((1, 1), dtype=np.int32)
-                )
-                lengths = np.empty(self._max_reads_cap + self.rows, dtype=np.int64)
-                wstarts = (
-                    np.empty(self._max_reads_cap + self.rows, dtype=np.int64)
-                    if self.with_read_ids
-                    else np.empty(1, dtype=np.int64)
-                )
-                n = self._lib.s2_next_batch(
-                    self._s, bases.ctypes.data, ids.ctypes.data,
-                    lengths.ctypes.data, wstarts.ctypes.data,
-                )
-                if n == -2:
-                    raise ValueError(
-                        "read does not fit in one buffer; increase rows/row_len "
-                        "for read-id (detection) streams"
+                with stage("pack.batch"):
+                    bases = np.empty((self.rows, self.row_len), dtype=np.uint8)
+                    ids = (
+                        np.empty((self.rows, self.row_len), dtype=np.int32)
+                        if self.with_read_ids
+                        else np.empty((1, 1), dtype=np.int32)
                     )
-                if n < 0:
-                    self._raise_stream_error()
-                if n == 0:
-                    return
-                yield PackedBatch(
-                    bases=bases,
-                    read_id=ids if self.with_read_ids else None,
-                    n_reads=int(n),
-                    read_lengths=lengths[:n].copy(),
-                    window_starts=wstarts[:n].copy() if self.with_read_ids else None,
-                )
+                    lengths = np.empty(self._max_reads_cap + self.rows, dtype=np.int64)
+                    wstarts = (
+                        np.empty(self._max_reads_cap + self.rows, dtype=np.int64)
+                        if self.with_read_ids
+                        else np.empty(1, dtype=np.int64)
+                    )
+                    n = self._lib.s2_next_batch(
+                        self._s, bases.ctypes.data, ids.ctypes.data,
+                        lengths.ctypes.data, wstarts.ctypes.data,
+                    )
+                    if n == -2:
+                        raise ValueError(
+                            "read does not fit in one buffer; increase rows/row_len "
+                            "for read-id (detection) streams"
+                        )
+                    if n < 0:
+                        self._raise_stream_error()
+                    if n == 0:
+                        return
+                    batch = PackedBatch(
+                        bases=bases,
+                        read_id=ids if self.with_read_ids else None,
+                        n_reads=int(n),
+                        read_lengths=lengths[:n].copy(),
+                        window_starts=wstarts[:n].copy() if self.with_read_ids else None,
+                    )
+                    count("pack.windows", windows)
+                yield batch
         finally:
             self.close()
 

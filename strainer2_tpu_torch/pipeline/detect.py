@@ -85,7 +85,7 @@ from strainer2_tpu_torch.pipeline.scrub_count import (
     count_panel_file,
     read_list_file,
 )
-from strainer2_tpu_torch.utils.observability import stage
+from strainer2_tpu_torch.utils.observability import count, stage
 from strainer2_tpu_torch.utils.prefetch import prefetch
 
 __all__ = [
@@ -868,28 +868,33 @@ class StrainDetector:
             n = lens.size
             if n % 2 and paired and ftype == IS_PAIRED_END_INTERLEAVE:
                 odd_interleave = True
-            ke, re_, pe1, t1, i1, t2, i2 = _aggregate_classify_chunk(lens, tot, inf, paired, k)
-            total_kmers_evaluated += ke
-            total_reads_evaluated += re_
-            passing = ((t1 + t2) >= cfg.min_hits_for_good_match) & (
-                (i1 + i2) >= cfg.min_hits_for_informative_read
-            )
-            emit_items = []
-            for j in np.flatnonzero(passing):
-                r1 = base + int(pe1[j])
-                prefix = f"{f1}\t{t1[j]}\t{i1[j]}\t{t2[j]}\t{i2[j]}\t"
-                if ex1 is None:
-                    ex1 = native.NativeReadExtractor(f1)
+            with stage("detect.emit"):
+                ke, re_, pe1, t1, i1, t2, i2 = _aggregate_classify_chunk(lens, tot, inf, paired,
+                                                                         k)
+                total_kmers_evaluated += ke
+                total_reads_evaluated += re_
+                passing = np.flatnonzero(((t1 + t2) >= cfg.min_hits_for_good_match) & (
+                    (i1 + i2) >= cfg.min_hits_for_informative_read
+                ))
+                count("detect.emit_reads", t1.size)
+                count("detect.reads_passing", passing.size)
+                emit_items = []
+                for j in passing:
+                    r1 = base + int(pe1[j])
+                    prefix = f"{f1}\t{t1[j]}\t{i1[j]}\t{t2[j]}\t{i2[j]}\t"
+                    if ex1 is None:
+                        ex1 = native.NativeReadExtractor(f1)
+                        if ftype == IS_PAIRED_END:
+                            ex2 = native.NativeReadExtractor(f2)
                     if ftype == IS_PAIRED_END:
-                        ex2 = native.NativeReadExtractor(f2)
-                if ftype == IS_PAIRED_END:
-                    emit_items.append((prefix, ex1.read(r1 // 2, int(lens[pe1[j]]))))
-                    emit_items.append((prefix, ex2.read(r1 // 2, int(lens[pe1[j] + 1]))))
-                else:
-                    emit_items.append((prefix, ex1.read(r1, int(lens[pe1[j]]))))
-                    if paired:  # PEI: the mate is the next read of the same file
-                        emit_items.append((prefix, ex1.read(r1 + 1, int(lens[pe1[j] + 1]))))
-            self._emit_rows_batch(out, emit_items)
+                        emit_items.append((prefix, ex1.read(r1 // 2, int(lens[pe1[j]]))))
+                        emit_items.append((prefix, ex2.read(r1 // 2, int(lens[pe1[j] + 1]))))
+                    else:
+                        emit_items.append((prefix, ex1.read(r1, int(lens[pe1[j]]))))
+                        if paired:  # PEI: the mate is the next read of the same file
+                            emit_items.append((prefix,
+                                               ex1.read(r1 + 1, int(lens[pe1[j] + 1]))))
+                self._emit_rows_batch(out, emit_items)
             base += n
         pe2_early = stream.state == native.NativeClassifyStream.PE2_ENDED_EARLY
         for h in (ex1, ex2):
@@ -971,15 +976,19 @@ class StrainDetector:
             # vectors follow only when a read or pair passes (the skipped
             # emission would have written nothing)
             n_pairs = (n - (n % 2)) // 2 if paired else n
-            any_d = passing_any(
-                tot_d, inf_d, paired=paired,
-                min_t=cfg.min_hits_for_good_match,
-                min_i=cfg.min_hits_for_informative_read,
-            )
-            if not bool(any_d[:n_pairs].any()):
+            with stage("engine.gate_readback"):
+                any_d = passing_any(
+                    tot_d, inf_d, paired=paired,
+                    min_t=cfg.min_hits_for_good_match,
+                    min_i=cfg.min_hits_for_informative_read,
+                )
+                gate = bool(any_d[:n_pairs].any())
+            if not gate:
                 continue
-            self._emit_sums(out, f1, batch, lens, paired, tot_d[:n].cpu().numpy(),
-                            inf_d[:n].cpu().numpy())
+            count("detect.gate_passed")
+            with stage("engine.d2h"):
+                tot, inf = tot_d[:n].cpu().numpy(), inf_d[:n].cpu().numpy()
+            self._emit_sums(out, f1, batch, lens, paired, tot, inf)
 
         if odd_interleave:
             print(
@@ -1000,24 +1009,28 @@ class StrainDetector:
     def _emit_sums(self, out: IO, f1: str, batch, lens, paired: bool, tot, inf) -> None:
         """The rows of a batch's passing reads or pairs from its per-read
         (total, informative) hits."""
-        cfg = self.cfg
-        k = cfg.k
-        _, _, pe1, t1, i1, t2, i2 = _aggregate_classify_chunk(lens, tot, inf, paired, k)
-        passing = ((t1 + t2) >= cfg.min_hits_for_good_match) & (
-            (i1 + i2) >= cfg.min_hits_for_informative_read
-        )
-        pass_idx = np.flatnonzero(passing)
-        if not pass_idx.size:
-            return
-        grouping = batch_read_grouping(batch)
-        emit_items = []
-        for j in pass_idx:
-            r1 = int(pe1[j])
-            prefix = f"{f1}\t{t1[j]}\t{i1[j]}\t{t2[j]}\t{i2[j]}\t"
-            emit_items.append((prefix, read_codes_from_batch(batch, r1, k, grouping)))
-            if paired:
-                emit_items.append((prefix, read_codes_from_batch(batch, r1 + 1, k, grouping)))
-        self._emit_rows_batch(out, emit_items)
+        with stage("detect.emit"):
+            cfg = self.cfg
+            k = cfg.k
+            _, _, pe1, t1, i1, t2, i2 = _aggregate_classify_chunk(lens, tot, inf, paired, k)
+            passing = ((t1 + t2) >= cfg.min_hits_for_good_match) & (
+                (i1 + i2) >= cfg.min_hits_for_informative_read
+            )
+            pass_idx = np.flatnonzero(passing)
+            count("detect.emit_reads", t1.size)
+            count("detect.reads_passing", pass_idx.size)
+            if not pass_idx.size:
+                return
+            grouping = batch_read_grouping(batch)
+            emit_items = []
+            for j in pass_idx:
+                r1 = int(pe1[j])
+                prefix = f"{f1}\t{t1[j]}\t{i1[j]}\t{t2[j]}\t{i2[j]}\t"
+                emit_items.append((prefix, read_codes_from_batch(batch, r1, k, grouping)))
+                if paired:
+                    emit_items.append((prefix, read_codes_from_batch(batch, r1 + 1, k,
+                                                                     grouping)))
+            self._emit_rows_batch(out, emit_items)
 
     _EMIT_WINDOW_BUDGET = 1 << 21  # bounds transient memory per lookup
 
@@ -1040,29 +1053,35 @@ class StrainDetector:
         ccodes_list = []
         valid_list = []
         spans = []
-        for _, bases in items:
-            cc, v = canonical_codes_np(bases, k)
-            ccodes_list.append(cc)
-            valid_list.append(v)
-            spans.append(cc.size)
+        with stage("detect.emit.rescan"):
+            for _, bases in items:
+                cc, v = canonical_codes_np(bases, k)
+                ccodes_list.append(cc)
+                valid_list.append(v)
+                spans.append(cc.size)
         if not spans or sum(spans) == 0:
             return
-        ccodes = np.concatenate(ccodes_list)
-        valid = np.concatenate(valid_list)
-        idx = self._key_pos(ccodes)
-        informative = valid & (idx >= 0)
-        if informative.any():
-            informative &= (
-                np.where(idx >= 0, self.kmer_type[np.maximum(idx, 0)], 0)
-                == INFORMATIVE_KMER
-            )
+        with stage("detect.emit.lookup"):
+            ccodes = np.concatenate(ccodes_list)
+            valid = np.concatenate(valid_list)
+            idx = self._key_pos(ccodes)
+            informative = valid & (idx >= 0)
+            if informative.any():
+                informative &= (
+                    np.where(idx >= 0, self.kmer_type[np.maximum(idx, 0)], 0)
+                    == INFORMATIVE_KMER
+                )
         off = 0
-        for (prefix, _), n in zip(items, spans):
-            hits = np.flatnonzero(informative[off : off + n])
-            if hits.size:
-                for s in decode_codes_np(ccodes[off + hits], k):
-                    out.write(prefix + s + "\n")
-            off += n
+        rows = 0
+        with stage("detect.emit.write"):
+            for (prefix, _), n in zip(items, spans):
+                hits = np.flatnonzero(informative[off : off + n])
+                if hits.size:
+                    for s in decode_codes_np(ccodes[off + hits], k):
+                        out.write(prefix + s + "\n")
+                    rows += hits.size
+                off += n
+        count("detect.rows", rows)
 
 
 def background_demote(kmer_type, bg_counts, num_inform, fraction, list_name, stdout):

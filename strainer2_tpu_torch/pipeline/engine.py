@@ -61,6 +61,7 @@ from strainer2_tpu_torch.ops.packing import canonical_windows
 from strainer2_tpu_torch.ops.packing_np import merge_code64_np
 from strainer2_tpu_torch.ops.segsum import boundary_strain_sums, multi_hit_words, words_for_strains
 from strainer2_tpu_torch.parallel.distributed import launch_rank
+from strainer2_tpu_torch.utils.observability import count, stage
 
 __all__ = ["TorchKmerEngine", "resolve_device"]
 
@@ -112,6 +113,16 @@ class TorchKmerEngine:
 
     def to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _batch_to_device(self, *arrays: np.ndarray):
+        """A batch's arrays on the device, inside an ``engine.h2d`` stage;
+        counts the batch (``engine.batches``) and its bytes
+        (``engine.h2d_bytes``)."""
+        with stage("engine.h2d"):
+            out = tuple(self.to_device(a) for a in arrays)
+        count("engine.batches")
+        count("engine.h2d_bytes", sum(a.nbytes for a in arrays))
+        return out
 
     # ---- index construction path ----
     def extract_codes(self, bases: np.ndarray) -> np.ndarray:
@@ -167,8 +178,9 @@ class TorchKmerEngine:
     # ---- panel counting (kmer_scrub_count hot loop) ----
     def count_batch(self, counts, table, h_bits: int, salt: int, bases) -> torch.Tensor:
         """counts[slot] += 1 per valid hit window of ``bases``, in place."""
-        return self._count(counts, table, self.to_device(bases), h_bits, salt, self.k,
-                           **self._fp_kw(table))
+        with stage("engine.count"):
+            (bases,) = self._batch_to_device(bases)
+            return self._count(counts, table, bases, h_bits, salt, self.k, **self._fp_kw(table))
 
     def init_valid_tally(self, rows: int, row_len: int) -> torch.Tensor:
         """A zeroed int64 valid-window tally for a stream of batches of at
@@ -218,13 +230,14 @@ class TorchKmerEngine:
         array (the bucket layout takes none).
         boundaries: (max_reads + 1,) int32 first flat window index of each
         read, padded with the batch's window count."""
-        bases, boundaries = self.to_device(bases), self.to_device(boundaries)
-        if self.layout == "bucket":
-            return classify_step(table, bases, boundaries, h_bits, salt, self.k)
-        if meta is None:
+        if self.layout != "bucket" and meta is None:
             raise ValueError("the cuckoo layout classifies with a slot-indexed meta array")
-        return cuckoo_classify_step(table, meta, bases, boundaries, h_bits, salt, self.k,
-                                    **self._fp_kw(table))
+        with stage("engine.classify"):
+            bases, boundaries = self._batch_to_device(bases, boundaries)
+            if self.layout == "bucket":
+                return classify_step(table, bases, boundaries, h_bits, salt, self.k)
+            return cuckoo_classify_step(table, meta, bases, boundaries, h_bits, salt, self.k,
+                                        **self._fp_kw(table))
 
     def classify_multi_batch(self, rows, h_bits: int, salt: int, bases, boundaries,
                              n_strains: int):

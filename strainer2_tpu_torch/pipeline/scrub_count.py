@@ -48,7 +48,7 @@ from strainer2_tpu_torch.parallel.distributed import (
     merge_across_hosts,
 )
 from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
-from strainer2_tpu_torch.utils.observability import _items, stage
+from strainer2_tpu_torch.utils.observability import count, stage
 from strainer2_tpu_torch.utils.prefetch import prefetch
 
 __all__ = [
@@ -132,7 +132,7 @@ def count_panel_file(engine: TorchKmerEngine, index: StrainIndex, counts,
     if nc is not None:
         with stage("scrub.panel_lookups"):
             n = nc.count_file(counts.numpy(), path)
-        _items["scrub.panel_lookups"] += n
+        count("scrub.panel_lookups", n)
         return counts
     table = engine.table_for(index)
     t = index.table
@@ -142,7 +142,7 @@ def count_panel_file(engine: TorchKmerEngine, index: StrainIndex, counts,
         for batch in prefetch(native.pack_file(path, engine.k, rows, row_len)):
             counts = engine.count_batch(counts, table, t.h_bits, t.salt, batch.bases)
             n += windows_per_batch
-    _items["scrub.panel_lookups"] += n
+    count("scrub.panel_lookups", n)
     return counts
 
 
@@ -173,7 +173,7 @@ def count_files_native_pooled(nc, paths: list, num_slots: int):
         total = 0
         for path in paths:
             total += nc.count_file(counts, path)
-    _items["scrub.panel_lookups"] += total
+    count("scrub.panel_lookups", total)
     return counts
 
 
@@ -216,7 +216,7 @@ def _count_files_parallel(nc, counts_np: np.ndarray, paths: list, n_threads: int
             raise o
     for buf in bufs:
         counts_np += buf
-    _items["scrub.panel_lookups"] += int(sum(outcomes))
+    count("scrub.panel_lookups", int(sum(outcomes)))
     return counts_np
 
 
@@ -224,7 +224,10 @@ def _count_files_device_parallel(engine, index, counts, todo, n_threads, cfg):
     """Several files decode and pack on worker threads, OUTSIDE the lock,
     while their batches reach the one device count buffer under a lock
     (strainer2_tpu/pipeline/scrub_count.py:258-322).  Integer adds commute,
-    so the counts equal the sequential loop's."""
+    so the counts equal the sequential loop's.  Each worker's loop is a
+    ``scrub.feed`` stage, holding its ``pack.batch`` stages (the packer's),
+    ``scrub.feed.lock_wait`` (acquiring the lock) and ``scrub.feed.dispatch``
+    (holding it)."""
     import threading
 
     table = engine.table_for(index)
@@ -236,7 +239,7 @@ def _count_files_device_parallel(engine, index, counts, todo, n_threads, cfg):
     windows_per_batch = cfg.rows * (cfg.row_len - engine.k + 1)
     n_batches = [0]
 
-    def worker():
+    def feed():
         while True:
             with path_lock:
                 path = next(paths, None)
@@ -244,14 +247,23 @@ def _count_files_device_parallel(engine, index, counts, todo, n_threads, cfg):
                 return
             try:
                 for batch in native.pack_file(path, engine.k, cfg.rows, cfg.row_len):
-                    with dispatch_lock:
-                        engine.count_batch(counts, table, t.h_bits, t.salt, batch.bases)
-                        n_batches[0] += 1
+                    with stage("scrub.feed.lock_wait"):
+                        dispatch_lock.acquire()
+                    try:
+                        with stage("scrub.feed.dispatch"):
+                            engine.count_batch(counts, table, t.h_bits, t.salt, batch.bases)
+                            n_batches[0] += 1
+                    finally:
+                        dispatch_lock.release()
             except BaseException as e:
                 if isinstance(e, OSError) and not getattr(e, "filename", None):
                     e.filename = path
                 errs.append(e)
                 return
+
+    def worker():
+        with stage("scrub.feed"):
+            feed()
 
     with stage("scrub.panel_lookups"):
         threads = [
@@ -262,7 +274,8 @@ def _count_files_device_parallel(engine, index, counts, todo, n_threads, cfg):
             th.start()
         for th in threads:
             th.join()
-    _items["scrub.panel_lookups"] += n_batches[0] * windows_per_batch
+    count("scrub.batches", n_batches[0])
+    count("scrub.panel_lookups", n_batches[0] * windows_per_batch)
     if errs:
         raise errs[0]
     return counts
@@ -523,6 +536,7 @@ def write_scrub_table(out: IO, index: StrainIndex, col_pan: np.ndarray,
         else:
             order = np.arange(index.num_kmers, dtype=np.int64)
 
+    count("scrub.rows", index.num_kmers)
     codes = index.codes[order]
     c0 = index.genome_counts[order]
     c1 = col_pan[order]
