@@ -10,7 +10,10 @@ Phases; any failure exits non-zero and no result line is printed:
 2. kernels vs plain versions on the card, at main-path shapes: a 256 x 4096
    batch with ~3% invalid bases against a 6.7 M-key strain table, for K1,
    K3 and K4 also batches made like the phase-4 targets (0.1% N), and for
-   K2 also sets of present keys as strain_detect probes them; K8, K9 and
+   K2 also sets of present keys as strain_detect probes them; K4 then K4e
+   (``classify_select``, strain_detect's choice of the passing reads and
+   their rows) on the target-like batches, read by read and pair by pair,
+   in both layouts, timed beside K4 alone; K8, K9 and
    K3 with its valid count on the counting and target-like batches at
    k = 20 and 31, K9 with ``remaining`` at 0, 1, the batch's valid total
    and one past it, K3 with its valid count's tally total
@@ -63,8 +66,8 @@ Phases; any failure exits non-zero and no result line is printed:
    adding its words (equal to the one-device plain K6), each exactly equal
    to its plain version; device ms of shard 0, of R and of the sums, and of
    a data shard's whole classify program, R's beside one torch sum;
-5. launch counts of the twenty-five kernels on their paths (phase 4 for K1,
-   K3 and K4, the A/B tool for K2, K5 and K10, phase 6 for K6 and K7,
+5. launch counts of the twenty-six kernels on their paths (phase 4 for K1,
+   K3, K4 and K4e, which phase 7's pipeline must launch too, the A/B tool for K2, K5 and K10, phase 6 for K6 and K7,
    phase 9 for K8, K9 and K3 with its valid count and its tally total,
    phase 10 for the fingerprint kernel and the cuckoo K3, K4, K8 and K9,
    phase 3's cuckoo
@@ -227,6 +230,7 @@ SOURCES = {
     "shard_multi_hit_words": _CU + "strainer2_multi.cu",
     "shard_reduce": _CU + "strainer2_kernels.cu",
     "classify_sums": _CU + "strainer2_kernels.cu",
+    "classify_select": _CU + "strainer2_kernels.cu",
 }
 REPLACES = {
     "canonical_windows": "strainer2_tpu/ops/pallas_kernels.py:127",
@@ -261,6 +265,9 @@ REPLACES = {
     "shard_reduce": "strainer2_tpu/parallel/sharding.py:328",
     # K4's sums launch on a data shard's clipped boundaries
     "classify_sums": "strainer2_tpu/parallel/sharding.py:333",
+    # K4e after K4: the gate's pass mask, then the host's rescan and search
+    # of the passing reads (to :1106), chosen on the card instead
+    "classify_select": "strainer2_tpu/pipeline/detect.py:1052",
 }
 DEVICE = "cuda"
 _ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -415,6 +422,42 @@ def checked(name: str, kern, plain) -> int:
     return err
 
 
+def selected(sel) -> tuple:
+    """A Selection's contract: its two counts, its first counts[0] sums and
+    its first counts[1] codes and read ordinals."""
+    n_pass, n_rows = sel.counts.tolist()
+    return sel.counts, sel.sums[:n_pass], sel.codes[:n_rows], sel.ords[:n_rows]
+
+
+def check_select(label: str, batches, kern, plain, k4_ms: float, k4_n_bytes: float) -> dict:
+    """K4 then K4e (kern(bases, bounds, **thresholds)) against its plain
+    version on the batches, read by read and pair by pair at strain_detect's
+    default thresholds (1, 1): the two counts, the passing units' sums and
+    each row's code and read, exactly; timed read by read, beside K4 alone
+    (``k4_ms``), bound K4's bytes and K4e's own."""
+    from strainer2_tpu_torch.tools.bench_kernels import bound_ms, k4e_bytes
+
+    res, err = {}, 0
+    for paired in (False, True):
+        kw = [dict(n_reads=n, paired=paired, min_t=1, min_i=1) for _, _, n in batches]
+        run = lambda f: lambda i: f(batches[i][0], batches[i][1], **kw[i])  # noqa: E731
+        name = f"classify_select {label} {'pairs' if paired else 'reads'}"
+        err = max(err, checked(name, lambda i: selected(run(kern)(i)),
+                               lambda i: selected(run(plain)(i))))
+        units, rows = (sum(x) / N_BATCHES for x in
+                       zip(*(run(kern)(i).counts.tolist() for i in range(N_BATCHES))))
+        if not rows:
+            fail(f"{name}: no row selected")
+        if not paired:
+            reads = sum(n for _, _, n in batches) / N_BATCHES
+            res = timed(name, run(kern), run(plain),
+                        bound_ms(k4_n_bytes + k4e_bytes(reads, units, rows)),
+                        f"; {units:.0f} passing reads, {rows:.0f} rows a batch")
+            res.update(over_k4=res["ms"] - k4_ms, k4_ms=k4_ms, units=units, rows=rows)
+    res["max_abs_err"] = err
+    return res
+
+
 def check_kernels(d: str, data: dict, rng, dev, seed: int) -> dict:
     from strainer2_tpu_torch.index.build import StrainIndex
     from strainer2_tpu_torch.ops import lookup as L
@@ -530,6 +573,12 @@ def check_kernels(d: str, data: dict, rng, dev, seed: int) -> dict:
             results["classify_step"] = res
         else:
             results["classify_step"][kind] = res
+    bs = detect["targets"]
+    d_valid, _, d_hits = detect_stats["targets"]
+    results["classify_select"] = check_select(
+        "targets", bs, lambda b, bd, **kw: L.classify_select_step(rows, b, bd, h, salt, K, **kw),
+        lambda b, bd, **kw: L.classify_select_step_plain(rows, b, bd, h, salt, K, **kw),
+        results["classify_step"]["targets"]["ms"], k4_bytes(bs[0][0], bs[0][1], d_valid, d_hits))
     return results, {"index": index, "detect": detect, "detect_stats": detect_stats, "rows": rows,
                      "count": [b for b, _, _ in count_in], "kinds": kinds,
                      "count_codes": [(qh, ql) for _, qh, ql in count_in], "main_q": main_q,
@@ -627,6 +676,15 @@ def check_cuckoo_kernels(ctx: dict, dev) -> dict:
         fail("cuckoo_lookup main: a key of the table was not found")
     if not int(counts.view(torch.int32).ne(0).sum()) or not int(t_counts.view(torch.int32).ne(0).sum()):
         fail("cuckoo_count_step: no hit counted")
+    bs = ctx["detect"]["targets"]
+    out["classify_select cuckoo"] = check_select(
+        "targets cuckoo", bs,
+        lambda b, bd, **kw: L.cuckoo_classify_select_step(table, meta, b, bd, h, salt, K, fp=fp,
+                                                          **kw),
+        lambda b, bd, **kw: L.cuckoo_classify_select_step_plain(table, meta, b, bd, h, salt, K,
+                                                                **kw),
+        out["cuckoo_classify_step"]["targets"]["ms"],
+        k4_bytes(bs[0][0], bs[0][1], st["targets"], ctx["detect_stats"]["targets"][2]))
     ctx["cuckoo_k4"] = (table, meta, fp, h, salt)
     return out
 
@@ -2891,7 +2949,8 @@ def main() -> int:
     for path, counts in paths.items():
         print(f"launches during {path}: {counts}", flush=True)
     for path, counts, need in (
-            ("pipeline (phase 7)", fused_launches, ("canonical_windows", "count_step", "classify_step")),
+            ("pipeline (phase 7)", fused_launches,
+             ("canonical_windows", "count_step", "classify_step", "classify_select")),
             ("pipeline-multi (phase 8)", fused_multi_launches,
              ("canonical_windows", "count_step", "multi_hit_words", "strain_sums"))):
         print(f"launches during {path}: {counts}", flush=True)
@@ -2928,6 +2987,9 @@ def main() -> int:
     ring = results["bucket_lookup_ring"]
     ring.update(max_abs_err=max(ring["max_abs_err"], ab["max_abs_err"]),
                 ab_ms_per_4m=ab["ms"], ab_plain_ms_per_4m=ab["plain_ms"])
+    select_cuckoo = cuckoo_k.pop("classify_select cuckoo")
+    results["classify_select"].update(cuckoo=select_cuckoo, max_abs_err=max(
+        results["classify_select"]["max_abs_err"], select_cuckoo["max_abs_err"]))
     results.update(cuckoo_k)
     results.update(shard_k)
     k10 = results["cuckoo_lookup"]

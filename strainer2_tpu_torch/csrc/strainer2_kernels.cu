@@ -841,6 +841,238 @@ classify_sums_kernel(const uint32_t* __restrict__ masks, const uint32_t* __restr
 }
 
 // ---------------------------------------------------------------------------
+// K4e classify_select
+//
+// Replaces: the host's selection of strain_detect's emitted rows
+//   (strainer2_tpu/pipeline/detect.py, the emission after the pass gate;
+//   this package's StrainDetector._emit_sums): the pass rule over every
+//   read or pair, then each passing read rebuilt from the batch, every
+//   window's canonical code recomputed and searched among the genome's
+//   codes, and the informative ones kept. K4 has already probed every
+//   valid window: its informative bits (found, class kInformative) over a
+//   read's span [b[r], b[r + 1]) are that read's rows, in window order
+//   (the halo leaves a split read no duplicate window), and inf[r] counts
+//   them.
+// Bound on this card: the per-read (tot, inf) and boundaries read once,
+//   a tile's 32 bytes of informative words and k bases a row read, 20
+//   bytes a passing read or pair and 12 bytes a row written. A 256 x 4096
+//   `targets` batch: ~7,000 reads, under 100 rows.
+// Design: one launch after K4's sums launch, chained by PDL; a thread
+//   holds kSelItems consecutive units (reads, or pairs (2j, 2j + 1) of
+//   the first n_reads - n_reads % 2 reads), a block kSelUnits.
+//   1. Before griddepcontrol.wait the thread reads its units' boundaries
+//      (no launch of K4 writes them).
+//   2. A passing unit has exactly inf[r] (+ inf[r + 1]) rows, so the row
+//      offsets are a scan over units, never over bits: each block sums
+//      the passes and rows of every unit before its own (K4's own
+//      pattern: every block scans what it needs itself), then scans its
+//      own units (block_scan2). The last block writes the totals.
+//   3. A passing unit writes (r1, t1, i1, t2, i2) at its place among the
+//      passing units, and each of its reads walks its span a tile at a
+//      time: the tile's 8 informative words in two 16-byte loads, each set
+//      bit in the span a row (the window's canonical code from its k
+//      bases by at most nine 4-byte loads, window_code; the read's
+//      ordinal). It reads masks only: both layouts' K4 feed it.
+// ---------------------------------------------------------------------------
+constexpr int kSelItems = 2;  // units a thread
+constexpr int kSelUnits = kTile * kSelItems;  // units a block
+
+// Exclusive prefixes (ea, eb) of the threads' (a, b) in thread order and
+// the block's totals (ta, tb); kTile threads, warp_sums kTile / 32 entries.
+__device__ __forceinline__ void block_scan2(int a, int b, int2* warp_sums, int& ea, int& eb,
+                                            int& ta, int& tb) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int xa = a, xb = b;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int ya = __shfl_up_sync(0xffffffffu, xa, off);
+    const int yb = __shfl_up_sync(0xffffffffu, xb, off);
+    if (lane >= off) {
+      xa += ya;
+      xb += yb;
+    }
+  }
+  if (lane == 31) warp_sums[warp] = make_int2(xa, xb);
+  __syncthreads();
+  ea = xa - a;
+  eb = xb - b;
+  ta = tb = 0;
+#pragma unroll
+  for (int w = 0; w < kTile / 32; ++w) {
+    const int2 s = warp_sums[w];
+    if (w < warp) {
+      ea += s.x;
+      eb += s.y;
+    }
+    ta += s.x;
+    tb += s.y;
+  }
+  __syncthreads();  // warp_sums is written again by the next call
+}
+
+// One unit's (t1, i1, t2, i2) from K4's per-read sums (all 0 from
+// n_units on), and whether it passes.
+struct SelUnit {
+  int t1, i1, t2, i2;
+  bool pass;
+};
+
+template <bool kPaired>
+__device__ __forceinline__ SelUnit load_unit(const int32_t* tot, const int32_t* inf, int u,
+                                             int n_units, int min_t, int min_i) {
+  SelUnit s = {0, 0, 0, 0, false};
+  if (u < n_units) {
+    const int r = kPaired ? 2 * u : u;
+    s.t1 = __ldcg(tot + r);
+    s.i1 = __ldcg(inf + r);
+    if constexpr (kPaired) {
+      s.t2 = __ldcg(tot + r + 1);
+      s.i2 = __ldcg(inf + r + 1);
+    }
+    s.pass = s.t1 + s.t2 >= min_t && s.i1 + s.i2 >= min_i;
+  }
+  return s;
+}
+
+__device__ __forceinline__ int unit_rows(const SelUnit& s) {
+  return s.pass ? max(s.i1, 0) + max(s.i2, 0) : 0;
+}
+
+// The canonical code of the k (<= 32) valid bases at p, as packed_window
+// computes it: the run of 32 bases from p (base i at pair i) from at most
+// nine aligned 4-byte loads, each 4-byte group packed by pack4.
+__device__ __forceinline__ unsigned long long window_code(const uint8_t* p, int k) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(a & ~static_cast<uintptr_t>(3));
+  const int skip = static_cast<int>(a & 3);
+  const int nw = (skip + k + 3) >> 2;
+  uint32_t v[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) v[i] = i < nw ? __ldg(w + i) : 0u;
+  uint64_t x = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint32_t code, bad;
+    pack4(__funnelshift_r(v[i], v[i + 1], 8 * skip), &code, &bad);  // bases 4i .. 4i + 3
+    x |= static_cast<uint64_t>(code) << (8 * i);
+  }
+  const int drop = 64 - 2 * k;  // 0 at k = 32: no shift by 64
+  const uint64_t rc = ~x & (~0ull >> drop);
+  const uint64_t fwd = reverse_pairs(x) >> drop;
+  return fwd >= rc ? fwd : rc;
+}
+
+// The rows of one read: the windows of flat span [x0, x1) whose
+// informative bit is set, in order, at most cap of them, at codes[0..]
+// and ords[0..] (the window's canonical code, the read's ordinal ord).
+__device__ __forceinline__ void select_read_rows(const uint32_t* __restrict__ masks,
+                                                 const uint8_t* __restrict__ bases, int L,
+                                                 int W, int tpr, int k, int x0, int x1, int ord,
+                                                 int cap, unsigned long long* __restrict__ codes,
+                                                 int32_t* __restrict__ ords) {
+  int n = 0;
+  for (int x = x0; x < x1 && n < cap;) {
+    const int row = x / W;
+    const int c = x - row * W;
+    const int t0 = c & ~(kTile - 1);  // the tile's first column
+    const int end = min(min(W, t0 + kTile), c + (x1 - x));  // the span's end in this tile
+    const uint4* m4 = reinterpret_cast<const uint4*>(
+        masks + (static_cast<size_t>(row) * tpr + (c >> 8)) * 2 * kTileWords + kTileWords);
+    const uint4 lo4 = __ldcg(m4), hi4 = __ldcg(m4 + 1);
+    const uint32_t iw[kTileWords] = {lo4.x, lo4.y, lo4.z, lo4.w, hi4.x, hi4.y, hi4.z, hi4.w};
+    const uint8_t* src = bases + static_cast<size_t>(row) * L;
+#pragma unroll
+    for (int j = 0; j < kTileWords; ++j) {
+      const int lo = t0 + 32 * j;  // the word's first column
+      const int s = max(c - lo, 0), e = min(end - lo, 32);  // its bits [s, e) lie in the span
+      uint32_t m = 0;
+      if (s < e) m = (iw[j] >> s << s) & (e < 32 ? (1u << e) - 1u : ~0u);
+      while (m && n < cap) {
+        const int col = lo + __ffs(m) - 1;
+        m &= m - 1;
+        codes[n] = window_code(src + col, k);
+        ords[n] = ord;
+        ++n;
+      }
+    }
+    x += end - c;
+  }
+}
+
+// Units [0, n_units): the passing ones' sums in order at sums (5 int32 a
+// unit) and their reads' rows in order at codes and ords; counts = (passing
+// units, rows). masks, tot and inf: K4's launches before it on the stream.
+template <bool kPaired>
+__global__ void __launch_bounds__(kTile)
+classify_select_kernel(const uint32_t* __restrict__ masks, const uint8_t* __restrict__ bases,
+                       int n_rows, int L, int k, int tpr, const int32_t* __restrict__ bounds,
+                       const int32_t* __restrict__ tot, const int32_t* __restrict__ inf,
+                       int n_units, int min_t, int min_i, int32_t* __restrict__ counts,
+                       int32_t* __restrict__ sums, unsigned long long* __restrict__ codes,
+                       int32_t* __restrict__ ords) {
+  constexpr int kPer = kPaired ? 2 : 1;  // reads a unit
+  __shared__ int2 warp_sums[kTile / 32];
+  const int W = L - k + 1;
+  const int q = n_rows * W;
+  const int u0 = blockIdx.x * kSelUnits + threadIdx.x * kSelItems;
+  int x[kPer * kSelItems + 1];  // the boundaries of this thread's reads
+#pragma unroll
+  for (int j = 0; j <= kPer * kSelItems; ++j) {
+    const int r = kPer * u0 + j;
+    x[j] = r <= kPer * n_units ? gather_index(__ldg(bounds + r), q) : 0;
+  }
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  int before_p = 0, before_r = 0;  // passing units and rows before this block's
+  for (int u = threadIdx.x * kSelItems; u < blockIdx.x * kSelUnits; u += kSelUnits) {
+#pragma unroll
+    for (int j = 0; j < kSelItems; ++j) {
+      const SelUnit s = load_unit<kPaired>(tot, inf, u + j, n_units, min_t, min_i);
+      before_p += s.pass;
+      before_r += unit_rows(s);
+    }
+  }
+  int ep, er, pre_p, pre_r;
+  block_scan2(before_p, before_r, warp_sums, ep, er, pre_p, pre_r);
+  SelUnit s[kSelItems];
+  int my_p = 0, my_r = 0;
+#pragma unroll
+  for (int j = 0; j < kSelItems; ++j) {
+    s[j] = load_unit<kPaired>(tot, inf, u0 + j, n_units, min_t, min_i);
+    my_p += s[j].pass;
+    my_r += unit_rows(s[j]);
+  }
+  int tp, tr;
+  block_scan2(my_p, my_r, warp_sums, ep, er, tp, tr);
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) {
+    counts[0] = pre_p + tp;
+    counts[1] = pre_r + tr;
+  }
+  int p = pre_p + ep, off = pre_r + er;
+#pragma unroll
+  for (int j = 0; j < kSelItems; ++j) {
+    if (!s[j].pass) continue;
+    const int r = kPer * (u0 + j);
+    int32_t* o = sums + 5 * static_cast<size_t>(p++);
+    o[0] = r;
+    o[1] = s[j].t1;
+    o[2] = s[j].i1;
+    o[3] = s[j].t2;
+    o[4] = s[j].i2;
+    // a read writes at most its inf rows, and never past the q cells of
+    // codes and ords (spans that overlap, which no packer writes)
+    select_read_rows(masks, bases, L, W, tpr, k, x[kPer * j], x[kPer * j + 1], r,
+                     min(max(s[j].i1, 0), q - off), codes + off, ords + off);
+    off += max(s[j].i1, 0);
+    if constexpr (kPaired) {
+      select_read_rows(masks, bases, L, W, tpr, k, x[kPer * j + 1], x[kPer * j + 2], r + 1,
+                       min(max(s[j].i2, 0), q - off), codes + off, ords + off);
+      off += max(s[j].i2, 0);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K9 hit_stats
 //
 // Replaces: the XLA program engine._hit_stats_bucket + _stats_from_masks
@@ -1482,6 +1714,29 @@ int s2t_classify_step(const void* rows, int row_width, int h_bits,
                           n_rows > 0, m, c, n_rows * tpr, n_rows, W, tpr,
                           static_cast<const int32_t*>(bounds), max_reads,
                           static_cast<int32_t*>(tot), static_cast<int32_t*>(inf));
+}
+
+// K4e after K4 (s2t_classify_step or s2t_cuckoo_classify_step) on the same
+// stream, chained by PDL: masks, tot and inf are K4's, bounds its
+// boundaries (non-decreasing, as the packer writes them); the units are
+// the first n_reads reads, or their n_reads / 2 pairs where paired. counts:
+// two int32; sums: 5 int32 a unit; codes (uint64) and ords (int32): a
+// cell a window of the batch; bases 4-byte aligned.
+int s2t_classify_select(const void* masks, const void* bases, int n_rows, int L, int k,
+                        const void* bounds, const void* tot, const void* inf, int n_reads,
+                        int paired, int min_t, int min_i, void* counts, void* sums, void* codes,
+                        void* ords, void* stream) {
+  const int tpr = (L - k + 1 + kTile - 1) / kTile;
+  const int n_units = paired ? n_reads / 2 : n_reads;
+  const dim3 grid(std::max(1, (n_units + kSelUnits - 1) / kSelUnits));
+  return launch_dependent(paired ? classify_select_kernel<true> : classify_select_kernel<false>,
+                          grid, static_cast<cudaStream_t>(stream), true,
+                          static_cast<const uint32_t*>(masks), static_cast<const uint8_t*>(bases),
+                          n_rows, L, k, tpr, static_cast<const int32_t*>(bounds),
+                          static_cast<const int32_t*>(tot), static_cast<const int32_t*>(inf),
+                          n_units, min_t, min_i, static_cast<int32_t*>(counts),
+                          static_cast<int32_t*>(sums), static_cast<unsigned long long*>(codes),
+                          static_cast<int32_t*>(ords));
 }
 
 // ---- the cuckoo layout: table is 2H (hi, lo) uint32 pairs, 8-byte aligned;

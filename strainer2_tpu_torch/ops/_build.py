@@ -46,6 +46,7 @@ _SIGNATURES = {
     "s2t_valid_tally_total": [_P, _I, _P, _P],
     "s2t_hit_stats": [_P, _I, _I, _U32, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "s2t_classify_step": [_P, _I, _I, _U32, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P],
+    "s2t_classify_select": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "s2t_bucket_lookup_ring": [_P, _I, _I, _U32, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P],
     "s2t_multi_hit_words": [_P, _I, _I, _U32, _P, _I, _I, _I, _I, _P, _P],
     "s2t_strain_sums": [_P, _I, _I, _P, _I, _I, _P, _P, _P],

@@ -30,6 +30,11 @@ meta = 0, as the jnp ``bucket_lookup`` returns.
 - ``classify_step``   (K4): extract -> probe -> per-read (total,
   informative) hit counts over contiguous window spans, as differences of
   hit prefixes at the read boundaries.
+- ``classify_select_step`` (K4 then K4e): the batch's passing reads or
+  pairs under ``passing_any``'s rule and their rows (each informative
+  window's canonical code, in read order), selected on the device from
+  K4's informative bits: a ``Selection``; strain_detect's emission writes
+  it as it is.
 - ``gather_index``: a read boundary as an index into a prefix of
   n_windows + 1 entries, as the JAX gather reads it.
 - ``passing_any``: the two-threshold pass rule per read or pair; plain
@@ -49,9 +54,10 @@ informative is meta[slot] == 2, one word, never a sum.
   sentinel's); made once an index on the device, never saved.
 - ``cuckoo_lookup``   (K10): found, slot per query.
 - ``cuckoo_count_step``, ``cuckoo_count_valid_step``,
-  ``cuckoo_classify_step``, ``cuckoo_hit_accumulate``,
-  ``cuckoo_hit_stats``: K3, K3 with its valid count, K4, K8 and K9 with
-  the two-slot probe, same contracts (count buffers of 2H cells).
+  ``cuckoo_classify_step``, ``cuckoo_classify_select_step``,
+  ``cuckoo_hit_accumulate``, ``cuckoo_hit_stats``: K3, K3 with its valid
+  count, K4, K4 then K4e, K8 and K9 with the two-slot probe, same
+  contracts (count buffers of 2H cells).
 
 The cuckoo kernels take the table's fingerprints (``fp=``) and read a slot
 of the table only where its fingerprint is the query's
@@ -81,6 +87,7 @@ plain version on a CPU tensor; nothing else takes the plain path.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -88,6 +95,7 @@ from strainer2_tpu_torch.constants import INFORMATIVE_KMER, MAX_K
 from strainer2_tpu_torch.index.hashing import _mul32, cuckoo_slots_torch
 from strainer2_tpu_torch.ops import _build
 from strainer2_tpu_torch.ops.packing import canonical_windows_plain
+from strainer2_tpu_torch.utils.observability import stage
 
 __all__ = [
     "bucket_lookup",
@@ -107,6 +115,9 @@ __all__ = [
     "hit_stats_plain",
     "classify_step",
     "classify_step_plain",
+    "classify_select_step",
+    "classify_select_step_plain",
+    "Selection",
     "gather_index",
     "passing_any",
     "cuckoo_fingerprint_plain",
@@ -121,6 +132,8 @@ __all__ = [
     "cuckoo_count_valid_step_plain",
     "cuckoo_classify_step",
     "cuckoo_classify_step_plain",
+    "cuckoo_classify_select_step",
+    "cuckoo_classify_select_step_plain",
     "cuckoo_hit_accumulate",
     "cuckoo_hit_accumulate_plain",
     "cuckoo_hit_stats",
@@ -604,6 +617,68 @@ def passing_any(tot, inf, *, paired: bool, min_t: int, min_i: int):
     return (tot >= min_t) & (inf >= min_i)
 
 
+class Selection(NamedTuple):
+    """K4e's selection of a batch: ``counts`` int32 (2,), the passing units
+    (reads, or pairs) and their rows; ``sums`` int32 (units, 5), each
+    passing unit's (r1, t1, i1, t2, i2) in order, r1 its first read (t2 =
+    i2 = 0 for a read); ``codes`` int64 (the bits of the uint64 canonical
+    code) and ``ords`` int32, a row each: the informative windows of the
+    passing units' reads in read and window order, and each one's read.
+    Only the first counts[0] sums and counts[1] rows are the contract."""
+
+    counts: torch.Tensor
+    sums: torch.Tensor
+    codes: torch.Tensor
+    ords: torch.Tensor
+
+
+def _select_plain(lookups, bases, boundaries, k: int, n_reads: int, paired: bool,
+                  min_t: int, min_i: int) -> Selection:
+    """K4e on a batch's valid-window lookups (classify_step_plain's):
+    ``passing_any`` over the first n_reads reads (their n_reads // 2 pairs
+    where paired), and each passing read's informative windows, found by
+    the read whose boundaries hold them (boundaries non-decreasing)."""
+    idx, found, _, (meta,), n_windows = lookups
+    dev = bases.device
+    tot, inf = _classify_plain(lookups, boundaries, dev)
+    per = 2 if paired else 1
+    n = n_reads // per * per
+    ok = passing_any(tot[:n], inf[:n], paired=paired, min_t=min_t, min_i=min_i)
+    units = torch.nonzero(ok)[:, 0]
+    r1 = units * per
+    zero = torch.zeros_like(r1, dtype=torch.int32)
+    sums = torch.stack([r1.to(torch.int32), tot[r1], inf[r1],
+                        tot[r1 + 1] if paired else zero, inf[r1 + 1] if paired else zero], dim=1)
+    x = idx[found & (meta.to(torch.int64) == INFORMATIVE_KMER)]
+    read = torch.searchsorted(gather_index(boundaries[: n + 1], n_windows), x, right=True) - 1
+    inside = (read >= 0) & (read < n)
+    keep = torch.zeros_like(inside)
+    keep[inside] = ok[read[inside] // per]
+    x, read = x[keep], read[keep]
+    hi, lo, _ = canonical_windows_plain(bases, k)
+    hi, lo = ((t.view(torch.int32).reshape(-1)[x].to(torch.int64) & _MASK32) for t in (hi, lo))
+    codes = (hi << (2 * min(k, 16))) | lo
+    counts = torch.tensor([units.numel(), x.numel()], dtype=torch.int32, device=dev)
+    return Selection(counts, sums, codes, read.to(torch.int32))
+
+
+def classify_select_step_plain(rows, bases, boundaries, h_bits: int, salt: int, k: int, *,
+                               n_reads: int, paired: bool, min_t: int, min_i: int) -> Selection:
+    """K4 then K4e in torch on the bucket rows with meta: the Selection of
+    the batch's first n_reads reads, from classify_step_plain's lookups."""
+    return _select_plain(valid_hits_plain(rows, bases, h_bits, salt, k), bases, boundaries, k,
+                         n_reads, paired, min_t, min_i)
+
+
+def cuckoo_classify_select_step_plain(table, meta, bases, boundaries, h_bits: int, salt: int,
+                                      k: int, *, n_reads: int, paired: bool, min_t: int,
+                                      min_i: int) -> Selection:
+    """classify_select_step_plain in the cuckoo layout (meta the slots'
+    classes), from cuckoo_classify_step_plain's lookups."""
+    return _select_plain(cuckoo_valid_hits_plain(table, bases, h_bits, salt, k, meta), bases,
+                         boundaries, k, n_reads, paired, min_t, min_i)
+
+
 # ---- kernel wrappers ------------------------------------------------------
 
 def _check_rows(rows: torch.Tensor, h_bits: int) -> None:
@@ -731,6 +806,33 @@ def count_step(counts, rows, bases, h_bits: int, salt: int, k: int):
     return counts
 
 
+def _check_boundaries(boundaries: torch.Tensor) -> None:
+    if boundaries.dtype != torch.int32 or boundaries.dim() != 1 or not boundaries.is_contiguous():
+        raise ValueError("boundaries must be a contiguous 1-D int32 tensor")
+    if boundaries.shape[0] < 1:
+        raise ValueError("boundaries must hold max_reads + 1 entries")
+
+
+def _k4(rows, bases, boundaries, h_bits: int, salt: int, k: int):
+    """K4's checks and two launches on the bucket rows: (masks, total,
+    informative), the mask words its scratch (``_scratch``) kept for K4e."""
+    _check_rows(rows, h_bits)
+    _check_bases(bases, k)
+    _check_boundaries(boundaries)
+    _check_windows(bases, k)
+    max_reads = boundaries.shape[0] - 1
+    masks, counts = _scratch(bases, k)
+    tot = torch.empty(max_reads, dtype=torch.int32, device=bases.device)
+    inf = torch.empty_like(tot)
+    if max_reads:
+        _build.call(
+            "classify_step", bases.device, rows.data_ptr(), rows.shape[1], h_bits,
+            salt, bases.data_ptr(), bases.shape[0], bases.shape[1], k, boundaries.data_ptr(),
+            max_reads, masks.data_ptr(), counts.data_ptr(), tot.data_ptr(), inf.data_ptr(),
+        )
+    return masks, tot, inf
+
+
 def classify_step(rows, bases, boundaries, h_bits: int, salt: int, k: int):
     """Kernel K4 on CUDA tensors, the plain version on CPU tensors.
 
@@ -744,28 +846,8 @@ def classify_step(rows, bases, boundaries, h_bits: int, salt: int, k: int):
     the probe launch by programmatic dependent launch."""
     if not _on_cuda("classify_step", rows, bases, boundaries):
         return classify_step_plain(rows, bases, boundaries, h_bits, salt, k)
-    _check_rows(rows, h_bits)
-    _check_bases(bases, k)
-    if boundaries.dtype != torch.int32 or boundaries.dim() != 1 or not boundaries.is_contiguous():
-        raise ValueError("boundaries must be a contiguous 1-D int32 tensor")
-    if boundaries.shape[0] < 1:
-        raise ValueError("boundaries must hold max_reads + 1 entries")
-    _check_windows(bases, k)
-    max_reads = boundaries.shape[0] - 1
-    n_rows, length = bases.shape
-    tiles = n_tiles(n_rows, length, k)
-    tot = torch.empty(max_reads, dtype=torch.int32, device=bases.device)
-    inf = torch.empty_like(tot)
-    if max_reads:
-        masks = torch.empty(16 * tiles, dtype=torch.int32, device=bases.device)
-        counts = torch.empty(tiles, dtype=torch.int32, device=bases.device)
-        _build.call(
-            "classify_step", bases.device, rows.data_ptr(), rows.shape[1], h_bits,
-            salt, bases.data_ptr(), n_rows, length, k, boundaries.data_ptr(), max_reads,
-            masks.data_ptr(), counts.data_ptr(), tot.data_ptr(), inf.data_ptr(),
-        )
+    _, tot, inf = _k4(rows, bases, boundaries, h_bits, salt, k)
     return tot, inf
-
 
 def _check_counts(counts: torch.Tensor, rows: torch.Tensor) -> None:
     if counts.dtype != torch.uint32 or counts.dim() != 1 or not counts.is_contiguous():
@@ -1034,6 +1116,28 @@ def cuckoo_hit_stats(table, bases, remaining: int, h_bits: int, salt: int, k: in
     return out
 
 
+def _cuckoo_k4(table, meta, bases, boundaries, h_bits: int, salt: int, k: int, fp):
+    """``_k4`` with the two-slot probe and a gather of meta[slot]."""
+    _check_cuckoo_table(table, h_bits)
+    _check_fp(fp, table)
+    _check_slot_array("meta", meta, table)
+    _check_bases(bases, k)
+    _check_boundaries(boundaries)
+    _check_windows(bases, k)
+    max_reads = boundaries.shape[0] - 1
+    masks, counts = _scratch(bases, k)
+    tot = torch.empty(max_reads, dtype=torch.int32, device=bases.device)
+    inf = torch.empty_like(tot)
+    if max_reads:
+        _build.call(
+            "cuckoo_classify_step", bases.device, table.data_ptr(), fp.data_ptr(),
+            meta.data_ptr(), h_bits, table.shape[0] // 2, salt, bases.data_ptr(),
+            bases.shape[0], bases.shape[1], k, boundaries.data_ptr(), max_reads,
+            masks.data_ptr(), counts.data_ptr(), tot.data_ptr(), inf.data_ptr(),
+        )
+    return masks, tot, inf
+
+
 def cuckoo_classify_step(table, meta, bases, boundaries, h_bits: int, salt: int, k: int, *,
                          fp=None):
     """K4 with the two-slot probe and a gather of meta[slot] on CUDA
@@ -1045,30 +1149,73 @@ def cuckoo_classify_step(table, meta, bases, boundaries, h_bits: int, salt: int,
     in ``classify_step``'s two launches."""
     if not _on_cuda("cuckoo_classify_step", table, meta, bases, boundaries):
         return cuckoo_classify_step_plain(table, meta, bases, boundaries, h_bits, salt, k)
-    _check_cuckoo_table(table, h_bits)
-    _check_fp(fp, table)
-    _check_slot_array("meta", meta, table)
-    _check_bases(bases, k)
-    if boundaries.dtype != torch.int32 or boundaries.dim() != 1 or not boundaries.is_contiguous():
-        raise ValueError("boundaries must be a contiguous 1-D int32 tensor")
-    if boundaries.shape[0] < 1:
-        raise ValueError("boundaries must hold max_reads + 1 entries")
-    _check_windows(bases, k)
-    max_reads = boundaries.shape[0] - 1
-    tiles = n_tiles(*bases.shape, k)
-    tot = torch.empty(max_reads, dtype=torch.int32, device=bases.device)
-    inf = torch.empty_like(tot)
-    if max_reads:
-        masks = torch.empty(16 * tiles, dtype=torch.int32, device=bases.device)
-        counts = torch.empty(tiles, dtype=torch.int32, device=bases.device)
-        _build.call(
-            "cuckoo_classify_step", bases.device, table.data_ptr(), fp.data_ptr(),
-            meta.data_ptr(), h_bits,
-            table.shape[0] // 2, salt, bases.data_ptr(), bases.shape[0], bases.shape[1], k,
-            boundaries.data_ptr(), max_reads, masks.data_ptr(), counts.data_ptr(),
-            tot.data_ptr(), inf.data_ptr(),
-        )
+    _, tot, inf = _cuckoo_k4(table, meta, bases, boundaries, h_bits, salt, k, fp)
     return tot, inf
+
+
+def _check_select(bases, boundaries, n_reads: int) -> None:
+    if not 0 <= n_reads <= boundaries.shape[0] - 1:
+        raise ValueError(f"n_reads {n_reads} outside [0, {boundaries.shape[0] - 1}] (max_reads)")
+    if bases.data_ptr() % 4:
+        raise ValueError("bases must be 4-byte aligned")
+
+
+def _select(masks, tot, inf, bases, boundaries, k: int, n_reads: int, paired: bool, min_t: int,
+            min_i: int) -> Selection:
+    """K4e's launch on K4's scratch (masks) and sums (tot, inf), chained by
+    PDL to K4's launches before it on the stream."""
+    n_rows, length = bases.shape
+    dev = bases.device
+    n_windows = n_rows * (length - k + 1)
+    counts = torch.empty(2, dtype=torch.int32, device=dev)
+    sums = torch.empty((max(n_reads // (2 if paired else 1), 1), 5), dtype=torch.int32,
+                       device=dev)
+    codes = torch.empty(n_windows, dtype=torch.int64, device=dev)
+    ords = torch.empty(n_windows, dtype=torch.int32, device=dev)
+    with stage("engine.select"):
+        _build.call("classify_select", dev, masks.data_ptr(), bases.data_ptr(), n_rows, length, k,
+                    boundaries.data_ptr(), tot.data_ptr(), inf.data_ptr(), n_reads, int(paired),
+                    min_t, min_i, counts.data_ptr(), sums.data_ptr(), codes.data_ptr(),
+                    ords.data_ptr())
+    return Selection(counts, sums, codes, ords)
+
+
+def classify_select_step(rows, bases, boundaries, h_bits: int, salt: int, k: int, *,
+                         n_reads: int, paired: bool, min_t: int, min_i: int) -> Selection:
+    """K4 then K4e on CUDA tensors, the plain version on CPU tensors.
+
+    K4's two launches (``classify_step``'s kernels) into scratch kept here,
+    then K4e on their mask words and per-read sums: the Selection of the
+    batch's first ``n_reads`` reads (``boundaries`` as ``classify_step``
+    takes them, non-decreasing), read by read or, where ``paired``, pair by
+    pair ((2j, 2j + 1) for j < n_reads // 2), under ``passing_any``'s rule.
+    K4e's launch (on the CPU the whole plain version) runs in an
+    ``engine.select`` stage."""
+    if not _on_cuda("classify_select_step", rows, bases, boundaries):
+        with stage("engine.select"):
+            return classify_select_step_plain(rows, bases, boundaries, h_bits, salt, k,
+                                              n_reads=n_reads, paired=paired, min_t=min_t,
+                                              min_i=min_i)
+    _check_select(bases, boundaries, n_reads)
+    return _select(*_k4(rows, bases, boundaries, h_bits, salt, k), bases, boundaries, k,
+                   n_reads, paired, min_t, min_i)
+
+
+def cuckoo_classify_select_step(table, meta, bases, boundaries, h_bits: int, salt: int, k: int,
+                                *, n_reads: int, paired: bool, min_t: int, min_i: int,
+                                fp=None) -> Selection:
+    """classify_select_step in the cuckoo layout: ``cuckoo_classify_step``'s
+    two launches (``fp`` the table's fingerprints, ``meta`` its slots'
+    classes), then K4e, which reads their masks as it reads the bucket
+    layout's; the plain version on CPU tensors."""
+    if not _on_cuda("cuckoo_classify_select_step", table, meta, bases, boundaries):
+        with stage("engine.select"):
+            return cuckoo_classify_select_step_plain(table, meta, bases, boundaries, h_bits,
+                                                     salt, k, n_reads=n_reads, paired=paired,
+                                                     min_t=min_t, min_i=min_i)
+    _check_select(bases, boundaries, n_reads)
+    return _select(*_cuckoo_k4(table, meta, bases, boundaries, h_bits, salt, k, fp), bases,
+                   boundaries, k, n_reads, paired, min_t, min_i)
 
 
 # ---- kernel wrappers, index shards --------------------------------------------

@@ -9,9 +9,13 @@ Port of ``strainer2_tpu.pipeline.detect`` (reference src/strain_detect.c):
    metagenomes with the count kernel (K3) and demote the most frequent
    ~half;
 4. for every target sample (SE / PE / PEI), per-read total and informative
-   hits come from the classify kernel (K4); only when the device pass mask
-   says a read or pair passes do the per-read vectors cross back to the
-   host, where the passing reads are re-scanned to emit their rows.
+   hits come from the classify kernel (K4), and the select kernel (K4e)
+   picks the reads or pairs that pass and their rows (each informative
+   window's canonical code) from K4's informative bits; two counts cross
+   back a batch, the sums and codes only where a read or pair passes, and
+   the host formats and writes them.  The mesh route sums its data
+   shards' per-read vectors on the host and re-scans the passing reads
+   there (``_emit_sums``).
 
 Emission, summary lines and diagnostics are the JAX package's host code,
 copied, so the output bytes are the same.  Samples run one after another.
@@ -62,7 +66,6 @@ from strainer2_tpu_torch.io.batches import (
     read_codes_from_batch,
 )
 from strainer2_tpu_torch.io.fastx import open_maybe_gzip, read_fastx
-from strainer2_tpu_torch.ops.lookup import passing_any
 from strainer2_tpu_torch.ops.packing_np import (
     canonical_codes_np,
     decode_codes_np,
@@ -968,27 +971,23 @@ class StrainDetector:
                 self._emit_sums(out, f1, batch, lens, paired, tot_p.sum(axis=0)[:n],
                                 inf_p.sum(axis=0)[:n])
                 continue
-            tot_d, inf_d = self.engine.classify_batch(
-                self._classify_table, t.h_bits, t.salt, batch.bases, boundaries,
-                meta=self._meta_dev,
+            # K4 then K4e choose the passing reads or pairs and their rows
+            # on the device; the gate reads back their two counts, and
+            # the sums and codes follow only where a read or pair passes
+            sel = self.engine.classify_select_batch(
+                self._classify_table, t.h_bits, t.salt, batch.bases, boundaries, n_reads=n,
+                paired=paired, min_t=cfg.min_hits_for_good_match,
+                min_i=cfg.min_hits_for_informative_read, meta=self._meta_dev,
             )
-            # D2H gate: one bool crosses back per batch; the per-read
-            # vectors follow only when a read or pair passes (the skipped
-            # emission would have written nothing)
-            n_pairs = (n - (n % 2)) // 2 if paired else n
             with stage("engine.gate_readback"):
-                any_d = passing_any(
-                    tot_d, inf_d, paired=paired,
-                    min_t=cfg.min_hits_for_good_match,
-                    min_i=cfg.min_hits_for_informative_read,
-                )
-                gate = bool(any_d[:n_pairs].any())
-            if not gate:
+                n_pass, n_rows = sel.counts.tolist()
+            if not n_pass:
                 continue
             count("detect.gate_passed")
+            count("detect.select_batches")
             with stage("engine.d2h"):
-                tot, inf = tot_d[:n].cpu().numpy(), inf_d[:n].cpu().numpy()
-            self._emit_sums(out, f1, batch, lens, paired, tot, inf)
+                sums, codes = self.engine.selection_to_host(sel, n_pass, n_rows)
+            self._emit_selected(out, f1, n // 2 if paired else n, n_pass, sums, codes)
 
         if odd_interleave:
             print(
@@ -1031,6 +1030,27 @@ class StrainDetector:
                     emit_items.append((prefix, read_codes_from_batch(batch, r1 + 1, k,
                                                                      grouping)))
             self._emit_rows_batch(out, emit_items)
+
+    def _emit_selected(self, out: IO, f1: str, n_units: int, n_pass: int, sums, codes) -> None:
+        """The rows of a batch's passing reads or pairs from K4e's
+        selection: each passing unit's (r1, t1, i1, t2, i2) and the codes
+        of its i1 + i2 informative windows, in read order; nothing is
+        rescanned or searched."""
+        with stage("detect.emit"):
+            count("detect.emit_reads", n_units)
+            count("detect.reads_passing", n_pass)
+            if not codes.size:
+                return
+            with stage("detect.emit.write"):
+                prefixes = [f"{f1}\t{t1}\t{i1}\t{t2}\t{i2}\t"
+                            for _, t1, i1, t2, i2 in sums.tolist()]
+                unit = np.repeat(np.arange(len(prefixes)), sums[:, 2] + sums[:, 4])
+                if unit.size != codes.size:
+                    raise RuntimeError(f"{codes.size} selected rows for {unit.size} "
+                                       "informative hits")
+                kmers = decode_codes_np(codes, self.cfg.k)
+                out.write("".join([prefixes[u] + s + "\n" for u, s in zip(unit.tolist(), kmers)]))
+            count("detect.rows", codes.size)
 
     _EMIT_WINDOW_BUDGET = 1 << 21  # bounds transient memory per lookup
 

@@ -10,7 +10,10 @@ stages use, in either layout:
   ``finalize_counts``: the device state's life cycle;
 - ``count_batch`` (K3) and ``count_batch_with_valid`` (K3 with its valid
   count, strain-track: a tally from ``init_valid_tally``, read once by
-  ``valid_total``); ``classify_batch`` (K4);
+  ``valid_total``); ``classify_batch`` (K4); ``classify_select_batch``
+  (K4 then K4e: strain_detect's passing reads and their rows, chosen on
+  the device; its two counts read back, then ``selection_to_host``, one
+  synchronisation each);
 - ``hit_accumulate`` (K8) and ``hit_stats`` (K9): genome_compare's
   containment tallies, reduced on the device;
 - ``classify_multi_batch``: the multi-strain classify, K6
@@ -43,9 +46,11 @@ import torch
 
 from strainer2_tpu_torch.index.build import check_layout
 from strainer2_tpu_torch.ops.lookup import (
+    classify_select_step,
     classify_step,
     count_step,
     count_valid_step,
+    cuckoo_classify_select_step,
     cuckoo_classify_step,
     cuckoo_count_step,
     cuckoo_count_valid_step,
@@ -238,6 +243,40 @@ class TorchKmerEngine:
                 return classify_step(table, bases, boundaries, h_bits, salt, self.k)
             return cuckoo_classify_step(table, meta, bases, boundaries, h_bits, salt, self.k,
                                         **self._fp_kw(table))
+
+    def classify_select_batch(self, table, h_bits: int, salt: int, bases, boundaries, *,
+                              n_reads: int, paired: bool, min_t: int, min_i: int, meta=None):
+        """K4 then K4e: the Selection (ops/lookup.py) of the batch's first
+        ``n_reads`` reads, or of their pairs where ``paired``, that pass
+        (total >= min_t and informative >= min_i), and their rows, on the
+        device; table, boundaries and meta as ``classify_batch`` takes
+        them."""
+        if self.layout != "bucket" and meta is None:
+            raise ValueError("the cuckoo layout classifies with a slot-indexed meta array")
+        kw = dict(n_reads=n_reads, paired=paired, min_t=min_t, min_i=min_i)
+        with stage("engine.classify"):
+            bases, boundaries = self._batch_to_device(bases, boundaries)
+            if self.layout == "bucket":
+                return classify_select_step(table, bases, boundaries, h_bits, salt, self.k, **kw)
+            return cuckoo_classify_select_step(table, meta, bases, boundaries, h_bits, salt,
+                                               self.k, **kw, **self._fp_kw(table))
+
+    @staticmethod
+    def selection_to_host(sel, n_pass: int, n_rows: int) -> tuple[np.ndarray, np.ndarray]:
+        """A Selection's first n_pass sums, int32 (n_pass, 5), and first
+        n_rows codes, uint64, on the host: from a card, copies into pinned
+        buffers and one synchronisation."""
+        if not n_rows:  # nothing to write: no copy, no synchronisation
+            return np.empty((0, 5), dtype=np.int32), np.empty(0, dtype=np.uint64)
+        if sel.codes.device.type == "cpu":
+            sums, codes = sel.sums[:n_pass], sel.codes[:n_rows]
+        else:
+            sums = torch.empty((n_pass, 5), dtype=torch.int32, pin_memory=True)
+            codes = torch.empty(n_rows, dtype=torch.int64, pin_memory=True)
+            sums.copy_(sel.sums[:n_pass], non_blocking=True)
+            codes.copy_(sel.codes[:n_rows], non_blocking=True)
+            torch.cuda.current_stream(sel.codes.device).synchronize()
+        return sums.numpy(), codes.numpy().view(np.uint64)
 
     def classify_multi_batch(self, rows, h_bits: int, salt: int, bases, boundaries,
                              n_strains: int):

@@ -7,7 +7,7 @@ shapes, and the timer, data and bounds that chip_smoke.py uses for every
 kernel.
 
     python strainer2_tpu_torch/tools/bench_kernels.py [--repo DIR] [--seed N] [--label L] \
-        [--layout both|bucket|cuckoo] [--reduce | --shard]
+        [--layout both|bucket|cuckoo] [--reduce | --shard | --select]
 
 --repo names the checkout whose ``strainer2_tpu_torch`` is timed (default:
 the one holding this file), so that two commits are compared in one call on
@@ -32,7 +32,11 @@ program (I K4s launches, R, the sums launch), beside the one-device K4
 and K3; and K6s (shard_multi_hit_words) on the ``targets`` batches at
 S = 32 and 256, bucket layout only, the same way (its no-probe pass all
 zero words) with a data shard's multi program (I K6s launches, R, K7),
-beside the one-device K6.
+beside the one-device K6.  ``--select`` times K4 then K4e
+(classify_select_step: the passing reads and their rows chosen on the
+device, as strain_detect's stage runs them, SE, thresholds 1 and 1) on the
+``targets`` batches in the layouts of ``--layout``, beside K4 alone on the
+same batches (``over_k4``: K4e's share of the call).
 
 A 6.7 Mbp random genome gives the table (6.7 M keys, 64-lane rows, 5% of the
 keys informative).  Three kinds of 256 x 4096 batch, 8 of each:
@@ -112,7 +116,7 @@ _ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 __all__ = [
     "BATCH_KINDS", "bound_ms", "graph_ms", "batch_stats", "count_batches", "detection_batches",
     "sample_reads", "multi_rows", "probe_bytes", "k1_bytes", "k2_bytes", "k3_bytes", "k4_bytes",
-    "k6_bytes", "k7_bytes", "k8_bytes", "k9_bytes", "k3v_bytes", "k10_bytes", "tally_bytes",
+    "k4e_bytes", "k6_bytes", "k7_bytes", "k8_bytes", "k9_bytes", "k3v_bytes", "k10_bytes", "tally_bytes",
     "COMPARE_KS", "cuckoo_table_k", "fingerprints", "filter_stats", "fp_bytes", "fp_kw",
     "FilterStats", "shard_stats", "shard_probe_bytes", "untouched_shard",
 ]
@@ -241,6 +245,14 @@ def k4_bytes(bases, bounds, valid: float, hits: float, layout: str = "bucket") -
     reads = bounds.numel() - 1
     return (bases.numel() + 4 * bounds.numel() + probe_bytes(valid, hits, layout) + 4 * hits
             + 8 * reads)
+
+
+def k4e_bytes(reads: int, units: float, rows: float, k: int = K) -> float:
+    """K4e's own bytes beside K4's: the per-read (total, informative) read
+    once (8 bytes a read), a tile's 32 bytes of informative words a passing
+    unit and k bases a row read; 20 bytes a passing unit, 12 a row (code,
+    read) and the two counts written."""
+    return 8 * reads + (32 + 20) * units + (k + 12) * rows + 8
 
 
 def k8_bytes(bases, valid, hits: float, layout: str = "bucket") -> float:
@@ -548,10 +560,11 @@ def _card() -> str:
 
 
 def bench(seed: int, label: str, layout: str = "both", reduce: bool = False,
-          shard: bool = False) -> dict:
+          shard: bool = False, select: bool = False) -> dict:
     """Time the kernels of ``layout`` (both, bucket or cuckoo) on one seed's
     data: the same batches and keys whatever the layout; R alone with
-    ``reduce``, K4s, K3s and K6s alone with ``shard``."""
+    ``reduce``, K4s, K3s and K6s alone with ``shard``, K4 then K4e with
+    ``select``."""
     import torch
 
     from strainer2_tpu_torch.ops.packing import canonical_windows_plain
@@ -567,7 +580,7 @@ def bench(seed: int, label: str, layout: str = "both", reduce: bool = False,
             more = (f", unfiltered {extra['unfiltered_ms']:.4f} ms "
                     f"(share {extra['unfiltered_ms'] / ms:.3f}), false match "
                     f"{extra['false_match']:.5f}")
-        for over in ("over_k3", "over_k8", "stacked_ms", "stack_ms", "library_ms", "no_probe_ms",
+        for over in ("over_k3", "over_k4", "over_k8", "stacked_ms", "stack_ms", "library_ms", "no_probe_ms",
                      "program_ms"):
             if over in extra:
                 more += f", {over} {extra[over]:.4f} ms"
@@ -582,6 +595,10 @@ def bench(seed: int, label: str, layout: str = "both", reduce: bool = False,
     genome, rows, h_bits, salt, keys, key_kinds = _table(rng, dev)
     print(f"[{label}] card: {card}; table {keys.size} keys, rows {tuple(rows.shape)}", flush=True)
     batches = {kind: detection_batches(rng, genome, kind, dev) for kind in BATCH_KINDS}
+    if select:
+        select_kernels(layout, genome, rows, h_bits, salt, keys, key_kinds, batches["targets"],
+                       report)
+        return result
     if shard:
         tables = {}
         if layout != "cuckoo":
@@ -663,6 +680,44 @@ def bucket_kernels(rows, h_bits, salt, bases, batches, stats, codes, main_q, rep
             del words
         del mrows
         torch.cuda.empty_cache()
+
+
+def select_kernels(layout: str, genome, rows, h_bits: int, salt: int, keys, key_kinds, bs,
+                   report) -> None:
+    """K4 then K4e (--select) on the ``targets`` batches ``bs``, SE, thresholds
+    1 and 1, in the layouts of ``layout``, beside K4 alone: the bound is
+    K4's bytes and K4e's own (k4e_bytes: the batches' mean passing units
+    and rows); ``over_k4`` is K4e's time."""
+    from strainer2_tpu_torch.ops import lookup as L
+
+    dev = rows.device
+    stats = [sum(x) / N_BATCHES for x in zip(*(batch_stats(rows, h_bits, salt, b) for b, _, _ in bs))]
+    valid, _, hits = stats
+    sel_kw = [dict(n_reads=n, paired=False, min_t=1, min_i=1) for _, _, n in bs]
+    steps = {}
+    if layout != "cuckoo":
+        steps["k4e"] = (
+            lambda i: L.classify_step(rows, bs[i][0], bs[i][1], h_bits, salt, K),
+            lambda i: L.classify_select_step(rows, bs[i][0], bs[i][1], h_bits, salt, K,
+                                             **sel_kw[i]),
+            valid)
+    if layout != "bucket":
+        table, ch, csalt, meta = cuckoo_table_k(keys, K, dev, key_kinds)
+        fp = fp_kw(L, table)
+        steps["k4e_cuckoo"] = (
+            lambda i: L.cuckoo_classify_step(table, meta, bs[i][0], bs[i][1], ch, csalt, K, **fp),
+            lambda i: L.cuckoo_classify_select_step(table, meta, bs[i][0], bs[i][1], ch, csalt,
+                                                    K, **sel_kw[i], **fp),
+            mean_stats([batch_filter_stats(table, ch, csalt, b) for b, _, _ in bs]))
+    for name, (k4, k4e, probes) in steps.items():
+        counts = [k4e(i).counts.tolist() for i in range(N_BATCHES)]
+        units, n_rows = (sum(x) / N_BATCHES for x in zip(*counts))
+        reads = sum(n for _, _, n in bs) / N_BATCHES
+        ms4 = graph_ms(k4)
+        ms = graph_ms(k4e)
+        n_bytes = k4_bytes(bs[0][0], bs[0][1], probes, hits) + k4e_bytes(reads, units, n_rows)
+        report(name, "targets", ms, bound_ms(n_bytes), over_k4=ms - ms4, k4_ms=ms4, reads=reads,
+               units=units, rows=n_rows)
 
 
 REDUCE_SHARDS = (2, 4, 8)  # I in --reduce
@@ -1038,6 +1093,9 @@ def main(argv: list[str] | None = None) -> int:
                          "(shard_multi_hit_words) on targets batches at S = 32 and 256, at "
                          "I = 1, 2 and 4, with their no-probe passes and a data shard's "
                          "classify and multi programs")
+    ap.add_argument("--select", action="store_true",
+                    help="time K4 then K4e (classify_select_step) on targets batches, beside "
+                         "K4 alone")
     args = ap.parse_args(argv)
     import torch
 
@@ -1052,8 +1110,8 @@ def main(argv: list[str] | None = None) -> int:
     if not strainer2_tpu_torch.__file__.startswith(repo + os.sep):
         print(f"FAIL: imported {strainer2_tpu_torch.__file__}, not the package under {repo}")
         return 1
-    print(json.dumps(bench(args.seed, args.label or repo, args.layout, args.reduce, args.shard)),
-          flush=True)
+    print(json.dumps(bench(args.seed, args.label or repo, args.layout, args.reduce, args.shard,
+                           args.select)), flush=True)
     return 0
 
 

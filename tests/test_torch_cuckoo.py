@@ -37,6 +37,8 @@ from strainer2_tpu_torch.io.batches import max_reads_capacity
 from strainer2_tpu_torch.ops import lookup as L
 from strainer2_tpu_torch.ops.packing_np import canonical_codes_np, split_code64_np
 from strainer2_tpu_torch.pipeline.engine import TorchKmerEngine
+from tests.test_torch_kernels import SELECT_CASES, select_case
+from tests.test_torch_lookup import check_selection, jax_emission
 
 MINI = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "mini")
 SCRUB_ARGS = ("data/strainA.fna.gz", "data/genomes.txt", "data/metagenomes.txt")
@@ -423,3 +425,39 @@ def test_strain_track_cuckoo_golden(tmp_path, monkeypatch):
                      out=out, device="cpu", rows=ROWS, row_len=ROW_LEN, layout="cuckoo")
     with open(os.path.join(MINI, "expected", "modes", "strain_track_m100_stdout.txt"), "rb") as f:
         assert out.getvalue().encode() == f.read()
+
+
+@pytest.mark.parametrize("case", list(SELECT_CASES))
+def test_cuckoo_classify_select_step_matches_jax_emission(case):
+    """K4 then K4e's plain version in the cuckoo layout (cuckoo K4's
+    lookups, the slot-indexed classes) against the JAX package's emission
+    of the same batch from its _classify_step sums, on the cases of
+    tests/test_torch_lookup.py's bucket twin."""
+    from strainer2_tpu.io.batches import pack_stream
+    from strainer2_tpu.pipeline.engine import _classify_step
+
+    k = 31
+    rng = np.random.default_rng(7)
+    genome, keys = _genome_keys(rng, k)
+    t = t_cuckoo.build_cuckoo(keys, k)
+    meta = np.zeros(t.num_slots, dtype=np.uint32)
+    if case != "gate_with_zero_rows":
+        meta[t.slot_of_key] = np.where(rng.random(keys.size) < 0.3, 2, 1)
+    else:
+        meta[t.slot_of_key] = 1
+    j_hi, j_lo = (jnp.asarray(np.ascontiguousarray(t.table[:, c])) for c in (0, 1))
+
+    def classify(bases, bounds):
+        return tuple(np.asarray(x) for x in _classify_step(
+            j_hi, j_lo, jnp.asarray(meta), bases, jnp.asarray(bounds), h_bits=t.h_bits,
+            salt=t.salt, k=k, max_reads=bounds.size - 1))
+
+    batch, bounds, paired, min_t, min_i = select_case(case, genome, pack_stream, classify)
+    tot, inf = classify(batch.bases, bounds)
+    got = L.cuckoo_classify_select_step(
+        torch.from_numpy(t.table), torch.from_numpy(meta), torch.from_numpy(batch.bases),
+        torch.from_numpy(bounds), t.h_bits, t.salt, k, n_reads=batch.n_reads, paired=paired,
+        min_t=min_t, min_i=min_i)
+    want = jax_emission(batch, tot, inf, paired, min_t, min_i, keys, meta[t.slot_of_key])
+    check_selection(got, want, case, batch, paired, min_t, min_i)
+

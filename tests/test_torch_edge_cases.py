@@ -6,7 +6,10 @@ records, IUPAC letters in targets, multi-member gzip, a truncated FASTQ
 quality, leading garbage and mixed FASTA/FASTQ.  The same inputs give the
 same exit codes, totals and stderr lines as there; where a case reads a
 file, the port's native reader and its pure-Python twin give the codes of
-the JAX package's scan of the same file."""
+the JAX package's scan of the same file.  strain_detect's rows chosen by
+the select kernel's plain version equal, byte for byte, the host emission
+of the mesh route and the JAX package's, on SE, PE and PEI -B runs and on
+a batch that passes the gate with zero rows."""
 
 import gzip
 import io
@@ -221,6 +224,84 @@ def test_detect_hostile_targets(tmp_path, monkeypatch, case):
     if case == "empty":
         assert len(lines) == 4
     assert payload == _jax_detect_payload(str(f), tmp_path, case)
+
+
+def _uninformative_reads(path, n: int = 40, length: int = 150) -> None:
+    """A FASTA of n reads cut from the strain where none of the windows is
+    a -a k-mer: each read hits, and none has an informative window."""
+    from strainer2_tpu_torch.io.fastx import read_fastx
+    from strainer2_tpu_torch.ops.packing_np import canonical_codes_np, encode_ascii_np
+
+    genome = np.concatenate([encode_ascii_np(np.frombuffer(r.seq, dtype=np.uint8))
+                             for r in read_fastx("data/strainA.fna.gz")])
+    with open("expected/scrubbed_m05.txt", "rb") as f:
+        kmers = [ln.strip() for ln in f if not ln.startswith(b"#")]
+    informative = np.concatenate([canonical_codes_np(encode_ascii_np(np.frombuffer(m, np.uint8)),
+                                                     K)[0] for m in kmers])
+    codes, valid = canonical_codes_np(genome, K)
+    bad = ~valid | np.isin(codes, informative)
+    clean = np.flatnonzero(np.convolve(bad, np.ones(length - K + 1), "valid") == 0)
+    starts = clean[:: max(1, clean.size // n)][:n]
+    assert starts.size == n
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    with open(path, "w") as f:
+        for i, s in enumerate(starts):
+            f.write(f">u{i}\n{acgt[genome[s : s + length]].tobytes().decode()}\n")
+
+
+# -B lines of the device-selection cases; "gate_with_zero_rows" runs with
+# min_hits_for_informative_read 0 on reads that hit and carry no -a k-mer
+SELECT_TARGETS = {
+    "SE": "SE\tdata/target_SE.fastq\n",
+    "PE": "PE\tdata/target_PE1.fasta.gz\tdata/target_PE2.fasta.gz\n",
+    "PEI": "PEI\tdata/target_PEI.fasta\n",
+    "gate_with_zero_rows": "SE\t{uninformative}\n",
+}
+
+
+@pytest.mark.parametrize("case", list(SELECT_TARGETS))
+def test_detect_device_selection_equals_host_emission_and_jax(tmp_path, case):
+    """strain_detect -B through the device route (K4 then K4e choose the
+    rows; on the CPU their plain version), the mesh route (the host's
+    _emit_sums: a rescan and a key search of every passing read) and the
+    JAX package: the same hits file, byte for byte, in 8 x 1024 batches;
+    every gated batch's rows come from the selection."""
+    from strainer2_tpu.pipeline.detect import DetectConfig as JaxDetectConfig
+    from strainer2_tpu.pipeline.detect import run_detect as jax_run_detect
+    from strainer2_tpu_torch.pipeline import detect
+    from strainer2_tpu_torch.utils import observability as obs
+
+    uninformative = tmp_path / "uninformative.fasta"
+    zero_rows = case == "gate_with_zero_rows"
+    if zero_rows:
+        _uninformative_reads(uninformative)
+    batch = tmp_path / "targets.txt"
+    batch.write_text(SELECT_TARGETS[case].format(uninformative=uninformative))
+    min_i = 0 if zero_rows else 1
+
+    def payload(name, run, cfg):
+        hits = str(tmp_path / f"{name}.gz")
+        run("data/strainA.fna.gz", "expected/scrubbed_m05.txt", hits, batch_list=str(batch),
+            cfg=cfg, stdout=io.StringIO())
+        with gzip.open(hits, "rb") as f:
+            return f.read()
+
+    obs.start_recording()
+    device = payload("device", detect.run_detect,
+                     detect.DetectConfig(device="cpu", min_hits_for_informative_read=min_i))
+    _, counters = obs.stop_recording()
+    host = payload("host", detect.run_detect,
+                   detect.DetectConfig(device="cpu", min_hits_for_informative_read=min_i,
+                                       mesh=(1, 1)))
+    jax = payload("jax", jax_run_detect, JaxDetectConfig(min_hits_for_informative_read=min_i))
+    assert device == host == jax
+    assert counters["detect.select_batches"] == counters["detect.gate_passed"] > 0
+    rows = [ln for ln in device.splitlines() if not ln.startswith(b"#")]
+    assert counters.get("detect.rows", 0) == len(rows)
+    if zero_rows:  # every read passes; no row is written
+        assert counters["detect.reads_passing"] == 40 and not rows
+    else:
+        assert rows
 
 
 def test_scrub_genome_with_subk_contig(tmp_path):

@@ -1269,3 +1269,139 @@ def test_shard_count_step_kernels_shards_without_keys(strain, layout, n_index):
         kern(got, b)
         plain(want, b)
         assert _equal((got,), (want,)) and _equal((got,), (start,)), sh.lo
+
+
+# K4e's cases: name -> (reads, paired, read lengths, N rate, rows, row
+# length); every read of a case lands in its one batch.  Reads alternate
+# genome / random, the last from the genome.  tests/test_torch_lookup.py
+# and tests/test_torch_cuckoo.py hold the plain version to the JAX
+# package's emission on them, test_classify_select_step_kernels the
+# kernels to the plain version.
+SELECT_CASES = {
+    "se": (60, False, (20, 300), 0.02, 16, 1024),
+    "pe": (60, True, (20, 300), 0.02, 16, 1024),
+    "pei_odd_last_read": (41, True, (20, 100), 0.02, 8, 1024),
+    "reads_split_across_rows": (24, False, (300, 480), 0.0, 24, 512),
+    "reads_with_n": (60, False, (20, 300), 0.2, 16, 1024),
+    "pass_without_informative": (60, True, (31, 40), 0.02, 16, 1024),
+    "gate_with_zero_rows": (60, False, (20, 300), 0.02, 16, 1024),
+    "thresholds_at_a_unit": (60, True, (20, 300), 0.02, 16, 1024),
+    "thresholds_zero": (60, False, (20, 300), 0.02, 16, 1024),
+}
+# (min_t, min_i) of a case, (1, 1) elsewhere; "thresholds_at_a_unit" takes
+# the sums of its most informative unit; "gate_with_zero_rows" runs on a
+# table without an informative key
+SELECT_THRESHOLDS = {"pass_without_informative": (1, 0), "gate_with_zero_rows": (1, 0),
+                     "thresholds_zero": (0, 0)}
+
+
+def select_case(case: str, genome, pack, classify, k: int = K):
+    """One K4e case: (batch, bounds, paired, min_t, min_i).  ``pack`` is a
+    pack_stream (the port's or the JAX package's); ``classify(bases,
+    bounds)`` gives the per-read (tot, inf) as numpy, for the thresholds of
+    "thresholds_at_a_unit"."""
+    n, paired, (lo, hi), n_rate, n_rows, row_len = SELECT_CASES[case]
+    rng = np.random.default_rng(70 + list(SELECT_CASES).index(case))
+    reads = []
+    for i in range(n):
+        length = int(rng.integers(lo, hi))
+        if i % 2 == 0 or i == n - 1:
+            s = int(rng.integers(0, genome.size - length))
+            r = genome[s : s + length].copy()
+        else:
+            r = rng.integers(0, 4, size=length, dtype=np.uint8)
+        r[rng.random(length) < n_rate] = 4
+        reads.append(r)
+    batch = next(pack(iter(reads), k, n_rows, row_len, with_read_ids=True,
+                      group_size=2 if paired else 1))
+    assert batch.n_reads == n
+    width = row_len - k + 1
+    bounds = np.full(max_reads_capacity(k, n_rows, row_len) + 1, n_rows * width, dtype=np.int32)
+    bounds[:n] = batch.window_starts
+    min_t, min_i = SELECT_THRESHOLDS.get(case, (1, 1))
+    if case == "thresholds_at_a_unit":
+        tot, inf = classify(batch.bases, bounds)
+        t = tot[: n // 2 * 2].reshape(-1, 2).sum(axis=1)
+        i = inf[: n // 2 * 2].reshape(-1, 2).sum(axis=1)
+        j = int(np.argmax(i))
+        min_t, min_i = int(t[j]), int(i[j])
+    return batch, bounds, paired, min_t, min_i
+
+
+def _select_pair(strain, layout, informative: bool):
+    """K4 then K4e in ``layout`` and its plain version, each a function of
+    (bases, bounds, **thresholds); the strain's classes, or every key
+    non-informative."""
+    _, genome, _, table, rows = strain
+    if layout == "bucket":
+        if not informative:
+            rows = torch.from_numpy(table.with_meta(np.ones(table.num_slots, np.uint32))).to(
+                rows.device)
+        return (lambda b, bd, **kw: L.classify_select_step(rows, b, bd, table.h_bits, table.salt,
+                                                           K, **kw),
+                lambda b, bd, **kw: L.classify_select_step_plain(rows, b, bd, table.h_bits,
+                                                                 table.salt, K, **kw))
+    ct, t, meta = _cuckoo_k(genome, K, rows.device)
+    if not informative:  # CUDA torch has no where over uint32: through int32
+        m = meta.view(torch.int32)
+        meta = torch.where(m == 2, 1, m).to(torch.int32).view(torch.uint32)
+    fp = L.cuckoo_fingerprints(ct)
+    return (lambda b, bd, **kw: L.cuckoo_classify_select_step(ct, meta, b, bd, t.h_bits, t.salt,
+                                                              K, fp=fp, **kw),
+            lambda b, bd, **kw: L.cuckoo_classify_select_step_plain(ct, meta, b, bd, t.h_bits,
+                                                                    t.salt, K, **kw))
+
+
+def _main_rows_case(genome, paired: bool):
+    """A 256 x 4096 batch of 150-base reads, a fifth from the genome, 0.1%
+    N: about 7,000 reads over K4e's blocks."""
+    rng = np.random.default_rng(90 + paired)
+    reads = _main_reads(rng, genome, 9000)
+    batch = next(pack_stream(iter(reads), K, 256, 4096, with_read_ids=True,
+                             group_size=2 if paired else 1))
+    bounds = np.full(max_reads_capacity(K, 256, 4096) + 1, 256 * (4096 - K + 1), dtype=np.int32)
+    bounds[: batch.n_reads] = batch.window_starts
+    return batch, bounds, paired, 1, 1
+
+
+def _main_reads(rng, genome, n: int) -> list:
+    reads = []
+    for i in range(n):
+        if i % 5 == 0:
+            s = int(rng.integers(0, genome.size - 150))
+            r = genome[s : s + 150].copy()
+        else:
+            r = rng.integers(0, 4, size=150, dtype=np.uint8)
+        r[rng.random(150) < 0.001] = 4
+        reads.append(r)
+    return reads
+
+
+@pytest.mark.parametrize("case", [*SELECT_CASES, "main_rows_se", "main_rows_pe"])
+@pytest.mark.parametrize("layout", ["bucket", "cuckoo"])
+def test_classify_select_step_kernels(strain, layout, case):
+    """K4 then K4e, in either layout, against the plain version: the two
+    counts, the passing units' sums and the rows' codes and read ordinals,
+    on SELECT_CASES and on 256 x 4096 batches of about 7,000 reads (K4e's
+    blocks each sum the units before their own)."""
+    _, genome, _, _, rows = strain
+    dev = rows.device
+    kern, plain = _select_pair(strain, layout, case != "gate_with_zero_rows")
+    if case.startswith("main_rows"):
+        batch, bounds, paired, min_t, min_i = _main_rows_case(genome, case.endswith("pe"))
+    else:
+        def classify(bases, bd):
+            k4 = _k4_pair(strain, layout)[1]
+            return tuple(x.cpu().numpy() for x in k4(torch.from_numpy(bases).to(dev),
+                                                     torch.from_numpy(bd).to(dev)))
+        batch, bounds, paired, min_t, min_i = select_case(case, genome, pack_stream, classify)
+    b, bd = torch.from_numpy(batch.bases).to(dev), torch.from_numpy(bounds).to(dev)
+    kw = dict(n_reads=batch.n_reads, paired=paired, min_t=min_t, min_i=min_i)
+    got, want = kern(b, bd, **kw), plain(b, bd, **kw)
+    torch.cuda.synchronize()
+    n_pass, n_rows = want.counts.tolist()
+    assert got.counts.tolist() == [n_pass, n_rows]
+    assert _equal((got.sums[:n_pass], got.codes[:n_rows], got.ords[:n_rows]),
+                  (want.sums, want.codes, want.ords))
+    assert n_pass > 0
+    assert (n_rows == 0) == (case == "gate_with_zero_rows")

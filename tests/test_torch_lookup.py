@@ -11,7 +11,7 @@ import torch
 
 from strainer2_tpu.index.bucket import build_bucket_table
 from strainer2_tpu.index.cuckoo import build_cuckoo
-from strainer2_tpu.io.batches import pack_stream
+from strainer2_tpu.io.batches import pack_stream, read_codes_from_batch
 from strainer2_tpu.ops.lookup import bucket_lookup as jnp_bucket_lookup
 from strainer2_tpu.ops.lookup import bucket_lookup_words as jnp_bucket_lookup_words
 from strainer2_tpu.ops.packing_np import canonical_codes_np, split_code64_np
@@ -19,13 +19,13 @@ from strainer2_tpu.ops.pallas_lookup import bucket_lookup_pallas_gridmap
 from strainer2_tpu.pipeline.detect import _passing_any_1d
 from strainer2_tpu.pipeline.engine import _classify_step, _classify_step_bucket, _count_step_bucket
 from strainer2_tpu_torch.ops.lookup import (
-    bucket_lookup, bucket_lookup_words_plain, classify_step, count_step, cuckoo_classify_step,
-    passing_any,
+    bucket_lookup, bucket_lookup_words_plain, classify_select_step, classify_step, count_step,
+    cuckoo_classify_step, passing_any,
 )
 from tests.oracle import random_dna, seq_to_base_codes
 from tests.test_torch_kernels import (
-    EDGE_K, HAND_ROW_WIDTHS, HAND_SALT, duplicate_keys, edge_bounds, edge_rows, hand_built_rows,
-    twice_queries,
+    EDGE_K, HAND_ROW_WIDTHS, HAND_SALT, SELECT_CASES, duplicate_keys, edge_bounds, edge_rows,
+    hand_built_rows, select_case, twice_queries,
 )
 
 K = 31
@@ -344,3 +344,94 @@ def test_plain_classify_step_two_scan_passes_match_engine(strain, layout):
         np.testing.assert_array_equal(g.numpy(), np.asarray(x))
     r_tot, r_inf = (np.asarray(x) for x in ref)
     assert (r_tot < 0).any() and r_tot.max() > 1000 and r_inf.sum() > 0
+
+
+def jax_emission(batch, tot, inf, paired: bool, min_t: int, min_i: int, keys, key_kinds,
+                 k: int = K):
+    """What the JAX package's host emission writes for one batch, as K4e's
+    selection: its pass rule (``_passing_any_1d``) over the first n reads,
+    or their n // 2 pairs, then each passing read rebuilt from the batch
+    (``read_codes_from_batch``), its windows' canonical codes
+    (``canonical_codes_np``) and those of a key of class 2 kept.  Returns
+    the passing units' sums (r1, t1, i1, t2, i2), the rows' codes and their
+    reads' ordinals, as numpy."""
+    per = 2 if paired else 1
+    m = batch.n_reads // per * per
+    ok = np.asarray(_passing_any_1d(jnp.asarray(tot[:m]), jnp.asarray(inf[:m]), paired=paired,
+                                    min_t=min_t, min_i=min_i))
+    order = np.argsort(keys)
+    sorted_keys, sorted_kinds = keys[order], key_kinds[order]
+    sums, codes, ords = [], [], []
+    for u in np.flatnonzero(ok):
+        r1 = int(u) * per
+        sums.append([r1, tot[r1], inf[r1], tot[r1 + 1] if paired else 0,
+                     inf[r1 + 1] if paired else 0])
+        for r in range(r1, r1 + per):
+            cc, valid = canonical_codes_np(read_codes_from_batch(batch, r, k), k)
+            pos = np.clip(np.searchsorted(sorted_keys, cc), 0, sorted_keys.size - 1)
+            hit = valid & (sorted_keys[pos] == cc) & (sorted_kinds[pos] == 2)
+            codes.append(cc[hit])
+            ords.append(np.full(int(hit.sum()), r))
+    return (np.asarray(sums, dtype=np.int64).reshape(-1, 5),
+            np.concatenate(codes or [np.empty(0, np.uint64)]),
+            np.concatenate(ords or [np.empty(0, np.int64)]))
+
+
+def check_selection(got, want, case: str, batch, paired: bool, min_t: int, min_i: int) -> None:
+    """A Selection against ``jax_emission``'s rows, and what each of
+    SELECT_CASES is there to show."""
+    sums, codes, ords = want
+    assert got.counts.tolist() == [len(sums), codes.size]
+    np.testing.assert_array_equal(got.sums.numpy(), sums)
+    np.testing.assert_array_equal(got.codes.numpy().view(np.uint64), codes)
+    np.testing.assert_array_equal(got.ords.numpy(), ords)
+    n = batch.n_reads
+    assert len(sums) > 0
+    assert (codes.size == 0) == (case == "gate_with_zero_rows")
+    unit_inf = sums[:, 2] + sums[:, 4]
+    if case == "pass_without_informative":
+        assert (unit_inf == 0).any() and (unit_inf > 0).any()
+    if case == "pei_odd_last_read":
+        assert n % 2 and (sums[:, 0] < n - 1).all()
+    if case == "reads_split_across_rows":
+        width = batch.bases.shape[1] - K + 1
+        starts = np.append(np.asarray(batch.window_starts), batch.bases.shape[0] * width)
+        crosses = starts[1:][ords] // width > starts[ords] // width
+        assert crosses.any()
+    if case == "reads_with_n":
+        passing_reads = set(ords.tolist())
+        assert any((batch.bases.reshape(-1)[batch.read_id.reshape(-1) == r] == 4).any()
+                   for r in passing_reads)
+    if case == "thresholds_at_a_unit":
+        at = (sums[:, 1] + sums[:, 3] == min_t) & (unit_inf == min_i)
+        assert at.any() and len(sums) < n // 2
+    if case == "thresholds_zero":
+        assert len(sums) == (n // 2 if paired else n)
+
+
+@pytest.mark.parametrize("case", list(SELECT_CASES))
+def test_plain_classify_select_step_matches_jax_emission(strain, case):
+    """K4 then K4e's plain version (the CPU side of the kernels, on the
+    bucket rows) against the JAX package's emission of the same batch from
+    its _classify_step_bucket sums: SE, PE and a PEI batch with an odd last
+    read, reads split across rows, reads with N, a passing pair with no
+    informative window, a gate passed with zero rows (no informative key),
+    thresholds at a unit's own sums and at zero."""
+    genome, codes, table, rows = strain
+    if case == "gate_with_zero_rows":
+        rows = table.with_meta(np.ones(table.num_slots, dtype=np.uint32))
+    key_kinds = rows[:, 32:48].reshape(-1)[table.slot_of_key]
+
+    def classify(bases, bounds):
+        return tuple(np.asarray(x) for x in _classify_step_bucket(
+            jnp.asarray(rows), bases, jnp.asarray(bounds), k=K, h_bits=table.h_bits,
+            salt=table.salt, max_reads=bounds.size - 1))
+
+    batch, bounds, paired, min_t, min_i = select_case(case, genome, pack_stream, classify)
+    tot, inf = classify(batch.bases, bounds)
+    got = classify_select_step(torch.from_numpy(rows), torch.from_numpy(batch.bases),
+                               torch.from_numpy(bounds), table.h_bits, table.salt, K,
+                               n_reads=batch.n_reads, paired=paired, min_t=min_t, min_i=min_i)
+    want = jax_emission(batch, tot, inf, paired, min_t, min_i, codes, key_kinds)
+    check_selection(got, want, case, batch, paired, min_t, min_i)
+

@@ -181,10 +181,10 @@ def _names(spans):
     return {s.name for s in spans}
 
 
-def test_detect_spans_and_counters(fresh, tmp_path, monkeypatch):
-    """A small strain_detect -B on the CPU engine's route: emission and its
-    children, the engine's spans, the gate, and counters that agree with
-    the hits file."""
+def _detect_recorded(tmp_path, monkeypatch, mesh=None):
+    """A small strain_detect -B on the CPU engine's route (one PE and one SE
+    sample), recorded: its spans by name, its counters, the hits file's rows
+    and the spans by id."""
     from strainer2_tpu_torch.pipeline.detect import DetectConfig, run_detect
 
     monkeypatch.chdir(MINI)
@@ -195,24 +195,36 @@ def test_detect_spans_and_counters(fresh, tmp_path, monkeypatch):
     out = tmp_path / "hits.gz"
     obs.start_recording()
     run_detect("data/strainA.fna.gz", "expected/scrubbed_m05.txt", str(out),
-               batch_list=str(batch), cfg=DetectConfig(device="cpu"), stdout=io.StringIO())
+               batch_list=str(batch), cfg=DetectConfig(device="cpu", mesh=mesh),
+               stdout=io.StringIO())
     spans, counters = obs.stop_recording()
     rows = [ln for ln in gzip.open(out, "rt") if not ln.startswith("#")]
     assert rows
     by = {}
     for s in spans:
         by.setdefault(s.name, []).append(s)
-    assert {"detect.score_samples", "detect.emit", "detect.emit.rescan", "detect.emit.lookup",
-            "detect.emit.write", "engine.classify", "engine.h2d", "engine.gate_readback",
-            "engine.d2h", "prefetch.wait", "pack.batch"} <= set(by)
+    return by, counters, rows, {s.id: s for s in spans}
+
+
+def test_detect_spans_and_counters(fresh, tmp_path, monkeypatch):
+    """The device route (K4 then K4e choose the rows; on the CPU their
+    plain version): emission's span and its write, the engine's spans with
+    the selection's inside the classify span, the gate, counters that agree
+    with the hits file, every gated batch's rows from the selection, and no
+    rescan or key search."""
+    by, counters, rows, ids = _detect_recorded(tmp_path, monkeypatch)
+    assert {"detect.score_samples", "detect.emit", "detect.emit.write", "engine.classify",
+            "engine.select", "engine.h2d", "engine.gate_readback", "engine.d2h",
+            "prefetch.wait", "pack.batch"} <= set(by)
+    assert not {"detect.emit.rescan", "detect.emit.lookup"} & set(by)
     assert counters["engine.batches"] == len(by["engine.classify"]) == len(by["engine.h2d"])
-    assert counters["engine.batches"] == len(by["engine.gate_readback"])
+    assert counters["engine.batches"] == len(by["engine.gate_readback"]) == len(by["engine.select"])
     assert counters["detect.gate_passed"] == len(by["engine.d2h"]) == len(by["detect.emit"])
+    assert counters["detect.select_batches"] == counters["detect.gate_passed"]
     assert counters["pack.windows"] > 0 and counters["engine.h2d_bytes"] > 0
     assert counters["detect.rows"] == len(rows)
     assert 0 < counters["detect.reads_passing"] <= counters["detect.emit_reads"]
     main = threading.get_ident()
-    ids = {s.id: s for s in spans}
     (root,) = by["detect.score_samples"]
     # the index build packs on the main thread; the scan on the prefetch worker
     assert {s.thread_name for s in by["pack.batch"]
@@ -220,9 +232,23 @@ def test_detect_spans_and_counters(fresh, tmp_path, monkeypatch):
     for name in ("detect.emit", "engine.classify", "engine.gate_readback", "engine.d2h",
                  "prefetch.wait"):
         assert all(s.thread == main and s.parent == root.id for s in by[name]), name
+    assert all(ids[s.parent].name == "detect.emit" for s in by["detect.emit.write"])
+    for name in ("engine.h2d", "engine.select"):
+        assert all(ids[s.parent].name == "engine.classify" for s in by[name]), name
+
+
+def test_detect_spans_and_counters_mesh_route(fresh, tmp_path, monkeypatch):
+    """The mesh route (--mesh 1x1) keeps the host's emission: the rescan
+    and key search of each passing read under emission's span, and no
+    selection."""
+    by, counters, rows, ids = _detect_recorded(tmp_path, monkeypatch, mesh=(1, 1))
+    assert {"detect.emit", "detect.emit.rescan", "detect.emit.lookup",
+            "detect.emit.write"} <= set(by)
+    assert "engine.select" not in by and "detect.select_batches" not in counters
+    assert counters["detect.rows"] == len(rows)
+    assert 0 < counters["detect.reads_passing"] <= counters["detect.emit_reads"]
     for name in ("detect.emit.rescan", "detect.emit.lookup", "detect.emit.write"):
         assert all(ids[s.parent].name == "detect.emit" for s in by[name]), name
-    assert all(ids[s.parent].name == "engine.classify" for s in by["engine.h2d"])
 
 
 def test_scrub_feeder_spans_and_counters(fresh, monkeypatch):
